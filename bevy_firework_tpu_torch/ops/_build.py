@@ -1,0 +1,75 @@
+"""Build and load the port's CUDA kernels.
+
+`nvcc` compiles `csrc/*.cu` (plain C interface, no PyTorch headers) into a
+shared library under `ops/_build/` at first use, named by a hash of the
+sources, the generated layout header (`table_layout.header()`, included as
+"table_layout.h") and the flags, so an edited source or layout rebuilds;
+the library is loaded with ctypes. Nothing is built when the package is
+imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+from . import table_layout
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+SOURCES = ("fused_step.cu",)
+# -fmad=false: no multiply-add contraction, so the kernels keep the plain
+# versions' op order (see the FMA policy in csrc/fused_step.cu). No fast math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(table_layout.header().encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libbevy_firework_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if the library for their current hash is missing;
+    returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        (Path(work) / "table_layout.h").write_text(table_layout.header())
+        tmp = Path(work) / out.name
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", work, "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    p = ctypes.c_void_p
+    lib.bf_fused_step.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+    lib.bf_fused_step.restype = ctypes.c_int
+    lib.bf_error_string.argtypes = [ctypes.c_int]
+    lib.bf_error_string.restype = ctypes.c_char_p
+    return lib

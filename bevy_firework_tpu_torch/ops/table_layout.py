@@ -1,0 +1,101 @@
+"""The fused step kernel's interface layout, defined once.
+
+The kernel reads the spawner's structure and parameters from one int32
+device buffer (f32 values stored bitwise), the pool's fields through 16
+pointer slots, and the frame's inputs from a row of 13 floats. This module
+is the only definition of those layouts: `ops.fused_step` fills the buffer,
+the slots and the row by these names, and `ops._build` writes them, with
+the enumerations the kernel branches on, into a generated C++ header
+(`header()`, included by `csrc/fused_step.cu` as "table_layout.h"). The
+CUDA source names every slot and states no value.
+"""
+
+from __future__ import annotations
+
+from .. import compiled, curve, emission_shape
+
+# ---- capacities ----
+MAX_E = 8  # emitters
+MAX_T = 8  # particle types
+MAX_K = 16  # knots per curve
+MAX_U = 8  # sub-frames per launch
+
+# ---- pool field slots (PoolState order; a null pointer marks an elided field) ----
+FIELD_SLOTS = ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw", "wx", "wy", "wz",
+               "initial_scale", "age", "lifetime")
+N_FIELDS = len(FIELD_SLOTS)
+N_RENDER = 9  # render-pack planes: instance scale, base rgba, emissive rgba
+
+# ---- frame row (floats) ----
+FR_DT, FR_MOD_SCALE, FR_MOD_SPEED = 0, 1, 2
+FR_PVEL, FR_TRANS, FR_ROT = 3, 6, 9  # xyz, xyz, xyzw
+FRAME_WORDS = 13
+
+# ---- table header (int32 words; [E] or [T] runs where noted) ----
+H_E = 0  # emitter count
+H_SINGLE = 3  # single particle type (no ptype plane)
+H_ELIDE_ROT = 4  # rotation fields elided
+H_CONST_LIFE = 5  # lifetime constant (no lifetime plane) ...
+H_CONST_LIFE_VAL = 6  # ... and its value (f32)
+H_PACING = 8  # [E] pacing kind
+H_PINDEX = H_PACING + MAX_E  # [E] particle type spawned
+H_SCALE_KIND = H_PINDEX + MAX_E  # [T] scale curve kind
+H_SCALE_N = H_SCALE_KIND + MAX_T  # [T] scale curve knots
+H_BASE_KIND = H_SCALE_N + MAX_T  # [T] base color gradient kind
+H_BASE_N = H_BASE_KIND + MAX_T  # [T] ... knots
+H_EMIS_KIND = H_BASE_N + MAX_T  # [T] emissive gradient kind
+H_EMIS_N = H_EMIS_KIND + MAX_T  # [T] ... knots
+
+# ---- emitter rows (f32): slot offsets within a row ----
+EM_AT, EM_STRIDE = 128, 48
+EM_COUNT = 0  # particles per cycle (one-shot: burst size)
+EM_DURATION = 1
+EM_OFF_START = 2
+EM_OFF_END = 3
+EM_SHAPE = 4  # 8 words: compiled shape row (kind, radius, quat xyzw, half extents y z)
+EM_IVEL = 12  # 7 words: initial velocity RandVec3 (lo, hi, deviation, quat xyzw)
+EM_IANG = 19  # 7 words: initial angular velocity RandVec3
+EM_RADIAL_LO = 26
+EM_RADIAL_HI = 27
+EM_INHERIT = 28  # parent velocity inheritance
+EM_INIT_ROT = 29  # 4 words: initial rotation quat xyzw
+
+# ---- type rows (f32) ----
+TY_AT, TY_STRIDE = EM_AT + MAX_E * EM_STRIDE, 16
+TY_ISCALE_LO = 0
+TY_ISCALE_HI = 1
+TY_LIFE_LO = 2
+TY_LIFE_HI = 3
+TY_ACCEL = 4  # 3 words
+TY_LIN_DRAG = 7
+TY_ANG_ACCEL = 8  # 3 words
+TY_ANG_DRAG = 11
+
+# ---- curve rows (f32, MAX_K words each): row indices within a type's block ----
+CV_SCALE_TS = 0
+CV_SCALE_VS = 1
+CV_BASE_TS = 2  # then one row per channel r g b a
+CV_EMIS_TS = 7  # then one row per channel r g b a
+CV_ROWS = 12
+CV_AT, CV_STRIDE = TY_AT + MAX_T * TY_STRIDE, CV_ROWS * MAX_K
+TABLE_WORDS = CV_AT + MAX_T * CV_STRIDE
+
+assert H_EMIS_N + MAX_T <= EM_AT and EM_INIT_ROT + 4 <= EM_STRIDE and TY_ANG_DRAG < TY_STRIDE
+
+
+def constants() -> dict:
+    """Every value the CUDA source takes from Python, by its C++ name: this
+    module's constants, the field slots (PX .. LIFETIME) and the pacing,
+    curve and shape kinds of the modules that define them."""
+    out = {k: v for k, v in globals().items() if k.isupper() and isinstance(v, int)}
+    out.update({name.upper(): i for i, name in enumerate(FIELD_SLOTS)})
+    for mod, prefix in ((compiled, "PACING_"), (curve, "CURVE_"), (emission_shape, "SHAPE_")):
+        out.update({k: v for k, v in vars(mod).items() if k.startswith(prefix) and isinstance(v, int)})
+    return out
+
+
+def header() -> str:
+    """The C++ header `csrc/fused_step.cu` includes as "table_layout.h"."""
+    lines = ["// Generated from bevy_firework_tpu_torch/ops/table_layout.py; do not edit.", "#pragma once"]
+    lines += [f"constexpr int {k} = {v};" for k, v in constants().items()]
+    return "\n".join(lines) + "\n"

@@ -1,0 +1,111 @@
+"""Random bits for the step: the frame-key chain and the per-lane draws.
+
+Two generators, both counter-based and stateless:
+
+  * `threefry_split(key)`: threefry-2x32 on the host, bit-identical to
+    `jax.random.split(key)` under `jax_threefry_partitionable=True` (each
+    new key i is threefry2x32(key, (0, i))). `PoolState.rng_key` advances
+    through it exactly like the JAX package's key, and each frame's draw
+    seed is word 0 of the frame key, as `bevy_firework_tpu.ops.fused_step`
+    takes it.
+  * Philox-4x32-10 (Salmon et al., SC'11, the Random123 constants) written
+    in torch int64 ops with 32-bit masking. The CUDA step kernel implements
+    the same function, so kernel and plain version draw the same bits for
+    the same (seed, lane): key = (seed, 0), counter = (lane, block, 0, 0),
+    draw d of a lane is word d % 4 of block d // 4. A uniform keeps the top
+    24 bits: u = (bits >> 8) * 2^-24, in [0, 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_MASK32 = 0xFFFFFFFF
+
+# --------------------------------------------------------------------------
+# threefry-2x32 (host side)
+# --------------------------------------------------------------------------
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+    """threefry-2x32 with 20 rounds on Python ints holding uint32 values
+    (scalar ints: a frame's key split is two evaluations, and numpy's
+    per-op overhead on 2-element arrays cost ~0.1 ms per split)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _MASK32
+            x1 ^= x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def threefry_split(key) -> tuple[np.ndarray, np.ndarray]:
+    """`jax.random.split(key)` (2 keys): returns (new_key, frame_key), each a
+    uint32[2] numpy array."""
+    k0, k1 = (int(v) & _MASK32 for v in key)
+    a0, a1 = threefry2x32(k0, k1, 0, 0)
+    b0, b1 = threefry2x32(k0, k1, 0, 1)
+    # split's key i is threefry2x32(key, (0, i))
+    return np.array([a0, a1], np.uint32), np.array([b0, b1], np.uint32)
+
+
+def frame_seeds(key, n: int) -> tuple[np.ndarray, list[int]]:
+    """Split the key n times in order (one frame each); returns the key after
+    the n frames and each frame's draw seed (word 0 of its frame key)."""
+    k0, k1 = (int(v) & _MASK32 for v in key)
+    seeds = []
+    for _ in range(n):
+        seeds.append(threefry2x32(k0, k1, 0, 1)[0])
+        k0, k1 = threefry2x32(k0, k1, 0, 0)
+    return np.array([k0, k1], np.uint32), seeds
+
+
+# --------------------------------------------------------------------------
+# Philox-4x32-10 (torch int64 with 32-bit masking)
+# --------------------------------------------------------------------------
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) words of the 64-bit product m * x for m, x < 2^32, exact in
+    int64 by splitting x into 16-bit halves."""
+    p_lo = (x & 0xFFFF) * m  # < 2^48
+    p_hi = (x >> 16) * m  # < 2^48
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(c0: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor, c3: torch.Tensor, k0: int, k1: int):
+    """Philox-4x32-10 on int64 tensors holding uint32 values."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W0) & _MASK32
+            k1 = (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def lane_uniforms(seed: int, lanes: torch.Tensor, n_draws: int) -> list[torch.Tensor]:
+    """The step's per-lane uniforms: n_draws float32 tensors shaped like
+    `lanes` (int64 global lane indices), draw d from Philox block d // 4."""
+    out = []
+    zero = torch.zeros_like(lanes)
+    for b in range((n_draws + 3) // 4):
+        words = philox4x32(lanes, torch.full_like(lanes, b), zero, zero, int(seed) & _MASK32, 0)
+        out.extend(words)
+    scale = float(np.float32(1.0 / (1 << 24)))
+    return [(w >> 8).to(torch.float32) * scale for w in out[:n_draws]]
