@@ -9,10 +9,15 @@ PyTorch version.
 
 Ported so far: authoring and lowering, the pool, the global-emitter step
 (ring claim, constant or random lifetime, rotation), its multi-frame
-chain, and the render-pack extract. Not yet: colliders, force fields,
-nested emission, the Scene facade, fleets, sharding (see ROADMAP.md).
+chain, the render-pack extract, and collision: analytic colliders of 7
+kinds (hulls from planes, points or a decomposed mesh), layer masks,
+restitution, friction, the 4-substep bounce, and destroy-on-collision with
+its dead-rank slot claim. Not yet: force fields, nested emission, the
+destroyed-particle dump and events, the Scene facade, fleets, sharding
+(see ROADMAP.md).
 """
 
+from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition
 from .compiled import CompiledSpawner, SpawnerParams, SpawnerStatic, compile_spawner
 from .curve import (
     FireworkCurve,
@@ -41,11 +46,11 @@ from .settings import (
 from .step import StepOutputs, step
 
 __all__ = [
-    "BlendMode", "CompiledSpawner", "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape",
+    "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape",
     "FireworkCurve", "FireworkGradient", "FireworkUniform", "FrameInput", "ParticleSettings", "ParticleSpawner",
     "PoolState", "RandF32", "RandVec3", "SpawnTransformMode", "SpawnerParams", "SpawnerStatic", "StepOutputs",
-    "Transform", "compile_spawner", "fused_step", "gradient_constant", "gradient_even_samples",
-    "gradient_uneven_samples", "init_pool", "init_pool_for", "instances_to_bytes", "make_frame_input",
+    "Transform", "compile_colliders", "compile_spawner", "fused_step", "gradient_constant", "gradient_even_samples",
+    "gradient_uneven_samples", "hull_decomposition", "init_pool", "init_pool_for", "instances_to_bytes", "make_frame_input",
     "make_uniform", "multi_step_auto", "pack_instances_dense", "planes_to_rows", "spawner_from_json",
     "spawner_to_json", "step", "step_auto", "step_auto_packed",
 ]

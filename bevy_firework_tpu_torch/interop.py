@@ -1,7 +1,7 @@
 """State exchange with the JAX package through numpy.
 
-A caller that holds the JAX package's `SpawnerParams` / `PoolState` passes
-their leaves as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
+A caller that holds the JAX package's `SpawnerParams` / `PoolState` /
+`ColliderTable` passes their leaves as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
 vars(state).items()}`); this module never imports the JAX package.
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .colliders import ColliderTable
 from .compiled import SpawnerParams
 from .pool import POOL_FIELDS, PoolState
 
@@ -40,3 +41,20 @@ def pool_to_numpy(state: PoolState) -> dict:
     out = {k: getattr(state, k).cpu().numpy() for k in POOL_FIELDS}
     out["rng_key"] = out["rng_key"].astype(np.uint32)
     return out
+
+
+def colliders_from_numpy(leaves: dict, static_meta, device="cpu") -> ColliderTable:
+    """The JAX package's ColliderTable -> port table: `leaves` holds its
+    position, rotation, params, layers (uint32), active and hull_planes as
+    numpy; `static_meta` its (kinds, identity_rot, hull_counts)."""
+    kinds, identity_rot, hull_counts = static_meta
+
+    def t(k, dtype):
+        return torch.as_tensor(np.array(np.asarray(leaves[k]), dtype=dtype, copy=True), device=device)
+
+    return ColliderTable(
+        kinds=tuple(int(k) for k in kinds), identity_rot=tuple(bool(i) for i in identity_rot),
+        hull_counts=tuple(int(h) for h in hull_counts),
+        position=t("position", np.float32), rotation=t("rotation", np.float32), params=t("params", np.float32),
+        layers=t("layers", np.int64), active=t("active", np.float32), hull_planes=t("hull_planes", np.float32),
+    )

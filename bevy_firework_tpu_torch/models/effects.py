@@ -1,18 +1,21 @@
-"""Prebuilt effect models of the slice: the reference examples whose
-archetypes the fused step covers (sparks, stress_test, one_shot,
-on_demand), as data. Each returns the `ParticleSpawner` config and the
-spawner transform, exactly as `bevy_firework_tpu.models.effects` does, so
-both packages build the same spawners. The collider and nested scenes wait
-for their slices.
+"""Prebuilt effect models: the reference examples whose archetypes the
+fused step covers (sparks, stress_test, one_shot, on_demand, collision,
+stress_test_collision), as data. Each returns the `ParticleSpawner` config
+and the spawner transform (and the scene's colliders, for the collision
+scenes), exactly as `bevy_firework_tpu.models.effects` does, so both
+packages build the same spawners. The nested scenes wait for their slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import List, Tuple
 
-from ..curve import FireworkCurve, gradient_uneven_samples
+import numpy as np
+
+from ..colliders import Collider
+from ..curve import FireworkCurve, gradient_constant, gradient_uneven_samples
 from ..emission_shape import EmissionShape
 from ..rand import RandF32, RandVec3
 from ..scene import Transform
@@ -20,10 +23,12 @@ from ..settings import (
     BlendMode,
     EmissionPacing,
     EmissionSettings,
+    ParticleCollisionSettings,
     ParticleSettings,
     ParticleSpawner,
     SpawnTransformMode,
 )
+from ..utils.quat import np_quat_mul
 
 PI = math.pi
 
@@ -129,3 +134,67 @@ def one_shot(impulse: float = 5.0) -> Tuple[ParticleSpawner, Transform]:
         spawn_transform_mode=SpawnTransformMode.LOCAL,
     )
     return spawner, Transform()
+
+
+def collision() -> Tuple[ParticleSpawner, Transform, List[Collider]]:
+    """`examples/collision.rs:51-100`: tilted ember fountain bouncing off a
+    cuboid base (avian cuboid(8,1,8) = half extents (4,.5,4))."""
+    rot_z45 = (0.0, 0.0, math.sin(PI / 8), math.cos(PI / 8))  # Quat::from_rotation_z(PI/4)
+    spawner = ParticleSpawner(
+        particle_settings=[
+            ParticleSettings(
+                lifetime=RandF32.constant(6.75),
+                scale_curve=FireworkCurve.uneven_samples([(0.0, 1.0), (0.8, 1.0), (1.0, 0.0)]),
+                initial_scale=RandF32(0.02, 0.08),
+                linear_drag=0.15,
+                base_color=gradient_constant((0.1, 0.1, 0.1, 1.0)),
+                emissive_color=gradient_uneven_samples(
+                    [
+                        (0.0, (30.0, 21.0, 1.0, 1.0)),
+                        (0.7, (3.0, 1.0, 1.0, 1.0)),
+                        (0.75, (1.0, 0.3, 0.3, 1.0)),
+                        (0.8, (0.0, 0.0, 0.0, 1.0)),
+                    ]
+                ),
+                blend_mode=BlendMode.BLEND,
+                pbr=True,
+                collision_settings=ParticleCollisionSettings(restitution=0.6, friction=0.2, destroy_on_collision=False),
+            )
+        ],
+        emission_settings=[
+            EmissionSettings(
+                emission_pacing=EmissionPacing.rate(100.0),
+                emission_shape=EmissionShape.circle((0, 1, 0), 0.3),
+                initial_velocity=_cone_up(6.0, 8.0, 30.0 / 180.0 * PI),
+                inherit_parent_velocity=True,
+            )
+        ],
+    )
+    colliders = [Collider.cuboid((4.0, 0.5, 4.0), position=(0.0, -0.5, 0.0))]
+    return spawner, Transform(translation=(5.0, 0.5, 0.0), rotation=rot_z45), colliders
+
+
+def stress_test_collision() -> Tuple[ParticleSpawner, Transform, List[Collider]]:
+    """`examples/stress_test_collision.rs:91-151`: rate 80k with collision
+    against a cuboid floor + an angled unit cube. ~160 k live."""
+    spawner, tf, _ = collision()
+    ps = spawner.particle_settings[0]
+    ps = dataclasses.replace(
+        ps,
+        lifetime=RandF32.constant(2.0),
+        scale_curve=FireworkCurve.constant(1.0),
+        base_color=_ember_gradient((100.0, 70.0, 10.0, 1.0)),
+        emissive_color=gradient_constant((0, 0, 0, 1)),
+        pbr=False,
+    )
+    es = spawner.emission_settings[0]
+    es = dataclasses.replace(es, emission_pacing=EmissionPacing.rate(80000.0))
+    # angled cube: rot_x(45) * rot_y(45)
+    qx = np.array([math.sin(PI / 8), 0, 0, math.cos(PI / 8)], dtype=np.float32)
+    qy = np.array([0, math.sin(PI / 8), 0, math.cos(PI / 8)], dtype=np.float32)
+    q = np_quat_mul(qx, qy)
+    colliders = [
+        Collider.cuboid((4.0, 0.5, 4.0), position=(0.0, -0.5, 0.0)),
+        Collider.cuboid((0.5, 0.5, 0.5), position=(0.0, 0.5, 0.0), rotation=tuple(float(v) for v in q)),
+    ]
+    return ParticleSpawner(particle_settings=(ps,), emission_settings=(es,)), tf, colliders

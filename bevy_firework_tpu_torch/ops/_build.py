@@ -67,9 +67,11 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
-    p = ctypes.c_void_p
-    lib.bf_fused_step.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bf_fused_step.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p]
     lib.bf_fused_step.restype = ctypes.c_int
+    lib.bf_dead_rank_offsets.argtypes = [p, p, p, i, p]
+    lib.bf_dead_rank_offsets.restype = ctypes.c_int
     lib.bf_error_string.argtypes = [ctypes.c_int]
     lib.bf_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,53 +1,78 @@
-// Fused particle step for NVIDIA Hopper (sm_90a): emission cadence, ring
-// claim, spawn init from Philox, age cull, scale curve, move + linear drag,
-// quaternion + angular drag, and optionally the f32 render pack, for U <= 8
-// frames per launch.
+// Fused particle step for NVIDIA Hopper (sm_90a): emission cadence, ring or
+// dead-rank claim, spawn init from Philox, age cull, move + linear drag, the
+// collision narrow phase (7 collider kinds, up to 4 bounce substeps,
+// destroy-on-collision), quaternion + angular drag, and optionally the f32
+// render pack, for U <= 8 frames per launch.
 //
 // Replaces: bevy_firework_tpu/ops/fused_step.py `_make_kernel` (:913) as run
-// by `_run_fused_kernel` (:1793) in the main-path configuration
-// (kernel_spawn, ring_claim, derived_alive; no colliders, force fields,
-// dump, fleet, shard or nested blocks), including its render-pack block
-// (:1523-1561, f32 mode).
+// by `_run_fused_kernel` (:1793) with kernel_spawn on, ring or dead-rank
+// claims and colliders (no force fields, dump, fleet, shard or nested
+// blocks): its main-path block (:1162-1521), its render-pack block
+// (:1523-1561, f32 mode), its collision narrow phase `_collide_tile` (:349)
+// with `_ray_kind` (:309), and its dead-rank claim (`_prefix_exclusive`
+// :173 with the SMEM `dead_carry`, :1142-1149, :1323-1333) with the alive
+// plane in and out (:1023-1026, :1563-1564).
 //
 // Design:
-//  * One thread per lane, grid-stride over N; any N (the TPU's 8192-lane
-//    granule was a Mosaic tiling constraint). A lane's active fields stay
-//    in registers across the U sub-frames; the pool is read and written once
+//  * One thread per lane; a block runs TILE lanes, a fixed contiguous lane
+//    range per tile, tile-strided over N; any N (the TPU's 8192-lane granule
+//    was a Mosaic tiling constraint). A lane's active fields stay in
+//    registers across the U sub-frames; the pool is read and written once
 //    per launch.
-//  * Blocks run concurrently, so nothing carries across them. The
-//    per-emitter cadence is scalar math whose values are the same for every
-//    block: thread 0 of each block recomputes it for all U sub-frames into
-//    shared memory (as every TPU tile recomputes it in SMEM). Scalar state is
-//    read from the *_in buffers and written once, by block 0 thread 0, to
-//    distinct *_out buffers, so no block can read a value already advanced.
-//  * Claims: lane g is claimed in sub-frame u when dead and its ring rank
-//    ((g - cursor_u) mod N, non-negative) is below the sub-frame's total
-//    spawn count; the emitter is the one whose cumulative window holds the
-//    rank. No prefix scan exists on this path.
+//  * Blocks run concurrently, so nothing carries across them inside the
+//    kernel. The per-emitter cadence is scalar math whose values are the same
+//    for every block: thread 0 of each block recomputes it for all U
+//    sub-frames into shared memory (as every TPU tile recomputes it in SMEM).
+//    Scalar state is read from the *_in buffers and written once, by block 0
+//    thread 0, to distinct *_out buffers, so no block can read a value
+//    already advanced.
+//  * Claims: lane g is claimed in sub-frame u when dead and its rank is below
+//    the sub-frame's total spawn count; the emitter is the one whose
+//    cumulative window holds the rank. Ring archetypes (deaths only by age)
+//    rank by ring distance ((g - cursor_u) mod N): no scan. Destroy-on-
+//    collision archetypes (U = 1) rank by dead-slot count: the TPU kernel
+//    carried it across its in-order grid in SMEM; here two small kernels
+//    (dead_count_kernel, tile_scan_kernel) write each tile's exclusive
+//    offset before the step, and the step adds a block-local ballot scan.
+//  * Collision: per lane, one loop over the colliders in table order with a
+//    strict `dist < best` (the first of tied colliders wins, as in the XLA
+//    path and the TPU kernel's (dist, index) tie-break); collider rows and
+//    hull planes sit in shared memory, loaded once per block; unrotated
+//    colliders skip the quaternion rotations. The TPU's per-tile substep
+//    gating and its grouped, broad-phase-culled collider loop were VPU
+//    measures and are not carried over: a lane leaves the substep loop as
+//    soon as it has no travel budget, which is the same per-lane result.
 //  * Randomness: Philox-4x32-10, key (seed_u, 0), counter (g, block, 0, 0),
 //    uniforms from the top 24 bits, draw order shape 0-2, velocity 3-5,
 //    radial 6, scale 7, then lifetime, then angular velocity. The torch
 //    version in bevy_firework_tpu_torch/prng.py gives the same bits.
+//  * The kernel is a template over the claim kind and the narrow phase
+//    (four instantiations, chosen at launch), so the main path's kernel
+//    carries neither the narrow phase's registers nor the claim's barriers.
 //  * Spawner structure (emitter/type counts, pacing kinds, curve kinds and
-//    knot counts, elision flags) and all parameters come from one small
-//    device table read at run time; branches on it are warp-uniform. The
-//    table's layout, the field slots, the frame row and the kind
-//    enumerations are defined once, in ops/table_layout.py; the build
-//    generates "table_layout.h" from it, so this file states none of them.
+//    knot counts, elision flags, collision types) and all
+//    parameters come from one small device table read at run time; branches
+//    on it are warp-uniform. The table's and the collider table's layouts,
+//    the field slots, the frame row, the kind enumerations and the narrow
+//    phase's float constants are defined once, in ops/table_layout.py; the
+//    build generates "table_layout.h" from it, so this file states none of
+//    them.
 //
 // FMA policy: built with -fmad=false and without fast math, so every
 // multiply and add rounds on its own, divisions and sqrtf are IEEE, and the
-// op order below is the op order of the plain version (step.py). The cadence
-// carry, the move and the drag lines then agree bit for bit with it; only
-// libm's sinf/cosf may differ from PyTorch's by an ulp or two.
+// op order below is the op order of the plain version (step.py,
+// collision.py). The cadence carry, the move, the drag and the whole narrow
+// phase then agree bit for bit with it; only libm's sinf/cosf may differ
+// from PyTorch's by an ulp or two.
 //
-// Bound on this card: memory traffic. A U-frame launch reads and writes each
-// active field once (8 f32 planes for the stress_test archetype: 64 B per
-// lane, about 8 MB at N = 131072, ~2.5 us at 3.35 TB/s), plus 36 B per lane
-// when the render pack is on. Arithmetic per lane-frame is a few dozen
-// flops outside spawn lanes; spawn lanes add three Philox blocks and the
-// samplers' sinf/cosf. At the main-path sizes a launch is short enough that
-// launch latency, not bandwidth, dominates; U frames per launch amortise it.
+// Bound on this card: memory traffic on the main path. A U-frame launch
+// reads and writes each active field once (8 f32 planes for the stress_test
+// archetype: 64 B per lane, about 8 MB at N = 131072, ~2.5 us at 3.35 TB/s),
+// plus 36 B per lane when the render pack is on, plus 2 B (alive in and out)
+// on the dead-rank claim. Arithmetic per lane-frame is a few dozen flops
+// outside spawn lanes; spawn lanes add three Philox blocks and the samplers'
+// sinf/cosf; colliding lanes add up to 4 substeps x C ray tests, which at
+// C = 8 hulls makes the step arithmetic-bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +89,11 @@ struct Args {
   float* out[N_FIELDS];
   const int* ptype_in;
   int* ptype_out;
+  const uint8_t* alive_in;         // non-ring archetypes, else null
+  uint8_t* alive_out;              // ...
+  const int* tile_dead_offset;     // ... [n / TILE]: dead lanes before each tile
+  const int* colliders;            // COLLIDER_WORDS table
+  int n_colliders;                 // 0: no narrow phase
   const float* tic_in;
   const float* last_in;
   const uint8_t* en_in;
@@ -253,13 +283,398 @@ __device__ void eval_gradient(const int* tab, int ts_row, int kind, int n, float
   for (int c = 0; c < 4; ++c) out[c] = curve_lerp(tab, ts_row + (1 + c) * MAX_K, seg, frac);
 }
 
-__global__ void __launch_bounds__(256) fused_step_kernel(const int* __restrict__ tab, Args a) {
+// ---- collision narrow phase (collision.py; the JAX kernel's _collide_tile) ----
+// Every ray test returns the distance along the unit ray to the entry point
+// (0 inside, COLLISION_BIG on a miss) and the local-frame entry normal (zero
+// inside), with the op order of the plain version.
+
+struct Ray {
+  float dist, nx, ny, nz;
+};
+
+// torch.sign: +1, -1, or 0 for +-0
+__device__ __forceinline__ float sgnf(float x) { return (float)((0.0f < x) - (x < 0.0f)); }
+// d, or +-EPS (sign of d) where |d| < EPS
+__device__ __forceinline__ float signed_eps(float d) {
+  return fabsf(d) < COLLISION_EPS ? (d < 0.0f ? -COLLISION_EPS : COLLISION_EPS) : d;
+}
+
+__device__ __forceinline__ void normalize_or_zero(float x, float y, float z, float* ox, float* oy, float* oz) {
+  const float l2 = x * x + y * y + z * z;
+  const float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
+  *ox = x * inv;
+  *oy = y * inv;
+  *oz = z * inv;
+}
+
+__device__ __forceinline__ Ray ray_result(bool inside, float dist, float nx, float ny, float nz) {
+  return inside ? Ray{0.0f, 0.0f, 0.0f, 0.0f} : Ray{dist, nx, ny, nz};
+}
+
+__device__ Ray ray_halfspace(float ox, float oy, float oz, float dx, float dy, float dz) {
+  const bool inside = oy <= 0.0f;
+  const float t = -oy / signed_eps(dy);
+  const bool hit_surface = dy < 0.0f && t >= 0.0f;
+  return ray_result(inside, hit_surface ? t : COLLISION_BIG, 0.0f, 1.0f, 0.0f);
+}
+
+__device__ Ray ray_sphere(float ox, float oy, float oz, float dx, float dy, float dz, float r) {
+  const float c = ox * ox + oy * oy + oz * oz - r * r;
+  const bool inside = c <= 0.0f;
+  const float b = ox * dx + oy * dy + oz * dz;
+  const float disc = b * b - c;
+  const float sq = sqrtf(pmax(disc, 0.0f));
+  const float t = -b - sq;
+  const bool valid = disc >= 0.0f && t >= 0.0f;
+  float nx, ny, nz;
+  normalize_or_zero(ox + t * dx, oy + t * dy, oz + t * dz, &nx, &ny, &nz);
+  return ray_result(inside, valid ? t : COLLISION_BIG, nx, ny, nz);
+}
+
+__device__ __forceinline__ void slab(float o, float d, float h, float* lo, float* hi) {
+  const float invd = 1.0f / signed_eps(d);
+  const float t1 = (-h - o) * invd;
+  const float t2 = (h - o) * invd;
+  *lo = pmin(t1, t2);
+  *hi = pmax(t1, t2);
+}
+
+__device__ Ray ray_cuboid(float ox, float oy, float oz, float dx, float dy, float dz, float hx, float hy, float hz) {
+  const bool inside = fabsf(ox) <= hx && fabsf(oy) <= hy && fabsf(oz) <= hz;
+  float tx0, tx1, ty0, ty1, tz0, tz1;
+  slab(ox, dx, hx, &tx0, &tx1);
+  slab(oy, dy, hy, &ty0, &ty1);
+  slab(oz, dz, hz, &tz0, &tz1);
+  const float tmin = pmax(pmax(tx0, ty0), tz0);
+  const float tmax = pmin(pmin(tx1, ty1), tz1);
+  const bool valid = tmax >= tmin && tmin >= 0.0f;
+  // entering face normal: the axis achieving tmin, signed against the ray
+  const bool is_x = tmin == tx0;
+  const bool is_y = !is_x && tmin == ty0;
+  return ray_result(inside, valid ? tmin : COLLISION_BIG, is_x ? -sgnf(dx) : 0.0f, is_y ? -sgnf(dy) : 0.0f,
+                    (is_x || is_y) ? 0.0f : -sgnf(dz));
+}
+
+// circle intersection in the XZ plane: t_enter, valid
+__device__ __forceinline__ bool ray_infinite_cylinder(float ox, float oz, float dx, float dz, float r, float* t) {
+  const float a = dx * dx + dz * dz;
+  const float b = ox * dx + oz * dz;
+  const float c = ox * ox + oz * oz - r * r;
+  const float disc = b * b - a * c;
+  const float sq = sqrtf(pmax(disc, 0.0f));
+  const float safe_a = a < COLLISION_EPS ? COLLISION_EPS : a;
+  *t = (-b - sq) / safe_a;
+  return disc >= 0.0f && a >= COLLISION_EPS && *t >= 0.0f;
+}
+
+// cap sphere of a capsule at (0, cyy, 0)
+__device__ __forceinline__ bool capsule_cap(float ox, float oy, float oz, float dx, float dy, float dz, float r,
+                                            float cyy, float* t) {
+  const float oy2 = oy - cyy;
+  const float b = ox * dx + oy2 * dy + oz * dz;
+  const float c = ox * ox + oy2 * oy2 + oz * oz - r * r;
+  const float disc = b * b - c;
+  *t = -b - sqrtf(pmax(disc, 0.0f));
+  return disc >= 0.0f && *t >= 0.0f;
+}
+
+__device__ Ray ray_capsule(float ox, float oy, float oz, float dx, float dy, float dz, float r, float hs) {
+  const float cy = clampf(oy, -hs, hs);
+  const float d2 = ox * ox + (oy - cy) * (oy - cy) + oz * oz;
+  const bool inside = d2 <= r * r;
+  float t_side, t_top, t_bot;
+  const bool v_side = ray_infinite_cylinder(ox, oz, dx, dz, r, &t_side) && fabsf(oy + t_side * dy) <= hs;
+  const bool v_top = capsule_cap(ox, oy, oz, dx, dy, dz, r, hs, &t_top);
+  const bool v_bot = capsule_cap(ox, oy, oz, dx, dy, dz, r, -hs, &t_bot);
+  const float t_caps = pmin(v_top ? t_top : COLLISION_BIG, v_bot ? t_bot : COLLISION_BIG);
+  const float t = pmin(v_side ? t_side : COLLISION_BIG, t_caps);
+  const bool valid = t < COLLISION_BIG;
+  const float hxp = ox + t * dx, hyp = oy + t * dy, hzp = oz + t * dz;
+  float nx, ny, nz;
+  normalize_or_zero(hxp, hyp - clampf(hyp, -hs, hs), hzp, &nx, &ny, &nz);
+  return ray_result(inside, valid ? t : COLLISION_BIG, nx, ny, nz);
+}
+
+__device__ __forceinline__ bool cylinder_cap(float ox, float oy, float oz, float dx, float dy, float dz, float r,
+                                             float cy, float sign, float* t) {
+  *t = (cy - oy) / signed_eps(dy);
+  const float xx = ox + *t * dx, zz = oz + *t * dz;
+  return *t >= 0.0f && xx * xx + zz * zz <= r * r && sign * dy < 0.0f;
+}
+
+__device__ Ray ray_cylinder(float ox, float oy, float oz, float dx, float dy, float dz, float r, float hh) {
+  const bool inside = ox * ox + oz * oz <= r * r && fabsf(oy) <= hh;
+  float t_side, t_top, t_bot;
+  const bool v_side = ray_infinite_cylinder(ox, oz, dx, dz, r, &t_side) && fabsf(oy + t_side * dy) <= hh;
+  const bool v_top = cylinder_cap(ox, oy, oz, dx, dy, dz, r, hh, 1.0f, &t_top);
+  const bool v_bot = cylinder_cap(ox, oy, oz, dx, dy, dz, r, -hh, -1.0f, &t_bot);
+  const float top_t = v_top ? t_top : COLLISION_BIG;
+  const float bot_t = v_bot ? t_bot : COLLISION_BIG;
+  const float t = pmin(pmin(v_side ? t_side : COLLISION_BIG, top_t), bot_t);
+  const bool valid = t < COLLISION_BIG;
+  const bool hit_top = valid && v_top && t == top_t;
+  const bool hit_bot = valid && v_bot && t == bot_t;
+  float snx, sny, snz;
+  normalize_or_zero(ox + t * dx, 0.0f, oz + t * dz, &snx, &sny, &snz);
+  const bool cap_hit = hit_top || hit_bot;
+  return ray_result(inside, valid ? t : COLLISION_BIG, cap_hit ? 0.0f : snx,
+                    hit_top ? 1.0f : (hit_bot ? -1.0f : 0.0f), cap_hit ? 0.0f : snz);
+}
+
+__device__ Ray ray_cone(float ox, float oy, float oz, float dx, float dy, float dz, float r, float hh) {
+  const float k = r / (2.0f * hh);  // radius growth per unit below the tip
+  const float w = hh - oy;          // distance below the tip
+  const bool inside = oy >= -hh && oy <= hh && ox * ox + oz * oz <= (k * w) * (k * w);
+  // lateral surface x^2 + z^2 = k^2 (hh - y)^2
+  const float a = dx * dx + dz * dz - k * k * dy * dy;
+  const float b = ox * dx + oz * dz + k * k * w * dy;
+  const float c = ox * ox + oz * oz - k * k * w * w;
+  const float disc = b * b - a * c;
+  const float sq = sqrtf(pmax(disc, 0.0f));
+  const float safe_a = fabsf(a) < COLLISION_EPS ? COLLISION_EPS : a;
+  const float t1 = (-b - sq) / safe_a;
+  const float t2 = (-b + sq) / safe_a;
+  const float tlo = pmin(t1, t2), thi = pmax(t1, t2);
+  // ray parallel to the surface (a ~ 0): t = -c / (2b)
+  const float t_lin = -c / (fabsf(b) < COLLISION_EPS ? COLLISION_EPS : 2.0f * b);
+  const bool use_lin = fabsf(a) < COLLISION_EPS;
+  const float y_lo = oy + tlo * dy, y_hi = oy + thi * dy;
+  const bool ok_lo = tlo >= 0.0f && y_lo >= -hh && y_lo <= hh && disc >= 0.0f;
+  const bool ok_hi = thi >= 0.0f && y_hi >= -hh && y_hi <= hh && disc >= 0.0f;
+  float t_side = (use_lin && t_lin >= 0.0f) ? t_lin : (ok_lo ? tlo : (ok_hi ? thi : COLLISION_BIG));
+  if (use_lin) t_side = (t_lin >= 0.0f && fabsf(oy + t_lin * dy) <= hh) ? t_lin : COLLISION_BIG;
+  // base disk
+  const float t_base = (-hh - oy) / signed_eps(dy);
+  const float bx = ox + t_base * dx, bz = oz + t_base * dz;
+  const bool v_base = t_base >= 0.0f && bx * bx + bz * bz <= r * r && dy > 0.0f;
+  const float base_t = v_base ? t_base : COLLISION_BIG;
+  const float t = pmin(t_side, base_t);
+  const bool valid = t < COLLISION_BIG;
+  const bool hit_base = valid && v_base && t == base_t;
+  // lateral normal: the gradient of x^2 + z^2 - k^2 (hh - y)^2
+  float gnx, gny, gnz;
+  normalize_or_zero(ox + t * dx, k * k * (hh - (oy + t * dy)), oz + t * dz, &gnx, &gny, &gnz);
+  return ray_result(inside, valid ? t : COLLISION_BIG, hit_base ? 0.0f : gnx, hit_base ? -1.0f : gny,
+                    hit_base ? 0.0f : gnz);
+}
+
+// convex plane-set hull: planes are `count` rows (nx, ny, nz, d), n.x <= d inside
+__device__ Ray ray_hull(float ox, float oy, float oz, float dx, float dy, float dz, const int* planes, int count) {
+  float t_enter = -COLLISION_BIG, t_exit = COLLISION_BIG;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  bool inside = true, miss = false;
+  for (int p = 0; p < count; ++p) {
+    const float pnx = __int_as_float(planes[4 * p]), pny = __int_as_float(planes[4 * p + 1]);
+    const float pnz = __int_as_float(planes[4 * p + 2]), pd = __int_as_float(planes[4 * p + 3]);
+    const float denom = pnx * dx + pny * dy + pnz * dz;
+    const float num = pd - (pnx * ox + pny * oy + pnz * oz);
+    inside = inside && num >= 0.0f;
+    const bool parallel = fabsf(denom) < COLLISION_EPS;
+    const float t = num / (parallel ? (denom < 0.0f ? -COLLISION_EPS : COLLISION_EPS) : denom);
+    miss = miss || (parallel && num < 0.0f);  // outside a parallel slab
+    if (denom < 0.0f && !parallel && t > t_enter) {
+      nx = pnx;
+      ny = pny;
+      nz = pnz;
+      t_enter = t;
+    }
+    if (denom > 0.0f && !parallel) t_exit = pmin(t_exit, t);
+  }
+  const bool valid = !miss && t_exit >= t_enter && t_enter >= 0.0f;
+  const bool keep = valid && !inside;
+  return Ray{inside ? 0.0f : (valid ? t_enter : COLLISION_BIG), keep ? nx : 0.0f, keep ? ny : 0.0f,
+             keep ? nz : 0.0f};
+}
+
+// Nearest hit over the colliders in table order (strict <: the first of
+// tied colliders wins). Collider rows and hull planes are in shared memory.
+__device__ float raycast_scene(const int* col, int n_col, uint32_t lane_mask, float px, float py, float pz,
+                               float dx, float dy, float dz, float max_dist, float* bnx, float* bny, float* bnz) {
+  float best = COLLISION_BIG;
+  *bnx = 0.0f;
+  *bny = 0.0f;
+  *bnz = 0.0f;
+  for (int ci = 0; ci < n_col; ++ci) {
+    const int* row = col + ci * CO_STRIDE;
+    // a collider outside the lane's layers reads COLLISION_BIG, never closer
+    if ((lane_mask & (uint32_t)row[CO_LAYERS]) == 0u) continue;
+    const bool ident = row[CO_IDENT] != 0;
+    const float qx = __int_as_float(row[CO_ROT]), qy = __int_as_float(row[CO_ROT + 1]);
+    const float qz = __int_as_float(row[CO_ROT + 2]), qw = __int_as_float(row[CO_ROT + 3]);
+    float ox = px - __int_as_float(row[CO_POS]);
+    float oy = py - __int_as_float(row[CO_POS + 1]);
+    float oz = pz - __int_as_float(row[CO_POS + 2]);
+    float rdx = dx, rdy = dy, rdz = dz;
+    if (!ident) {
+      quat_rotate(-qx, -qy, -qz, qw, ox, oy, oz, &ox, &oy, &oz);
+      quat_rotate(-qx, -qy, -qz, qw, dx, dy, dz, &rdx, &rdy, &rdz);
+    }
+    const float p0 = __int_as_float(row[CO_PARAMS]), p1 = __int_as_float(row[CO_PARAMS + 1]);
+    const float p2 = __int_as_float(row[CO_PARAMS + 2]);
+    Ray h;
+    switch (row[CO_KIND]) {
+      case COLLIDER_HALFSPACE: h = ray_halfspace(ox, oy, oz, rdx, rdy, rdz); break;
+      case COLLIDER_SPHERE: h = ray_sphere(ox, oy, oz, rdx, rdy, rdz, p0); break;
+      case COLLIDER_CUBOID: h = ray_cuboid(ox, oy, oz, rdx, rdy, rdz, p0, p1, p2); break;
+      case COLLIDER_CAPSULE: h = ray_capsule(ox, oy, oz, rdx, rdy, rdz, p0, p1); break;
+      case COLLIDER_CYLINDER: h = ray_cylinder(ox, oy, oz, rdx, rdy, rdz, p0, p1); break;
+      case COLLIDER_CONE: h = ray_cone(ox, oy, oz, rdx, rdy, rdz, p0, p1); break;
+      default:  // COLLIDER_HULL
+        h = ray_hull(ox, oy, oz, rdx, rdy, rdz, col + CO_PLANES_AT + ci * CO_PLANE_STRIDE, row[CO_HULL_N]);
+    }
+    if (h.dist <= max_dist && h.dist < best) {
+      if (!ident) quat_rotate(qx, qy, qz, qw, h.nx, h.ny, h.nz, &h.nx, &h.ny, &h.nz);
+      best = h.dist;
+      *bnx = h.nx;
+      *bny = h.ny;
+      *bnz = h.nz;
+    }
+  }
+  return best;
+}
+
+// particle_collision (reference core.rs:744-800) for one participating lane:
+// up to SUBSTEPS raycast-and-bounce steps, stopping when the lane has no
+// travel budget left or is destroyed (the TPU kernel's per-tile substep
+// gating is a no-op per lane, so the per-lane exit gives the same bits).
+// Returns destroyed.
+__device__ bool collide(const int* col, int n_col, float* px, float* py, float* pz, float* vx, float* vy, float* vz,
+                        float dt, float restitution, float friction, bool destroy, uint32_t lane_mask) {
+  float delta = dt;
+  for (int s = 0; s < SUBSTEPS; ++s) {
+    if (!(delta > 0.0f)) break;
+    const float speed2 = *vx * *vx + *vy * *vy + *vz * *vz;
+    const float speed = sqrtf(speed2);
+    // Dir3::try_from(vel): unit direction; zero -> +Y
+    const bool ok = speed2 > 0.0f;
+    const float inv = ok ? 1.0f / (speed > 0.0f ? speed : 1.0f) : 0.0f;
+    const float dx = ok ? *vx * inv : 0.0f, dy = ok ? *vy * inv : 1.0f, dz = ok ? *vz * inv : 0.0f;
+    const float max_dist = speed * delta;
+    float nx, ny, nz;
+    const float dist = raycast_scene(col, n_col, lane_mask, *px, *py, *pz, dx, dy, dz, max_dist, &nx, &ny, &nz);
+    if (!(dist <= max_dist)) {  // miss: advect and finish (core.rs:792-795)
+      *px = *px + *vx * delta;
+      *py = *py + *vy * delta;
+      *pz = *pz + *vz * delta;
+      break;
+    }
+    if (dist == 0.0f) {  // inside: push out along the normal (core.rs:766-775)
+      const bool n_zero = nx == 0.0f && ny == 0.0f && nz == 0.0f;
+      const float fnx = n_zero ? (ok ? dx : 0.0f) : nx;
+      const float fny = n_zero ? (ok ? dy : 1.0f) : ny;
+      const float fnz = n_zero ? (ok ? dz : 0.0f) : nz;
+      const float push = pmax(speed, 1.0f) * delta;
+      *px = *px + push * fnx;
+      *py = *py + push * fny;
+      *pz = *pz + push * fnz;
+    } else if (dist > 0.0f) {  // surface hit: advance, bounce (core.rs:776-787)
+      const float px_s = *px + dx * dist, py_s = *py + dy * dist, pz_s = *pz + dz * dist;
+      const float vdotn = *vx * nx + *vy * ny + *vz * nz;
+      const float pjx = vdotn * nx, pjy = vdotn * ny, pjz = vdotn * nz;
+      const float rjx = *vx - pjx, rjy = *vy - pjy, rjz = *vz - pjz;
+      const float rej_len2 = rjx * rjx + rjy * rjy + rjz * rjz;
+      const float rej_len = sqrtf(rej_len2);
+      const float friction_dv = pmin(fabsf(vdotn), rej_len) * friction;
+      const float rinv = rej_len2 > 0.0f ? 1.0f / (rej_len > 0.0f ? rej_len : 1.0f) : 0.0f;
+      *vx = rjx - friction_dv * rjx * rinv - restitution * pjx;
+      *vy = rjy - friction_dv * rjy * rinv - restitution * pjy;
+      *vz = rjz - friction_dv * rjz * rinv - restitution * pjz;
+      *px = px_s + nx * 1e-4f;
+      *py = py_s + ny * 1e-4f;
+      *pz = pz_s + nz * 1e-4f;
+      delta = pmin(pmax(delta - dist, 0.0f), dt);
+    }
+    if (destroy) return true;  // destroy-on-collision freezes the lane (core.rs:788-791)
+  }
+  return false;
+}
+
+// ---- dead-rank claim (replaces the JAX kernel's _prefix_exclusive + SMEM dead_carry) ----
+// The TPU carried the dead count across tiles in SMEM because its grid runs
+// in order; CUDA blocks do not, so the carry is count -> scan -> apply:
+// dead_count_kernel writes each TILE-lane tile's dead count, tile_scan_kernel
+// (one block) scans them into exclusive tile offsets, and the step kernel
+// adds its tile's offset to a block-local exclusive rank.
+
+// exclusive rank of this thread's `dead` among the block's dead lanes, in
+// lane order (all threads of the block must call it)
+__device__ int block_dead_rank(bool dead, int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, dead);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  int before = __popc(ballot & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) before += s_warp[w];
+  __syncthreads();  // s_warp is rewritten by the next tile
+  return before;
+}
+
+__global__ void __launch_bounds__(TILE) dead_count_kernel(const uint8_t* __restrict__ alive, int* __restrict__ counts,
+                                                          int n, int n_tiles) {
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g = tile * TILE + threadIdx.x;
+    const int c = __syncthreads_count(g < n && alive[g] == 0);
+    if (threadIdx.x == 0) counts[tile] = c;
+  }
+}
+
+__global__ void __launch_bounds__(1024) tile_scan_kernel(const int* __restrict__ counts, int* __restrict__ offsets,
+                                                         int n_tiles) {
+  __shared__ int s_warp[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (n_tiles + blockDim.x - 1) / blockDim.x;
+  const int lo = threadIdx.x * per;
+  const int hi = lo + per < n_tiles ? lo + per : n_tiles;
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += counts[i];
+  int x = sum;  // inclusive warp scan
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < (int)(blockDim.x >> 5) ? s_warp[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  int run = (warp > 0 ? s_warp[warp - 1] : 0) + x - sum;
+  for (int i = lo; i < hi; ++i) {
+    offsets[i] = run;
+    run += counts[i];
+  }
+}
+
+// kRing: ring claim (else the dead-rank claim with the alive plane, U = 1);
+// kCollide: the narrow phase runs. The four instantiations keep the narrow
+// phase's registers and the claim's barriers out of the kernels that do not
+// run them (the main path's is the <true, false> one).
+template <bool kRing, bool kCollide>
+__global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict__ tab, Args a) {
   __shared__ int s_cursor[MAX_U];
   __shared__ int s_bounds[MAX_U][MAX_E + 1];
+  __shared__ int s_warp[TILE / 32];
+  __shared__ int s_col[kCollide ? COLLIDER_WORDS : 1];
 
   const int E = tabi(tab, H_E);
   const int n = a.n;
   const float dt = a.frame[FR_DT];
+  const int n_col = kCollide ? a.n_colliders : 0;
+
+  // collider rows, and the plane rows of each hull up to its own count
+  if (kCollide) {
+    for (int i = threadIdx.x; i < n_col * CO_STRIDE; i += blockDim.x) s_col[i] = a.colliders[i];
+    for (int i = threadIdx.x; i < n_col * CO_PLANE_STRIDE; i += blockDim.x) {
+      const int ci = i / CO_PLANE_STRIDE;
+      if (i - ci * CO_PLANE_STRIDE < 4 * a.colliders[ci * CO_STRIDE + CO_HULL_N])
+        s_col[CO_PLANES_AT + i] = a.colliders[CO_PLANES_AT + i];
+    }
+  }
 
   if (threadIdx.x == 0) {
     // per-emitter cadence for every sub-frame (reference core.rs:395-427)
@@ -305,8 +720,10 @@ __global__ void __launch_bounds__(256) fused_step_kernel(const int* __restrict__
         bound += n_sp;
         s_bounds[u][e + 1] = bound;
       }
-      long long c = ((long long)cursor + bound) % n;
-      cursor = (int)(c < 0 ? c + n : c);
+      if (kRing) {  // the dead-rank claim leaves the cursor alone
+        long long c = ((long long)cursor + bound) % n;
+        cursor = (int)(c < 0 ? c + n : c);
+      }
     }
     if (blockIdx.x == 0) {
       for (int e = 0; e < E; ++e) {
@@ -328,23 +745,35 @@ __global__ void __launch_bounds__(256) fused_step_kernel(const int* __restrict__
   const float* pvel = a.frame + FR_PVEL;
   const float* trans = a.frame + FR_TRANS;
   const float* orot = a.frame + FR_ROT;
+  const int n_tiles = (n + TILE - 1) / TILE;
 
-  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < n; g += gridDim.x * blockDim.x) {
+  // A tile is the fixed lane range [tile * TILE, (tile + 1) * TILE), whichever
+  // block runs it: the dead-rank claim's tile offsets index it.
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g = tile * TILE + threadIdx.x;
+    // dead-rank claim (non-ring archetypes, U = 1): this lane's exclusive
+    // rank among the dead lanes of the pool, in lane order
+    int dead_rank = 0;
+    if (!kRing) dead_rank = a.tile_dead_offset[tile] + block_dead_rank(g < n && a.alive_in[g] == 0, s_warp);
+    if (g >= n) continue;
+
     float f[N_FIELDS];
     for (int i = 0; i < N_FIELDS; ++i) f[i] = a.in[i] ? a.in[i][g] : 0.0f;
     if (elide_rot) f[QW] = 1.0f;
     int ty = single ? 0 : a.ptype_in[g];
-    float age_pct = 0.0f, scale_new = 0.0f;
     bool survivor = false;
 
     for (int u = 0; u < a.unroll; ++u) {
       float life = const_life ? life_c : f[LIFETIME];
-      bool alive0 = f[AGE] < life;
+      bool alive0 = kRing ? f[AGE] < life : a.alive_in[g] != 0;
       bool spawned = false;
       const int total = s_bounds[u][E];
       if (!alive0 && total > 0) {
-        int rank = g - s_cursor[u];
-        if (rank < 0) rank += n;
+        int rank = dead_rank;
+        if (kRing) {
+          rank = g - s_cursor[u];
+          if (rank < 0) rank += n;
+        }
         if (rank < total) {
           spawned = true;
           int e = 0;
@@ -406,23 +835,38 @@ __global__ void __launch_bounds__(256) fused_step_kernel(const int* __restrict__
       life = const_life ? life_c : f[LIFETIME];
       const float age_new = f[AGE] + dt;
       const bool dead_by_age = age_new >= life;
-      age_pct = age_new / life;
-      const int crow = CV_AT + ty * CV_STRIDE;
-      scale_new = f[INITIAL_SCALE] * eval_curve(tab, crow + CV_SCALE_TS * MAX_K, crow + CV_SCALE_VS * MAX_K,
-                                                tabi(tab, H_SCALE_KIND + ty), tabi(tab, H_SCALE_N + ty), age_pct);
       const bool moved = alive_sp && !dead_by_age;
-      survivor = moved;
       const int trow = TY_AT + ty * TY_STRIDE;
-      const float lin_drag = tabf(tab, trow + TY_LIN_DRAG);
       const float vx = f[VX], vy = f[VY], vz = f[VZ];
+      float npx = f[PX] + vx * dt, npy = f[PY] + vy * dt, npz = f[PZ] + vz * dt;
+      float nvx = vx, nvy = vy, nvz = vz;
+      bool destroyed = false;
+      if (kCollide && moved && tabi(tab, H_HAS_COL + ty) != 0) {
+        // ---- narrow phase on a participating lane (kernel :1421-1456) ----
+        npx = f[PX];
+        npy = f[PY];
+        npz = f[PZ];
+        destroyed = collide(s_col, n_col, &npx, &npy, &npz, &nvx, &nvy, &nvz, dt, tabf(tab, trow + TY_RESTITUTION),
+                            tabf(tab, trow + TY_FRICTION), tabf(tab, trow + TY_DESTROY) > 0.0f,
+                            (uint32_t)tabi(tab, trow + TY_COLL_MASK));
+      }
+      survivor = moved && !destroyed;
+      const float lin_drag = tabf(tab, trow + TY_LIN_DRAG);
+      // a destroyed lane keeps its age: ring archetypes never destroy, the
+      // others carry the alive plane
       if (alive_sp) f[AGE] = age_new;
       if (moved) {
-        f[PX] = f[PX] + vx * dt;
-        f[PY] = f[PY] + vy * dt;
-        f[PZ] = f[PZ] + vz * dt;
-        f[VX] = vx + (tabf(tab, trow + TY_ACCEL + 0) - vx * lin_drag) * dt;
-        f[VY] = vy + (tabf(tab, trow + TY_ACCEL + 1) - vy * lin_drag) * dt;
-        f[VZ] = vz + (tabf(tab, trow + TY_ACCEL + 2) - vz * lin_drag) * dt;
+        f[PX] = npx;
+        f[PY] = npy;
+        f[PZ] = npz;
+        f[VX] = nvx;
+        f[VY] = nvy;
+        f[VZ] = nvz;
+      }
+      if (survivor) {
+        f[VX] = nvx + (tabf(tab, trow + TY_ACCEL + 0) - nvx * lin_drag) * dt;
+        f[VY] = nvy + (tabf(tab, trow + TY_ACCEL + 1) - nvy * lin_drag) * dt;
+        f[VZ] = nvz + (tabf(tab, trow + TY_ACCEL + 2) - nvz * lin_drag) * dt;
       }
       if (!elide_rot && survivor) {
         const float ang_drag = tabf(tab, trow + TY_ANG_DRAG);
@@ -449,17 +893,22 @@ __global__ void __launch_bounds__(256) fused_step_kernel(const int* __restrict__
     for (int i = 0; i < N_FIELDS; ++i)
       if (a.out[i]) a.out[i][g] = f[i];
     if (!single) a.ptype_out[g] = ty;
+    if (!kRing) a.alive_out[g] = survivor ? 1 : 0;
 
     if (a.pack_render) {
-      // render-contract extract of the last sub-frame: instance scale (0 on
-      // dead lanes), base rgba, emissive rgba
+      // render-contract extract of the post-step state: instance scale (0 on
+      // dead lanes), base rgba, emissive rgba, at the lane's age fraction
+      const float age_pct = f[AGE] / (const_life ? life_c : f[LIFETIME]);
       const int crow = CV_AT + ty * CV_STRIDE;
+      const float scale = f[INITIAL_SCALE] * eval_curve(tab, crow + CV_SCALE_TS * MAX_K, crow + CV_SCALE_VS * MAX_K,
+                                                        tabi(tab, H_SCALE_KIND + ty), tabi(tab, H_SCALE_N + ty),
+                                                        age_pct);
       float base[4], emis[4];
       eval_gradient(tab, crow + CV_BASE_TS * MAX_K, tabi(tab, H_BASE_KIND + ty), tabi(tab, H_BASE_N + ty), age_pct,
                     base);
       eval_gradient(tab, crow + CV_EMIS_TS * MAX_K, tabi(tab, H_EMIS_KIND + ty), tabi(tab, H_EMIS_N + ty), age_pct,
                     emis);
-      a.render[0][g] = survivor ? scale_new : 0.0f;
+      a.render[0][g] = survivor ? scale : 0.0f;
       for (int c = 0; c < 4; ++c) {
         a.render[1 + c][g] = base[c];
         a.render[5 + c][g] = emis[c];
@@ -476,13 +925,21 @@ extern "C" {
 // hold device pointers: field_in/field_out have N_FIELDS slots (null for an
 // elided field), scal_in/scal_out 5 (time_in_cycle f32[E], last_emission
 // f32[E], enabled u8[E], manual_queued i32, ring_cursor i32), render_out
-// N_RENDER or null. frame is FRAME_WORDS host floats, seeds `unroll` host
-// words.
+// N_RENDER or null. colliders is a COLLIDER_WORDS table with n_colliders
+// rows (n_colliders 0: no narrow phase). Non-ring archetypes (U = 1) pass
+// the alive planes (u8) and the tile offsets bf_dead_rank_offsets wrote;
+// ring archetypes pass nulls. frame is FRAME_WORDS host floats, seeds
+// `unroll` host words.
 // Returns the cudaError_t of the launch (0 = success).
-int bf_fused_step(const void* tables, void* const* field_in, void* const* field_out, const void* ptype_in,
-                  void* ptype_out, void* const* scal_in, void* const* scal_out, void* const* render_out,
-                  const float* frame, const uint32_t* seeds, int unroll, int n, void* stream) {
-  if (unroll < 1 || unroll > MAX_U || n <= 0) return (int)cudaErrorInvalidValue;
+int bf_fused_step(const void* tables, const void* colliders, int n_colliders, void* const* field_in,
+                  void* const* field_out, const void* ptype_in, void* ptype_out, const void* alive_in,
+                  void* alive_out, const void* tile_dead_offset, void* const* scal_in, void* const* scal_out,
+                  void* const* render_out, const float* frame, const uint32_t* seeds, int unroll, int n,
+                  void* stream) {
+  if (unroll < 1 || unroll > MAX_U || n <= 0 || n_colliders < 0 || n_colliders > MAX_C)
+    return (int)cudaErrorInvalidValue;
+  if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
+    return (int)cudaErrorInvalidValue;
   Args a;
   for (int i = 0; i < N_FIELDS; ++i) {
     a.in[i] = (const float*)field_in[i];
@@ -490,6 +947,11 @@ int bf_fused_step(const void* tables, void* const* field_in, void* const* field_
   }
   a.ptype_in = (const int*)ptype_in;
   a.ptype_out = (int*)ptype_out;
+  a.alive_in = (const uint8_t*)alive_in;
+  a.alive_out = (uint8_t*)alive_out;
+  a.tile_dead_offset = (const int*)tile_dead_offset;
+  a.colliders = (const int*)colliders;
+  a.n_colliders = n_colliders;
   a.tic_in = (const float*)scal_in[0];
   a.last_in = (const float*)scal_in[1];
   a.en_in = (const uint8_t*)scal_in[2];
@@ -507,10 +969,29 @@ int bf_fused_step(const void* tables, void* const* field_in, void* const* field_
   a.unroll = unroll;
   a.n = n;
 
-  const int threads = 256;
-  long long blocks = ((long long)n + threads - 1) / threads;
-  if (blocks > 132 * 8) blocks = 132 * 8;  // grid-stride beyond 8 blocks per SM
-  fused_step_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>((const int*)tables, a);
+  void (*kernel)(const int*, Args);
+  if (alive_in == nullptr)
+    kernel = n_colliders > 0 ? fused_step_kernel<true, true> : fused_step_kernel<true, false>;
+  else
+    kernel = n_colliders > 0 ? fused_step_kernel<false, true> : fused_step_kernel<false, false>;
+  long long blocks = ((long long)n + TILE - 1) / TILE;
+  if (blocks > 132 * 8) blocks = 132 * 8;  // tile-stride beyond 8 blocks per SM
+  kernel<<<(int)blocks, TILE, 0, (cudaStream_t)stream>>>((const int*)tables, a);
+  return (int)cudaGetLastError();
+}
+
+// The dead-rank claim's first two passes over the u8 alive plane: per-tile
+// dead counts into `counts` and their exclusive scan into `offsets` (both
+// int32[ceil(n / TILE)]), on `stream`. Returns the cudaError_t of the
+// launches.
+int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  const int blocks = n_tiles < 132 * 8 ? n_tiles : 132 * 8;
+  dead_count_kernel<<<blocks, TILE, 0, (cudaStream_t)stream>>>((const uint8_t*)alive, (int*)counts, n, n_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile_scan_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>((const int*)counts, (int*)offsets, n_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -2,13 +2,15 @@
 
 `fused_step` advances a pool by U <= 8 frames in one launch of the
 hand-written Hopper kernel (`csrc/fused_step.cu`, which replaces the JAX
-package's Pallas `_make_kernel` in its main-path configuration), optionally
-writing the render-pack planes of the last frame. Dispatch is by the device
-of the pool's tensors and nothing else:
-  * CUDA tensors: the kernel is launched, or the call raises;
-  * CPU tensors: the plain PyTorch version (`step.plain_frames` over U
-    frames, and `render.pack_render_planes`), which keeps the kernel's op order and
-    random-bit layout.
+package's Pallas `_make_kernel` with its main-path, render-pack, collision
+and dead-rank-claim blocks), optionally writing the render-pack planes of
+the last frame. Destroy-on-collision archetypes claim by dead-slot rank:
+before their step, `tile_dead_offsets` launches the claim's count and scan
+kernels. Dispatch is by the device of the pool's tensors and nothing else:
+  * CUDA tensors: the kernels are launched, or the call raises;
+  * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
+    frames, `render.pack_render_planes`, `tile_dead_offsets`' cumsum),
+    which keep the kernel's op order and random-bit layout.
 Archetypes outside the kernel's scope raise NotImplementedError on either
 device; nothing falls back.
 
@@ -26,14 +28,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..colliders import COLLIDER_HULL, ColliderTable, masked_layers
 from ..compiled import MODE_GLOBAL, SpawnerParams, SpawnerStatic
 from ..pool import FrameInput, PoolState
 from ..prng import frame_seeds
 from ..render import pack_render_planes
-from ..step import active_f32_fields, check_scope, epilogue, plain_frames
+from ..step import active_f32_fields, check_scope, collision_on, epilogue, plain_frames
 from . import table_layout as L
 
 MAX_UNROLL = L.MAX_U
+# Frames per launch of a chain with colliders: the JAX package's
+# _chain_with_unroll caps collision archetypes at U = 2, a TPU measurement
+# (its narrow phase is VPU-code bound), kept here for equal launch counts.
+COLLISION_UNROLL = 2
 
 
 def can_fuse(static: SpawnerStatic) -> bool:
@@ -50,14 +57,16 @@ def can_unroll(static: SpawnerStatic) -> bool:
 def check_kernel_scope(static: SpawnerStatic, colliders=None, frame: Optional[FrameInput] = None,
                        unroll: int = 1) -> None:
     """Raise NotImplementedError for an archetype or call the kernel (and its
-    plain version) does not cover."""
-    check_scope(static, colliders, frame)
-    if not can_unroll(static):
-        raise NotImplementedError("archetype outside the fused kernel's scope (can_unroll is false)")
+    plain version) does not cover, ValueError for a bad unroll."""
+    check_scope(static, frame)
     if not 1 <= unroll <= MAX_UNROLL:
         raise ValueError(f"unroll must be in 1..{MAX_UNROLL}, got {unroll}")
+    if unroll > 1 and not can_unroll(static):
+        raise ValueError("unroll > 1 needs ring claims (destroy-on-collision archetypes step one frame per launch)")
     if static.num_emitters > L.MAX_E or static.num_types > L.MAX_T:
         raise NotImplementedError(f"the kernel's tables hold at most {L.MAX_E} emitters and {L.MAX_T} types")
+    if colliders is not None and colliders.count > L.MAX_C:
+        raise NotImplementedError(f"the kernel's collider table holds at most {L.MAX_C} colliders")
 
 
 def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
@@ -72,6 +81,7 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
     fl = words.view(np.float32)
     E, T = static.num_emitters, static.num_types
     words[[L.H_E, L.H_SINGLE, L.H_ELIDE_ROT]] = [E, int(static.single_type), int(static.elide_rotation)]
+    words[L.H_HAS_COL:L.H_HAS_COL + T] = static.collision_types
     words[L.H_CONST_LIFE] = int(static.const_lifetime is not None)
     fl[L.H_CONST_LIFE_VAL] = 0.0 if static.const_lifetime is None else static.const_lifetime
     words[L.H_PACING:L.H_PACING + E] = static.pacing_kinds
@@ -87,7 +97,8 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
     type_slots = ((L.TY_ISCALE_LO, "initial_scale_lo"), (L.TY_ISCALE_HI, "initial_scale_hi"),
                   (L.TY_LIFE_LO, "lifetime_lo"), (L.TY_LIFE_HI, "lifetime_hi"), (L.TY_ACCEL, "acceleration"),
                   (L.TY_LIN_DRAG, "linear_drag"), (L.TY_ANG_ACCEL, "angular_acceleration"),
-                  (L.TY_ANG_DRAG, "angular_drag"))
+                  (L.TY_ANG_DRAG, "angular_drag"), (L.TY_RESTITUTION, "restitution"), (L.TY_FRICTION, "friction"),
+                  (L.TY_DESTROY, "destroy_on_collision"))
 
     def put(at, value):
         v = np.atleast_1d(value)
@@ -99,6 +110,7 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
     for t in range(T):
         for slot, name in type_slots:
             put(L.TY_AT + t * L.TY_STRIDE + slot, p[name][t])
+        words[L.TY_AT + t * L.TY_STRIDE + L.TY_COLL_MASK] = np.uint32(p["collision_mask"][t]).view(np.int32)
         curve_rows = {L.CV_SCALE_TS: p["scale_ts"][t], L.CV_SCALE_VS: p["scale_vs"][t],
                       L.CV_BASE_TS: p["base_ts"][t], L.CV_EMIS_TS: p["emis_ts"][t]}
         for c in range(4):
@@ -119,6 +131,72 @@ def kernel_tables(static: SpawnerStatic, params: SpawnerParams) -> torch.Tensor:
     return cache[static]
 
 
+def pack_colliders(colliders: ColliderTable) -> np.ndarray:
+    """The kernel's collider table (int32 words, f32 values stored bitwise):
+    one row per collider, then each hull's plane rows, at the slots
+    `table_layout` names. Disabled colliders carry layers 0
+    (`masked_layers`); the uint32 layers keep their bits."""
+    if colliders.count > L.MAX_C:
+        raise NotImplementedError(f"the kernel's collider table holds at most {L.MAX_C} colliders")
+    words = np.zeros(L.COLLIDER_WORDS, np.int32)
+    fl = words.view(np.float32)
+    pos, rot, par = (getattr(colliders, k).cpu().numpy() for k in ("position", "rotation", "params"))
+    layers = masked_layers(colliders).cpu().numpy().astype(np.uint32).view(np.int32)
+    planes = colliders.hull_planes.cpu().numpy()
+    for ci, kind in enumerate(colliders.kinds):
+        row = ci * L.CO_STRIDE
+        words[row + L.CO_KIND] = kind
+        words[row + L.CO_IDENT] = int(colliders.identity_rot[ci])
+        words[row + L.CO_HULL_N] = colliders.hull_counts[ci]
+        words[row + L.CO_LAYERS] = layers[ci]
+        fl[row + L.CO_POS:row + L.CO_POS + 3] = pos[ci]
+        fl[row + L.CO_ROT:row + L.CO_ROT + 4] = rot[ci]
+        fl[row + L.CO_PARAMS:row + L.CO_PARAMS + 3] = par[ci]
+        if kind == COLLIDER_HULL:
+            at = L.CO_PLANES_AT + ci * L.CO_PLANE_STRIDE
+            fl[at:at + L.CO_PLANE_STRIDE] = planes[ci].reshape(-1)
+    return words
+
+
+def kernel_colliders(colliders: ColliderTable) -> torch.Tensor:
+    """`pack_colliders` on the table's device, built once per table and kept
+    in it (a frozen dataclass; the cache lives in its __dict__)."""
+    if "_kernel_colliders" not in colliders.__dict__:
+        colliders.__dict__["_kernel_colliders"] = torch.from_numpy(pack_colliders(colliders)).to(colliders.device)
+    return colliders.__dict__["_kernel_colliders"]
+
+
+def tile_dead_offsets(alive: torch.Tensor) -> torch.Tensor:
+    """The dead-rank claim's tile offsets: for each TILE-lane tile of the
+    pool, the number of dead lanes before it (int32 [ceil(N / TILE)]). On a
+    CUDA tensor the count and scan kernels run (`csrc/fused_step.cu`); on a
+    CPU tensor their plain version, a per-tile sum and an exclusive cumsum."""
+    n = alive.shape[0]
+    n_tiles = -(-n // L.TILE)
+    if alive.device.type == "cuda":
+        from . import _build
+
+        lib = _build.load()
+        alive = _checked(alive, torch.bool, alive.device, (n,))
+        counts = torch.empty(n_tiles, dtype=torch.int32, device=alive.device)
+        offsets = torch.empty_like(counts)
+        rc = lib.bf_dead_rank_offsets(alive.data_ptr(), counts.data_ptr(), offsets.data_ptr(), n,
+                                      torch.cuda.current_stream(alive.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"dead-rank claim kernels failed to launch: {lib.bf_error_string(rc).decode()}")
+        tile_dead_offsets.launches += 1
+        return offsets
+    if alive.device.type != "cpu":
+        raise ValueError(f"no dead-rank claim for device {alive.device}")
+    dead = torch.zeros(n_tiles * L.TILE, dtype=torch.int32)
+    dead[:n] = (~alive).to(torch.int32)
+    counts = dead.view(n_tiles, L.TILE).sum(1, dtype=torch.int32)
+    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+
+tile_dead_offsets.launches = 0  # count + scan launches (CUDA path only)
+
+
 def _ptr_array(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
 
@@ -130,16 +208,19 @@ def _checked(t: torch.Tensor, dtype, device, shape: tuple) -> torch.Tensor:
     return t
 
 
-def _launch(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, seeds: list,
-            pack_render: bool):
-    """One kernel launch on the current stream. Returns (fields, scal,
-    render planes or None): new tensors; the inputs are not modified."""
+def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+            seeds: list, pack_render: bool):
+    """One step launch on the current stream (after the dead-rank claim's
+    count and scan, for archetypes without ring claims). Returns (fields,
+    scal, render planes or None): new tensors; the inputs are not
+    modified."""
     from . import _build
 
     lib = _build.load()
     dev = state.device
     if params.device != dev:
         raise ValueError(f"params on {params.device}, pool on {dev}")
+    n_col = colliders.count if collision_on(static, colliders) else 0
     N = state.capacity
     fields = {}
     ins, outs = [None] * L.N_FIELDS, [None] * L.N_FIELDS
@@ -152,6 +233,11 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fram
         ptype_in = _checked(state.ptype, torch.int32, dev, (N,))
         ptype_out = torch.empty_like(ptype_in)
     fields["ptype"] = state.ptype if ptype_out is None else ptype_out
+    alive_in = alive_out = offsets = None
+    if not static.ring_claim:
+        alive_in = _checked(state.alive, torch.bool, dev, (N,))
+        offsets = tile_dead_offsets(alive_in)
+        alive_out = fields["alive"] = torch.empty_like(alive_in)
     names = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "ring_cursor")
     dtypes = (torch.float32, torch.float32, torch.bool, torch.int32, torch.int32)
     E = static.num_emitters
@@ -167,10 +253,14 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fram
         row[at:at + v.size] = v
     frame_row = (ctypes.c_float * L.FRAME_WORDS)(*row.tolist())
     seed_row = (ctypes.c_uint32 * len(seeds))(*seeds)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = lib.bf_fused_step(
-        kernel_tables(static, params).data_ptr(), _ptr_array(ins), _ptr_array(outs),
-        None if ptype_in is None else ptype_in.data_ptr(), None if ptype_out is None else ptype_out.data_ptr(),
-        _ptr_array(s_in), _ptr_array(s_out), None if render is None else _ptr_array(render),
+        kernel_tables(static, params).data_ptr(), ptr(kernel_colliders(colliders)) if n_col else None, n_col,
+        _ptr_array(ins), _ptr_array(outs), ptr(ptype_in), ptr(ptype_out), ptr(alive_in), ptr(alive_out),
+        ptr(offsets), _ptr_array(s_in), _ptr_array(s_out), None if render is None else _ptr_array(render),
         frame_row, seed_row, len(seeds), N, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -187,15 +277,19 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
     `stats` is False (chain frames nobody reads; the finished latch is
     still updated)."""
     check_kernel_scope(static, colliders, frame, unroll)
+    if collision_on(static, colliders) and colliders.device != state.device:
+        raise ValueError(f"colliders on {colliders.device}, pool on {state.device}")
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
-        fields, scal, planes = _launch(static, params, state, frame, seeds, pack_render)
+        fields, scal, planes = _launch(static, params, colliders, state, frame, seeds, pack_render)
         fused_step.launches += 1
         if pack_render:
             fused_step.render_launches += 1
+        if collision_on(static, colliders):
+            fused_step.collide_launches += 1
         new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats)
     elif state.device.type == "cpu":
-        new_state, out = plain_frames(static, params, state, frame, unroll, stats)
+        new_state, out = plain_frames(static, params, state, frame, unroll, stats, colliders)
         planes = pack_render_planes(static, params, new_state) if pack_render else None
     else:
         raise ValueError(f"no step for device {state.device}")
@@ -206,6 +300,7 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
 
 fused_step.launches = 0  # kernel launches (CUDA path only)
 fused_step.render_launches = 0  # of which with the render pack
+fused_step.collide_launches = 0  # of which with the narrow phase
 
 
 def step_auto(static, params, colliders, state, frame):
@@ -220,23 +315,33 @@ def step_auto_packed(static, params, colliders, state, frame):
     return fused_step(static, params, colliders, state, frame, pack_render=True)
 
 
-def chain_shape(n_frames: int) -> list:
-    """Frames per launch of an n-frame chain: q launches of MAX_UNROLL, then
-    the remainder as single frames (the JAX package's _chain_with_unroll)."""
-    if n_frames < MAX_UNROLL:
+def chain_unroll(static: SpawnerStatic, colliders=None) -> int:
+    """Frames per launch in a chain (the JAX package's _chain_with_unroll
+    policy): 1 where `can_unroll` is false, COLLISION_UNROLL where the
+    narrow phase runs, MAX_UNROLL otherwise."""
+    if not can_unroll(static):
+        return 1
+    return COLLISION_UNROLL if collision_on(static, colliders) else MAX_UNROLL
+
+
+def chain_shape(n_frames: int, unroll: int = MAX_UNROLL) -> list:
+    """Frames per launch of an n-frame chain: q launches of `unroll` frames,
+    then the remainder as single frames; all singles when n < unroll."""
+    if n_frames < unroll:
         return [1] * n_frames
-    q, r = divmod(n_frames, MAX_UNROLL)
-    return [MAX_UNROLL] * q + [1] * r
+    q, r = divmod(n_frames, unroll)
+    return [unroll] * q + [1] * r
 
 
 def multi_step_auto(static, params, colliders, state, frame, n_frames: int):
     """n frames with the same frame input; returns (final state, outputs of
-    the last frame). Stats are computed for the last frame only; invariant
-    fields (elided rotation/lifetime, single-type ptype, last_emitted) pass
-    through every launch untouched."""
+    the last frame). Launches follow `chain_shape(n, chain_unroll(...))`.
+    Stats are computed for the last frame only; invariant fields (elided
+    rotation/lifetime, single-type ptype, last_emitted) pass through every
+    launch untouched."""
     if n_frames < 1:
         raise ValueError("multi_step_auto needs n_frames >= 1")
-    shape = chain_shape(n_frames)
+    shape = chain_shape(n_frames, chain_unroll(static, colliders))
     out = None
     for i, u in enumerate(shape):
         state, out = fused_step(static, params, colliders, state, frame, unroll=u, stats=i == len(shape) - 1)

@@ -1,24 +1,27 @@
 """The fused step kernel's interface layout, defined once.
 
 The kernel reads the spawner's structure and parameters from one int32
-device buffer (f32 values stored bitwise), the pool's fields through 16
-pointer slots, and the frame's inputs from a row of 13 floats. This module
-is the only definition of those layouts: `ops.fused_step` fills the buffer,
-the slots and the row by these names, and `ops._build` writes them, with
-the enumerations the kernel branches on, into a generated C++ header
+device buffer (f32 values stored bitwise), the collider scene from a second
+one, the pool's fields through 16 pointer slots, and the frame's inputs from
+a row of 13 floats. This module is the only definition of those layouts:
+`ops.fused_step` fills the buffers, the slots and the row by these names,
+and `ops._build` writes them, with the enumerations the kernel branches on
+and the narrow phase's float constants, into a generated C++ header
 (`header()`, included by `csrc/fused_step.cu` as "table_layout.h"). The
 CUDA source names every slot and states no value.
 """
 
 from __future__ import annotations
 
-from .. import compiled, curve, emission_shape
+from .. import colliders, collision, compiled, curve, emission_shape
 
 # ---- capacities ----
 MAX_E = 8  # emitters
 MAX_T = 8  # particle types
 MAX_K = 16  # knots per curve
 MAX_U = 8  # sub-frames per launch
+MAX_C = 32  # colliders
+TILE = 256  # lanes per tile = threads per block (the dead-rank claim's unit)
 
 # ---- pool field slots (PoolState order; a null pointer marks an elided field) ----
 FIELD_SLOTS = ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw", "wx", "wy", "wz",
@@ -45,6 +48,7 @@ H_BASE_KIND = H_SCALE_N + MAX_T  # [T] base color gradient kind
 H_BASE_N = H_BASE_KIND + MAX_T  # [T] ... knots
 H_EMIS_KIND = H_BASE_N + MAX_T  # [T] emissive gradient kind
 H_EMIS_N = H_EMIS_KIND + MAX_T  # [T] ... knots
+H_HAS_COL = H_EMIS_N + MAX_T  # [T] type collides
 
 # ---- emitter rows (f32): slot offsets within a row ----
 EM_AT, EM_STRIDE = 128, 48
@@ -70,6 +74,10 @@ TY_ACCEL = 4  # 3 words
 TY_LIN_DRAG = 7
 TY_ANG_ACCEL = 8  # 3 words
 TY_ANG_DRAG = 11
+TY_RESTITUTION = 12
+TY_FRICTION = 13
+TY_DESTROY = 14  # destroy_on_collision (0/1)
+TY_COLL_MASK = 15  # collision filter mask, uint32 bits (int32 word)
 
 # ---- curve rows (f32, MAX_K words each): row indices within a type's block ----
 CV_SCALE_TS = 0
@@ -80,7 +88,23 @@ CV_ROWS = 12
 CV_AT, CV_STRIDE = TY_AT + MAX_T * TY_STRIDE, CV_ROWS * MAX_K
 TABLE_WORDS = CV_AT + MAX_T * CV_STRIDE
 
-assert H_EMIS_N + MAX_T <= EM_AT and EM_INIT_ROT + 4 <= EM_STRIDE and TY_ANG_DRAG < TY_STRIDE
+# ---- collider table (a buffer of its own; int32 words, f32 bitwise) ----
+CO_STRIDE = 16  # words per collider row
+CO_KIND = 0
+CO_IDENT = 1  # unrotated (1): the quaternion rotations are skipped
+CO_HULL_N = 2  # hull plane count (0 for other kinds)
+CO_LAYERS = 3  # layers, uint32 bits; 0 for a disabled collider (masked_layers)
+CO_POS = 4  # 3 words
+CO_ROT = 7  # 4 words, xyzw
+CO_PARAMS = 11  # 3 words
+HULL_MAX_PLANES = colliders.HULL_MAX_PLANES
+CO_PLANE_STRIDE = HULL_MAX_PLANES * 4  # words per collider's plane rows (nx, ny, nz, d)
+CO_PLANES_AT = MAX_C * CO_STRIDE
+COLLIDER_WORDS = CO_PLANES_AT + MAX_C * CO_PLANE_STRIDE
+SUBSTEPS = collision.SUBSTEPS
+
+assert H_HAS_COL + MAX_T <= EM_AT and EM_INIT_ROT + 4 <= EM_STRIDE and TY_COLL_MASK < TY_STRIDE
+assert CO_PARAMS + 3 <= CO_STRIDE and TILE % 32 == 0
 
 
 def constants() -> dict:
@@ -89,13 +113,21 @@ def constants() -> dict:
     curve and shape kinds of the modules that define them."""
     out = {k: v for k, v in globals().items() if k.isupper() and isinstance(v, int)}
     out.update({name.upper(): i for i, name in enumerate(FIELD_SLOTS)})
-    for mod, prefix in ((compiled, "PACING_"), (curve, "CURVE_"), (emission_shape, "SHAPE_")):
+    for mod, prefix in ((compiled, "PACING_"), (curve, "CURVE_"), (emission_shape, "SHAPE_"),
+                        (colliders, "COLLIDER_")):
         out.update({k: v for k, v in vars(mod).items() if k.startswith(prefix) and isinstance(v, int)})
     return out
+
+
+def float_constants() -> dict:
+    """The narrow phase's f32 constants, shared with `collision`: the miss
+    distance and the division guard."""
+    return {"COLLISION_BIG": collision.BIG, "COLLISION_EPS": collision.EPS}
 
 
 def header() -> str:
     """The C++ header `csrc/fused_step.cu` includes as "table_layout.h"."""
     lines = ["// Generated from bevy_firework_tpu_torch/ops/table_layout.py; do not edit.", "#pragma once"]
     lines += [f"constexpr int {k} = {v};" for k, v in constants().items()]
+    lines += [f"constexpr float {k} = {v!r}f;" for k, v in float_constants().items()]
     return "\n".join(lines) + "\n"

@@ -1,4 +1,4 @@
-"""The per-frame step, plain PyTorch: spawn -> integrate -> stats.
+"""The per-frame step, plain PyTorch: spawn -> integrate (+ collide) -> stats.
 
 This is the plain version of the CUDA step kernel (`ops/csrc/fused_step.cu`)
 and follows it, not the JAX package's XLA step, wherever the two differ:
@@ -6,18 +6,23 @@ and follows it, not the JAX package's XLA step, wherever the two differ:
     lane per frame, seeded by word 0 of the frame key; the XLA step draws
     threefry uniforms per emitter, so the packages agree on random configs
     only in distribution (and exactly on deterministic ones);
-  * claims take the ring window: lane g is claimed when dead and its ring
-    rank (g - cursor) mod N falls below the frame's total spawn count, by
-    emitter e when the rank lies in [S_{e-1}, S_e) of the cumulative counts;
-  * alive is derived from age (alive == age < lifetime).
+  * claims: emitter e claims the dead lanes whose rank r lies in
+    [S_{e-1}, S_e) of the frame's cumulative spawn counts. Ring archetypes
+    (deaths only by age) rank by ring distance, r = (g - cursor) mod N;
+    destroy-on-collision archetypes by dead-slot rank, r = the exclusive
+    count of dead lanes before g (`dead_rank`);
+  * alive is derived from age (alive == age < lifetime) on ring archetypes
+    and is the survivor plane of the previous frame on the others;
+  * collision (`collision.particle_collision`) keeps the op order of the
+    JAX package's Pallas kernel.
 Every expression keeps the op order of `bevy_firework_tpu.step` and of the
 kernel, so on the card the kernel and this function agree bit for bit up to
 libm (`sinf`/`cosf`).
 
-Scope: the global branch of the reference's spawn/update chain for
-archetypes that `ops.fused_step.can_unroll` accepts. Colliders, force
-fields, nested emitters and the destroyed dump raise NotImplementedError
-naming the ROADMAP item that ports them.
+Scope: the global branch of the reference's spawn/update chain, with
+colliders of every kind and destroy-on-collision. Force fields, nested
+emitters and the destroyed-particle dump raise NotImplementedError naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from .cadence import compute_emission_count
+from .collision import particle_collision
 from .compiled import MODE_NESTED, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerParams, SpawnerStatic
 from .curve import eval_curve_static
 from .emission_shape import sample_shape_comp
@@ -51,23 +57,32 @@ class StepOutputs:
     aabb_valid: torch.Tensor  # bool scalar (any live particle)
     aabb_min: torch.Tensor  # [3] min(pos - scale) over live
     aabb_max: torch.Tensor  # [3] max(pos + scale)
-    destroyed_mask: torch.Tensor  # [N] bool (all False: no dump in this slice)
+    destroyed_mask: torch.Tensor  # [N] bool (all False: the dump is not ported yet)
     nested_deferred: torch.Tensor  # int32 scalar (0: no nested emitters here)
     nested_dropped: torch.Tensor  # int32 scalar
 
 
-def check_scope(static: SpawnerStatic, colliders=None, frame: Optional[FrameInput] = None) -> None:
-    """Raise NotImplementedError for what this slice of the port does not run."""
-    if colliders is not None and len(getattr(colliders, "kinds", (1,))) > 0:
-        raise NotImplementedError("colliders: ROADMAP queue 1 item 8 (collision) is not ported yet")
+def check_scope(static: SpawnerStatic, frame: Optional[FrameInput] = None) -> None:
+    """Raise NotImplementedError for what the port does not run yet."""
     if frame is not None and frame.force_fields is not None:
         raise NotImplementedError("force fields: ROADMAP queue 1 item 9 is not ported yet")
     if any(m == MODE_NESTED for m in static.mode_kinds):
         raise NotImplementedError("nested emitters: ROADMAP queue 1 item 12 is not ported yet")
     if static.any_destroyed_dump:
         raise NotImplementedError("destroyed-particle dump: ROADMAP queue 1 item 10 is not ported yet")
-    if not static.ring_claim:
-        raise NotImplementedError("dead-rank claim (destroy on collision): ROADMAP queue 2 item 4 is not ported yet")
+
+
+def collision_on(static: SpawnerStatic, colliders) -> bool:
+    """The narrow phase runs: a type collides and the table is not empty."""
+    return static.any_collision and colliders is not None and colliders.count > 0
+
+
+def dead_rank(dead: torch.Tensor) -> torch.Tensor:
+    """Exclusive rank of each lane among the dead lanes, in lane order (the
+    JAX step's `cumsum(dead) - dead`): the plain version of the kernel's
+    dead-rank claim."""
+    di = dead.to(torch.int32)
+    return torch.cumsum(di, 0, dtype=torch.int32) - di
 
 
 def active_f32_fields(static: SpawnerStatic) -> tuple:
@@ -152,29 +167,32 @@ def cadence(static: SpawnerStatic, params: SpawnerParams, scal: dict, dt):
             new_last.append(torch.where(gate, next_last, last[e]))
         bounds.append(bounds[-1] + n_sp)
     n = scal["capacity"]
-    cursor = torch.remainder(scal["ring_cursor"] + bounds[-1], n).to(torch.int32)
+    cursor = scal["ring_cursor"]
+    if static.ring_claim:  # the dead-rank claim leaves the cursor alone
+        cursor = torch.remainder(cursor + bounds[-1], n).to(torch.int32)
     new = dict(scal, time_in_cycle=torch.stack(new_tic), last_emission=torch.stack(new_last),
                enabled=torch.stack(new_en), manual_queued=mq, ring_cursor=cursor)
     return bounds, new
 
 
-def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: dict, frame: FrameInput, seed: int):
-    """One sub-frame on the active fields (+ ptype) and the scalar state.
-    Returns the new (fields, scal)."""
+def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: dict, frame: FrameInput, seed: int,
+            colliders=None):
+    """One sub-frame on the active fields (+ ptype, + alive where it is not
+    derived) and the scalar state. Returns the new (fields, scal)."""
     T = static.num_types
     dt = frame.dt
     f = dict(fields)
     N = f["age"].shape[0]
     ptype = f["ptype"]
     life = lifetime_of(static, f)
-    alive0 = f["age"] < life
+    alive0 = f["age"] < life if static.derived_alive else f["alive"]
     dead = ~alive0
 
     cursor0 = scal["ring_cursor"]
     bounds, scal = cadence(static, params, scal, dt)
     total = bounds[-1]
     lanes = torch.arange(N, dtype=torch.int64, device=f["age"].device)
-    rank = torch.remainder(lanes - cursor0, N)
+    rank = torch.remainder(lanes - cursor0, N) if static.ring_claim else dead_rank(dead)
     spawned = dead & (rank < total)
 
     # ---- spawn init (kernel spawn block; draws in prng's lane layout) ----
@@ -221,23 +239,41 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     px, py, pz = f["px"], f["py"], f["pz"]
     vx, vy, vz = f["vx"], f["vy"], f["vz"]
     npx, npy, npz = px + vx * dt, py + vy * dt, pz + vz * dt
+    nvx, nvy, nvz = vx, vy, vz
     moved = alive_sp & ~dead_by_age
-    survivor = moved  # nothing destroys in this slice
+    survivor = moved
+    if collision_on(static, colliders):
+        # narrow phase (kernel :1421-1456) on lanes of a collision type
+        has_col = torch.zeros_like(moved)
+        for t in range(T):
+            if static.collision_types[t]:
+                has_col = has_col | (ptype == t)
+        cpx, cpy, cpz, cvx, cvy, cvz, destroyed = particle_collision(
+            colliders, px, py, pz, vx, vy, vz, dt, _by_type(params.restitution, ptype, T),
+            _by_type(params.friction, ptype, T), _by_type(params.destroy_on_collision, ptype, T),
+            _by_type(params.collision_mask, ptype, T), moved & has_col)
+        npx, npy, npz = (torch.where(has_col, c, n) for c, n in ((cpx, npx), (cpy, npy), (cpz, npz)))
+        nvx, nvy, nvz = (torch.where(has_col, c, v) for c, v in ((cvx, vx), (cvy, vy), (cvz, vz)))
+        survivor = moved & ~(has_col & destroyed)
     ax = _by_type(params.acceleration[:, 0], ptype, T)
     ay = _by_type(params.acceleration[:, 1], ptype, T)
     az = _by_type(params.acceleration[:, 2], ptype, T)
     lin_drag = _by_type(params.linear_drag, ptype, T)
-    dvx = vx + (ax - vx * lin_drag) * dt
-    dvy = vy + (ay - vy * lin_drag) * dt
-    dvz = vz + (az - vz * lin_drag) * dt
+    dvx = nvx + (ax - nvx * lin_drag) * dt
+    dvy = nvy + (ay - nvy * lin_drag) * dt
+    dvz = nvz + (az - nvz * lin_drag) * dt
 
+    # A destroyed lane keeps its age; ring archetypes never destroy, so age
+    # < lifetime stays their alive flag, and the others carry `alive`.
     f["age"] = torch.where(alive_sp, age_new, f["age"])
     f["px"] = torch.where(moved, npx, px)
     f["py"] = torch.where(moved, npy, py)
     f["pz"] = torch.where(moved, npz, pz)
-    f["vx"] = torch.where(survivor, dvx, vx)
-    f["vy"] = torch.where(survivor, dvy, vy)
-    f["vz"] = torch.where(survivor, dvz, vz)
+    f["vx"] = torch.where(survivor, dvx, torch.where(moved, nvx, vx))
+    f["vy"] = torch.where(survivor, dvy, torch.where(moved, nvy, vy))
+    f["vz"] = torch.where(survivor, dvz, torch.where(moved, nvz, vz))
+    if not static.derived_alive:
+        f["alive"] = survivor
     if not static.elide_rotation:
         aax = _by_type(params.angular_acceleration[:, 0], ptype, T)
         aay = _by_type(params.angular_acceleration[:, 1], ptype, T)
@@ -259,6 +295,8 @@ def split_state(static: SpawnerStatic, state: PoolState):
     """(fields, scal): the step's working set of a pool."""
     fields = {k: getattr(state, k) for k in active_f32_fields(static)}
     fields["ptype"] = state.ptype
+    if not static.derived_alive:
+        fields["alive"] = state.alive
     scal = {k: getattr(state, k) for k in ("time_in_cycle", "last_emission", "enabled", "manual_queued",
                                            "ring_cursor")}
     scal["capacity"] = state.capacity
@@ -282,10 +320,10 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     T = static.num_types
     kw = {k: getattr(state, k) for k in ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw",
                                          "wx", "wy", "wz", "initial_scale", "age", "lifetime")}
-    kw.update({k: v for k, v in fields.items() if k != "ptype"})
+    kw.update({k: v for k, v in fields.items() if k not in ("ptype", "alive")})
     ptype = fields["ptype"]
     life = lifetime_of(static, kw)
-    alive = kw["age"] < life
+    alive = kw["age"] < life if static.derived_alive else fields["alive"]
     alive_any = alive.any()
     finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     new_state = PoolState(
@@ -311,19 +349,19 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
 
 
 def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, n: int = 1,
-                 stats: bool = True):
+                 stats: bool = True, colliders=None):
     """n frames of the plain version from `state`, on its device: the frame
     keys split in order, `advance` n times, one `epilogue`. Returns
     (new_state, StepOutputs, or None without `stats`)."""
     key, seeds = frame_seeds(state.rng_key.numpy(), n)
     fields, scal = split_state(static, state)
     for seed in seeds:
-        fields, scal = advance(static, params, fields, scal, frame, seed)
+        fields, scal = advance(static, params, fields, scal, frame, seed, colliders)
     return epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats)
 
 
 def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
     """Advance one spawner's pool by one frame (plain PyTorch, any device).
     Returns (new_state, StepOutputs)."""
-    check_scope(static, colliders, frame)
-    return plain_frames(static, params, state, frame)
+    check_scope(static, frame)
+    return plain_frames(static, params, state, frame, colliders=colliders)

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 import bevy_firework_tpu_torch as pt
@@ -61,16 +62,21 @@ def test_port_imports_no_jax():
 
 def test_kernel_table_layout_matches_cuda_source():
     """The CUDA source takes every layout name (table slots, field slots,
-    frame row, kinds) from the header `table_layout` generates and defines
-    none itself, so the wrapper and the kernel share one layout."""
+    frame row, kinds, the narrow phase's float constants) from the header
+    `table_layout` generates and defines none itself, so the wrapper and the
+    kernel share one layout."""
     code = re.sub(r"//.*", "", (REPO / "bevy_firework_tpu_torch/ops/csrc/fused_step.cu").read_text())
     assert '#include "table_layout.h"' in code
     own = {"TWO_PI", "PI_F"}  # the kernel's float constants
-    assert set(re.findall(r"\b[A-Z][A-Z0-9_]+\b", code)) - set(L.constants()) == own
+    generated = set(L.constants()) | set(L.float_constants())
+    assert set(re.findall(r"\b[A-Z][A-Z0-9_]+\b", code)) - generated == own
     assert set(re.findall(r"constexpr\s+\w+\s+(\w+)", code)) == own
     header = L.header()
     for name, value in L.constants().items():
         assert f"constexpr int {name} = {value};" in header
+    for name, value in L.float_constants().items():
+        assert f"constexpr float {name} = {value!r}f;" in header
+        assert float(np.float32(value)) == value  # the literal is an f32 value
     assert L.MAX_U == fs.MAX_UNROLL
 
 

@@ -192,7 +192,9 @@ def test_random_lifetime_and_multi_type_chain_equals_single_steps():
 
 
 def test_out_of_scope_archetypes_raise():
-    from bevy_firework_tpu_torch.settings import EmissionMode, ParticleCollisionSettings
+    """Nested emitters, the destroyed-particle dump and force fields are not
+    ported yet (destroy-on-collision is: test_torch_collision.py)."""
+    from bevy_firework_tpu_torch.settings import EmissionMode, ParticleCollisionSettings, ParticleEventHandlers
 
     f = pt.make_frame_input(1 / 60)
     nested = pt.ParticleSpawner(
@@ -200,9 +202,13 @@ def test_out_of_scope_archetypes_raise():
         emission_settings=[pt.EmissionSettings(),
                            pt.EmissionSettings(particle_index=1, emission_mode=EmissionMode.nested(0))],
     )
-    destroy = pt.ParticleSpawner(particle_settings=[pt.ParticleSettings(
-        collision_settings=ParticleCollisionSettings(destroy_on_collision=True))])
-    for sp in (nested, destroy):
+    dump = pt.ParticleSpawner(particle_settings=[pt.ParticleSettings(
+        collision_settings=ParticleCollisionSettings(destroy_on_collision=True),
+        event_handlers=ParticleEventHandlers(particles_destroyed=print))])
+    for sp in (nested, dump):
         c = pt.compile_spawner(sp)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), f)
+    c = pt.compile_spawner(pt.ParticleSpawner())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), pt.make_frame_input(1 / 60, force_fields=()))
