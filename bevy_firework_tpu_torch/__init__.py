@@ -9,12 +9,16 @@ PyTorch version.
 
 Ported so far: authoring and lowering, the pool, the global-emitter step
 (ring claim, constant or random lifetime, rotation), its multi-frame
-chain, the render-pack extract, and collision: analytic colliders of 7
-kinds (hulls from planes, points or a decomposed mesh), layer masks,
-restitution, friction, the 4-substep bounce, and destroy-on-collision with
-its dead-rank slot claim. Not yet: force fields, nested emission, the
-destroyed-particle dump and events, the Scene facade, fleets, sharding
-(see ROADMAP.md).
+chain, the render-pack extract, collision (analytic colliders of 7 kinds,
+hulls from planes, points or a decomposed mesh, layer masks, restitution,
+friction, the 4-substep bounce, destroy-on-collision with its dead-rank
+slot claim), scene force fields, the destroyed-particle mask and its
+events, the kernel's stats, the effect library, and the `Scene` facade for
+spawners stepped one by one (colliders and force fields with slot reuse,
+`particles_destroyed` and `on_finished` events, AABBs, render items). Every
+entry point runs on the card unless given `device="cpu"`. Not yet: nested
+emission, archetype groups and fleets, trails, async events and render,
+checkpoints, sharding (see ROADMAP.md).
 """
 
 from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition
@@ -27,30 +31,50 @@ from .curve import (
     gradient_uneven_samples,
 )
 from .emission_shape import EmissionShape
-from .ops.fused_step import fused_step, multi_step_auto, step_auto, step_auto_packed
+from .force_fields import FieldTable, ForceField, compile_force_fields
+from .ops.fused_step import fused_step, multi_step_auto, multi_step_auto_packed, step_auto, step_auto_packed
 from .pool import FrameInput, PoolState, init_pool, init_pool_for, make_frame_input
 from .rand import RandF32, RandVec3
-from .render import FireworkUniform, instances_to_bytes, make_uniform, pack_instances_dense, planes_to_rows
-from .scene import Transform
+from .render import (
+    FireworkUniform,
+    RenderItem,
+    aabb_intersects_frustum,
+    frustum_planes,
+    instances_to_bytes,
+    make_uniform,
+    pack_instances_dense,
+    planes_to_rows,
+    sort_instances_back_to_front,
+)
+from .scene import DestroyedParticle, Scene, Transform, estimate_capacity
 from .settings import (
     BlendMode,
+    EffectModifier,
     EmissionMode,
     EmissionPacing,
     EmissionSettings,
+    ParticleCollisionSettings,
+    ParticleEventHandlers,
     ParticleSettings,
     ParticleSpawner,
     SpawnTransformMode,
+    spawner_from_dict,
     spawner_from_json,
+    spawner_to_dict,
     spawner_to_json,
 )
 from .step import StepOutputs, step
 
 __all__ = [
-    "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape",
-    "FireworkCurve", "FireworkGradient", "FireworkUniform", "FrameInput", "ParticleSettings", "ParticleSpawner",
-    "PoolState", "RandF32", "RandVec3", "SpawnTransformMode", "SpawnerParams", "SpawnerStatic", "StepOutputs",
-    "Transform", "compile_colliders", "compile_spawner", "fused_step", "gradient_constant", "gradient_even_samples",
-    "gradient_uneven_samples", "hull_decomposition", "init_pool", "init_pool_for", "instances_to_bytes", "make_frame_input",
-    "make_uniform", "multi_step_auto", "pack_instances_dense", "planes_to_rows", "spawner_from_json",
-    "spawner_to_json", "step", "step_auto", "step_auto_packed",
+    "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle", "EffectModifier",
+    "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape", "FieldTable", "FireworkCurve",
+    "FireworkGradient", "FireworkUniform", "ForceField", "FrameInput", "ParticleCollisionSettings",
+    "ParticleEventHandlers", "ParticleSettings", "ParticleSpawner", "PoolState", "RandF32", "RandVec3", "RenderItem",
+    "Scene", "SpawnTransformMode", "SpawnerParams", "SpawnerStatic", "StepOutputs", "Transform",
+    "aabb_intersects_frustum", "compile_colliders", "compile_force_fields", "compile_spawner", "estimate_capacity",
+    "frustum_planes", "fused_step", "gradient_constant", "gradient_even_samples", "gradient_uneven_samples",
+    "hull_decomposition", "init_pool", "init_pool_for", "instances_to_bytes", "make_frame_input", "make_uniform",
+    "multi_step_auto", "multi_step_auto_packed", "pack_instances_dense", "planes_to_rows",
+    "sort_instances_back_to_front", "spawner_from_dict", "spawner_from_json", "spawner_to_dict", "spawner_to_json",
+    "step", "step_auto", "step_auto_packed",
 ]

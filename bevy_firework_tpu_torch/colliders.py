@@ -19,6 +19,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .utils.device import DEFAULT_DEVICE, resolve_device
+
 COLLIDER_HALFSPACE = 0  # params: () - plane through origin, +Y normal (local)
 COLLIDER_SPHERE = 1  # params: (radius,)
 COLLIDER_CUBOID = 2  # params: (hx, hy, hz) half-extents
@@ -351,8 +353,9 @@ TABLE_TENSORS = ("position", "rotation", "params", "layers", "active", "hull_pla
 TABLE_STATIC = ("kinds", "identity_rot", "hull_counts")  # its meta fields
 
 
-def compile_colliders(colliders: List[Collider], device="cpu") -> ColliderTable:
+def compile_colliders(colliders: List[Collider], device=DEFAULT_DEVICE) -> ColliderTable:
     """The JAX package's compile_colliders, with the tensors on `device`."""
+    device = resolve_device(device)
     c = len(colliders)
     params = np.zeros((max(c, 1), 3), dtype=np.float32)
     for i, col in enumerate(colliders):
@@ -387,5 +390,5 @@ def masked_layers(table: ColliderTable) -> torch.Tensor:
     return torch.where(table.active > 0, table.layers, torch.zeros_like(table.layers))
 
 
-def empty_collider_table(device="cpu") -> ColliderTable:
+def empty_collider_table(device=DEFAULT_DEVICE) -> ColliderTable:
     return compile_colliders([], device)

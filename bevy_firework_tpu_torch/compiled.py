@@ -22,6 +22,7 @@ import torch
 
 from .curve import K_MAX, compile_curve
 from .settings import EmissionModeKind, EmissionPacingKind, ParticleSpawner, SpawnTransformMode
+from .utils.device import DEFAULT_DEVICE, resolve_device
 
 PACING_ONE_SHOT = 0
 PACING_ON_DEMAND = 1
@@ -144,7 +145,8 @@ class SpawnerParams:
         return {k: getattr(self, k).cpu().numpy() for k in _PARAM_FIELDS}
 
     @staticmethod
-    def from_numpy(leaves: dict, device="cpu") -> "SpawnerParams":
+    def from_numpy(leaves: dict, device=DEFAULT_DEVICE) -> "SpawnerParams":
+        device = resolve_device(device)
         out = {}
         for k in _PARAM_FIELDS:
             a = np.asarray(leaves[k])
@@ -179,7 +181,10 @@ class CompiledSpawner:
         return self.static.num_emitters
 
 
-def compile_spawner(spawner: ParticleSpawner, nested_buffer: int = 4096, device="cpu") -> CompiledSpawner:
+def compile_spawner(spawner: ParticleSpawner, nested_buffer: int = 4096, device=DEFAULT_DEVICE) -> CompiledSpawner:
+    """Lower `spawner`; the params live on `device` (the card unless the
+    caller passes "cpu")."""
+    device = resolve_device(device)
     types = spawner.particle_settings
     emitters = spawner.emission_settings
     T, E = len(types), len(emitters)

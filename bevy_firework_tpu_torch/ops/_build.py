@@ -4,7 +4,9 @@
 shared library under `ops/_build/` at first use, named by a hash of the
 sources, the generated layout header (`table_layout.header()`, included as
 "table_layout.h") and the flags, so an edited source or layout rebuilds;
-the library is loaded with ctypes. Nothing is built when the package is
+the library is loaded with ctypes. ptxas reports each kernel's registers,
+stack, spills and shared memory (`-Xptxas -v`); the report is kept beside
+the library (`ptxas_report()`). Nothing is built when the package is
 imported.
 """
 
@@ -27,7 +29,7 @@ SOURCES = ("fused_step.cu",)
 # -fmad=false: no multiply-add contraction, so the kernels keep the plain
 # versions' op order (see the FMA policy in csrc/fused_step.cu). No fast math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -59,8 +61,14 @@ def build() -> Path:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, out)
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's report of the current library's build (built if missing)."""
+    return build().with_suffix(".ptxas.txt").read_text()
 
 
 @functools.cache
@@ -68,7 +76,7 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bf_fused_step.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p]
+    lib.bf_fused_step.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, p, i, p, p, p, p, p]
     lib.bf_fused_step.restype = ctypes.c_int
     lib.bf_dead_rank_offsets.argtypes = [p, p, p, i, p]
     lib.bf_dead_rank_offsets.restype = ctypes.c_int

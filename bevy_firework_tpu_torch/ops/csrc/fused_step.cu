@@ -1,17 +1,21 @@
 // Fused particle step for NVIDIA Hopper (sm_90a): emission cadence, ring or
-// dead-rank claim, spawn init from Philox, age cull, move + linear drag, the
-// collision narrow phase (7 collider kinds, up to 4 bounce substeps,
-// destroy-on-collision), quaternion + angular drag, and optionally the f32
-// render pack, for U <= 8 frames per launch.
+// dead-rank claim, spawn init from Philox, age cull, move, the collision
+// narrow phase (7 collider kinds, up to 4 bounce substeps,
+// destroy-on-collision), scene force fields, linear drag, quaternion +
+// angular drag, and optionally the destroyed-particle dump plane, the f32
+// render pack and the frame's stats (AABB and counts), for U <= 8 frames
+// per launch.
 //
 // Replaces: bevy_firework_tpu/ops/fused_step.py `_make_kernel` (:913) as run
 // by `_run_fused_kernel` (:1793) with kernel_spawn on, ring or dead-rank
-// claims and colliders (no force fields, dump, fleet, shard or nested
-// blocks): its main-path block (:1162-1521), its render-pack block
-// (:1523-1561, f32 mode), its collision narrow phase `_collide_tile` (:349)
-// with `_ray_kind` (:309), and its dead-rank claim (`_prefix_exclusive`
+// claims, colliders, force fields, the dump and kernel stats (no fleet,
+// shard or nested blocks): its main-path block (:1162-1521), its render-pack
+// block (:1523-1561, f32 mode), its collision narrow phase `_collide_tile`
+// (:349) with `_ray_kind` (:309), its dead-rank claim (`_prefix_exclusive`
 // :173 with the SMEM `dead_carry`, :1142-1149, :1323-1333) with the alive
-// plane in and out (:1023-1026, :1563-1564).
+// plane in and out (:1023-1026, :1563-1564), its force-field block
+// (`force_fields.field_accel`, used :1462-1472), its dump plane
+// (:1567-1576) and its kernel-stats block (:1580-1618).
 //
 // Design:
 //  * One thread per lane; a block runs TILE lanes, a fixed contiguous lane
@@ -46,9 +50,26 @@
 //    uniforms from the top 24 bits, draw order shape 0-2, velocity 3-5,
 //    radial 6, scale 7, then lifetime, then angular velocity. The torch
 //    version in bevy_firework_tpu_torch/prng.py gives the same bits.
-//  * The kernel is a template over the claim kind and the narrow phase
-//    (four instantiations, chosen at launch), so the main path's kernel
-//    carries neither the narrow phase's registers nor the claim's barriers.
+//  * Force fields: the scene's field records ride the launch arguments by
+//    value (a table the host edits every frame costs no device copy) and are
+//    staged once per block in shared memory; each surviving lane evaluates
+//    them at its post-move position and adds them, weighted by its type's
+//    opt-in, to the type's acceleration before drag (the plain version's op
+//    order). A lane on a field's singular locus gets 0 from it by a select.
+//  * Dump plane: u8, the last sub-frame's `alive after spawn && !survivor`
+//    gated by the type's destroyed handler; written when the launch passes
+//    it (dump archetypes step one frame per launch).
+//  * Stats: the TPU carried its SMEM stat rows across its in-order grid;
+//    CUDA blocks run concurrently, so each thread folds its lanes (min, max,
+//    counts over the last sub-frame's survivors), each block reduces its
+//    threads into one partial row, and the last block to finish (an atomic
+//    ticket after __threadfence) reduces the partial rows into the output
+//    row. Min, max and integer sums are exact in any order, so the row
+//    equals the plain reductions.
+//  * The kernel is a template over the claim kind, the narrow phase, the
+//    force fields and the stats (sixteen instantiations, chosen at launch),
+//    so the main path's kernel carries none of their registers, barriers or
+//    shared memory.
 //  * Spawner structure (emitter/type counts, pacing kinds, curve kinds and
 //    knot counts, elision flags, collision types) and all
 //    parameters come from one small device table read at run time; branches
@@ -69,10 +90,13 @@
 // reads and writes each active field once (8 f32 planes for the stress_test
 // archetype: 64 B per lane, about 8 MB at N = 131072, ~2.5 us at 3.35 TB/s),
 // plus 36 B per lane when the render pack is on, plus 2 B (alive in and out)
-// on the dead-rank claim. Arithmetic per lane-frame is a few dozen flops
-// outside spawn lanes; spawn lanes add three Philox blocks and the samplers'
-// sinf/cosf; colliding lanes add up to 4 substeps x C ray tests, which at
-// C = 8 hulls makes the step arithmetic-bound.
+// on the dead-rank claim, plus 1 B for the dump plane. Arithmetic per
+// lane-frame is a few dozen flops outside spawn lanes; spawn lanes add three
+// Philox blocks and the samplers' sinf/cosf; colliding lanes add up to 4
+// substeps x C ray tests, which at C = 8 hulls makes the step
+// arithmetic-bound; a turbulence field adds 9 cosf and ~80 flops per lane
+// and sub-frame, the other kinds ~25 flops each. The stats add one row per
+// block and a final pass over at most MAX_BLOCKS rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,7 +129,13 @@ struct Args {
   int* mq_out;
   int* cursor_out;
   float* render[N_RENDER];
-  float frame[FRAME_WORDS];  // FR_* slots
+  uint8_t* dump;                   // destroyed-dump plane (u8) or null
+  int* stats_partial;              // kStats: [gridDim.x * STATS_WORDS] block rows
+  unsigned* stats_ticket;          // kStats: blocks finished (0 at launch)
+  int* stats_out;                  // kStats: the STATS_WORDS output row
+  float frame[FRAME_WORDS];        // FR_* slots
+  int fields[FIELD_WORDS];         // FF_* records of the scene's force fields
+  int n_fields;
   uint32_t seeds[MAX_U];
   int unroll;
   int n;
@@ -589,6 +619,179 @@ __device__ bool collide(const int* col, int n_col, float* px, float* py, float* 
   return false;
 }
 
+// ---- force fields (force_fields.py; the JAX kernel's field block, :1462-1472) ----
+
+// curl of the 3-octave sine vector potential (force_fields._curl_sine_noise)
+__device__ __forceinline__ void curl_sine_noise(float freq, float phase, float rx, float ry, float rz, float* cx,
+                                                float* cy, float* cz) {
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    const float ko = freq * (float)(1 << o);
+    float dp[3][3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int k = (o * 3 + c) * 3;  // constant after unrolling: direct constant-bank reads
+      const float arg = ko * (TURB_DIRS[k] * rx + TURB_DIRS[k + 1] * ry + TURB_DIRS[k + 2] * rz) +
+                        TURB_PHASE[o * 3 + c] + phase;
+      const float g = TURB_AMP[o] * cosf(arg);
+      dp[c][0] = g * TURB_DIRS[k];
+      dp[c][1] = g * TURB_DIRS[k + 1];
+      dp[c][2] = g * TURB_DIRS[k + 2];
+    }
+    x = x + dp[2][1] - dp[1][2];
+    y = y + dp[0][2] - dp[2][0];
+    z = z + dp[1][0] - dp[0][1];
+  }
+  *cx = x;
+  *cy = y;
+  *cz = z;
+}
+
+// Summed acceleration of the n_fields records at ff (shared memory) at
+// (px, py, pz). A lane on a point centre or an axis line gets 0 from that
+// field: d > FIELD_EPS selects, so the unselected quotient never enters.
+__device__ void field_accel(const int* ff, int n_fields, float px, float py, float pz, float* oax, float* oay,
+                            float* oaz) {
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  for (int i = 0; i < n_fields; ++i) {
+    const int* r = ff + i * FF_STRIDE;
+    const int kind = r[FF_KIND];
+    const float s = __int_as_float(r[FF_PARAMS]) * __int_as_float(r[FF_ACTIVE]);
+    const float inv_radius = 1.0f / __int_as_float(r[FF_PARAMS + 1]);
+    const float rx = px - __int_as_float(r[FF_POS]);
+    const float ry = py - __int_as_float(r[FF_POS + 1]);
+    const float rz = pz - __int_as_float(r[FF_POS + 2]);
+    if (kind == FIELD_TURBULENCE) {
+      const float d = sqrtf(rx * rx + ry * ry + rz * rz);
+      const float w = pmax(1.0f - d * inv_radius, 0.0f);
+      float tx, ty, tz;
+      curl_sine_noise(__int_as_float(r[FF_PARAMS + 2]), __int_as_float(r[FF_PARAMS + 3]), rx, ry, rz, &tx, &ty, &tz);
+      const float g = s * w;
+      ax = ax + g * tx;
+      ay = ay + g * ty;
+      az = az + g * tz;
+    } else if (kind == FIELD_POINT) {
+      const float d = sqrtf(rx * rx + ry * ry + rz * rz);
+      const float w = pmax(1.0f - d * inv_radius, 0.0f);
+      const float g = d > FIELD_EPS ? s * w / pmax(d, FIELD_EPS) : 0.0f;
+      ax = ax - g * rx;
+      ay = ay - g * ry;
+      az = az - g * rz;
+    } else {  // FIELD_VORTEX / FIELD_AXIAL: geometry about the axis line
+      const float ux = __int_as_float(r[FF_AXIS]), uy = __int_as_float(r[FF_AXIS + 1]);
+      const float uz = __int_as_float(r[FF_AXIS + 2]);
+      const float tx = uy * rz - uz * ry;
+      const float ty = uz * rx - ux * rz;
+      const float tz = ux * ry - uy * rx;
+      const float d_ax = sqrtf(tx * tx + ty * ty + tz * tz);
+      const float w = pmax(1.0f - d_ax * inv_radius, 0.0f);
+      const float g = d_ax > FIELD_EPS ? s * w / pmax(d_ax, FIELD_EPS) : 0.0f;
+      if (kind == FIELD_VORTEX) {
+        ax = ax + g * tx;
+        ay = ay + g * ty;
+        az = az + g * tz;
+      } else {  // toward the axis: -r_perp = -(r - (r.u)u)
+        const float dot = rx * ux + ry * uy + rz * uz;
+        ax = ax - g * (rx - dot * ux);
+        ay = ay - g * (ry - dot * uy);
+        az = az - g * (rz - dot * uz);
+      }
+    }
+  }
+  *oax = ax;
+  *oay = ay;
+  *oaz = az;
+}
+
+// ---- kernel stats (the JAX kernel's SMEM stat rows, :1580-1618) ----
+// A stats row: ST_MIN [3] and ST_MAX [3] f32 bits, ST_ALIVE and ST_TYPES
+// [MAX_T] i32. Every combine is exact (NaN-propagating min/max, integer
+// sums), so any reduction order gives the plain reductions' values.
+
+struct Stats {
+  float mn[3], mx[3];
+  int alive, types[MAX_T];
+};
+
+__device__ __forceinline__ void stats_init(Stats& s) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s.mn[c] = __int_as_float(0x7f800000);        // +inf
+    s.mx[c] = __int_as_float((int)0xff800000u);  // -inf
+  }
+  s.alive = 0;
+#pragma unroll
+  for (int t = 0; t < MAX_T; ++t) s.types[t] = 0;
+}
+
+__device__ __forceinline__ void stats_combine(Stats& s, const Stats& o) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s.mn[c] = pmin(s.mn[c], o.mn[c]);
+    s.mx[c] = pmax(s.mx[c], o.mx[c]);
+  }
+  s.alive += o.alive;
+#pragma unroll
+  for (int t = 0; t < MAX_T; ++t) s.types[t] += o.types[t];
+}
+
+__device__ __forceinline__ Stats stats_shfl_down(const Stats& s, int delta) {
+  Stats o;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    o.mn[c] = __shfl_down_sync(0xffffffffu, s.mn[c], delta);
+    o.mx[c] = __shfl_down_sync(0xffffffffu, s.mx[c], delta);
+  }
+  o.alive = __shfl_down_sync(0xffffffffu, s.alive, delta);
+#pragma unroll
+  for (int t = 0; t < MAX_T; ++t) o.types[t] = __shfl_down_sync(0xffffffffu, s.types[t], delta);
+  return o;
+}
+
+__device__ __forceinline__ void stats_store(int* row, const Stats& s) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    row[ST_MIN + c] = __float_as_int(s.mn[c]);
+    row[ST_MAX + c] = __float_as_int(s.mx[c]);
+  }
+  row[ST_ALIVE] = s.alive;
+#pragma unroll
+  for (int t = 0; t < MAX_T; ++t) row[ST_TYPES + t] = s.types[t];
+}
+
+// kL2: a row in device memory written by another block, read through L2
+// (__ldcg: this SM's L1 need not hold that block's stores); else a row in
+// this block's shared memory
+template <bool kL2>
+__device__ __forceinline__ Stats stats_load(const int* row) {
+  Stats s;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    s.mn[c] = __int_as_float(kL2 ? __ldcg(row + ST_MIN + c) : row[ST_MIN + c]);
+    s.mx[c] = __int_as_float(kL2 ? __ldcg(row + ST_MAX + c) : row[ST_MAX + c]);
+  }
+  s.alive = kL2 ? __ldcg(row + ST_ALIVE) : row[ST_ALIVE];
+#pragma unroll
+  for (int t = 0; t < MAX_T; ++t) s.types[t] = kL2 ? __ldcg(row + ST_TYPES + t) : row[ST_TYPES + t];
+  return s;
+}
+
+// Block-wide combine of every thread's `s` into the row at `out` (all
+// threads of the block must call it; s_rows holds TILE / 32 rows).
+__device__ void block_stats(Stats s, int* s_rows, int* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int delta = 16; delta > 0; delta >>= 1) stats_combine(s, stats_shfl_down(s, delta));
+  if (lane == 0) stats_store(s_rows + warp * STATS_WORDS, s);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Stats b = stats_load<false>(s_rows);
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) stats_combine(b, stats_load<false>(s_rows + w * STATS_WORDS));
+    stats_store(out, b);
+  }
+  __syncthreads();
+}
+
 // ---- dead-rank claim (replaces the JAX kernel's _prefix_exclusive + SMEM dead_carry) ----
 // The TPU carried the dead count across tiles in SMEM because its grid runs
 // in order; CUDA blocks do not, so the carry is count -> scan -> apply:
@@ -651,20 +854,25 @@ __global__ void __launch_bounds__(1024) tile_scan_kernel(const int* __restrict__
 }
 
 // kRing: ring claim (else the dead-rank claim with the alive plane, U = 1);
-// kCollide: the narrow phase runs. The four instantiations keep the narrow
-// phase's registers and the claim's barriers out of the kernels that do not
-// run them (the main path's is the <true, false> one).
-template <bool kRing, bool kCollide>
+// kCollide: the narrow phase runs; kFields: the scene has force fields;
+// kStats: the launch writes the stats row. The sixteen instantiations keep
+// each block's registers, barriers and shared memory out of the kernels
+// that do not run it (the main path's is <true, false, false, false>).
+template <bool kRing, bool kCollide, bool kFields, bool kStats>
 __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict__ tab, Args a) {
   __shared__ int s_cursor[MAX_U];
   __shared__ int s_bounds[MAX_U][MAX_E + 1];
   __shared__ int s_warp[TILE / 32];
   __shared__ int s_col[kCollide ? COLLIDER_WORDS : 1];
+  __shared__ int s_ff[kFields ? FIELD_WORDS : 1];
+  __shared__ int s_stats[kStats ? (TILE / 32) * STATS_WORDS : 1];
+  __shared__ bool s_last;
 
   const int E = tabi(tab, H_E);
   const int n = a.n;
   const float dt = a.frame[FR_DT];
   const int n_col = kCollide ? a.n_colliders : 0;
+  const int n_ff = kFields ? a.n_fields : 0;
 
   // collider rows, and the plane rows of each hull up to its own count
   if (kCollide) {
@@ -674,6 +882,11 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
       if (i - ci * CO_PLANE_STRIDE < 4 * a.colliders[ci * CO_STRIDE + CO_HULL_N])
         s_col[CO_PLANES_AT + i] = a.colliders[CO_PLANES_AT + i];
     }
+  }
+  // field records (constant indices into the launch arguments: no local copy)
+  if (kFields && threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < FIELD_WORDS; ++i) s_ff[i] = a.fields[i];
   }
 
   if (threadIdx.x == 0) {
@@ -746,6 +959,8 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
   const float* trans = a.frame + FR_TRANS;
   const float* orot = a.frame + FR_ROT;
   const int n_tiles = (n + TILE - 1) / TILE;
+  Stats st;  // kStats: this thread's fold over its lanes' last sub-frame
+  if (kStats) stats_init(st);
 
   // A tile is the fixed lane range [tile * TILE, (tile + 1) * TILE), whichever
   // block runs it: the dead-rank claim's tile offsets index it.
@@ -761,7 +976,7 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
     for (int i = 0; i < N_FIELDS; ++i) f[i] = a.in[i] ? a.in[i][g] : 0.0f;
     if (elide_rot) f[QW] = 1.0f;
     int ty = single ? 0 : a.ptype_in[g];
-    bool survivor = false;
+    bool survivor = false, alive_sp = false;
 
     for (int u = 0; u < a.unroll; ++u) {
       float life = const_life ? life_c : f[LIFETIME];
@@ -829,7 +1044,7 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
           }
         }
       }
-      const bool alive_sp = alive0 || spawned;
+      alive_sp = alive0 || spawned;
 
       // ---- integrate (reference core.rs:594-650) ----
       life = const_life ? life_c : f[LIFETIME];
@@ -864,9 +1079,19 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
         f[VZ] = nvz;
       }
       if (survivor) {
-        f[VX] = nvx + (tabf(tab, trow + TY_ACCEL + 0) - nvx * lin_drag) * dt;
-        f[VY] = nvy + (tabf(tab, trow + TY_ACCEL + 1) - nvy * lin_drag) * dt;
-        f[VZ] = nvz + (tabf(tab, trow + TY_ACCEL + 2) - nvz * lin_drag) * dt;
+        float ax = tabf(tab, trow + TY_ACCEL + 0), ay = tabf(tab, trow + TY_ACCEL + 1);
+        float az = tabf(tab, trow + TY_ACCEL + 2);
+        if (kFields) {  // scene force fields at the post-move position (kernel :1462-1472)
+          float fx, fy, fz;
+          field_accel(s_ff, n_ff, npx, npy, npz, &fx, &fy, &fz);
+          const float fm = tabf(tab, trow + TY_FIELD_MASK);
+          ax = ax + fm * fx;
+          ay = ay + fm * fy;
+          az = az + fm * fz;
+        }
+        f[VX] = nvx + (ax - nvx * lin_drag) * dt;
+        f[VY] = nvy + (ay - nvy * lin_drag) * dt;
+        f[VZ] = nvz + (az - nvz * lin_drag) * dt;
       }
       if (!elide_rot && survivor) {
         const float ang_drag = tabf(tab, trow + TY_ANG_DRAG);
@@ -894,15 +1119,32 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
       if (a.out[i]) a.out[i][g] = f[i];
     if (!single) a.ptype_out[g] = ty;
     if (!kRing) a.alive_out[g] = survivor ? 1 : 0;
+    // destroyed-dump plane (kernel :1567-1576): died this sub-frame, of a
+    // type with a destroyed handler
+    if (a.dump) a.dump[g] = (alive_sp && !survivor && tabi(tab, H_DUMP + ty) != 0) ? 1 : 0;
+
+    // the lane's instance scale at its age fraction (render pack, stats)
+    const float age_pct = f[AGE] / (const_life ? life_c : f[LIFETIME]);
+    const int crow = CV_AT + ty * CV_STRIDE;
+    float scale = 0.0f;
+    if (a.pack_render || (kStats && survivor))
+      scale = f[INITIAL_SCALE] * eval_curve(tab, crow + CV_SCALE_TS * MAX_K, crow + CV_SCALE_VS * MAX_K,
+                                            tabi(tab, H_SCALE_KIND + ty), tabi(tab, H_SCALE_N + ty), age_pct);
+    if (kStats && survivor) {  // stats of the last sub-frame (kernel :1580-1618)
+      st.mn[0] = pmin(st.mn[0], f[PX] - scale);
+      st.mn[1] = pmin(st.mn[1], f[PY] - scale);
+      st.mn[2] = pmin(st.mn[2], f[PZ] - scale);
+      st.mx[0] = pmax(st.mx[0], f[PX] + scale);
+      st.mx[1] = pmax(st.mx[1], f[PY] + scale);
+      st.mx[2] = pmax(st.mx[2], f[PZ] + scale);
+      st.alive += 1;
+#pragma unroll
+      for (int t = 0; t < MAX_T; ++t) st.types[t] += ty == t ? 1 : 0;
+    }
 
     if (a.pack_render) {
       // render-contract extract of the post-step state: instance scale (0 on
       // dead lanes), base rgba, emissive rgba, at the lane's age fraction
-      const float age_pct = f[AGE] / (const_life ? life_c : f[LIFETIME]);
-      const int crow = CV_AT + ty * CV_STRIDE;
-      const float scale = f[INITIAL_SCALE] * eval_curve(tab, crow + CV_SCALE_TS * MAX_K, crow + CV_SCALE_VS * MAX_K,
-                                                        tabi(tab, H_SCALE_KIND + ty), tabi(tab, H_SCALE_N + ty),
-                                                        age_pct);
       float base[4], emis[4];
       eval_gradient(tab, crow + CV_BASE_TS * MAX_K, tabi(tab, H_BASE_KIND + ty), tabi(tab, H_BASE_N + ty), age_pct,
                     base);
@@ -915,6 +1157,39 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
       }
     }
   }
+
+  if (kStats) {
+    // this block's row, then the last block to finish reduces every row
+    block_stats(st, s_stats, a.stats_partial + blockIdx.x * STATS_WORDS);
+    if (threadIdx.x == 0) {
+      __threadfence();  // the row is visible before the ticket counts it
+      s_last = atomicAdd(a.stats_ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (s_last) {
+      __threadfence();
+      Stats all;
+      stats_init(all);
+      for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x)
+        stats_combine(all, stats_load<true>(a.stats_partial + b * STATS_WORDS));
+      block_stats(all, s_stats, a.stats_out);
+    }
+  }
+}
+
+using KernelFn = void (*)(const int*, Args);
+
+template <bool R, bool C, bool F>
+KernelFn select_stats(bool stats) {
+  return stats ? fused_step_kernel<R, C, F, true> : fused_step_kernel<R, C, F, false>;
+}
+template <bool R, bool C>
+KernelFn select_fields(bool fields, bool stats) {
+  return fields ? select_stats<R, C, true>(stats) : select_stats<R, C, false>(stats);
+}
+template <bool R>
+KernelFn select_collide(bool collide, bool fields, bool stats) {
+  return collide ? select_fields<R, true>(fields, stats) : select_fields<R, false>(fields, stats);
 }
 
 }  // namespace
@@ -929,16 +1204,23 @@ extern "C" {
 // rows (n_colliders 0: no narrow phase). Non-ring archetypes (U = 1) pass
 // the alive planes (u8) and the tile offsets bf_dead_rank_offsets wrote;
 // ring archetypes pass nulls. frame is FRAME_WORDS host floats, seeds
-// `unroll` host words.
+// `unroll` host words, fields FIELD_WORDS host words holding n_fields
+// records (n_fields 0: no force fields). dump_out is the u8 dump plane or
+// null. stats_out (STATS_WORDS words) or null; with it, stats_partial holds
+// MAX_BLOCKS rows of scratch and stats_ticket one word that is 0 at launch.
 // Returns the cudaError_t of the launch (0 = success).
 int bf_fused_step(const void* tables, const void* colliders, int n_colliders, void* const* field_in,
                   void* const* field_out, const void* ptype_in, void* ptype_out, const void* alive_in,
                   void* alive_out, const void* tile_dead_offset, void* const* scal_in, void* const* scal_out,
                   void* const* render_out, const float* frame, const uint32_t* seeds, int unroll, int n,
-                  void* stream) {
-  if (unroll < 1 || unroll > MAX_U || n <= 0 || n_colliders < 0 || n_colliders > MAX_C)
+                  const int* fields, int n_fields, void* dump_out, void* stats_partial, void* stats_ticket,
+                  void* stats_out, void* stream) {
+  if (unroll < 1 || unroll > MAX_U || n <= 0 || n_colliders < 0 || n_colliders > MAX_C || n_fields < 0 ||
+      n_fields > MAX_F)
     return (int)cudaErrorInvalidValue;
   if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
+    return (int)cudaErrorInvalidValue;
+  if (stats_out != nullptr && (stats_partial == nullptr || stats_ticket == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   for (int i = 0; i < N_FIELDS; ++i) {
@@ -964,18 +1246,22 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, vo
   a.cursor_out = (int*)scal_out[4];
   a.pack_render = render_out != nullptr;
   for (int i = 0; i < N_RENDER; ++i) a.render[i] = render_out ? (float*)render_out[i] : nullptr;
+  a.dump = (uint8_t*)dump_out;
+  a.stats_partial = (int*)stats_partial;
+  a.stats_ticket = (unsigned*)stats_ticket;
+  a.stats_out = (int*)stats_out;
   for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = frame[i];
+  for (int i = 0; i < FIELD_WORDS; ++i) a.fields[i] = i < n_fields * FF_STRIDE ? fields[i] : 0;
+  a.n_fields = n_fields;
   for (int i = 0; i < MAX_U; ++i) a.seeds[i] = i < unroll ? seeds[i] : 0u;
   a.unroll = unroll;
   a.n = n;
 
-  void (*kernel)(const int*, Args);
-  if (alive_in == nullptr)
-    kernel = n_colliders > 0 ? fused_step_kernel<true, true> : fused_step_kernel<true, false>;
-  else
-    kernel = n_colliders > 0 ? fused_step_kernel<false, true> : fused_step_kernel<false, false>;
+  const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
+  const KernelFn kernel = alive_in == nullptr ? select_collide<true>(collide, with_fields, stats)
+                                              : select_collide<false>(collide, with_fields, stats);
   long long blocks = ((long long)n + TILE - 1) / TILE;
-  if (blocks > 132 * 8) blocks = 132 * 8;  // tile-stride beyond 8 blocks per SM
+  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;  // tile-stride beyond that
   kernel<<<(int)blocks, TILE, 0, (cudaStream_t)stream>>>((const int*)tables, a);
   return (int)cudaGetLastError();
 }
@@ -987,7 +1273,7 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, vo
 int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + TILE - 1) / TILE;
-  const int blocks = n_tiles < 132 * 8 ? n_tiles : 132 * 8;
+  const int blocks = n_tiles < MAX_BLOCKS ? n_tiles : MAX_BLOCKS;
   dead_count_kernel<<<blocks, TILE, 0, (cudaStream_t)stream>>>((const uint8_t*)alive, (int*)counts, n, n_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -2,22 +2,28 @@
 
 `fused_step` advances a pool by U <= 8 frames in one launch of the
 hand-written Hopper kernel (`csrc/fused_step.cu`, which replaces the JAX
-package's Pallas `_make_kernel` with its main-path, render-pack, collision
-and dead-rank-claim blocks), optionally writing the render-pack planes of
-the last frame. Destroy-on-collision archetypes claim by dead-slot rank:
-before their step, `tile_dead_offsets` launches the claim's count and scan
-kernels. Dispatch is by the device of the pool's tensors and nothing else:
+package's Pallas `_make_kernel` with its main-path, render-pack, collision,
+dead-rank-claim, force-field, dump and kernel-stats blocks), optionally
+writing the render-pack planes of the last frame. Destroy-on-collision
+archetypes claim by dead-slot rank: before their step, `tile_dead_offsets`
+launches the claim's count and scan kernels. Scene force fields ride the
+frame input (`FrameInput.force_fields`) and enter the launch arguments by
+value; archetypes with a destroyed handler get the dump plane
+(`StepOutputs.destroyed_mask`). Dispatch is by the device of the pool's
+tensors and nothing else:
   * CUDA tensors: the kernels are launched, or the call raises;
   * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
     frames, `render.pack_render_planes`, `tile_dead_offsets`' cumsum),
     which keep the kernel's op order and random-bit layout.
-Archetypes outside the kernel's scope raise NotImplementedError on either
-device; nothing falls back.
+Archetypes and tables outside the kernel's scope raise on either device;
+nothing falls back.
 
-The stats of a frame (AABB, alive and per-type counts, finished latch) are
-torch reductions outside the kernel (`step.epilogue`), as XLA ran them
-outside the Pallas kernel. `multi_step_auto` computes them for the last
-frame only; earlier launches of a chain update just the finished latch.
+The stats of a frame (AABB, alive and per-type counts): on the card the
+kernel's stats block writes them in one row whenever they are asked for, and
+the epilogue only updates the finished latch; on the CPU the torch
+reductions of `step.epilogue` (the block's plain version) compute them.
+`multi_step_auto` asks for them on the last frame only; earlier launches of
+a chain update just the finished latch.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from ..compiled import MODE_GLOBAL, SpawnerParams, SpawnerStatic
 from ..pool import FrameInput, PoolState
 from ..prng import frame_seeds
 from ..render import pack_render_planes
-from ..step import active_f32_fields, check_scope, collision_on, epilogue, plain_frames
+from ..step import active_f32_fields, check_scope, collision_on, epilogue, fields_on, plain_frames
 from . import table_layout as L
 
 MAX_UNROLL = L.MAX_U
@@ -50,23 +56,27 @@ def can_fuse(static: SpawnerStatic) -> bool:
 
 def can_unroll(static: SpawnerStatic) -> bool:
     """U frames per launch are sound where every cross-frame dependency
-    lives in the fields and scalars: ring claims, derived alive, no dump."""
-    return can_fuse(static) and static.ring_claim and static.derived_alive and not static.any_destroyed_dump
+    lives in the fields and scalars: ring claims, derived alive, no dump
+    (whose mask is per frame)."""
+    return can_fuse(static) and static.derived_alive
 
 
 def check_kernel_scope(static: SpawnerStatic, colliders=None, frame: Optional[FrameInput] = None,
                        unroll: int = 1) -> None:
     """Raise NotImplementedError for an archetype or call the kernel (and its
     plain version) does not cover, ValueError for a bad unroll."""
-    check_scope(static, frame)
+    check_scope(static)
     if not 1 <= unroll <= MAX_UNROLL:
         raise ValueError(f"unroll must be in 1..{MAX_UNROLL}, got {unroll}")
     if unroll > 1 and not can_unroll(static):
-        raise ValueError("unroll > 1 needs ring claims (destroy-on-collision archetypes step one frame per launch)")
+        raise ValueError("unroll > 1 needs ring claims and no destroyed handler (destroy-on-collision and dump "
+                         "archetypes step one frame per launch)")
     if static.num_emitters > L.MAX_E or static.num_types > L.MAX_T:
         raise NotImplementedError(f"the kernel's tables hold at most {L.MAX_E} emitters and {L.MAX_T} types")
     if colliders is not None and colliders.count > L.MAX_C:
         raise NotImplementedError(f"the kernel's collider table holds at most {L.MAX_C} colliders")
+    if frame is not None and frame.force_fields is not None and frame.force_fields.count > L.MAX_F:
+        raise NotImplementedError(f"the kernel's field row holds at most {L.MAX_F} force fields")
 
 
 def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
@@ -82,6 +92,7 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
     E, T = static.num_emitters, static.num_types
     words[[L.H_E, L.H_SINGLE, L.H_ELIDE_ROT]] = [E, int(static.single_type), int(static.elide_rotation)]
     words[L.H_HAS_COL:L.H_HAS_COL + T] = static.collision_types
+    words[L.H_DUMP:L.H_DUMP + T] = static.destroyed_dump_types
     words[L.H_CONST_LIFE] = int(static.const_lifetime is not None)
     fl[L.H_CONST_LIFE_VAL] = 0.0 if static.const_lifetime is None else static.const_lifetime
     words[L.H_PACING:L.H_PACING + E] = static.pacing_kinds
@@ -98,7 +109,7 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
                   (L.TY_LIFE_LO, "lifetime_lo"), (L.TY_LIFE_HI, "lifetime_hi"), (L.TY_ACCEL, "acceleration"),
                   (L.TY_LIN_DRAG, "linear_drag"), (L.TY_ANG_ACCEL, "angular_acceleration"),
                   (L.TY_ANG_DRAG, "angular_drag"), (L.TY_RESTITUTION, "restitution"), (L.TY_FRICTION, "friction"),
-                  (L.TY_DESTROY, "destroy_on_collision"))
+                  (L.TY_DESTROY, "destroy_on_collision"), (L.TY_FIELD_MASK, "field_mask"))
 
     def put(at, value):
         v = np.atleast_1d(value)
@@ -166,6 +177,41 @@ def kernel_colliders(colliders: ColliderTable) -> torch.Tensor:
     return colliders.__dict__["_kernel_colliders"]
 
 
+def pack_fields(table) -> np.ndarray:
+    """The kernel's force-field row (int32 words, f32 values stored bitwise):
+    one FF_STRIDE record per field at the slots `table_layout` names, from
+    the table's host rows."""
+    if table.count > L.MAX_F:
+        raise NotImplementedError(f"the kernel's field row holds at most {L.MAX_F} force fields")
+    words = np.zeros(L.FIELD_WORDS, np.int32)
+    fl = words.view(np.float32)
+    rows = table.rows
+    for i, kind in enumerate(table.kinds):
+        at = i * L.FF_STRIDE
+        words[at + L.FF_KIND] = kind
+        fl[at + L.FF_POS:at + L.FF_POS + 3] = rows["position"][i]
+        fl[at + L.FF_AXIS:at + L.FF_AXIS + 3] = rows["axis"][i]
+        fl[at + L.FF_PARAMS:at + L.FF_PARAMS + 4] = rows["params"][i]
+        fl[at + L.FF_ACTIVE] = rows["active"][i]
+    return words
+
+
+def kernel_fields(table) -> np.ndarray:
+    """`pack_fields`, built once per table and kept in it (host memory: the
+    row is copied into the launch arguments, never to the device)."""
+    if "_kernel_fields" not in table.__dict__:
+        table.__dict__["_kernel_fields"] = pack_fields(table)
+    return table.__dict__["_kernel_fields"]
+
+
+def stats_from_row(static: SpawnerStatic, row: torch.Tensor):
+    """(aabb_min, aabb_max, alive count, per-type counts) from the kernel's
+    stats row."""
+    f = row.view(torch.float32)
+    return (f[L.ST_MIN:L.ST_MIN + 3], f[L.ST_MAX:L.ST_MAX + 3], row[L.ST_ALIVE],
+            row[L.ST_TYPES:L.ST_TYPES + static.num_types])
+
+
 def tile_dead_offsets(alive: torch.Tensor) -> torch.Tensor:
     """The dead-rank claim's tile offsets: for each TILE-lane tile of the
     pool, the number of dead lanes before it (int32 [ceil(N / TILE)]). On a
@@ -209,11 +255,11 @@ def _checked(t: torch.Tensor, dtype, device, shape: tuple) -> torch.Tensor:
 
 
 def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-            seeds: list, pack_render: bool):
+            seeds: list, pack_render: bool, stats: bool):
     """One step launch on the current stream (after the dead-rank claim's
     count and scan, for archetypes without ring claims). Returns (fields,
-    scal, render planes or None): new tensors; the inputs are not
-    modified."""
+    scal, render planes or None, dump plane or None, stats row or None):
+    new tensors; the inputs are not modified."""
     from . import _build
 
     lib = _build.load()
@@ -245,6 +291,14 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     s_in = [_checked(getattr(state, k), d, dev, sh) for k, d, sh in zip(names, dtypes, shapes)]
     s_out = [torch.empty_like(t) for t in s_in]
     render = [torch.empty(N, dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)] if pack_render else None
+    dump = torch.empty(N, dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
+    stats_row = partial = ticket = None
+    if stats:  # the row, one partial row per block, and the last-block ticket (zeroed)
+        stats_row = torch.empty(L.STATS_WORDS, dtype=torch.int32, device=dev)
+        partial = torch.empty(L.MAX_BLOCKS * L.STATS_WORDS, dtype=torch.int32, device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    field_words, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
+        else (None, 0)
     row = np.zeros(L.FRAME_WORDS, np.float32)
     for at, value in ((L.FR_DT, frame.dt), (L.FR_MOD_SCALE, frame.modifier_scale),
                       (L.FR_MOD_SPEED, frame.modifier_speed), (L.FR_PVEL, frame.parent_velocity),
@@ -261,33 +315,41 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         kernel_tables(static, params).data_ptr(), ptr(kernel_colliders(colliders)) if n_col else None, n_col,
         _ptr_array(ins), _ptr_array(outs), ptr(ptype_in), ptr(ptype_out), ptr(alive_in), ptr(alive_out),
         ptr(offsets), _ptr_array(s_in), _ptr_array(s_out), None if render is None else _ptr_array(render),
-        frame_row, seed_row, len(seeds), N, torch.cuda.current_stream(dev).cuda_stream,
+        frame_row, seed_row, len(seeds), N, None if field_words is None else field_words.ctypes.data, n_fields,
+        ptr(dump), ptr(partial), ptr(ticket), ptr(stats_row), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
     scal = dict(zip(names, s_out))
-    return fields, scal, render
+    return fields, scal, render, dump, stats_row
 
 
 def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-               pack_render: bool = False, unroll: int = 1, stats: bool = True):
+               pack_render: bool = False, unroll: int = 1, stats: bool = True, kernel_stats: bool = False):
     """Advance `unroll` frames (bit-equal to that many single frames).
     Returns (state, outputs) or, with pack_render, (state, outputs, planes):
     the 9 render-pack planes of the last frame. outputs is None when
     `stats` is False (chain frames nobody reads; the finished latch is
-    still updated)."""
+    still updated); otherwise, on the card, the kernel's stats block
+    computes their AABB and counts. kernel_stats is accepted for parity
+    with the JAX package's signature and changes nothing."""
     check_kernel_scope(static, colliders, frame, unroll)
     if collision_on(static, colliders) and colliders.device != state.device:
         raise ValueError(f"colliders on {colliders.device}, pool on {state.device}")
+    if fields_on(frame) and frame.force_fields.device != state.device:
+        raise ValueError(f"force fields on {frame.force_fields.device}, pool on {state.device}")
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
-        fields, scal, planes = _launch(static, params, colliders, state, frame, seeds, pack_render)
+        fields, scal, planes, dump, row = _launch(static, params, colliders, state, frame, seeds, pack_render,
+                                                  stats)
         fused_step.launches += 1
-        if pack_render:
-            fused_step.render_launches += 1
-        if collision_on(static, colliders):
-            fused_step.collide_launches += 1
-        new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats)
+        fused_step.render_launches += pack_render
+        fused_step.collide_launches += collision_on(static, colliders)
+        fused_step.fields_launches += fields_on(frame)
+        fused_step.dump_launches += dump is not None
+        fused_step.stats_launches += stats
+        new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats,
+                                  dump, None if row is None else stats_from_row(static, row))
     elif state.device.type == "cpu":
         new_state, out = plain_frames(static, params, state, frame, unroll, stats, colliders)
         planes = pack_render_planes(static, params, new_state) if pack_render else None
@@ -301,15 +363,19 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
 fused_step.launches = 0  # kernel launches (CUDA path only)
 fused_step.render_launches = 0  # of which with the render pack
 fused_step.collide_launches = 0  # of which with the narrow phase
+fused_step.fields_launches = 0  # of which with force fields
+fused_step.dump_launches = 0  # of which writing the dump plane
+fused_step.stats_launches = 0  # of which writing the stats row
 
 
-def step_auto(static, params, colliders, state, frame):
+def step_auto(static, params, colliders, state, frame, kernel_stats: bool = False):
     """One frame through the fused step (kernel on the card, plain version on
-    the CPU). Returns (state, outputs)."""
+    the CPU). Returns (state, outputs). kernel_stats: as in `fused_step`,
+    a no-op kept for the JAX package's signature."""
     return fused_step(static, params, colliders, state, frame)
 
 
-def step_auto_packed(static, params, colliders, state, frame):
+def step_auto_packed(static, params, colliders, state, frame, kernel_stats: bool = False):
     """step_auto plus the render extract: (state, outputs, planes), planes the
     9 render-pack planes `render.planes_to_rows` assembles into rows."""
     return fused_step(static, params, colliders, state, frame, pack_render=True)
@@ -346,3 +412,13 @@ def multi_step_auto(static, params, colliders, state, frame, n_frames: int):
     for i, u in enumerate(shape):
         state, out = fused_step(static, params, colliders, state, frame, unroll=u, stats=i == len(shape) - 1)
     return state, out
+
+
+def multi_step_auto_packed(static, params, colliders, state, frame, n_frames: int):
+    """multi_step_auto whose final frame also emits the render-pack planes
+    (the only frame a renderer reads): (state, outputs, planes)."""
+    if n_frames < 1:
+        raise ValueError("multi_step_auto_packed needs n_frames >= 1")
+    if n_frames > 1:
+        state, _o = multi_step_auto(static, params, colliders, state, frame, n_frames - 1)
+    return step_auto_packed(static, params, colliders, state, frame)

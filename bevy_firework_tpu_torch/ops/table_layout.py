@@ -2,18 +2,20 @@
 
 The kernel reads the spawner's structure and parameters from one int32
 device buffer (f32 values stored bitwise), the collider scene from a second
-one, the pool's fields through 16 pointer slots, and the frame's inputs from
-a row of 13 floats. This module is the only definition of those layouts:
-`ops.fused_step` fills the buffers, the slots and the row by these names,
-and `ops._build` writes them, with the enumerations the kernel branches on
-and the narrow phase's float constants, into a generated C++ header
-(`header()`, included by `csrc/fused_step.cu` as "table_layout.h"). The
-CUDA source names every slot and states no value.
+one, the pool's fields through 16 pointer slots, the frame's inputs from a
+row of 13 floats and the scene's force fields from a row of MAX_F field
+records, both passed by value in the launch arguments; with kernel stats it
+writes one stats row. This module is the only definition of those layouts:
+`ops.fused_step` fills the buffers, the slots and the rows by these names,
+and `ops._build` writes them, with the enumerations the kernel branches on,
+the narrow phase's float constants and the turbulence basis, into a
+generated C++ header (`header()`, included by `csrc/fused_step.cu` as
+"table_layout.h"). The CUDA source names every slot and states no value.
 """
 
 from __future__ import annotations
 
-from .. import colliders, collision, compiled, curve, emission_shape
+from .. import colliders, collision, compiled, curve, emission_shape, force_fields
 
 # ---- capacities ----
 MAX_E = 8  # emitters
@@ -21,6 +23,7 @@ MAX_T = 8  # particle types
 MAX_K = 16  # knots per curve
 MAX_U = 8  # sub-frames per launch
 MAX_C = 32  # colliders
+MAX_F = 8  # scene force fields
 TILE = 256  # lanes per tile = threads per block (the dead-rank claim's unit)
 
 # ---- pool field slots (PoolState order; a null pointer marks an elided field) ----
@@ -49,6 +52,7 @@ H_BASE_N = H_BASE_KIND + MAX_T  # [T] ... knots
 H_EMIS_KIND = H_BASE_N + MAX_T  # [T] emissive gradient kind
 H_EMIS_N = H_EMIS_KIND + MAX_T  # [T] ... knots
 H_HAS_COL = H_EMIS_N + MAX_T  # [T] type collides
+H_DUMP = H_HAS_COL + MAX_T  # [T] type has a destroyed handler (dump plane)
 
 # ---- emitter rows (f32): slot offsets within a row ----
 EM_AT, EM_STRIDE = 128, 48
@@ -65,7 +69,7 @@ EM_INHERIT = 28  # parent velocity inheritance
 EM_INIT_ROT = 29  # 4 words: initial rotation quat xyzw
 
 # ---- type rows (f32) ----
-TY_AT, TY_STRIDE = EM_AT + MAX_E * EM_STRIDE, 16
+TY_AT, TY_STRIDE = EM_AT + MAX_E * EM_STRIDE, 20
 TY_ISCALE_LO = 0
 TY_ISCALE_HI = 1
 TY_LIFE_LO = 2
@@ -78,6 +82,7 @@ TY_RESTITUTION = 12
 TY_FRICTION = 13
 TY_DESTROY = 14  # destroy_on_collision (0/1)
 TY_COLL_MASK = 15  # collision filter mask, uint32 bits (int32 word)
+TY_FIELD_MASK = 16  # affected_by_fields (0/1)
 
 # ---- curve rows (f32, MAX_K words each): row indices within a type's block ----
 CV_SCALE_TS = 0
@@ -103,8 +108,27 @@ CO_PLANES_AT = MAX_C * CO_STRIDE
 COLLIDER_WORDS = CO_PLANES_AT + MAX_C * CO_PLANE_STRIDE
 SUBSTEPS = collision.SUBSTEPS
 
-assert H_HAS_COL + MAX_T <= EM_AT and EM_INIT_ROT + 4 <= EM_STRIDE and TY_COLL_MASK < TY_STRIDE
-assert CO_PARAMS + 3 <= CO_STRIDE and TILE % 32 == 0
+# ---- force-field row (launch argument; int32 words, f32 bitwise): MAX_F records ----
+FF_STRIDE = 12  # words per field
+FF_KIND = 0  # FIELD_* kind (int)
+FF_POS = 1  # 3 words
+FF_AXIS = 4  # 3 words, unit
+FF_PARAMS = 7  # 4 words: strength, radius, frequency, phase
+FF_ACTIVE = 11  # 1.0 live, 0.0 disabled
+FIELD_WORDS = MAX_F * FF_STRIDE
+
+# ---- stats row (kernel output, int32 words; one per block as partials) ----
+ST_MIN = 0  # 3 f32: min(pos - scale) over survivors
+ST_MAX = 3  # 3 f32: max(pos + scale)
+ST_ALIVE = 6  # i32: survivors
+ST_TYPES = 7  # [MAX_T] i32: survivors per type
+STATS_WORDS = ST_TYPES + MAX_T
+
+# ---- launch geometry ----
+MAX_BLOCKS = 132 * 8  # the step tile-strides beyond 8 blocks per SM (stats partials)
+
+assert H_DUMP + MAX_T <= EM_AT and EM_INIT_ROT + 4 <= EM_STRIDE and TY_FIELD_MASK < TY_STRIDE
+assert CO_PARAMS + 3 <= CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
 
 
 def constants() -> dict:
@@ -114,15 +138,25 @@ def constants() -> dict:
     out = {k: v for k, v in globals().items() if k.isupper() and isinstance(v, int)}
     out.update({name.upper(): i for i, name in enumerate(FIELD_SLOTS)})
     for mod, prefix in ((compiled, "PACING_"), (curve, "CURVE_"), (emission_shape, "SHAPE_"),
-                        (colliders, "COLLIDER_")):
+                        (colliders, "COLLIDER_"), (force_fields, "FIELD_")):
         out.update({k: v for k, v in vars(mod).items() if k.startswith(prefix) and isinstance(v, int)})
     return out
 
 
 def float_constants() -> dict:
-    """The narrow phase's f32 constants, shared with `collision`: the miss
-    distance and the division guard."""
-    return {"COLLISION_BIG": collision.BIG, "COLLISION_EPS": collision.EPS}
+    """The f32 constants shared with the plain versions: the narrow phase's
+    miss distance and division guard (`collision`), the force fields'
+    singular-locus guard (`force_fields`)."""
+    return {"COLLISION_BIG": collision.BIG, "COLLISION_EPS": collision.EPS, "FIELD_EPS": force_fields.EPS}
+
+
+def array_constants() -> dict:
+    """f32 tables shared with the plain versions, flattened in C order: the
+    turbulence basis (`force_fields`: [octave][component][axis] directions,
+    [octave][component] phases, [octave] amplitudes)."""
+    return {"TURB_DIRS": [float(v) for v in force_fields.TURB_DIRS.reshape(-1)],
+            "TURB_PHASE": [float(v) for v in force_fields.TURB_PHASE.reshape(-1)],
+            "TURB_AMP": [float(v) for v in force_fields.TURB_AMP.reshape(-1)]}
 
 
 def header() -> str:
@@ -130,4 +164,6 @@ def header() -> str:
     lines = ["// Generated from bevy_firework_tpu_torch/ops/table_layout.py; do not edit.", "#pragma once"]
     lines += [f"constexpr int {k} = {v};" for k, v in constants().items()]
     lines += [f"constexpr float {k} = {v!r}f;" for k, v in float_constants().items()]
+    lines += [f"__constant__ float {k}[{len(v)}] = {{{', '.join(f'{x!r}f' for x in v)}}};"
+              for k, v in array_constants().items()]
     return "\n".join(lines) + "\n"

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .utils.device import DEFAULT_DEVICE, resolve_device
 from .utils.f32 import F32_MIN
 
 
@@ -80,10 +81,11 @@ POOL_FIELDS = tuple(f.name for f in dataclasses.fields(PoolState))
 
 
 def init_pool(capacity: int, num_emitters: int, starts_enabled: bool = True, seed: int = 0,
-              lifetime_fill: float = 1.0, device="cpu") -> PoolState:
+              lifetime_fill: float = 1.0, device=DEFAULT_DEVICE) -> PoolState:
     """Fresh pool, everything dead. lifetime_fill fills both `age` and
     `lifetime`; const-lifetime archetypes need it to be their constant, which
     `init_pool_for` guarantees."""
+    device = resolve_device(device)
     n = int(capacity)
     f32 = dict(dtype=torch.float32, device=device)
 
@@ -123,8 +125,9 @@ def init_pool_for(compiled, capacity: int, seed: int = 0, device=None) -> PoolSt
 
 @dataclasses.dataclass(frozen=True)
 class FrameInput:
-    """Per-frame host inputs for one spawner (0-d / small CPU tensors).
-    force_fields stays None in this slice (the step raises otherwise)."""
+    """Per-frame host inputs for one spawner (0-d / small CPU tensors), and
+    the scene's force fields: a `force_fields.FieldTable` on the pool's
+    device, or None."""
 
     dt: torch.Tensor  # f32 scalar
     transform_translation: torch.Tensor  # [3]

@@ -4,8 +4,8 @@
 
 Runs stress_test through `multi_step_auto` at 100k and 1M live (as
 chip_smoke.py's phases 6 and 7 do) and, for each, traces 8-frame chain
-calls with torch.profiler: `multi_step_auto` over 8 frames (one launch plus
-the stats epilogue) and over 64 frames (8 launches, stats once), one
+calls with torch.profiler: `multi_step_auto` over 8 frames (one launch with
+the stats block) and over 64 frames (8 launches, stats once), one
 render-pack launch, and 8 frames of the plain version. Prints one JSON line
 per size with, for each: wall and device ms per frame, the fused_step
 kernel's device ms per launch, and the device's busy share of the wall
@@ -26,10 +26,12 @@ import time
 
 
 def device_times(prof, kernel_substr: str):
-    """(kernel device us, all-kernel device us) summed over a trace."""
+    """(kernel device us, all-kernel device us, kernel launches) summed over
+    a trace; the launch count lets a caller see a trace that lost events."""
     import torch
 
     kern = total = 0.0
+    count = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -39,7 +41,8 @@ def device_times(prof, kernel_substr: str):
         total += t
         if kernel_substr in e.key:
             kern += t
-    return kern, total
+            count += e.count
+    return kern, total, count
 
 
 def profile_size(rate: float, capacity: int, calls: int = 30):
@@ -83,7 +86,7 @@ def profile_size(rate: float, capacity: int, calls: int = 30):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / n
-        kern, total = device_times(prof, "fused_step_kernel")
+        kern, total, _count = device_times(prof, "fused_step_kernel")
         launches = {"kernel": 1, "chain_64": 8, "render_u1": 1, "plain": 0}[name]
         res[name] = {"frames": frames, "wall_ms_per_frame": wall * 1e3 / frames,
                      "device_ms_per_frame": total / n / 1e3 / frames,

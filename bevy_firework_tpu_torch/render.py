@@ -7,14 +7,16 @@
 `pack_render_planes` is the plain version of the step kernel's render-pack
 block (9 planes: instance scale with 0 on dead lanes, base rgba, emissive
 rgba); `planes_to_rows` compacts live lanes into contract rows on the host
-with numpy. Lights, shadows and the other host-side render code of the JAX
-package are framework-free and are not part of this slice.
+with numpy. What `Scene.render_items` needs beside them is host numpy too:
+`RenderItem`, `compact_dense`, the back-to-front instance sort and the
+frustum test of a spawner's AABB. Lights, shadows and the other host-side
+render code of the JAX package are framework-free and are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,3 +145,68 @@ def planes_to_rows(static: SpawnerStatic, state: PoolState, packed) -> np.ndarra
 def instances_to_bytes(buffer: np.ndarray) -> bytes:
     """Dense instance rows -> the exact 64 B/particle byte stream."""
     return np.ascontiguousarray(buffer, dtype=np.float32).tobytes()
+
+
+def compact_dense(planes: np.ndarray) -> np.ndarray:
+    """[16, N] dense planes (dead lanes at scale == 0 in plane 3) ->
+    compacted [count, 16] instance rows, slot order kept."""
+    planes = np.ascontiguousarray(planes, dtype=np.float32)
+    return np.ascontiguousarray(planes[:, planes[3] != 0.0].T)
+
+
+# alpha_mode codes (BlendMode.as_u32) whose blend operators do not commute:
+# Blend (2) and Premultiplied (3) composite "over"; Add (4) and Multiply (5)
+# commute; Opaque (0) depth tests.
+ORDER_DEPENDENT_ALPHA_MODES = frozenset((2, 3))
+
+
+def sort_instances_back_to_front(instances: np.ndarray, camera_pos) -> np.ndarray:
+    """Stable farthest-first reorder of instance rows by squared distance
+    from `camera_pos` (the compositing order of the non-commutative blend
+    modes); rows keep the 64 B contract layout."""
+    if instances.shape[0] <= 1:
+        return instances
+    cam = np.asarray(camera_pos, np.float32).reshape(3)
+    d = instances[:, :3] - cam
+    d2 = (d * d).sum(axis=1)
+    return instances[np.argsort(-d2, kind="stable")]
+
+
+def frustum_planes(view_proj, depth_zero_one: bool = True) -> np.ndarray:
+    """The 6 view-frustum planes of a 4x4 view-projection matrix
+    (Gribb-Hartmann; clip = view_proj @ [x, y, z, 1], row-major): [6, 4] f32
+    rows (nx, ny, nz, d), normalised, plane . (x, y, z, 1) >= 0 inside.
+    depth_zero_one: the WebGPU/D3D clip depth 0 <= z <= w, else OpenGL's
+    -w <= z <= w."""
+    m = np.asarray(view_proj, dtype=np.float32).reshape(4, 4)
+    rows = [m[3] + m[0], m[3] - m[0], m[3] + m[1], m[3] - m[1]]
+    rows.append(m[2] if depth_zero_one else m[3] + m[2])  # near
+    rows.append(m[3] - m[2])  # far
+    planes = np.stack(rows).astype(np.float32)
+    norm = np.linalg.norm(planes[:, :3], axis=1)
+    norm = np.where(norm > 0.0, norm, 1.0).astype(np.float32)
+    return planes / norm[:, None]
+
+
+def aabb_intersects_frustum(aabb_min, aabb_max, planes: np.ndarray) -> bool:
+    """Conservative AABB-vs-frustum test (p-vertex form): culled only if the
+    box corner farthest along some plane's normal lies outside it."""
+    mn = np.asarray(aabb_min, dtype=np.float32).reshape(3)
+    mx = np.asarray(aabb_max, dtype=np.float32).reshape(3)
+    p_vertex = np.where(planes[:, :3] >= 0.0, mx[None, :], mn[None, :])
+    dist = (planes[:, :3] * p_vertex).sum(axis=1) + planes[:, 3]
+    return bool((dist >= 0.0).all())
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderItem:
+    """One draw call's data: the reference's render entity per (spawner x
+    non-empty type) (render.rs:382-423)."""
+
+    spawner_id: int
+    type_index: int
+    instances: np.ndarray  # [count, 16] f32
+    count: int
+    uniform: FireworkUniform
+    textures: Tuple[Optional[str], Optional[str], Optional[str]]
+    layers: int = 1  # RenderLayers bitmask of the spawner

@@ -1,14 +1,702 @@
-"""Scene-level types. This slice holds only `Transform`; the Scene facade
-(groups, events, render items) is still to be ported (ROADMAP queue 1
-item 7)."""
+"""Host facade: the engine's runtime API (port of `bevy_firework_tpu.scene`,
+with spawners stepped one by one).
+
+    scene = Scene(colliders=[...], force_fields=[...])   # on the card; device="cpu" for the CPU
+    sid = scene.add_spawner(ParticleSpawner(...), capacity=65536, transform=Transform(...))
+    scene.step(dt)                      # every spawner, one frame
+    scene.queue_particles(sid, 5)       # ParticleSpawnerData::queue_particles
+    scene.render_items()                # per (spawner x non-empty type) draws
+    scene.on_finished(sid, callback)    # ParticleSpawnerFinished observer
+
+Each spawner steps through the entry points of `ops.fused_step`: `step`
+through `step_auto` (or `step_auto_packed` once something renders) with the
+kernel's stats, `step_n` through `multi_step_auto` (or
+`multi_step_auto_packed`); on the card the hand-written kernel runs them, on
+the CPU their plain versions. The scene's colliders and force fields live
+on the scene's device; their tables are rebuilt when an edit changes them,
+and slots freed by a removal are reused by a later add of the same kind, as
+the JAX Scene does. Destroyed-particle handlers and `on_finished` observers
+run inside the step that produced their events.
+
+The JAX Scene steps spawners of one archetype as one vmapped group; its
+per-member results are those of solo steps (its `scene.py:72-74`), which is
+what stepping one by one gives. Not ported yet, each raising
+NotImplementedError naming its ROADMAP item: archetype groups (queue 1
+item 11; stepping one by one stands in), trails, async events and render,
+`render_items(method="compact")`, nested spawners.
+
+Differences from the reference by design (as in the JAX package): time is
+an input (`step(dt)`), parent velocity and the effect modifier are explicit
+setters, and `set_spawner` resets the pool (`core.rs:343-365`).
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .colliders import _HULL_PAD_D, COLLIDER_HULL, HULL_MAX_PLANES, Collider, ColliderTable, empty_collider_table
+from .compiled import CompiledSpawner, compile_spawner
+from .curve import CURVE_CONSTANT, CURVE_EVEN
+from .force_fields import FieldTable, ForceField, _unit, compile_force_fields
+from .ops.fused_step import multi_step_auto, multi_step_auto_packed, step_auto, step_auto_packed
+from .pool import init_pool_for, make_frame_input
+from .render import (
+    ORDER_DEPENDENT_ALPHA_MODES,
+    RenderItem,
+    aabb_intersects_frustum,
+    compact_dense,
+    frustum_planes,
+    make_uniform,
+    pack_instances_dense,
+    planes_to_rows,
+    sort_instances_back_to_front,
+)
+from .settings import EffectModifier, EmissionModeKind, EmissionPacingKind, ParticleSpawner, SpawnTransformMode
+from .step import check_scope
+from .utils.device import DEFAULT_DEVICE, resolve_device
+
+_DUMP_FIELDS = ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw", "wx", "wy", "wz", "initial_scale", "age",
+                "lifetime", "ptype")
+
+# estimate_capacity rounds large pools up to the JAX package's 8192-lane
+# kernel tile, so both packages size a spawner's pool alike
+_CAPACITY_TILE = 8192
+# estimate_capacity's allowance per on-demand emitter (caller-driven volume)
+_ON_DEMAND_ALLOWANCE = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class Transform:
     translation: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     rotation: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)  # xyzw
+
+
+def estimate_capacity(spawner: ParticleSpawner, headroom: float = 1.5) -> int:
+    """Steady-state live-particle estimate for a spawner, with headroom (the
+    JAX package's rule): rate emitters count/duration x max lifetime,
+    one-shots their burst, nested emitters count per parent x parents,
+    on-demand a default allowance; rounded up to 8192 lanes when large, else
+    to a power of two >= 256."""
+    per_type = [0.0] * len(spawner.particle_settings)
+    for es in spawner.emission_settings:
+        ps = spawner.particle_settings[es.particle_index]
+        life = max(ps.lifetime.min, ps.lifetime.max)
+        p = es.emission_pacing
+        if p.kind == EmissionPacingKind.ONE_SHOT:
+            per_type[es.particle_index] += p.count
+        elif p.kind == EmissionPacingKind.COUNT_OVER_DURATION:
+            if es.emission_mode.kind == EmissionModeKind.NESTED:
+                parents = per_type[es.emission_mode.target_particle_type]
+                tps = spawner.particle_settings[es.emission_mode.target_particle_type]
+                plife = max(max(tps.lifetime.min, tps.lifetime.max), 1e-6)
+                per_type[es.particle_index] += parents * p.count * min(life / plife, 1.0) + p.count
+            else:
+                per_type[es.particle_index] += p.count / max(p.duration, 1e-6) * life
+        else:
+            per_type[es.particle_index] += _ON_DEMAND_ALLOWANCE
+    total = int(sum(per_type) * headroom) + 64
+    if total > _CAPACITY_TILE // 2:
+        return -(-total // _CAPACITY_TILE) * _CAPACITY_TILE
+    return max(256, 1 << (total - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class DestroyedParticle:
+    """Host-side mirror of `ParticleData` handed to `particles_destroyed`
+    handlers (`core.rs:164-167,660-667`)."""
+
+    position: Tuple[float, float, float]
+    velocity: Tuple[float, float, float]
+    rotation: Tuple[float, float, float, float]
+    angular_velocity: Tuple[float, float, float]
+    initial_scale: float
+    scale: float
+    age: float
+    lifetime: float
+    base_color: Tuple[float, float, float, float]
+    emissive_color: Tuple[float, float, float, float]
+    pbr: bool
+
+
+def _curve_many(curve, t):
+    """Vectorised host evaluation of a curve or gradient at many t (numpy
+    f32, the interpolation cases of `FireworkCurve.sample_clamped`)."""
+    t = np.asarray(t, np.float32)
+    vs = np.asarray(curve.vs, dtype=np.float32)
+    if curve.kind == CURVE_CONSTANT:
+        return np.broadcast_to(vs[0], t.shape + vs[0:1].shape[1:]).astype(np.float32)
+    if curve.kind == CURVE_EVEN:
+        n = len(curve.vs)
+        x = np.clip(t, 0.0, 1.0) * np.float32(n - 1)
+        i = np.minimum(np.floor(x).astype(np.int64), n - 2)
+        frac = (x - i.astype(np.float32)).astype(np.float32)
+    else:
+        ts = np.asarray(curve.ts, dtype=np.float32)
+        tc = np.clip(t, ts[0], ts[-1]).astype(np.float32)
+        i = np.clip(np.searchsorted(ts, tc, side="right") - 1, 0, len(ts) - 2)
+        frac = ((tc - ts[i]) / (ts[i + 1] - ts[i])).astype(np.float32)
+    if vs.ndim > 1:
+        frac = frac[..., None]
+    return (vs[i] + (vs[i + 1] - vs[i]) * frac).astype(np.float32)
+
+
+class _SpawnerSlot:
+    """One spawner's host-side record: its settings, pool, last outputs and
+    render planes, transform, per-frame inputs and observers."""
+
+    def __init__(self, spawner, compiled, state, capacity, transform, global_transform, modifier, seed, layers):
+        self.spawner = spawner
+        self.compiled = compiled
+        self.state = state
+        self.outputs = None
+        self.render_planes = None
+        self.capacity = capacity
+        self.transform = transform
+        self.global_transform = global_transform
+        self.parent_velocity = (0.0, 0.0, 0.0)
+        self.modifier = modifier
+        self.finished_observers: List[Callable[[int], None]] = []
+        self.finished_fired = False
+        self.seed = seed
+        self.layers = layers  # RenderLayers bitmask (render.rs:414-418)
+        self.frame_cache = None  # (dt, field table, FrameInput)
+
+
+@dataclasses.dataclass
+class _ColliderSlot:
+    """Host master copy of one collider-table row; `kind`, `identity_rot`
+    and the hull's plane count decide whether a freed slot can be reused."""
+
+    kind: int
+    identity_rot: bool
+    position: Tuple[float, float, float]
+    rotation: Tuple[float, float, float, float]
+    params: Tuple[float, ...]
+    layers: int
+    active: bool
+    planes: Tuple[Tuple[float, float, float, float], ...] = ()  # hull only
+
+
+@dataclasses.dataclass
+class _FieldSlot:
+    """Host master copy of one force-field row."""
+
+    kind: int
+    position: Tuple[float, float, float]
+    axis: Tuple[float, float, float]
+    strength: float
+    radius: float
+    frequency: float
+    phase: float
+    active: bool
+
+
+def _is_identity_rot(rotation) -> bool:
+    return tuple(float(r) for r in rotation) == (0.0, 0.0, 0.0, 1.0)
+
+
+class Scene:
+    def __init__(self, colliders: Optional[List[Collider]] = None, seed: int = 0,
+                 force_fields: Optional[List[ForceField]] = None, device=DEFAULT_DEVICE):
+        """A scene whose spawners, collider table and force fields live on
+        `device` (the card unless the caller passes "cpu"; raises without a
+        card)."""
+        self.device = resolve_device(device)
+        self._collider_slots: List[_ColliderSlot] = []
+        self._collider_ids: Dict[int, int] = {}  # cid -> slot index
+        self._next_collider_id = 0
+        self._collider_table: Optional[ColliderTable] = None  # cache; None = dirty
+        self._field_slots: List[_FieldSlot] = []
+        self._field_ids: Dict[int, int] = {}  # fid -> slot index
+        self._next_field_id = 0
+        self._field_table: Optional[FieldTable] = None  # cache; None = dirty
+        self._spawners: Dict[int, _SpawnerSlot] = {}
+        self._next_id = 0
+        # Render-demand gate (the JAX Scene's): the in-kernel render pack
+        # writes 9 planes nobody reads while no one renders, so headless
+        # stepping leaves it off. render_items turns it on for good; the
+        # call that turns it on falls back to the dense pack for that frame.
+        self._render_demand = False
+        self._compile_cache: Dict[tuple, CompiledSpawner] = {}
+        self._seed = seed
+        self._last_dt = 0.0
+        self.time = 0.0
+        for col in colliders or []:
+            self.add_collider(col)
+        for ff in force_fields or []:
+            self.add_force_field(ff)
+
+    # ------------------------------------------------------------- authoring
+    def add_spawner(self, spawner: ParticleSpawner, capacity: Optional[int] = None,
+                    transform: Optional[Transform] = None, global_transform: Optional[Transform] = None,
+                    modifier: Optional[EffectModifier] = None, sid: Optional[int] = None,
+                    nested_buffer: int = 4096, trail=None, layers: int = 1) -> int:
+        """Add a spawner; returns its id. capacity=None sizes the pool with
+        `estimate_capacity`. sid: an explicit id (fresh ids continue above
+        it). layers: the RenderLayers bitmask that render_items(view_layers=)
+        filters on."""
+        if trail is not None:
+            raise NotImplementedError("trails: ROADMAP queue 1 item 13 is not ported yet")
+        if capacity is None:
+            capacity = estimate_capacity(spawner)
+        if sid is None:
+            sid = self._next_id
+            self._next_id += 1
+        else:
+            if sid in self._spawners:
+                raise ValueError(f"spawner id {sid} already in use")
+            self._next_id = max(self._next_id, sid + 1)
+        compiled = self._compile(spawner, nested_buffer)
+        seed = self._seed + sid
+        t = transform or Transform()
+        self._spawners[sid] = _SpawnerSlot(
+            spawner, compiled, init_pool_for(compiled, capacity, seed), capacity, t, global_transform or t,
+            modifier or EffectModifier(), seed, layers)
+        return sid
+
+    def _compile(self, spawner: ParticleSpawner, nested_buffer: int) -> CompiledSpawner:
+        """compile_spawner on the scene's device, memoised per (settings,
+        nested_buffer) where the settings hash; raises for what the step
+        does not run yet."""
+        try:
+            key = (spawner, int(nested_buffer))
+            compiled = self._compile_cache.get(key)
+        except TypeError:  # unhashable settings: compile fresh
+            key, compiled = None, None
+        if compiled is None:
+            compiled = compile_spawner(spawner, nested_buffer=nested_buffer, device=self.device)
+            check_scope(compiled.static)
+            if key is not None:
+                self._compile_cache[key] = compiled
+        return compiled
+
+    def set_layers(self, sid: int, layers: int):
+        """Move a spawner to other render layers (host metadata; no reset)."""
+        self._spawners[sid].layers = int(layers)
+
+    def remove_spawner(self, sid: int):
+        del self._spawners[sid]
+
+    def set_spawner(self, sid: int, spawner: ParticleSpawner):
+        """Settings change => full re-sync, clearing live particles
+        (`core.rs:343-365`)."""
+        slot = self._spawners[sid]
+        slot.spawner = spawner
+        slot.compiled = self._compile(spawner, slot.compiled.static.nested_m)
+        slot.state = init_pool_for(slot.compiled, slot.capacity, slot.seed)
+        slot.outputs = None
+        slot.render_planes = None
+        slot.finished_fired = False
+
+    # ------------------------------------------------------------- colliders
+    def set_colliders(self, colliders: List[Collider]):
+        """Replace the whole collider set."""
+        self._collider_slots = []
+        self._collider_ids = {}
+        self._collider_table = None
+        for col in colliders or []:
+            self.add_collider(col)
+
+    def add_collider(self, collider: Collider) -> int:
+        """Add a collider; returns a handle for remove/set_collider. A slot
+        freed by remove_collider is reused when its kind, its hull plane
+        count and its rotation path fit (an unrotated slot takes only
+        unrotated colliders), so remove + re-add cycles keep the table's
+        layout."""
+        col_identity = _is_identity_rot(collider.rotation)
+        idx = None
+        for i, slot in enumerate(self._collider_slots):
+            if (not slot.active and i not in self._collider_ids.values() and slot.kind == collider.kind
+                    and (not slot.identity_rot or col_identity) and len(slot.planes) == len(collider.planes)):
+                idx = i
+                break
+        new_slot = _ColliderSlot(
+            kind=int(collider.kind),
+            identity_rot=col_identity if idx is None else self._collider_slots[idx].identity_rot,
+            position=tuple(float(v) for v in collider.position),
+            rotation=tuple(float(v) for v in collider.rotation),
+            params=tuple(float(v) for v in collider.params),
+            layers=int(collider.layers),
+            planes=tuple(tuple(float(x) for x in pl) for pl in collider.planes),
+            active=True,
+        )
+        if idx is None:
+            idx = len(self._collider_slots)
+            self._collider_slots.append(new_slot)
+        else:
+            self._collider_slots[idx] = new_slot
+        cid = self._next_collider_id
+        self._next_collider_id += 1
+        self._collider_ids[cid] = idx
+        self._collider_table = None
+        return cid
+
+    def remove_collider(self, cid: int):
+        """Disable a collider (active 0, layers masked to 0 in the kernel's
+        table); the slot is kept for a later add_collider of its kind."""
+        idx = self._collider_ids.pop(cid)
+        self._collider_slots[idx].active = False
+        self._collider_table = None
+
+    def set_collider(self, cid: int, position=None, rotation=None, params=None, layers=None):
+        """Move or re-shape a collider in place. A rotation given to a slot
+        added unrotated moves the slot to the rotated path for good."""
+        slot = self._collider_slots[self._collider_ids[cid]]
+        if position is not None:
+            slot.position = tuple(float(v) for v in position)
+        if rotation is not None:
+            slot.rotation = tuple(float(v) for v in rotation)
+            if slot.identity_rot and not _is_identity_rot(rotation):
+                slot.identity_rot = False
+        if params is not None:
+            slot.params = tuple(float(v) for v in params)
+        if layers is not None:
+            slot.layers = int(layers)
+        self._collider_table = None
+
+    @property
+    def _colliders(self) -> ColliderTable:
+        if self._collider_table is None:
+            self._collider_table = self._build_collider_table()
+        return self._collider_table
+
+    def _build_collider_table(self) -> ColliderTable:
+        slots = self._collider_slots
+        c = len(slots)
+        if c == 0:
+            return empty_collider_table(self.device)
+        params = np.zeros((c, 3), dtype=np.float32)
+        for i, s in enumerate(slots):
+            params[i, : len(s.params)] = s.params
+        any_hull = any(s.kind == COLLIDER_HULL for s in slots)
+        hp = np.zeros((c, HULL_MAX_PLANES if any_hull else 1, 4), np.float32)
+        if any_hull:
+            hp[:, :, 3] = _HULL_PAD_D
+            for i, s in enumerate(slots):
+                if s.kind == COLLIDER_HULL and s.planes:
+                    hp[i, : len(s.planes)] = np.asarray(s.planes, np.float32)
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+        return ColliderTable(
+            kinds=tuple(s.kind for s in slots),
+            identity_rot=tuple(s.identity_rot for s in slots),
+            hull_counts=tuple(len(s.planes) if s.kind == COLLIDER_HULL else 0 for s in slots),
+            position=t(np.array([s.position for s in slots], dtype=np.float32)),
+            rotation=t(np.array([s.rotation for s in slots], dtype=np.float32)),
+            params=t(params),
+            layers=t(np.array([s.layers for s in slots], dtype=np.uint32).astype(np.int64)),
+            active=t(np.array([s.active for s in slots], dtype=np.float32)),
+            hull_planes=t(hp),
+        )
+
+    # ---------------------------------------------------------- force fields
+    def add_force_field(self, field: ForceField) -> int:
+        """Add a scene force field; returns a handle for remove/set_force_field.
+        A slot freed by remove_force_field is reused by the next field of
+        its kind."""
+        idx = None
+        for i, slot in enumerate(self._field_slots):
+            if not slot.active and i not in self._field_ids.values() and slot.kind == field.kind:
+                idx = i
+                break
+        new_slot = _FieldSlot(kind=int(field.kind), position=tuple(float(v) for v in field.position),
+                              axis=tuple(float(v) for v in field.axis), strength=float(field.strength),
+                              radius=float(field.radius), frequency=float(field.frequency),
+                              phase=float(field.phase), active=True)
+        if idx is None:
+            idx = len(self._field_slots)
+            self._field_slots.append(new_slot)
+        else:
+            self._field_slots[idx] = new_slot
+        fid = self._next_field_id
+        self._next_field_id += 1
+        self._field_ids[fid] = idx
+        self._field_table = None
+        return fid
+
+    def remove_force_field(self, fid: int):
+        """Disable a field (active 0: it contributes nothing); the slot is
+        kept for a later add_force_field of its kind."""
+        idx = self._field_ids.pop(fid)
+        self._field_slots[idx].active = False
+        self._field_table = None
+
+    def set_force_field(self, fid: int, position=None, axis=None, strength=None, radius=None, frequency=None,
+                        phase=None):
+        """Move or re-tune a field in place (stepping `phase` each frame
+        animates turbulence)."""
+        slot = self._field_slots[self._field_ids[fid]]
+        if frequency is not None:
+            if frequency <= 0:
+                raise ValueError("frequency must be > 0")
+            slot.frequency = float(frequency)
+        if phase is not None:
+            slot.phase = float(phase)
+        if position is not None:
+            slot.position = tuple(float(v) for v in position)
+        if axis is not None:
+            slot.axis = _unit(axis)
+        if strength is not None:
+            slot.strength = float(strength)
+        if radius is not None:
+            if radius <= 0:
+                raise ValueError("radius must be > 0")
+            slot.radius = float(radius)
+        self._field_table = None
+
+    @property
+    def _force_fields(self) -> Optional[FieldTable]:
+        """The FieldTable (disabled slots stay with active 0), or None when
+        no field was ever added. Rebuilt after an edit; building it copies
+        nothing to the device (the kernel takes its host rows)."""
+        if not self._field_slots:
+            return None
+        if self._field_table is None:
+            s = self._field_slots
+            self._field_table = compile_force_fields(
+                [ForceField(kind=x.kind, position=x.position, axis=x.axis, strength=x.strength, radius=x.radius,
+                            frequency=x.frequency, phase=x.phase) for x in s],
+                self.device, active=[x.active for x in s])
+        return self._field_table
+
+    # ------------------------------------------------------ per-spawner inputs
+    def set_transform(self, sid: int, transform: Transform, global_transform: Optional[Transform] = None):
+        slot = self._spawners[sid]
+        slot.transform = transform
+        slot.global_transform = global_transform or transform
+        slot.frame_cache = None
+
+    def set_parent_velocity(self, sid: int, velocity):
+        """Host-side analog of `sync_parent_velocity` (`core.rs:705-742`)."""
+        slot = self._spawners[sid]
+        slot.parent_velocity = tuple(float(v) for v in velocity)
+        slot.frame_cache = None
+
+    def set_modifier(self, sid: int, modifier: EffectModifier):
+        """Analog of `propagate_particle_spawner_modifier` (`core.rs:690-703`)."""
+        slot = self._spawners[sid]
+        slot.modifier = modifier
+        slot.frame_cache = None
+
+    def queue_particles(self, sid: int, count: int):
+        """`ParticleSpawnerData::queue_particles` (`core.rs:284-286`)."""
+        slot = self._spawners[sid]
+        slot.state = dataclasses.replace(slot.state, manual_queued=slot.state.manual_queued + int(count))
+
+    def set_enabled(self, sid: int, enabled: bool):
+        slot = self._spawners[sid]
+        slot.state = dataclasses.replace(slot.state, enabled=torch.full_like(slot.state.enabled, bool(enabled)))
+
+    def on_finished(self, sid: int, callback: Callable[[int], None]):
+        self._spawners[sid].finished_observers.append(callback)
+
+    def enable_async_events(self):
+        raise NotImplementedError("async events: ROADMAP queue 1 item 10 (enable_async_events) is not ported yet")
+
+    def enable_async_render(self, n_slots: int = 3):
+        raise NotImplementedError("async render: ROADMAP queue 1 item 13 (AsyncRenderReader) is not ported yet")
+
+    def render_async(self, view_layers: Optional[int] = None):
+        raise NotImplementedError("async render: ROADMAP queue 1 item 13 (AsyncRenderReader) is not ported yet")
+
+    # ------------------------------------------------------------------ step
+    def _frame_for(self, slot: _SpawnerSlot, dt: float):
+        ff = self._force_fields  # the cached table; a new object after an edit
+        cache = slot.frame_cache
+        if cache is not None and cache[0] == dt and cache[1] is ff:
+            return cache[2]
+        tf = slot.transform if slot.spawner.spawn_transform_mode == SpawnTransformMode.LOCAL else slot.global_transform
+        frame = make_frame_input(dt, translation=tf.translation, rotation=tf.rotation,
+                                 parent_velocity=slot.parent_velocity, modifier_scale=slot.modifier.scale,
+                                 modifier_speed=slot.modifier.speed, force_fields=ff)
+        slot.frame_cache = (dt, ff, frame)
+        return frame
+
+    def step(self, dt: float):
+        """Advance every spawner one frame (spawn -> integrate -> notify)."""
+        self.time += float(dt)
+        self._last_dt = float(dt)
+        self._run(dt, 1)
+
+    def step_n(self, dt: float, n_frames: int):
+        """Advance every spawner n frames (one chain per spawner). Finished
+        events are still delivered (latched via finished_notified);
+        destroyed-particle handlers see the last frame's deaths only."""
+        if n_frames <= 0:
+            return
+        self.time += float(dt) * n_frames
+        self._last_dt = float(dt)
+        self._run(dt, n_frames)
+
+    def _run(self, dt: float, n_frames: int):
+        for sid, slot in list(self._spawners.items()):
+            static, params = slot.compiled.static, slot.compiled.params
+            col = self._colliders if static.any_collision else None
+            frame = self._frame_for(slot, dt)
+            # the render pack serves the single-type item (as the JAX Scene's
+            # in-kernel pack does); other types take the dense pack
+            pack = self._render_demand and static.single_type
+            planes = None
+            if n_frames == 1 and pack:
+                st, out, planes = step_auto_packed(static, params, col, slot.state, frame)
+            elif n_frames == 1:
+                st, out = step_auto(static, params, col, slot.state, frame)
+            elif pack:
+                st, out, planes = multi_step_auto_packed(static, params, col, slot.state, frame, n_frames)
+            else:
+                st, out = multi_step_auto(static, params, col, slot.state, frame, n_frames)
+            slot.state, slot.outputs, slot.render_planes = st, out, planes
+            if slot.finished_observers and not slot.finished_fired:
+                fired = bool(out.finished_event) if n_frames == 1 else bool(st.finished_notified)
+                if fired:
+                    slot.finished_fired = True
+                    for cb in slot.finished_observers:
+                        cb(sid)
+            if static.any_destroyed_dump:
+                self._dispatch_destroyed(slot)
+
+    def _dispatch_destroyed(self, slot: _SpawnerSlot):
+        """Build and deliver `DestroyedParticle` records (`core.rs:660-667`)
+        for the lanes of the last step's destroyed mask: one gather of the
+        dump fields on the device, one copy to the host, and the fields the
+        pool no longer carries (scale, colours) rebuilt with vectorised
+        numpy curve evaluation."""
+        idx = torch.nonzero(slot.outputs.destroyed_mask).flatten()
+        if idx.numel() == 0:
+            return
+        st = slot.state
+        rows = torch.stack([getattr(st, k).index_select(0, idx).to(torch.float32) for k in _DUMP_FIELDS])
+        rows = rows.cpu().numpy()
+        f = {k: rows[i] for i, k in enumerate(_DUMP_FIELDS)}
+        ptype = f["ptype"].astype(np.int64)
+        dt = np.float32(self._last_dt)
+        for t, handler in enumerate(slot.compiled.destroyed_handlers):
+            if handler is None:
+                continue
+            sel = np.nonzero(ptype == t)[0]
+            if sel.size == 0:
+                continue
+            ps = slot.spawner.particle_settings[t]
+            age, lifetime, iscale = f["age"][sel], f["lifetime"][sel], f["initial_scale"][sel]
+            # The fields the reference stores on the destroyed clone: colours
+            # were last updated on the previous frame (gradient at the last
+            # frame's age fraction); a death by age skips this frame's scale
+            # update, a death by collision includes it.
+            pct_prev = (np.maximum(age - dt, np.float32(0.0)) / lifetime).astype(np.float32)
+            died_of_age = age >= lifetime
+            first_frame = age == dt
+            sc_prev = _curve_many(ps.scale_curve, pct_prev)
+            sc_now = _curve_many(ps.scale_curve, (age / lifetime).astype(np.float32))
+            scale = np.where(died_of_age, np.where(first_frame, iscale, (iscale * sc_prev).astype(np.float32)),
+                             (iscale * sc_now).astype(np.float32)).astype(np.float32)
+            base = np.atleast_2d(_curve_many(ps.base_color, pct_prev))
+            emis = np.atleast_2d(_curve_many(ps.emissive_color, pct_prev))
+            pbr = bool(slot.compiled.pbr_flags[t])
+            r = {k: f[k][sel] for k in _DUMP_FIELDS}
+            handler([
+                DestroyedParticle(
+                    position=(r["px"][i], r["py"][i], r["pz"][i]),
+                    velocity=(r["vx"][i], r["vy"][i], r["vz"][i]),
+                    rotation=(r["qx"][i], r["qy"][i], r["qz"][i], r["qw"][i]),
+                    angular_velocity=(r["wx"][i], r["wy"][i], r["wz"][i]),
+                    initial_scale=float(iscale[i]), scale=float(scale[i]), age=float(age[i]),
+                    lifetime=float(lifetime[i]), base_color=tuple(float(c) for c in base[i]),
+                    emissive_color=tuple(float(c) for c in emis[i]), pbr=pbr,
+                )
+                for i in range(sel.size)
+            ])
+
+    # ----------------------------------------------------------------- query
+    def alive_count(self, sid: Optional[int] = None) -> int:
+        if sid is not None:
+            return int(self._spawners[sid].state.alive_count())
+        return sum(int(s.state.alive_count()) for s in self._spawners.values())
+
+    def aabb(self, sid: int, space: str = "world"):
+        """Bounding box (min, max) of the spawner's live particles (pos ±
+        scale), from the last step's stats; None before a step or when
+        nothing lives. space="local": the reference's `update_aabbs`
+        (`render.rs:677-703`): world half-extents, centre moved into the
+        spawner's frame by the inverse global transform."""
+        out = self._spawners[sid].outputs
+        if out is None or not bool(out.aabb_valid):
+            return None
+        mn = out.aabb_min.cpu().numpy().astype(np.float32)
+        mx = out.aabb_max.cpu().numpy().astype(np.float32)
+        if space == "world":
+            return mn, mx
+        center = (mn + mx) * np.float32(0.5)
+        half = (mx - mn) * np.float32(0.5)
+        tf = self._spawners[sid].global_transform
+        qx, qy, qz, qw = (np.float32(v) for v in tf.rotation)
+        v = center - np.asarray(tf.translation, dtype=np.float32)
+        ux, uy, uz = -qx, -qy, -qz  # rotate by the conjugate quaternion
+        tx = np.float32(2.0) * (uy * v[2] - uz * v[1])
+        ty = np.float32(2.0) * (uz * v[0] - ux * v[2])
+        tz = np.float32(2.0) * (ux * v[1] - uy * v[0])
+        cl = np.array([v[0] + qw * tx + (uy * tz - uz * ty), v[1] + qw * ty + (uz * tx - ux * tz),
+                       v[2] + qw * tz + (ux * ty - uy * tx)], dtype=np.float32)
+        return cl - half, cl + half
+
+    def spawner_ids(self) -> List[int]:
+        return list(self._spawners.keys())
+
+    # ---------------------------------------------------------------- render
+    def render_items(self, method: str = "dense", camera_pos=None, sort_within: str = "auto", view_proj=None,
+                     view_layers: Optional[int] = None) -> List[RenderItem]:
+        """The extract step: one item per (spawner x non-empty type)
+        (`render.rs:439-461`), each with its instance rows in the 64-byte
+        contract layout. The single-type item comes from the last step's
+        render-pack planes when that step packed (from the second call on:
+        this call turns the pack on); otherwise the dense pack, with dead
+        lanes at scale 0, is compacted on the host. A live particle whose
+        scale curve is exactly 0 is dropped (it is invisible either way).
+
+        camera_pos: items back-to-front by spawner-origin distance, and the
+        rows of items with an order-dependent blend (sort_within "auto"; "all"
+        sorts every item, "none" none) back-to-front. view_proj: a 4x4
+        view-projection matrix (WebGPU 0..1 clip depth); spawners whose AABB
+        lies outside its frustum are skipped. view_layers: only spawners
+        whose layers intersect it."""
+        if method != "dense":
+            raise NotImplementedError(f"render_items(method={method!r}): ROADMAP queue 1 item 6 "
+                                      "(pack_instances) is not ported yet")
+        self._render_demand = True
+        cull_planes = frustum_planes(view_proj) if view_proj is not None else None
+        items = []
+        for sid, slot in self._spawners.items():
+            if view_layers is not None and not (slot.layers & view_layers):
+                continue
+            if cull_planes is not None:
+                box = self.aabb(sid, space="world")
+                if box is not None and not aabb_intersects_frustum(box[0], box[1], cull_planes):
+                    continue
+            for t in range(slot.compiled.num_types):
+                if slot.render_planes is not None and t == 0:
+                    rows = planes_to_rows(slot.compiled.static, slot.state, slot.render_planes)
+                else:
+                    planes, _count = pack_instances_dense(slot.compiled.params, slot.state, t)
+                    rows = compact_dense(planes.cpu().numpy())
+                if rows.shape[0] == 0:
+                    continue
+                uniform = make_uniform(slot.compiled, t)
+                if camera_pos is not None and (sort_within == "all" or (
+                        sort_within == "auto" and uniform.alpha_mode in ORDER_DEPENDENT_ALPHA_MODES)):
+                    rows = sort_instances_back_to_front(rows, camera_pos)
+                items.append(RenderItem(spawner_id=sid, type_index=t, instances=rows, count=rows.shape[0],
+                                        uniform=uniform, textures=slot.compiled.textures[t], layers=slot.layers))
+        if camera_pos is not None:
+            cam = np.asarray(camera_pos, np.float32).reshape(3)
+
+            def farthest_first(item):
+                o = np.asarray(self._spawners[item.spawner_id].global_transform.translation, np.float32) - cam
+                return -float(o @ o)
+
+            items.sort(key=farthest_first)
+        return items

@@ -11,25 +11,27 @@ and follows it, not the JAX package's XLA step, wherever the two differ:
     (deaths only by age) rank by ring distance, r = (g - cursor) mod N;
     destroy-on-collision archetypes by dead-slot rank, r = the exclusive
     count of dead lanes before g (`dead_rank`);
-  * alive is derived from age (alive == age < lifetime) on ring archetypes
-    and is the survivor plane of the previous frame on the others;
-  * collision (`collision.particle_collision`) keeps the op order of the
-    JAX package's Pallas kernel.
+  * alive is derived from age (alive == age < lifetime) on every ring
+    archetype, a `particles_destroyed` handler or not (deaths there are by
+    age only, so the survivor plane is the same set), and is the survivor
+    plane of the previous frame on the dead-rank ones: the kernel keys the
+    alive plane on the claim kind, and so does this version;
+  * collision (`collision.particle_collision`) and the force fields
+    (`force_fields.field_accel`) keep the op order of the JAX package's
+    Pallas kernel.
 Every expression keeps the op order of `bevy_firework_tpu.step` and of the
 kernel, so on the card the kernel and this function agree bit for bit up to
 libm (`sinf`/`cosf`).
 
 Scope: the global branch of the reference's spawn/update chain, with
-colliders of every kind and destroy-on-collision. Force fields, nested
-emitters and the destroyed-particle dump raise NotImplementedError naming
+colliders of every kind, destroy-on-collision, scene force fields and the
+destroyed-particle mask. Nested emitters raise NotImplementedError naming
 the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -38,6 +40,7 @@ from .collision import particle_collision
 from .compiled import MODE_NESTED, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerParams, SpawnerStatic
 from .curve import eval_curve_static
 from .emission_shape import sample_shape_comp
+from .force_fields import field_accel
 from .pool import FrameInput, PoolState
 from .prng import frame_seeds, lane_uniforms
 from .rand import sample_randf32, sample_randvec3_comp
@@ -57,19 +60,20 @@ class StepOutputs:
     aabb_valid: torch.Tensor  # bool scalar (any live particle)
     aabb_min: torch.Tensor  # [3] min(pos - scale) over live
     aabb_max: torch.Tensor  # [3] max(pos + scale)
-    destroyed_mask: torch.Tensor  # [N] bool (all False: the dump is not ported yet)
+    destroyed_mask: torch.Tensor  # [N] bool: died this frame, of a type with a destroyed handler
     nested_deferred: torch.Tensor  # int32 scalar (0: no nested emitters here)
     nested_dropped: torch.Tensor  # int32 scalar
 
 
-def check_scope(static: SpawnerStatic, frame: Optional[FrameInput] = None) -> None:
+def check_scope(static: SpawnerStatic) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    if frame is not None and frame.force_fields is not None:
-        raise NotImplementedError("force fields: ROADMAP queue 1 item 9 is not ported yet")
     if any(m == MODE_NESTED for m in static.mode_kinds):
         raise NotImplementedError("nested emitters: ROADMAP queue 1 item 12 is not ported yet")
-    if static.any_destroyed_dump:
-        raise NotImplementedError("destroyed-particle dump: ROADMAP queue 1 item 10 is not ported yet")
+
+
+def fields_on(frame: FrameInput) -> bool:
+    """The frame carries a non-empty scene force-field table."""
+    return frame.force_fields is not None and frame.force_fields.count > 0
 
 
 def collision_on(static: SpawnerStatic, colliders) -> bool:
@@ -177,15 +181,18 @@ def cadence(static: SpawnerStatic, params: SpawnerParams, scal: dict, dt):
 
 def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: dict, frame: FrameInput, seed: int,
             colliders=None):
-    """One sub-frame on the active fields (+ ptype, + alive where it is not
-    derived) and the scalar state. Returns the new (fields, scal)."""
+    """One sub-frame on the active fields (+ ptype, + alive on dead-rank
+    archetypes) and the scalar state. Returns the new (fields, scal, dump):
+    dump is the sub-frame's destroyed mask (lanes alive after the spawn and
+    not surviving it, of a type with a destroyed handler), None when no type
+    has one."""
     T = static.num_types
     dt = frame.dt
     f = dict(fields)
     N = f["age"].shape[0]
     ptype = f["ptype"]
     life = lifetime_of(static, f)
-    alive0 = f["age"] < life if static.derived_alive else f["alive"]
+    alive0 = f["age"] < life if static.ring_claim else f["alive"]
     dead = ~alive0
 
     cursor0 = scal["ring_cursor"]
@@ -258,6 +265,13 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     ax = _by_type(params.acceleration[:, 0], ptype, T)
     ay = _by_type(params.acceleration[:, 1], ptype, T)
     az = _by_type(params.acceleration[:, 2], ptype, T)
+    if fields_on(frame):
+        # scene force fields at the post-move position, onto the per-type
+        # acceleration before drag, weighted by the type's opt-in (kernel
+        # :1462-1472)
+        ffx, ffy, ffz = field_accel(frame.force_fields, npx, npy, npz)
+        fm = _by_type(params.field_mask, ptype, T)
+        ax, ay, az = ax + fm * ffx, ay + fm * ffy, az + fm * ffz
     lin_drag = _by_type(params.linear_drag, ptype, T)
     dvx = nvx + (ax - nvx * lin_drag) * dt
     dvy = nvy + (ay - nvy * lin_drag) * dt
@@ -265,6 +279,13 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
 
     # A destroyed lane keeps its age; ring archetypes never destroy, so age
     # < lifetime stays their alive flag, and the others carry `alive`.
+    dump = None
+    if static.any_destroyed_dump:  # kernel :1567-1576
+        destroyed = alive_sp & ~survivor
+        dump = torch.zeros_like(destroyed)
+        for t in range(T):
+            if static.destroyed_dump_types[t]:
+                dump = dump | (destroyed & (ptype == t))
     f["age"] = torch.where(alive_sp, age_new, f["age"])
     f["px"] = torch.where(moved, npx, px)
     f["py"] = torch.where(moved, npy, py)
@@ -272,7 +293,7 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     f["vx"] = torch.where(survivor, dvx, torch.where(moved, nvx, vx))
     f["vy"] = torch.where(survivor, dvy, torch.where(moved, nvy, vy))
     f["vz"] = torch.where(survivor, dvz, torch.where(moved, nvz, vz))
-    if not static.derived_alive:
+    if not static.ring_claim:
         f["alive"] = survivor
     if not static.elide_rotation:
         aax = _by_type(params.angular_acceleration[:, 0], ptype, T)
@@ -288,14 +309,14 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
         f["wy"] = torch.where(survivor, wy + (aay - ang_drag * wy) * dt, wy)
         f["wz"] = torch.where(survivor, wz + (aaz - ang_drag * wz) * dt, wz)
     f["ptype"] = ptype
-    return f, scal
+    return f, scal, dump
 
 
 def split_state(static: SpawnerStatic, state: PoolState):
     """(fields, scal): the step's working set of a pool."""
     fields = {k: getattr(state, k) for k in active_f32_fields(static)}
     fields["ptype"] = state.ptype
-    if not static.derived_alive:
+    if not static.ring_claim:
         fields["alive"] = state.alive
     scal = {k: getattr(state, k) for k in ("time_in_cycle", "last_emission", "enabled", "manual_queued",
                                            "ring_cursor")}
@@ -312,19 +333,25 @@ def finished_latch(static: SpawnerStatic, state: PoolState, enabled, alive_any):
 
 
 def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fields: dict, scal: dict,
-             new_key: torch.Tensor, stats: bool = True):
+             new_key: torch.Tensor, stats: bool = True, dump=None, stats_row=None):
     """Assemble the post-frame PoolState, and with `stats` the StepOutputs
-    (AABB over pos ± scale, alive and per-type counts, finished latch), as
-    torch reductions outside the kernel. Without `stats` only the finished
-    latch is computed (chain frames whose outputs nobody reads)."""
-    T = static.num_types
+    (AABB over pos ± scale, alive and per-type counts, finished latch, the
+    destroyed mask `dump` of the last sub-frame). The stats are torch
+    reductions here, or, given the kernel's stats row (`stats_row`, the
+    in-kernel stats of `ops.fused_step`), read from it: then only the
+    finished latch is computed. Without `stats` only the finished latch is
+    computed (chain frames whose outputs nobody reads)."""
     kw = {k: getattr(state, k) for k in ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw",
                                          "wx", "wy", "wz", "initial_scale", "age", "lifetime")}
     kw.update({k: v for k, v in fields.items() if k not in ("ptype", "alive")})
     ptype = fields["ptype"]
     life = lifetime_of(static, kw)
-    alive = kw["age"] < life if static.derived_alive else fields["alive"]
-    alive_any = alive.any()
+    alive = kw["age"] < life if static.ring_claim else fields["alive"]
+    if stats_row is not None:
+        aabb_min, aabb_max, alive_count, per_type = stats_row
+        alive_any = alive_count > 0
+    else:
+        alive_any = alive.any()
     finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     new_state = PoolState(
         **kw, ptype=ptype, alive=alive, last_emitted=state.last_emitted,
@@ -334,18 +361,28 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     )
     if not stats:
         return new_state, None
+    if stats_row is None:
+        aabb_min, aabb_max, alive_count, per_type = stat_reductions(static, params, kw, ptype, alive)
+    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    out = StepOutputs(
+        alive_count=alive_count, alive_count_per_type=per_type, finished_event=finished,
+        aabb_valid=alive_any, aabb_min=aabb_min, aabb_max=aabb_max,
+        destroyed_mask=torch.zeros_like(alive) if dump is None else dump, nested_deferred=zero, nested_dropped=zero,
+    )
+    return new_state, out
+
+
+def stat_reductions(static: SpawnerStatic, params: SpawnerParams, kw: dict, ptype, alive):
+    """The plain version of the kernel's stats block: (aabb_min [3], aabb_max
+    [3], alive count, per-type counts [T]) over the live lanes, the AABB of
+    pos ± scale (render.rs:677-703)."""
+    life = lifetime_of(static, kw)
     scale = kw["initial_scale"] * scale_factor(static, params, ptype, kw["age"] / life)
     inf = float("inf")
     aabb_min = torch.stack([torch.where(alive, kw[c] - scale, inf).min() for c in ("px", "py", "pz")])
     aabb_max = torch.stack([torch.where(alive, kw[c] + scale, -inf).max() for c in ("px", "py", "pz")])
-    per_type = torch.stack([(alive & (ptype == t)).sum(dtype=torch.int32) for t in range(T)])
-    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
-    out = StepOutputs(
-        alive_count=alive.sum(dtype=torch.int32), alive_count_per_type=per_type, finished_event=finished,
-        aabb_valid=alive_any, aabb_min=aabb_min, aabb_max=aabb_max,
-        destroyed_mask=torch.zeros_like(alive), nested_deferred=zero, nested_dropped=zero,
-    )
-    return new_state, out
+    per_type = torch.stack([(alive & (ptype == t)).sum(dtype=torch.int32) for t in range(static.num_types)])
+    return aabb_min, aabb_max, alive.sum(dtype=torch.int32), per_type
 
 
 def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, n: int = 1,
@@ -355,13 +392,14 @@ def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
     (new_state, StepOutputs, or None without `stats`)."""
     key, seeds = frame_seeds(state.rng_key.numpy(), n)
     fields, scal = split_state(static, state)
+    dump = None
     for seed in seeds:
-        fields, scal = advance(static, params, fields, scal, frame, seed, colliders)
-    return epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats)
+        fields, scal, dump = advance(static, params, fields, scal, frame, seed, colliders)
+    return epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats, dump)
 
 
 def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
     """Advance one spawner's pool by one frame (plain PyTorch, any device).
     Returns (new_state, StepOutputs)."""
-    check_scope(static, frame)
+    check_scope(static)
     return plain_frames(static, params, state, frame, colliders=colliders)

@@ -45,15 +45,42 @@ collision flows, through the kernels. Phases:
  12. hull8_1M: the same against bench.py's 8 hulls, 120 frames;
  13. collision_flow: effects.collision() with its cuboid through
      step_auto_packed for 400 frames: live count, state and render planes
-     equal the plain version's.
+     equal the plain version's;
+ 14. fields_det, N = 131072: the box emitter under one force field of each
+     kind (and a disabled one), and under all four: kernel == plain bit for
+     bit on point, vortex and axial, turbulence within 8 ulp (cosf against
+     PyTorch's CUDA cos), over 4 U = 1 and 4 U = 8 launches;
+ 15. dump_det, N = 131072: the destroyed-dump plane of a ring archetype with
+     a particles_destroyed handler (deaths by age) and of a destroy
+     archetype with one (dead-rank claim): equal to the plain mask, 12
+     frames each;
+ 16. stats_det, N = 1310720: the kernel's stats row (AABB, alive and
+     per-type counts) against the plain reductions over the state the same
+     launch wrote, for a ring, a dead-rank and a 3-type archetype, by value;
+ 17. fields_1M: library.dust at 3e5/s (lifetime 4 s) under the tornado
+     example's three fields, capacity 1310720: a 300-frame multi_step_auto
+     chain (U = 8) against 300 plain frames, ms/frame and the kernel's
+     device time per launch beside main_1M's;
+ 18. scene_flows: through `Scene` on the card: the sparks flow (750 live;
+     state and rows equal a CPU Scene's), the tornado example (300 frames
+     of set_force_field; equal to the plain version replayed on the card)
+     and bench.py's events_dump_overhead scene (4 spawners at 3000/s,
+     capacity 8192, a floor, destroy-on-collision): records delivered ==
+     the plain version's destroyed count, ms per Scene.step with and
+     without the handler.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
-chains and the collision flow) and read just after it; the kernels'
-summary reports those counts only. Every phase prints one JSON line; the kernels'
-summary and the final `{"ok": true, "device": ...}` line follow. Any failed check raises, so the
-exit code is non-zero and no final line is printed. Without a CUDA device
-the script exits with an error before running anything.
+chains, the collision flow, the fields chain and the Scene flows) and read
+just after it; the kernels' summary reports those counts only. Every phase
+prints one JSON line; the kernels' summary (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
+from this run's shapes) and the final `{"ok": true, "device": ...}` line
+follow. Every device time is held to its bound where it is measured: a
+trace that holds no launch or reads below the bound is traced again (and
+listed in the summary's `trace_faults`), three traces in all. Any failed
+check raises, so the exit code is non-zero and no final line is printed. Without a CUDA device the script exits with an error before
+running anything.
 """
 
 from __future__ import annotations
@@ -67,8 +94,32 @@ import sys
 import time
 
 
+# An H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM3
+# bandwidth and f32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# f32 operations per lane and frame, counted from the kernel's source as
+# lower bounds (spawn lanes, curve evaluation and libm calls beyond one
+# operation each are not counted): the integrate path (age, move, drag),
+# one ray test of one collider, each force-field kind plus the field
+# weighting, and the stats fold.
+INTEGRATE_OPS = 20
+RAY_OPS = 20
+FIELD_OPS = {0: 23, 1: 32, 2: 43, 3: 159}  # FIELD_POINT, VORTEX, AXIAL, TURBULENCE
+FIELD_WEIGHT_OPS = 6
+STATS_OPS = 14
+
+
 class CheckFailed(RuntimeError):
     pass
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    memory rate and the f32 operations over its peak rate (ms)."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
 
 
 def check(cond, msg):
@@ -80,16 +131,42 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_summary(report: str) -> list:
+    """Per kernel of ptxas's report: its name (the step kernel's template
+    arguments ring, collide, fields, stats spelled out), registers, stack,
+    spill bytes and shared memory."""
+    import re
+
+    out = []
+    for block in report.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+)'", block).group(1)
+        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        if t:
+            name = "fused_step_kernel<ring={},collide={},fields={},stats={}>".format(*t.groups())
+        else:
+            name = re.search(r"([a-z_]+_kernel)E", name).group(1)
+        row = {"kernel": name, "registers": int(re.search(r"Used (\d+) registers", block).group(1))}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"(\d+) bytes smem", block)
+        row["smem"] = int(m.group(1)) if m else 0
+        out.append(row)
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 2
+    import numpy as np
+
     import bevy_firework_tpu_torch as bt
     from bevy_firework_tpu_torch.models import effects
     from bevy_firework_tpu_torch.ops import _build
     from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.ops import table_layout as L
     from bevy_firework_tpu_torch.profile_step import device_times
     from bevy_firework_tpu_torch.render import pack_render_planes
     from bevy_firework_tpu_torch.settings import EmissionPacing
@@ -110,7 +187,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     _build.load()
     emit({"phase": "card", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s})
+          "kernel_build_s": build_s, "ptxas": ptxas_summary(_build.ptxas_report())})
 
     def ulp_diff(a, b) -> int:
         """Largest distance in units in the last place between two f32 tensors."""
@@ -123,7 +200,8 @@ def main() -> int:
 
     scalars = ("ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued", "alive", "rng_key")
     max_err = {"fused_step": 0.0, "fused_step.pack_render": 0.0, "fused_step.collide": 0.0,
-               "fused_step.dead_rank_claim": 0.0}
+               "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
+               "fused_step.stats": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
         for k in scalars:
@@ -143,16 +221,18 @@ def main() -> int:
             max_err["fused_step.pack_render"] = max(max_err["fused_step.pack_render"], float((a - b).abs().max()))
             check(torch.equal(a, b), f"{label}: render plane {i} differs by {ulp_diff(a, b)} ulp")
 
+    counters = {"fused_step": (fs.fused_step, "launches"), "render": (fs.fused_step, "render_launches"),
+                "collide": (fs.fused_step, "collide_launches"), "fields": (fs.fused_step, "fields_launches"),
+                "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
+                "dead_rank_claim": (fs.tile_dead_offsets, "launches")}
+
     def counted(fn):
         """fn() with the kernels' launch counters set to 0 just before it and
         read just after: (result, {counter: launches})."""
-        fs.fused_step.launches = 0
-        fs.fused_step.render_launches = 0
-        fs.fused_step.collide_launches = 0
-        fs.tile_dead_offsets.launches = 0
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
         result = fn()
-        return result, {"fused_step": fs.fused_step.launches, "render": fs.fused_step.render_launches,
-                        "collide": fs.fused_step.collide_launches, "dead_rank_claim": fs.tile_dead_offsets.launches}
+        return result, {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
 
     def det_spawner():
         return bt.ParticleSpawner(
@@ -240,41 +320,62 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b) / reps
 
-    def device_ms(fn, reps, kernel_only, kernels=("fused_step_kernel",)):
+    trace_faults = []
+
+    def device_ms(label, fn, reps, kernel_only, least_ms, kernels=("fused_step_kernel",)):
         """Device time per call from a torch.profiler trace: the named
-        kernels' own time (kernel_only) or that of every CUDA kernel."""
+        kernels' own time (kernel_only; each named kernel launches once per
+        call), averaged over the launches the trace holds (a trace of 20
+        calls may drop launches), or, otherwise, the time of every CUDA
+        kernel over the calls. A trace that holds no launch of the named
+        kernels, or that reads below least_ms (the least time the card could
+        take for the call's work, from this run's shapes), is a measuring
+        fault: it is recorded in `trace_faults` and traced again, three
+        traces in all, and the run fails if all three are faulty."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kern = sum(device_times(prof, k)[0] for k in kernels)
-        total = device_times(prof, kernels[0])[1]
-        ms = (kern if kernel_only else total) / reps / 1e3
-        check(ms > 0, f"the profiler saw no device time for {fn}")
-        return ms
+        for _attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            times = [device_times(prof, k) for k in kernels]
+            if kernel_only:
+                ms = sum(t[0] / t[2] for t in times) / 1e3 if all(t[2] > 0 for t in times) else 0.0
+            else:
+                ms = times[0][1] / reps / 1e3
+            if ms > 0 and ms >= least_ms:
+                return ms
+            trace_faults.append({"label": label, "ms": ms, "least_ms": least_ms,
+                                 "launches_in_trace": [t[2] for t in times]})
+        raise CheckFailed(f"{label}: three traces read below the bound {least_ms} ms: {trace_faults[-3:]}")
 
     # ------------------------------------ 6./7. (and 11./12.) chained paths
     claim_kernels_names = ("dead_count_kernel", "tile_scan_kernel")
 
-    def chain_path(label, spawner, rate, capacity, warm, n_frames, plain_n, colliders=None, unrolls=(8,)):
+    def chain_path(label, spawner, rate, capacity, warm, n_frames, plain_n, colliders=None, unrolls=(8,),
+                   fields=None, f32_ulps=4):
         """A `warm`-frame multi_step_auto chain from an empty pool (launches
-        counted) against as many plain frames, its render pack against the
-        plain one, differential CUDA-event ms/frame over n and 2n frames,
-        and device times (torch.profiler) of one launch per U in `unrolls`,
-        of a render-pack launch and of the dead-rank claim on the final
-        alive plane, each beside the plain version's."""
+        counted) against as many plain frames (f32 fields within f32_ulps),
+        its render pack against the plain one, differential CUDA-event
+        ms/frame over n and 2n frames, and device times (torch.profiler) of
+        one launch per U in `unrolls`, of a render-pack launch and of the
+        dead-rank claim on the final alive plane, each beside the plain
+        version's, each held to its bound (`bounds` in the result). fields:
+        the scene's force fields (a list)."""
         es = dataclasses.replace(spawner.emission_settings[0], emission_pacing=EmissionPacing.rate(float(rate)))
         cm = bt.compile_spawner(dataclasses.replace(spawner, emission_settings=(es,)), device=dev)
         table = None if colliders is None else bt.compile_colliders(colliders, device=dev)
-        frame = bt.make_frame_input(1 / 60)  # bench.py's _measure: the spawner at the origin
+        ftable = None if fields is None else bt.compile_force_fields(fields, device=dev)
+        # bench.py's _measure: the spawner at the origin
+        frame = bt.make_frame_input(1 / 60, force_fields=ftable)
         state0 = bt.init_pool_for(cm, capacity, seed=0)
         (state, out), counts = counted(lambda: fs.multi_step_auto(cm.static, cm.params, table, state0, frame, warm))
         torch.cuda.synchronize()
         want = len(fs.chain_shape(warm, fs.chain_unroll(cm.static, table)))
-        check(counts["fused_step"] == want and counts["render"] == 0
-              and counts["collide"] == (0 if table is None else want), f"{label}: the chain's launches {counts}")
+        check(counts["fused_step"] == want and counts["render"] == 0 and counts["stats"] == 1
+              and counts["collide"] == (0 if table is None else want)
+              and counts["fields"] == (0 if ftable is None else want), f"{label}: the chain's launches {counts}")
         alive = int(out.alive_count)
         ref, ref_out = plain_frames(cm.static, cm.params, state0, frame, warm, colliders=table)
         check(int(ref_out.alive_count) == alive, f"{label}: alive {alive} != plain {int(ref_out.alive_count)}")
@@ -284,17 +385,29 @@ def main() -> int:
         for k in active_f32_fields(cm.static):
             a, b = getattr(ref, k), getattr(state, k)
             worst[k] = ulp_diff(a, b)
-            if table is not None:
-                max_err["fused_step.collide"] = max(max_err["fused_step.collide"], float((a - b).abs().max()))
-            check(worst[k] <= 4, f"{label}: {k} {worst[k]} ulp from plain")
+            for key, on in (("fused_step.collide", table is not None), ("fused_step.fields", ftable is not None)):
+                if on:
+                    max_err[key] = max(max_err[key], float((a - b).abs().max()))
+            check(worst[k] <= f32_ulps, f"{label}: {k} {worst[k]} ulp from plain")
             check(bool(torch.isfinite(b).all()), f"{label}: non-finite {k}")
         res = {"phase": label, "card": card, "capacity": capacity, "rate": rate, "live": alive, "chain_frames": warm,
-               "chain_launches": counts["fused_step"], "max_ulp": worst}
+               "chain_launches": counts["fused_step"], "max_ulp": worst, "rule": f"counts exact, f32 <= {f32_ulps} ulp",
+               "active_fields": len(active_f32_fields(cm.static))}
         if table is not None:
             free, _o = plain_frames(cm.static, cm.params, state0, frame, warm)
             res.update(colliders=len(colliders), lanes_deflected=int((state.alive & (state.py != free.py)).sum()))
         sr, _o, planes = fs.fused_step(cm.static, cm.params, table, state, frame, pack_render=True)
         compare_planes(cm, sr, planes, label)
+        # bounds of the timed calls at this shape: f32 operations per live
+        # lane and frame, bytes of the planes each launch reads and writes
+        lane_ops = INTEGRATE_OPS + RAY_OPS * (0 if table is None else len(colliders))
+        if fields is not None:
+            lane_ops += FIELD_WEIGHT_OPS + sum(FIELD_OPS[fld.kind] for fld in fields)
+        plane_bytes = 2 * 4 * len(active_f32_fields(cm.static)) * capacity
+        bounds = {f"u{u}": bound(plane_bytes, u * lane_ops * alive) for u in unrolls}
+        bounds["render"] = bound(plane_bytes + 4 * L.N_RENDER * capacity, lane_ops * alive)
+        bounds["claim"] = bound(capacity + 4 * -(-capacity // L.TILE), capacity)
+        res["bounds"] = bounds
 
         def run(n):
             st, _o = fs.multi_step_auto(cm.static, cm.params, table, state, frame, n)
@@ -331,23 +444,26 @@ def main() -> int:
             return pack_render_planes(cm.static, cm.params, st)
 
         for u in unrolls:
-            res[f"u{u}_kernel_device_ms"] = device_ms(launch(u), 20, True)
-            res[f"plain_{u}_frames_device_ms"] = device_ms(plain(u), 3, False)
+            least = bounds[f"u{u}"]["bound_ms"]
+            res[f"u{u}_kernel_device_ms"] = device_ms(f"{label} U={u}", launch(u), 20, True, least)
+            res[f"plain_{u}_frames_device_ms"] = device_ms(f"{label} plain {u}", plain(u), 3, False, least)
             res[f"u{u}_launch_wall_ms"] = event_ms(launch(u), 20)
             res[f"plain_{u}_frames_wall_ms"] = event_ms(plain(u), 3)
-        res.update(render_kernel_device_ms=device_ms(launch(1, True), 20, True),
-                   plain_render_frame_device_ms=device_ms(plain_render, 3, False),
+        least_r, least_c = bounds["render"]["bound_ms"], bounds["claim"]["bound_ms"]
+        res.update(render_kernel_device_ms=device_ms(f"{label} render", launch(1, True), 20, True, least_r),
+                   plain_render_frame_device_ms=device_ms(f"{label} plain render", plain_render, 3, False, least_r),
                    render_launch_wall_ms=event_ms(launch(1, True), 20),
                    plain_render_frame_wall_ms=event_ms(plain_render, 3),
-                   claim_kernels_device_ms=device_ms(lambda: fs.tile_dead_offsets(state.alive), 20, True,
-                                                     claim_kernels_names),
-                   plain_dead_rank_device_ms=device_ms(lambda: dead_rank(~state.alive), 20, False))
+                   claim_kernels_device_ms=device_ms(f"{label} claim", lambda: fs.tile_dead_offsets(state.alive), 20,
+                                                     True, least_c, claim_kernels_names),
+                   plain_dead_rank_device_ms=device_ms(f"{label} plain claim", lambda: dead_rank(~state.alive), 20,
+                                                       False, least_c))
         emit(res)
-        return res, counts
+        return res, counts, cm, state
 
     stress_sp = effects.stress_test()[0]
-    r100k, r100k_counts = chain_path("main_100k", stress_sp, 100_000, 1 << 17, 140, 400, 20)
-    r1m, r1m_counts = chain_path("main_1M", stress_sp, 1_000_000, 160 * 8192, 140, 150, 10)
+    r100k, r100k_counts, c100k, s100k = chain_path("main_100k", stress_sp, 100_000, 1 << 17, 140, 400, 20)
+    r1m, r1m_counts, c1m_main, s1m_main = chain_path("main_1M", stress_sp, 1_000_000, 160 * 8192, 140, 150, 10)
 
     # ------------------------------------------------ 8. sparks flow
     cs = bt.compile_spawner(bt.ParticleSpawner(
@@ -372,16 +488,18 @@ def main() -> int:
           "launches": s_counts})
 
     # ------------------------------------------------ 9. collision_det
-    def box_spawner(destroy=False):
+    def box_spawner(destroy=False, lifetime=2.0, handler=None):
         """Box emission, radial speed, no spread, gravity: every draw reaches
         the state through +, -, *, / and sqrt only (sinf/cosf see 0), so the
-        kernel and the plain version agree bit for bit on every lane."""
+        kernel and the plain version agree bit for bit on every lane.
+        handler: a particles_destroyed handler (the dump plane)."""
         return bt.ParticleSpawner(
             particle_settings=[bt.ParticleSettings(
-                lifetime=bt.RandF32.constant(2.0), initial_scale=bt.RandF32(0.02, 0.08),
+                lifetime=bt.RandF32.constant(lifetime), initial_scale=bt.RandF32(0.02, 0.08),
                 acceleration=(0.0, -9.81, 0.0), linear_drag=0.1,
                 collision_settings=ParticleCollisionSettings(restitution=0.7, friction=0.3,
-                                                             destroy_on_collision=destroy))],
+                                                             destroy_on_collision=destroy),
+                event_handlers=bt.ParticleEventHandlers(particles_destroyed=handler))],
             emission_settings=[bt.EmissionSettings(
                 emission_pacing=bt.EmissionPacing.rate(3e5), emission_shape=bt.EmissionShape.box((1.5, 0.5, 1.5)),
                 initial_velocity=bt.RandVec3(bt.RandF32(0.5, 3.0), (0.0, 1.0, 0.0), 0.0),
@@ -456,22 +574,26 @@ def main() -> int:
     def claim_plain():
         return dead_rank(~sd.alive)
 
-    claim = {"claim_kernels_device_ms": device_ms(claim_kernels, 20, True, claim_kernels_names),
-             "plain_dead_rank_device_ms": device_ms(claim_plain, 20, False)}
+    n_claim = 131072
+    claim_bound = bound(n_claim + 4 * (n_claim // L.TILE), n_claim)
+    claim = {"claim_kernels_device_ms": device_ms("destroy_claim claim", claim_kernels, 20, True,
+                                                  claim_bound["bound_ms"], claim_kernels_names),
+             "plain_dead_rank_device_ms": device_ms("destroy_claim plain", claim_plain, 20, False,
+                                                    claim_bound["bound_ms"])}
     emit({"phase": "destroy_claim", "card": card, "n": 131072, "frames": 30, "live": int(sd.alive.sum()),
           "destroyed": destroyed, "tiles": 512, "tiles_with_dead_lanes": tiles_dead, "launches": d_counts,
           **claim, "rule": "claims, alive, cursor and fields bit-equal each frame; tile offsets == plain"})
 
     # ------------------------------------------- 11./12. collision at 1M
     spc = effects.stress_test_collision()[0]
-    c1m, c1m_counts = chain_path("collision_1M", spc, 500_000, 160 * 8192, 150, 150, 5,
-                                 effects.stress_test_collision()[2], (2, 8))
+    c1m, c1m_counts, _cm, _st = chain_path("collision_1M", spc, 500_000, 160 * 8192, 150, 150, 5,
+                                           effects.stress_test_collision()[2], (2, 8))
     hulls = [bt.Collider.hull([(1, 0, 0, 60.0), (-1, 0, 0, 60.0), (0, 1, 0, 1.0), (0, -1, 0, 1.0), (0, 0, 1, 60.0),
                                (0, 0, -1, 60.0)], position=(0.0, -1.5, 0.0))]
     for i in range(7):
         hulls.append(bt.Collider.hull_from_points([(0, 0, 0), (2.0, 0, 0), (0, 2.5, 0), (0, 0, 2.0)],
                                                   position=(float(i * 3 - 9), -0.5, float((i % 3) * 3 - 3))))
-    h8, h8_counts = chain_path("hull8_1M", spc, 500_000, 160 * 8192, 120, 120, 3, hulls, (2, 8))
+    h8, h8_counts, _cm, _st = chain_path("hull8_1M", spc, 500_000, 160 * 8192, 120, 120, 3, hulls, (2, 8))
 
     # ------------------------------------------------ 13. collision flow
     spf, tff, colf = effects.collision()
@@ -501,44 +623,316 @@ def main() -> int:
     emit({"phase": "collision_flow", "card": card, "live": int(outf.alive_count), "frames": 400,
           "launches": f_counts, "bytes": int(rows.shape[0]) * 64})
 
+    # ------------------------------------------------ 14. fields_det
+    field_kinds = {
+        "point": bt.ForceField.point((0.3, 0.8, -0.2), 6.0, 2.5),
+        "vortex": bt.ForceField.vortex((0.1, 0.0, 0.2), (0.3, 0.9, 0.1), 5.0, 3.0),
+        "axial": bt.ForceField.axial((-0.2, 0.0, 0.1), (0.0, 1.0, 0.0), 8.0, 2.0),
+        "turbulence": bt.ForceField.turbulence((0.0, 0.5, 0.0), 4.0, 6.0, frequency=1.7, phase=0.3),
+    }
+    cb = bt.compile_spawner(box_spawner(), device=dev)
+    fdet_res = {}
+    for name in list(field_kinds) + ["all"]:
+        fl = list(field_kinds.values()) if name == "all" else [field_kinds[name]]
+        ftab = bt.compile_force_fields(fl + [field_kinds["point"]], device=dev, active=[True] * len(fl) + [False])
+        fr = bt.make_frame_input(1 / 60, force_fields=ftab)
+        # turbulence: 9 cosf per lane and field against PyTorch's CUDA cos
+        allowed = 8 if name in ("turbulence", "all") else 0
+        s = bt.init_pool_for(cb, 131072)
+        worst = {}
+        for u in [1] * 4 + [8] * 4:
+            sk, _ok = fs.fused_step(cb.static, cb.params, None, s, fr, unroll=u)
+            sp_, _op = plain_frames(cb.static, cb.params, s, fr, u)
+            w = compare(cb, sk, sp_, {k: allowed for k in active_f32_fields(cb.static)}, f"fields_det {name} U={u}",
+                        kernel="fused_step.fields")
+            worst = {k: max(worst.get(k, 0), v) for k, v in w.items()}
+            s = sk
+        free, _o = plain_frames(cb.static, cb.params, bt.init_pool_for(cb, 131072), bt.make_frame_input(1 / 60), 36)
+        moved = int((s.alive & (s.vx != free.vx)).sum())
+        check(moved > 1000, f"fields_det {name}: the field moved {moved} lanes")
+        fdet_res[name] = {"max_ulp": max(worst.values()), "allowed_ulp": allowed, "lanes_moved": moved}
+    torch.cuda.synchronize()
+    emit({"phase": "fields_det", "card": card, "n": 131072, "configs": fdet_res,
+          "rule": "bit-equal on point, vortex, axial; turbulence <= 8 ulp (cosf); 4 U=1 and 4 U=8 launches"})
+
+    # ------------------------------------------------ 15. dump_det
+    dump_res = {}
+    for destroy in (False, True):
+        cdm = bt.compile_spawner(box_spawner(destroy=destroy, lifetime=0.1, handler=lambda records: None), device=dev)
+        check(cdm.static.any_destroyed_dump and cdm.static.ring_claim == (not destroy), "dump archetype")
+        tdm = table_c7 if destroy else None
+        s = bt.init_pool_for(cdm, 131072)
+        dumped = 0
+        for i in range(12):
+            sk, ok = fs.fused_step(cdm.static, cdm.params, tdm, s, fdet)
+            sp_, op = plain_frames(cdm.static, cdm.params, s, fdet, 1, colliders=tdm)
+            compare(cdm, sk, sp_, {}, f"dump_det destroy={destroy} frame {i}", kernel="fused_step.dump")
+            check(torch.equal(ok.destroyed_mask, op.destroyed_mask), f"dump_det destroy={destroy} frame {i}: mask")
+            max_err["fused_step.dump"] = max(max_err["fused_step.dump"], float(
+                (ok.destroyed_mask.float() - op.destroyed_mask.float()).abs().max()))
+            dumped += int(ok.destroyed_mask.sum())
+            s = sk
+        check(dumped > 1000, f"dump_det destroy={destroy}: {dumped} lanes dumped")
+        dump_res["destroy_on_collision" if destroy else "ring_by_age"] = {"dumped": dumped, "live": int(s.alive.sum())}
+        if not destroy:  # timing: the ring archetype alone, so the launch differs by the dump plane only
+            c_nodump = bt.compile_spawner(box_spawner(lifetime=0.1), device=dev)
+            dump_state, c_dump = s, cdm
+    dump_live, dump_planes = int(dump_state.alive.sum()), 2 * 4 * len(active_f32_fields(c_dump.static)) * 131072
+    dump_bound = bound(dump_planes + 131072, INTEGRATE_OPS * dump_live)
+    least_nodump = bound(dump_planes, INTEGRATE_OPS * dump_live)["bound_ms"]
+    dump_t = {"ms": device_ms("dump", lambda: fs.fused_step(c_dump.static, c_dump.params, None, dump_state, fdet), 20,
+                              True, dump_bound["bound_ms"]),
+              "ms_without": device_ms("dump without the plane", lambda: fs.fused_step(
+                  c_nodump.static, c_nodump.params, None, dump_state, fdet), 20, True, least_nodump),
+              "plain_ms": device_ms("dump plain", lambda: plain_frames(c_dump.static, c_dump.params, dump_state, fdet,
+                                                                       1), 3, False, dump_bound["bound_ms"]),
+              "live": dump_live}
+    emit({"phase": "dump_det", "card": card, "n": 131072, "frames": 12, "archetypes": dump_res, **dump_t,
+          "rule": "dump plane == plain destroyed mask, every frame; fields bit-equal"})
+
+    # ------------------------------------------------ 16. stats_det
+    from bevy_firework_tpu_torch.step import stat_reductions
+
+    def three_types():
+        types = [bt.ParticleSettings(lifetime=bt.RandF32.constant(0.5 + 0.2 * t),
+                                     initial_scale=bt.RandF32(0.02, 0.08),
+                                     scale_curve=bt.FireworkCurve.uneven_samples([(0.0, 1.0), (1.0, 0.5 + t)]),
+                                     acceleration=(0.0, -1.0 * t, 0.0)) for t in range(3)]
+        return bt.ParticleSpawner(particle_settings=types, emission_settings=[
+            bt.EmissionSettings(particle_index=t, emission_pacing=bt.EmissionPacing.rate(2e5 * (t + 1)),
+                                emission_shape=bt.EmissionShape.box((1.0 + t, 0.5, 1.0)),
+                                initial_velocity=bt.RandVec3(bt.RandF32(0.5, 3.0), (0.0, 1.0, 0.0), 0.0),
+                                initial_velocity_radial=bt.RandF32(1.0, 4.0)) for t in range(3)])
+
+    n1m = 160 * 8192
+    cdr = bt.compile_spawner(box_spawner(destroy=True), device=dev)
+    c3 = bt.compile_spawner(three_types(), device=dev)
+    stats_cases = {
+        "ring_stress_test": (c1m_main, None, s1m_main, [1, 1, 8, 1]),
+        "dead_rank_destroy": (cdr, table_c7, fs.multi_step_auto(cdr.static, cdr.params, table_c7,
+                                                                bt.init_pool_for(cdr, n1m), fdet, 20)[0], [1] * 4),
+        "three_types": (c3, None, fs.multi_step_auto(c3.static, c3.params, None, bt.init_pool_for(c3, n1m), fdet,
+                                                     20)[0], [1, 8, 1]),
+    }
+    stats_keys = ("px", "py", "pz", "initial_scale", "age", "lifetime")
+    stats_res = {}
+    for name, (cs_, tab, s, unrolls) in stats_cases.items():
+        for u in unrolls:
+            sk, ok = fs.fused_step(cs_.static, cs_.params, tab, s, fdet, unroll=u)
+            st_, _ot = fs.fused_step(cs_.static, cs_.params, tab, s, fdet, unroll=u, stats=False)
+            want = dict(zip(("aabb_min", "aabb_max", "alive_count", "alive_count_per_type"), stat_reductions(
+                cs_.static, cs_.params, {k: getattr(sk, k) for k in stats_keys}, sk.ptype, sk.alive)))
+            for k, v in want.items():
+                check(torch.equal(getattr(ok, k), v), f"stats_det {name} U={u}: {k} differs from the plain reductions")
+            check(bool(ok.aabb_valid) == (int(want["alive_count"]) > 0), f"stats_det {name} U={u}: aabb_valid")
+            for k in ("aabb_min", "aabb_max"):
+                max_err["fused_step.stats"] = max(max_err["fused_step.stats"], float((getattr(ok, k) - want[k]).abs().max()))
+            compare(cs_, sk, st_, {}, f"stats_det {name} U={u}", kernel="fused_step.stats")
+            s = sk
+        stats_res[name] = {"live": int(ok.alive_count), "per_type": ok.alive_count_per_type.tolist(),
+                           "aabb_min": ok.aabb_min.tolist(), "aabb_max": ok.aabb_max.tolist()}
+        check(int(ok.alive_count) > 50000 and bool(ok.aabb_valid), f"stats_det {name}: {stats_res[name]}")
+    cs_, tab, s, _u = stats_cases["ring_stress_test"]
+    kw = {k: getattr(s, k) for k in stats_keys}
+    stats_live, stats_planes = int(s.alive.sum()), 2 * 4 * len(active_f32_fields(cs_.static)) * n1m
+    stats_bound = bound(stats_planes, (INTEGRATE_OPS + STATS_OPS) * stats_live)
+    least_plain = stats_bound["bound_ms"]
+    # the reductions alone read the 6 planes they fold and the alive plane
+    least_red = bound((6 * 4 + 1) * n1m, STATS_OPS * stats_live)["bound_ms"]
+    stats_t = {"ms": device_ms("stats", lambda: fs.fused_step(cs_.static, cs_.params, None, s, fdet), 20, True,
+                               stats_bound["bound_ms"]),
+               "ms_without": device_ms("stats without the block", lambda: fs.fused_step(
+                   cs_.static, cs_.params, None, s, fdet, stats=False), 20, True,
+                   bound(stats_planes, INTEGRATE_OPS * stats_live)["bound_ms"]),
+               "plain_ms": device_ms("stats plain", lambda: plain_frames(cs_.static, cs_.params, s, fdet, 1), 3, False,
+                                     least_plain),
+               "plain_reductions_ms": device_ms("stats plain reductions", lambda: stat_reductions(
+                   cs_.static, cs_.params, kw, s.ptype, s.alive), 20, False, least_red),
+               "live": stats_live, "n": n1m}
+    emit({"phase": "stats_det", "card": card, "n": n1m, "cases": stats_res, **stats_t,
+          "rule": "kernel stats row == the plain reductions of the launch's state by value; state bit-equal"})
+
+    # ------------------------------------------------ 17. fields_1M
+    from bevy_firework_tpu_torch.models import library
+
+    def tornado_fields(x=0.0, z=0.0):
+        """examples/force_fields.py's funnel, centred at (x, 0, z)."""
+        return [bt.ForceField.vortex((x, 0.0, z), (0.0, 1.0, 0.0), strength=12.0, radius=6.0),
+                bt.ForceField.axial((x, 0.0, z), (0.0, 1.0, 0.0), strength=25.0, radius=7.0),
+                bt.ForceField.turbulence((0.0, 2.0, 0.0), strength=1.8, radius=8.0, frequency=2.2)]
+
+    dust1m = library.dust(rate=3e5, lifetime=4.0, updraft=2.5, drag=2.0, emit_radius=1.2)
+    # f32 rule: dust draws meet sinf/cosf at spawn and turbulence 9 cosf per
+    # lane-frame; 300 frames of integration carry an ulp where libm parts
+    f1m, f1m_counts, _cm, _st = chain_path("fields_1M", dust1m, 300_000, n1m, 300, 150, 3, fields=tornado_fields(),
+                                           f32_ulps=64)
+
+    # ------------------------------------------------ 18. scene_flows
+    sparks_sp = bt.ParticleSpawner(
+        particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75))],
+        emission_settings=[bt.EmissionSettings(emission_pacing=bt.EmissionPacing.rate(1000.0))])
+
+    def sparks_scene(device):
+        sc = bt.Scene(device=device)
+        sc.add_spawner(sparks_sp, capacity=2048)
+        for _ in range(120):
+            sc.step(1 / 60)
+        live = sc.alive_count()
+        first = sc.render_items()  # turns the in-kernel render pack on
+        sc.step(1 / 60)
+        return sc, live, first, sc.render_items()
+
+    def wander(f):
+        return 0.8 * math.sin(f * 0.02), 0.8 * math.cos(f * 0.017)
+
+    def tornado_scene():
+        sc = bt.Scene(force_fields=tornado_fields(), device=dev)
+        sid = sc.add_spawner(library.dust(updraft=2.5, drag=2.0, emit_radius=1.2), capacity=8192)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(300):
+            x, z = wander(f)
+            sc.set_force_field(0, position=(x, 0.0, z))
+            sc.set_force_field(1, position=(x, 0.0, z))
+            sc.step(1 / 60)
+        torch.cuda.synchronize()
+        return sc, sid, (time.perf_counter() - t0) / 300 * 1e3
+
+    records = {}
+
+    def events_scene(with_handler):
+        handler = None
+        if with_handler:
+            def handler(rs):
+                records[len(records)] = len(rs)
+        sp = bt.ParticleSpawner(
+            particle_settings=[bt.ParticleSettings(
+                lifetime=bt.RandF32.constant(1.0),
+                collision_settings=ParticleCollisionSettings(restitution=0.0, friction=0.0, destroy_on_collision=True),
+                event_handlers=bt.ParticleEventHandlers(particles_destroyed=handler))],
+            emission_settings=[bt.EmissionSettings(
+                emission_pacing=bt.EmissionPacing.rate(3000.0),
+                initial_velocity=bt.RandVec3(magnitude=bt.RandF32(2.0, 5.0), direction=(0, 1, 0), spread=0.7))])
+        sc = bt.Scene(colliders=[bt.Collider.halfspace(position=(0.0, -1.0, 0.0))], device=dev)
+        for i in range(4):
+            sc.add_spawner(sp, capacity=8192, transform=bt.Transform(translation=(float(i), 0.0, 0.0)))
+        return sc
+
+    def step_ms(sc, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            sc.step(1 / 60)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def scene_flows():
+        out = {"sparks": sparks_scene(dev), "tornado": tornado_scene()}
+        ev_on, ev_off = events_scene(True), events_scene(False)
+        for sc in (ev_on, ev_off):
+            step_ms(sc, 40)  # warm-up, 40 frames
+        on, off = [], []
+        for _ in range(3):  # interleaved windows of 60 frames
+            on.append(step_ms(ev_on, 60))
+            off.append(step_ms(ev_off, 60))
+        out["events"] = (ev_on, statistics.median(on), statistics.median(off))
+        return out
+
+    flows, scene_counts = counted(scene_flows)
+    check(scene_counts["fields"] == 300 and scene_counts["dump"] == 4 * 220 and scene_counts["stats"] > 0,
+          f"scene flows: launches {scene_counts}")
+    # sparks: 750 live, rows 64 B each, equal to a CPU Scene's (the plain versions)
+    scs, live, first, second = flows["sparks"]
+    cpu_sc, cpu_live, cpu_first, cpu_second = sparks_scene("cpu")
+    check(live == cpu_live == 750, f"sparks scene: {live} live on the card, {cpu_live} on the CPU")
+    for a, b in ((first, cpu_first), (second, cpu_second)):
+        check(len(a) == len(b) == 1 and np.array_equal(a[0].instances, b[0].instances)
+              and len(bt.instances_to_bytes(a[0].instances)) == a[0].count * 64, "sparks scene: rows differ from CPU")
+    check(scs._spawners[0].render_planes is not None, "sparks scene: the render pack did not run")
+    # tornado: the plain version replayed on the card with the same tables
+    tsc, tsid, tornado_ms = flows["tornado"]
+    ct = tsc._spawners[tsid].compiled
+    st = bt.init_pool_for(ct, 8192, seed=tsid)
+    for f in range(300):
+        x, z = wander(f)
+        fr = bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(tornado_fields(x, z), device=dev))
+        st, out_t = plain_frames(ct.static, ct.params, st, fr, 1)
+    compare(ct, tsc._spawners[tsid].state, st, {k: 64 for k in active_f32_fields(ct.static)}, "tornado scene",
+            kernel="fused_step.fields")
+    check(tsc.alive_count() == int(out_t.alive_count) > 2500, "tornado scene: live count differs from plain")
+    # events: the records delivered equal the plain version's destroyed count
+    ev_on, on_ms, off_ms = flows["events"]
+    want = 0
+    floor = bt.compile_colliders([bt.Collider.halfspace(position=(0.0, -1.0, 0.0))], device=dev)
+    for sid, slot in ev_on._spawners.items():
+        st = bt.init_pool_for(slot.compiled, 8192, seed=sid)
+        fr = bt.make_frame_input(1 / 60, translation=(float(sid), 0.0, 0.0))
+        for _ in range(220):
+            st, oe = plain_frames(slot.compiled.static, slot.compiled.params, st, fr, 1, colliders=floor)
+            want += int(oe.destroyed_mask.sum())
+    delivered = sum(records.values())
+    check(delivered == want > 1000, f"events scene: {delivered} records delivered, plain destroyed {want}")
+    emit({"phase": "scene_flows", "card": card, "launches": scene_counts,
+          "sparks": {"live": live, "rows": second[0].count, "rule": "state and rows == a CPU Scene's"},
+          "tornado": {"frames": 300, "live": tsc.alive_count(), "ms_per_scene_step": tornado_ms,
+                      "rule": "== plain replayed on the card, f32 <= 64 ulp"},
+          "events": {"spawners": 4, "frames": 220, "records_delivered": delivered, "plain_destroyed": want,
+                     "ms_per_scene_step_with_handler": on_ms, "ms_per_scene_step_without_handler": off_ms}})
+
     # counts from the main-path runs alone: the two stress_test chains, the
-    # sparks flow, the destroy run, the two collision chains, the collision flow
-    runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts)
-    launches = sum(r["fused_step"] for r in runs)
-    render_launches = sum(r["render"] for r in runs)
-    collide_launches = sum(r["collide"] for r in runs)
-    claim_launches = sum(r["dead_rank_claim"] for r in runs)
+    # sparks flow, the destroy run, the two collision chains, the collision
+    # flow, the fields chain and the Scene flows
+    runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, f1m_counts, scene_counts)
+
+    def total(key):
+        return sum(r[key] for r in runs)
 
     src = "bevy_firework_tpu_torch/ops/csrc/fused_step.cu"
-    emit({"kernels": [
-        {"name": "fused_step", "route": "cuda", "source": src,
-         "replaces": "bevy_firework_tpu/ops/fused_step.py:913", "launches": launches,
-         "max_abs_err": max_err["fused_step"], "ms": r100k["u8_kernel_device_ms"],
-         "plain_ms": r100k["plain_8_frames_device_ms"], "launch_wall_ms": r100k["u8_launch_wall_ms"],
-         "plain_wall_ms": r100k["plain_8_frames_wall_ms"]},
-        {"name": "fused_step.pack_render", "route": "cuda", "source": src,
-         "replaces": "bevy_firework_tpu/ops/fused_step.py:1523", "launches": render_launches,
-         "max_abs_err": max_err["fused_step.pack_render"], "ms": r100k["render_kernel_device_ms"],
-         "plain_ms": r100k["plain_render_frame_device_ms"], "launch_wall_ms": r100k["render_launch_wall_ms"],
-         "plain_wall_ms": r100k["plain_render_frame_wall_ms"]},
-        {"name": "fused_step.collide", "route": "cuda", "source": src,
-         "replaces": "bevy_firework_tpu/ops/fused_step.py:349", "launches": collide_launches,
-         "max_abs_err": max_err["fused_step.collide"], "ms": c1m["u2_kernel_device_ms"],
-         "plain_ms": c1m["plain_2_frames_device_ms"], "u8_ms": c1m["u8_kernel_device_ms"],
-         "plain_u8_ms": c1m["plain_8_frames_device_ms"], "hull8_ms": h8["u2_kernel_device_ms"],
-         "hull8_plain_ms": h8["plain_2_frames_device_ms"]},
-        {"name": "fused_step.dead_rank_claim", "route": "cuda", "source": src,
-         "replaces": "bevy_firework_tpu/ops/fused_step.py:173",
-         "kernels": ["dead_count_kernel", "tile_scan_kernel", "fused_step_kernel block_dead_rank"],
-         "launches": claim_launches, "max_abs_err": max_err["fused_step.dead_rank_claim"],
-         "ms": claim["claim_kernels_device_ms"], "plain_ms": claim["plain_dead_rank_device_ms"],
-         "ms_1M": c1m["claim_kernels_device_ms"], "plain_ms_1M": c1m["plain_dead_rank_device_ms"]},
-    ], "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live); collide: 1310720 lanes "
-                          "stress_test_collision; dead_rank_claim: 131072 lanes (ms_1M: 1310720)",
+
+    def entry(name, replaces, key, ms, plain_ms, b, **extra):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": total(key),
+                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, **extra}
+
+    # every device time below was held to its bound where it was measured
+    kernels = [
+        entry("fused_step", "bevy_firework_tpu/ops/fused_step.py:913", "fused_step", r100k["u8_kernel_device_ms"],
+              r100k["plain_8_frames_device_ms"], r100k["bounds"]["u8"],
+              launch_wall_ms=r100k["u8_launch_wall_ms"], plain_wall_ms=r100k["plain_8_frames_wall_ms"]),
+        entry("fused_step.pack_render", "bevy_firework_tpu/ops/fused_step.py:1523", "render",
+              r100k["render_kernel_device_ms"], r100k["plain_render_frame_device_ms"], r100k["bounds"]["render"],
+              launch_wall_ms=r100k["render_launch_wall_ms"], plain_wall_ms=r100k["plain_render_frame_wall_ms"]),
+        entry("fused_step.collide", "bevy_firework_tpu/ops/fused_step.py:349", "collide", c1m["u2_kernel_device_ms"],
+              c1m["plain_2_frames_device_ms"], c1m["bounds"]["u2"],
+              u8_ms=c1m["u8_kernel_device_ms"], plain_u8_ms=c1m["plain_8_frames_device_ms"],
+              hull8_ms=h8["u2_kernel_device_ms"], hull8_plain_ms=h8["plain_2_frames_device_ms"]),
+        entry("fused_step.dead_rank_claim", "bevy_firework_tpu/ops/fused_step.py:173", "dead_rank_claim",
+              claim["claim_kernels_device_ms"], claim["plain_dead_rank_device_ms"], claim_bound,
+              kernels=["dead_count_kernel", "tile_scan_kernel", "fused_step_kernel block_dead_rank"],
+              ms_1M=c1m["claim_kernels_device_ms"], plain_ms_1M=c1m["plain_dead_rank_device_ms"]),
+        entry("fused_step.fields", "bevy_firework_tpu/ops/fused_step.py:1462", "fields", f1m["u8_kernel_device_ms"],
+              f1m["plain_8_frames_device_ms"], f1m["bounds"]["u8"],
+              main_1M_ms=r1m["u8_kernel_device_ms"], also_replaces="bevy_firework_tpu/force_fields.py:197"),
+        entry("fused_step.stats", "bevy_firework_tpu/ops/fused_step.py:1580", "stats", stats_t["ms"],
+              stats_t["plain_ms"], stats_bound,
+              ms_without=stats_t["ms_without"], plain_reductions_ms=stats_t["plain_reductions_ms"]),
+        entry("fused_step.dump", "bevy_firework_tpu/ops/fused_step.py:1567", "dump", dump_t["ms"],
+              dump_t["plain_ms"], dump_bound, ms_without=dump_t["ms_without"]),
+    ]
+    emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live); collide: 1310720 lanes "
+                          "stress_test_collision; dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
+                          "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
+                          "131072 lanes, the ring archetype with a handler",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, collide "
-                  "U=2 (u8_ms U=8), dead_rank_claim its count + scan kernels; plain_ms: device time of the plain "
-                  "version's same frames (8 / 1 + pack / 2 / 8) or of the plain dead_rank cumsum; *_wall_ms: "
-                  "CUDA-event wall time per call",
+                  "U=2 (u8_ms U=8), dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
+                  "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
+                  "plane (ms_without: the same archetype without a handler); plain_ms: device time of the plain "
+                  "version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1) or of the plain dead_rank "
+                  "cumsum; plain_reductions_ms: the plain reductions (step.stat_reductions, the CPU's stats); "
+                  "*_wall_ms: CUDA-event wall time per call; bound_ms: the larger of bound_bytes over 3.35 TB/s "
+                  "and bound_ops (f32, lower-bound counts) over 67 TFLOP/s; library_ms: no single PyTorch call "
+                  "computes these functions; every device time was held to its bound, a trace below it traced "
+                  "again (trace_faults)",
+        "trace_faults": trace_faults,
         "at_1M": {k: r1m[k] for k in ("u8_kernel_device_ms", "plain_8_frames_device_ms", "render_kernel_device_ms",
                                       "plain_render_frame_device_ms")}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

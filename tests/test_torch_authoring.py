@@ -24,7 +24,7 @@ def _pair(name):
 @pytest.mark.parametrize("name", EFFECTS + ["det_spawner"])
 def test_static_and_params_equal(name):
     spj, spp = _pair(name)
-    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp)
+    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp, device="cpu")
     assert cj.static.__dict__ == cp.static.__dict__
     for prop in ("single_type", "ring_claim", "derived_alive", "any_collision", "any_destroyed_dump"):
         assert getattr(cj.static, prop) == getattr(cp.static, prop), prop
@@ -58,7 +58,7 @@ def test_main_path_archetypes_share_one_kernel_configuration():
     from bevy_firework_tpu_torch.step import active_f32_fields
 
     for name in EFFECTS:
-        c = pt.compile_spawner(effect("torch", name)[0])
+        c = pt.compile_spawner(effect("torch", name)[0], device="cpu")
         assert can_unroll(c.static) and c.static.single_type and c.static.elide_rotation
         assert c.static.const_lifetime is not None
         assert active_f32_fields(c.static) == ("px", "py", "pz", "vx", "vy", "vz", "initial_scale", "age")

@@ -59,12 +59,12 @@ def both(make):
 def tables(make):
     """The same scene compiled by both packages."""
     cj, cp = both(make)
-    return jx.compile_colliders(cj), pt.compile_colliders(cp)
+    return jx.compile_colliders(cj), pt.compile_colliders(cp, device="cpu")
 
 
 def port_table_from_jax(jt):
     return interop.colliders_from_numpy({k: np.asarray(getattr(jt, k)) for k in TABLE_TENSORS},
-                                        tuple(getattr(jt, k) for k in TABLE_STATIC))
+                                        tuple(getattr(jt, k) for k in TABLE_STATIC), device="cpu")
 
 
 def tetra(pkg, **kw):
@@ -251,7 +251,7 @@ def test_hull_authoring_matches_jax():
 def _cast_one(colliders, origin, direction, max_dist=100.0):
     d = np.asarray(direction, np.float64)
     d = (d / np.linalg.norm(d)).astype(np.float32)
-    hit, dist, n = _port_cast(pt.compile_colliders(colliders), np.asarray([origin], np.float32), d[None], max_dist)
+    hit, dist, n = _port_cast(pt.compile_colliders(colliders, device="cpu"), np.asarray([origin], np.float32), d[None], max_dist)
     return bool(hit[0]), float(dist[0]), tuple(float(x) for x in n[0])
 
 
@@ -345,7 +345,7 @@ def test_pack_colliders_keeps_layer_bits_and_disables():
     """The kernel's collider table: kinds, flags and values at their slots,
     uint32 layers bit for bit, layers 0 for a disabled collider, each
     hull's own plane rows; more than MAX_C colliders raise."""
-    t = pt.compile_colliders(_mixed_scene(pt))
+    t = pt.compile_colliders(_mixed_scene(pt), device="cpu")
     t = dataclasses.replace(t, active=torch.tensor([1, 1, 0, 1, 1, 1, 1, 1], dtype=torch.float32))
     w = pfs.pack_colliders(t)
     rows = w[:L.CO_PLANES_AT].reshape(L.MAX_C, L.CO_STRIDE)
@@ -358,9 +358,9 @@ def test_pack_colliders_keeps_layer_bits_and_disables():
     np.testing.assert_array_equal(planes[6:8], t.hull_planes[6:8].numpy())
     assert not planes[:6].any()
     with pytest.raises(NotImplementedError, match="colliders"):
-        pfs.pack_colliders(pt.compile_colliders([pt.Collider.sphere(1.0)] * (L.MAX_C + 1)))
+        pfs.pack_colliders(pt.compile_colliders([pt.Collider.sphere(1.0)] * (L.MAX_C + 1), device="cpu"))
     c = pt.compile_spawner(det_spawner(pt, ps=dict(
-        collision_settings=PortCollisionSettings(0.5, 0.25, True, 0xFFFFFFFF))))
+        collision_settings=PortCollisionSettings(0.5, 0.25, True, 0xFFFFFFFF))), device="cpu")
     words = pfs.pack_tables(c.static, c.params)
     ty = L.TY_AT
     assert words[L.H_HAS_COL] == 1 and not c.static.ring_claim
@@ -429,7 +429,7 @@ def test_particle_collision_matches_jax(scene):
 
 def _pair(ps_j, ps_p, pacing):
     return (jx.compile_spawner(det_spawner(jx, ps=ps_j, pacing=pacing[0])),
-            pt.compile_spawner(det_spawner(pt, ps=ps_p, pacing=pacing[1])))
+            pt.compile_spawner(det_spawner(pt, ps=ps_p, pacing=pacing[1]), device="cpu"))
 
 
 def _six_colliders(pkg):
@@ -559,12 +559,12 @@ def test_chain_shape_matches_reference_chain_with_unroll(monkeypatch):
     spp, _tf, colp = peffects.stress_test_collision()
     destroy = dict(collision_settings=jx.ParticleCollisionSettings(destroy_on_collision=True))
     pdestroy = dict(collision_settings=PortCollisionSettings(destroy_on_collision=True))
-    cases = [(jx.compile_spawner(spj), pt.compile_spawner(spp), True),
-             (jx.compile_spawner(spj), pt.compile_spawner(spp), False),
-             (jx.compile_spawner(det_spawner(jx, ps=destroy)), pt.compile_spawner(det_spawner(pt, ps=pdestroy)), True)]
+    cases = [(jx.compile_spawner(spj), pt.compile_spawner(spp, device="cpu"), True),
+             (jx.compile_spawner(spj), pt.compile_spawner(spp, device="cpu"), False),
+             (jx.compile_spawner(det_spawner(jx, ps=destroy)), pt.compile_spawner(det_spawner(pt, ps=pdestroy), device="cpu"), True)]
     for cj, cp, with_cols in cases:
         jt = jx.compile_colliders(colj) if with_cols else None
-        ptab = pt.compile_colliders(colp) if with_cols else None
+        ptab = pt.compile_colliders(colp, device="cpu") if with_cols else None
         for n in (1, 2, 7, 8, 19, 150):
             calls.clear()
             jfs._chain_with_unroll(cj.static, jt, types.SimpleNamespace(capacity=16384), n, "single",
@@ -582,8 +582,8 @@ def test_stress_test_collision_chain_equals_plain_frames():
     sp, tf, cols = peffects.stress_test_collision()
     es = dataclasses.replace(sp.emission_settings[0], emission_pacing=pt.EmissionPacing.rate(6000.0))
     sp = dataclasses.replace(sp, emission_settings=(es,))
-    c = pt.compile_spawner(sp)
-    table = pt.compile_colliders(cols)
+    c = pt.compile_spawner(sp, device="cpu")
+    table = pt.compile_colliders(cols, device="cpu")
     f = pt.make_frame_input(1 / 60, translation=tf.translation, rotation=tf.rotation)
     s0 = pt.init_pool_for(c, 16384, seed=1)
     assert pfs.chain_shape(60, pfs.chain_unroll(c.static, table)) == [2] * 30
@@ -622,7 +622,7 @@ def test_colliders_must_share_the_pool_device():
     """A collider table on another device than the pool raises on either
     path; nothing is copied or falls back."""
     sp, tf, cols = peffects.collision()
-    c = pt.compile_spawner(sp)
+    c = pt.compile_spawner(sp, device="cpu")
     table = pt.compile_colliders(cols, device="meta")
     with pytest.raises(ValueError, match="colliders on meta"):
         pt.step_auto(c.static, c.params, table, pt.init_pool_for(c, 256), pt.make_frame_input(1 / 60))

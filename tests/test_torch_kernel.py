@@ -1,5 +1,5 @@
-"""The CUDA step kernel (with its narrow phase and dead-rank claim) against
-its plain PyTorch version, on a card.
+"""The CUDA step kernel (with its narrow phase, dead-rank claim, force
+fields, dump plane and stats) against its plain PyTorch version, on a card.
 
 Imports torch and the port only, so on a machine without JAX it runs as
     python -m pytest --noconftest -q tests/test_torch_kernel.py
@@ -16,8 +16,8 @@ import bevy_firework_tpu_torch as pt
 from bevy_firework_tpu_torch.ops import fused_step as fs
 from bevy_firework_tpu_torch.ops import table_layout as L
 from bevy_firework_tpu_torch.render import pack_render_planes
-from bevy_firework_tpu_torch.settings import ParticleCollisionSettings
-from bevy_firework_tpu_torch.step import active_f32_fields, plain_frames
+from bevy_firework_tpu_torch.settings import ParticleCollisionSettings, ParticleEventHandlers
+from bevy_firework_tpu_torch.step import active_f32_fields, plain_frames, stat_reductions
 
 SCALARS = ("ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued", "alive", "ptype")
 
@@ -58,7 +58,7 @@ def _det_spawner():
 def test_pack_tables_puts_each_parameter_at_its_named_slot():
     """Live-rotation and curve slots of the kernel's table (the stress_test
     ones are in test_torch_slice.py)."""
-    c = pt.compile_spawner(_det_spawner())
+    c = pt.compile_spawner(_det_spawner(), device="cpu")
     p = c.params.to_numpy()
     fl = fs.pack_tables(c.static, c.params).view(np.float32)
     em, ty, cv = L.EM_AT, L.TY_AT, L.CV_AT
@@ -134,16 +134,17 @@ def test_kernel_scope_beyond_main_path(cuda):
     assert int(ok.alive_count_per_type[1]) == 5000
 
 
-def _box_spawner(destroy=False, rate=3e5):
+def _box_spawner(destroy=False, rate=3e5, lifetime=2.0, handler=None):
     """Box emission, radial speed, no spread, gravity: every draw reaches the
     state through +, -, *, / and sqrt only (sinf/cosf see 0), so the kernel
     and the plain version agree bit for bit on every lane."""
     return pt.ParticleSpawner(
         particle_settings=[pt.ParticleSettings(
-            lifetime=pt.RandF32.constant(2.0), initial_scale=pt.RandF32(0.02, 0.08),
+            lifetime=pt.RandF32.constant(lifetime), initial_scale=pt.RandF32(0.02, 0.08),
             acceleration=(0.0, -9.81, 0.0), linear_drag=0.1,
             collision_settings=ParticleCollisionSettings(restitution=0.7, friction=0.3,
-                                                         destroy_on_collision=destroy))],
+                                                         destroy_on_collision=destroy),
+            event_handlers=ParticleEventHandlers(particles_destroyed=handler))],
         emission_settings=[pt.EmissionSettings(
             emission_pacing=pt.EmissionPacing.rate(rate), emission_shape=pt.EmissionShape.box((1.5, 0.5, 1.5)),
             initial_velocity=pt.RandVec3(pt.RandF32(0.5, 3.0), (0.0, 1.0, 0.0), 0.0),
@@ -179,13 +180,18 @@ SCENES = {
 }
 
 
-def _assert_kernel_equals_plain(c, table, s, f, unrolls):
+def _assert_kernel_equals_plain(c, table, s, f, unrolls, f32_ulps=0):
+    """Each launch against as many plain frames from the same state: the
+    bookkeeping and the destroyed mask exact, f32 fields within f32_ulps."""
     for u in unrolls:
         sk, ok = fs.fused_step(c.static, c.params, table, s, f, unroll=u)
         sp, op = plain_frames(c.static, c.params, s, f, u, colliders=table)
-        for k in active_f32_fields(c.static) + SCALARS:
+        for k in SCALARS:
             assert torch.equal(getattr(sk, k), getattr(sp, k)), (u, k)
+        for k in active_f32_fields(c.static):
+            assert _ulps(getattr(sk, k), getattr(sp, k)) <= f32_ulps, (u, k)
         assert int(ok.alive_count) == int(op.alive_count)
+        assert torch.equal(ok.destroyed_mask, op.destroyed_mask)
         s = sk
     return s
 
@@ -226,3 +232,112 @@ def test_dead_rank_claim_matches_plain(cuda, n):
     assert torch.equal(fs.tile_dead_offsets(s.alive).cpu(), fs.tile_dead_offsets(s.alive.cpu()))
     with pytest.raises(ValueError, match="unroll"):
         fs.fused_step(c.static, c.params, table, s, f, unroll=2)
+
+
+FIELDS = {
+    "point": lambda: pt.ForceField.point((0.3, 0.8, -0.2), 6.0, 2.5),
+    "vortex": lambda: pt.ForceField.vortex((0.1, 0.0, 0.2), (0.3, 0.9, 0.1), 5.0, 3.0),
+    "axial": lambda: pt.ForceField.axial((-0.2, 0.0, 0.1), (0.0, 1.0, 0.0), 8.0, 2.0),
+    "turbulence": lambda: pt.ForceField.turbulence((0.0, 0.5, 0.0), 4.0, 6.0, frequency=1.7, phase=0.3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 8])
+@pytest.mark.parametrize("kind", sorted(FIELDS))
+def test_force_field_kernel_matches_plain(cuda, kind, unroll):
+    """One field of each kind (plus a disabled one) on the box spawner's
+    spread lanes: the kernel's field block equals the plain field_accel bit
+    for bit on point, vortex and axial; turbulence within 8 ulp of the f32
+    fields (its 9 cosf per lane against PyTorch's CUDA cos, which agreed bit
+    for bit on every earlier config, may part by an ulp and the integration
+    carries it)."""
+    c = pt.compile_spawner(_box_spawner(), device=cuda)
+    table = pt.compile_force_fields([FIELDS[kind](), FIELDS["point"]()], device=cuda, active=[True, False])
+    f = pt.make_frame_input(1 / 60, force_fields=table)
+    s = pt.init_pool_for(c, 131072)
+    before = fs.fused_step.fields_launches
+    s = _assert_kernel_equals_plain(c, None, s, f, [unroll] * 4, f32_ulps=8 if kind == "turbulence" else 0)
+    assert fs.fused_step.fields_launches - before == 4
+    free, _o = plain_frames(c.static, c.params, pt.init_pool_for(c, 131072), pt.make_frame_input(1 / 60), 4 * unroll)
+    assert int((s.alive & (s.vx != free.vx)).sum()) > 1000  # the field moved lanes
+
+
+@pytest.mark.cuda
+def test_force_fields_on_the_singular_locus(cuda):
+    """Lanes that stay at a point field's centre and on a vortex's axis get 0
+    from those fields in both versions (a select, no NaN)."""
+    sp = pt.ParticleSpawner(
+        particle_settings=[pt.ParticleSettings(lifetime=pt.RandF32.constant(1.0), linear_drag=0.0)],
+        emission_settings=[pt.EmissionSettings(emission_pacing=pt.EmissionPacing.rate(6000.0))])
+    c = pt.compile_spawner(sp, device=cuda)
+    table = pt.compile_force_fields([pt.ForceField.point((0.0, 0.0, 0.0), 5.0, 2.0),
+                                     pt.ForceField.vortex((0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 5.0, 2.0)], device=cuda)
+    f = pt.make_frame_input(1 / 60, force_fields=table)
+    s = _assert_kernel_equals_plain(c, None, pt.init_pool_for(c, 4096), f, [1, 8])
+    assert int(s.alive.sum()) > 500 and bool((s.vx[s.alive] == 0).all()) and bool(torch.isfinite(s.vx).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("destroy", [False, True])
+def test_dump_plane_matches_plain(cuda, destroy):
+    """The destroyed-dump plane of a ring archetype with a handler (deaths by
+    age only; alive derived from age in both versions) and of a destroy
+    archetype with a handler (dead-rank claim, deaths by collision): equal to
+    the plain mask every frame, and not empty."""
+    c = pt.compile_spawner(_box_spawner(destroy=destroy, lifetime=0.1, handler=print), device=cuda)
+    assert c.static.any_destroyed_dump and c.static.ring_claim == (not destroy)
+    table = pt.compile_colliders(SCENES["c7"](), device=cuda) if destroy else None
+    s = pt.init_pool_for(c, 131072)
+    f = pt.make_frame_input(1 / 60)
+    before, dumped = fs.fused_step.dump_launches, 0
+    for _ in range(12):
+        sk, ok = fs.fused_step(c.static, c.params, table, s, f)
+        sp, op = plain_frames(c.static, c.params, s, f, 1, colliders=table)
+        for k in active_f32_fields(c.static) + SCALARS:
+            assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+        assert torch.equal(ok.destroyed_mask, op.destroyed_mask)
+        dumped += int(ok.destroyed_mask.sum())
+        s = sk
+    assert fs.fused_step.dump_launches - before == 12 and dumped > 1000
+
+
+def _three_type_spawner():
+    types = [pt.ParticleSettings(lifetime=pt.RandF32.constant(0.5 + 0.2 * t), initial_scale=pt.RandF32(0.02, 0.08),
+                                 scale_curve=pt.FireworkCurve.uneven_samples([(0.0, 1.0), (1.0, 0.5 + t)]),
+                                 acceleration=(0.0, -1.0 * t, 0.0)) for t in range(3)]
+    emitters = [pt.EmissionSettings(particle_index=t, emission_pacing=pt.EmissionPacing.rate(1e5 * (t + 1)),
+                                    emission_shape=pt.EmissionShape.box((1.0 + t, 0.5, 1.0)),
+                                    initial_velocity=pt.RandVec3(pt.RandF32(0.5, 3.0), (0.0, 1.0, 0.0), 0.0),
+                                    initial_velocity_radial=pt.RandF32(1.0, 4.0)) for t in range(3)]
+    return pt.ParticleSpawner(particle_settings=types, emission_settings=emitters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 100003])
+@pytest.mark.parametrize("types", [1, 3])
+def test_kernel_stats_match_epilogue(cuda, n, types):
+    """The kernel's stats row (AABB of pos +- scale over survivors, alive and
+    per-type counts across blocks) equals the plain reductions
+    (`step.stat_reductions`) over the state the same launch wrote, and the
+    plain version's outputs over the same frames, by value, at 512 tiles and
+    at a ragged 100003 lanes."""
+    c = pt.compile_spawner(_box_spawner() if types == 1 else _three_type_spawner(), device=cuda)
+    s = pt.init_pool_for(c, n)
+    f = pt.make_frame_input(1 / 60)
+    before = fs.fused_step.stats_launches
+    for u in [1] * 6 + [8, 1]:
+        sk, ok = fs.fused_step(c.static, c.params, None, s, f, unroll=u)
+        sp, op = plain_frames(c.static, c.params, s, f, u)
+        kw = {k: getattr(sk, k) for k in ("px", "py", "pz", "initial_scale", "age", "lifetime")}
+        want = dict(zip(("aabb_min", "aabb_max", "alive_count", "alive_count_per_type"),
+                        stat_reductions(c.static, c.params, kw, sk.ptype, sk.alive)))
+        for k, v in want.items():
+            assert torch.equal(getattr(ok, k), v), k
+        for k in ("alive_count", "alive_count_per_type", "aabb_valid", "aabb_min", "aabb_max", "finished_event"):
+            assert torch.equal(getattr(ok, k), getattr(op, k)), k
+        for k in active_f32_fields(c.static) + SCALARS:
+            assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+        s = sk
+    assert fs.fused_step.stats_launches - before == 8
+    assert int(ok.alive_count) > 20000 and int((ok.alive_count_per_type > 0).sum()) == types

@@ -25,12 +25,12 @@ CURVE_PLANES = (3, 8, 9, 10, 11, 12, 13, 14, 15)
 def _carried(name, rate, frames=40, n=8192):
     spj, tfj = effect("jax", name, rate)
     spp, _tf = effect("torch", name, rate)
-    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp)
+    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp, device="cpu")
     sj = jx.init_pool_for(cj, n, 0)
     fj = jx.make_frame_input(1 / 60, translation=tfj.translation)
     for _ in range(frames):
         sj, _o = step_jit(cj.static, cj.params, None, sj, fj)
-    return cj, cp, sj, interop.pool_from_numpy(jax_pool_numpy(sj))
+    return cj, cp, sj, interop.pool_from_numpy(jax_pool_numpy(sj), device="cpu")
 
 
 def _close(a, b):

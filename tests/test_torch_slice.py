@@ -28,7 +28,7 @@ def _sparks_flow(pkg):
 def test_sparks_flow_port():
     """The verify skill's sparks flow: 120 frames at 1/60, 750 live, 64 B
     per rendered instance."""
-    c = pt.compile_spawner(_sparks_flow(pt))
+    c = pt.compile_spawner(_sparks_flow(pt), device="cpu")
     s = pt.init_pool_for(c, 2048)
     f = pt.make_frame_input(1 / 60)
     for _ in range(120):
@@ -62,13 +62,13 @@ def test_port_imports_no_jax():
 
 def test_kernel_table_layout_matches_cuda_source():
     """The CUDA source takes every layout name (table slots, field slots,
-    frame row, kinds, the narrow phase's float constants) from the header
-    `table_layout` generates and defines none itself, so the wrapper and the
-    kernel share one layout."""
+    frame and field rows, the stats row, kinds, the float constants and the
+    turbulence basis) from the header `table_layout` generates and defines
+    none itself, so the wrapper and the kernel share one layout."""
     code = re.sub(r"//.*", "", (REPO / "bevy_firework_tpu_torch/ops/csrc/fused_step.cu").read_text())
     assert '#include "table_layout.h"' in code
     own = {"TWO_PI", "PI_F"}  # the kernel's float constants
-    generated = set(L.constants()) | set(L.float_constants())
+    generated = set(L.constants()) | set(L.float_constants()) | set(L.array_constants())
     assert set(re.findall(r"\b[A-Z][A-Z0-9_]+\b", code)) - generated == own
     assert set(re.findall(r"constexpr\s+\w+\s+(\w+)", code)) == own
     header = L.header()
@@ -77,12 +77,15 @@ def test_kernel_table_layout_matches_cuda_source():
     for name, value in L.float_constants().items():
         assert f"constexpr float {name} = {value!r}f;" in header
         assert float(np.float32(value)) == value  # the literal is an f32 value
+    for name, values in L.array_constants().items():
+        assert f"__constant__ float {name}[{len(values)}] = {{{', '.join(f'{v!r}f' for v in values)}}};" in header
+        assert all(float(np.float32(v)) == v for v in values)
     assert L.MAX_U == fs.MAX_UNROLL
 
 
 def test_pack_tables_holds_the_spawner():
     sp, _tf = effect("torch", "stress_test")
-    c = pt.compile_spawner(sp)
+    c = pt.compile_spawner(sp, device="cpu")
     w = fs.pack_tables(c.static, c.params)
     fl = w.view("float32")
     assert w[L.H_E] == 1 and w[L.H_SINGLE] == 1 and w[L.H_ELIDE_ROT] == 1 and w[L.H_CONST_LIFE] == 1
@@ -96,7 +99,7 @@ def test_pack_tables_holds_the_spawner():
 
 def test_wrapper_has_no_fallback_device():
     """Only CPU tensors take the plain version; other devices raise."""
-    c = pt.compile_spawner(_sparks_flow(pt))
+    c = pt.compile_spawner(_sparks_flow(pt), device="cpu")
     s = pt.init_pool_for(c, 256).to("meta")
     with pytest.raises(ValueError, match="no step for device"):
         pt.step_auto(c.static, c.params, None, s, pt.make_frame_input(1 / 60))

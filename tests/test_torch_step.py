@@ -33,14 +33,14 @@ N = 8192
 
 def _det_pair():
     cj = jx.compile_spawner(det_spawner(jx))
-    cp = pt.compile_spawner(det_spawner(pt))
+    cp = pt.compile_spawner(det_spawner(pt), device="cpu")
     return cj, cp, jx.make_frame_input(1 / 50), pt.make_frame_input(1 / 50)
 
 
 def _stress_pair(rate=6000.0):
     spj, tfj = effect("jax", "stress_test", rate)
     spp, tfp = effect("torch", "stress_test", rate)
-    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp)
+    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp, device="cpu")
     return (cj, cp, jx.make_frame_input(1 / 60, translation=tfj.translation),
             pt.make_frame_input(1 / 60, translation=tfp.translation))
 
@@ -125,7 +125,7 @@ def test_jax_pool_carried_over_continues_in_port(config):
     sj = jx.init_pool_for(cj, N, 0)
     for _ in range(30):
         sj, _o = step_jit(cj.static, cj.params, None, sj, fj)
-    sp = interop.pool_from_numpy(jax_pool_numpy(sj))
+    sp = interop.pool_from_numpy(jax_pool_numpy(sj), device="cpu")
     old = np.asarray(sj.alive)
     for _ in range(10):
         sj, _o = step_jit(cj.static, cj.params, None, sj, fj)
@@ -175,7 +175,7 @@ def test_random_lifetime_and_multi_type_chain_equals_single_steps():
                                 initial_angular_velocity=pt.RandVec3(pt.RandF32(1.0, 3.0), (1, 0, 0), 0.3)),
         ],
     )
-    c = pt.compile_spawner(sp)
+    c = pt.compile_spawner(sp, device="cpu")
     assert c.static.const_lifetime is None and not c.static.elide_rotation and c.num_types == 2
     f = pt.make_frame_input(1 / 60)
     s0 = pt.init_pool_for(c, N, 7)
@@ -192,8 +192,9 @@ def test_random_lifetime_and_multi_type_chain_equals_single_steps():
 
 
 def test_out_of_scope_archetypes_raise():
-    """Nested emitters, the destroyed-particle dump and force fields are not
-    ported yet (destroy-on-collision is: test_torch_collision.py)."""
+    """Nested emitters are not ported yet and raise, naming their ROADMAP
+    item; the destroyed-particle dump and force fields are ported
+    (test_torch_force_fields.py, test_torch_scene.py) and step."""
     from bevy_firework_tpu_torch.settings import EmissionMode, ParticleCollisionSettings, ParticleEventHandlers
 
     f = pt.make_frame_input(1 / 60)
@@ -202,13 +203,17 @@ def test_out_of_scope_archetypes_raise():
         emission_settings=[pt.EmissionSettings(),
                            pt.EmissionSettings(particle_index=1, emission_mode=EmissionMode.nested(0))],
     )
+    c = pt.compile_spawner(nested, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), f)
     dump = pt.ParticleSpawner(particle_settings=[pt.ParticleSettings(
         collision_settings=ParticleCollisionSettings(destroy_on_collision=True),
         event_handlers=ParticleEventHandlers(particles_destroyed=print))])
-    for sp in (nested, dump):
-        c = pt.compile_spawner(sp)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), f)
-    c = pt.compile_spawner(pt.ParticleSpawner())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), pt.make_frame_input(1 / 60, force_fields=()))
+    c = pt.compile_spawner(dump, device="cpu")
+    _s, out = pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), f)
+    assert out.destroyed_mask.shape == (64,)
+    c = pt.compile_spawner(pt.ParticleSpawner(), device="cpu")
+    fields = pt.compile_force_fields([pt.ForceField.point((0.0, 0.0, 0.0), 1.0, 2.0)], device="cpu")
+    _s, out = pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64),
+                           pt.make_frame_input(1 / 60, force_fields=fields))
+    assert out.alive_count_per_type.shape == (1,)
