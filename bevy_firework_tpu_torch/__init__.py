@@ -13,11 +13,14 @@ chain, the render-pack extract, collision (analytic colliders of 7 kinds,
 hulls from planes, points or a decomposed mesh, layer masks, restitution,
 friction, the 4-substep bounce, destroy-on-collision with its dead-rank
 slot claim), scene force fields, the destroyed-particle mask and its
-events, the kernel's stats, the effect library, and the `Scene` facade for
+events, the kernel's stats, nested emission (hybrid frames: the nested
+cadence pass, threefry child rows and the in-kernel child merge;
+`fused_step_hybrid`, `nested_cadence_pass`), the effect library and
+effects (textures and fireworks included), and the `Scene` facade for
 spawners stepped one by one (colliders and force fields with slot reuse,
 `particles_destroyed` and `on_finished` events, AABBs, render items). Every
-entry point runs on the card unless given `device="cpu"`. Not yet: nested
-emission, archetype groups and fleets, trails, async events and render,
+entry point runs on the card unless given `device="cpu"`. Not yet: the
+nested fold, archetype groups and fleets, trails, async events and render,
 checkpoints, sharding (see ROADMAP.md).
 """
 
@@ -32,7 +35,15 @@ from .curve import (
 )
 from .emission_shape import EmissionShape
 from .force_fields import FieldTable, ForceField, compile_force_fields
-from .ops.fused_step import fused_step, multi_step_auto, multi_step_auto_packed, step_auto, step_auto_packed
+from .ops.fused_step import (
+    fused_step,
+    fused_step_hybrid,
+    multi_step_auto,
+    multi_step_auto_packed,
+    nested_cadence_pass,
+    step_auto,
+    step_auto_packed,
+)
 from .pool import FrameInput, PoolState, init_pool, init_pool_for, make_frame_input
 from .rand import RandF32, RandVec3
 from .render import (
@@ -72,9 +83,9 @@ __all__ = [
     "ParticleEventHandlers", "ParticleSettings", "ParticleSpawner", "PoolState", "RandF32", "RandVec3", "RenderItem",
     "Scene", "SpawnTransformMode", "SpawnerParams", "SpawnerStatic", "StepOutputs", "Transform",
     "aabb_intersects_frustum", "compile_colliders", "compile_force_fields", "compile_spawner", "estimate_capacity",
-    "frustum_planes", "fused_step", "gradient_constant", "gradient_even_samples", "gradient_uneven_samples",
+    "frustum_planes", "fused_step", "fused_step_hybrid", "gradient_constant", "gradient_even_samples", "gradient_uneven_samples",
     "hull_decomposition", "init_pool", "init_pool_for", "instances_to_bytes", "make_frame_input", "make_uniform",
-    "multi_step_auto", "multi_step_auto_packed", "pack_instances_dense", "planes_to_rows",
+    "multi_step_auto", "multi_step_auto_packed", "nested_cadence_pass", "pack_instances_dense", "planes_to_rows",
     "sort_instances_back_to_front", "spawner_from_dict", "spawner_from_json", "spawner_to_dict", "spawner_to_json",
     "step", "step_auto", "step_auto_packed",
 ]

@@ -4,18 +4,24 @@
 // destroy-on-collision), scene force fields, linear drag, quaternion +
 // angular drag, and optionally the destroyed-particle dump plane, the f32
 // render pack and the frame's stats (AABB and counts), for U <= 8 frames
-// per launch.
+// per launch; and for archetypes with nested emitters, the nested cadence
+// pass, the child rows from threefry draws, and the child merge into the
+// step (one frame per launch).
 //
 // Replaces: bevy_firework_tpu/ops/fused_step.py `_make_kernel` (:913) as run
 // by `_run_fused_kernel` (:1793) with kernel_spawn on, ring or dead-rank
-// claims, colliders, force fields, the dump and kernel stats (no fleet,
-// shard or nested blocks): its main-path block (:1162-1521), its render-pack
-// block (:1523-1561, f32 mode), its collision narrow phase `_collide_tile`
-// (:349) with `_ray_kind` (:309), its dead-rank claim (`_prefix_exclusive`
-// :173 with the SMEM `dead_carry`, :1142-1149, :1323-1333) with the alive
-// plane in and out (:1023-1026, :1563-1564), its force-field block
-// (`force_fields.field_accel`, used :1462-1472), its dump plane
-// (:1567-1576) and its kernel-stats block (:1580-1618).
+// claims, colliders, force fields, the dump, kernel stats and the nested
+// merge (no fleet, shard or fold blocks): its main-path block (:1162-1521),
+// its render-pack block (:1523-1561, f32 mode), its collision narrow phase
+// `_collide_tile` (:349) with `_ray_kind` (:309), its dead-rank claim
+// (`_prefix_exclusive` :173 with the SMEM `dead_carry`, :1142-1149,
+// :1323-1333) with the alive plane in and out (:1023-1026, :1563-1564), its
+// force-field block (`force_fields.field_accel`, used :1462-1472), its dump
+// plane (:1567-1576), its kernel-stats block (:1580-1618) and its nested
+// child merge (:1172-1227, fed by `fused_step_hybrid` :2445); and
+// `_make_nested_cadence_kernel` (:683, `nested_cadence_pass` :805/:866) and
+// the child stage of bevy_firework_tpu/step.py `_nested_spawn` (:411-453,
+// composed XLA there), below the step kernel.
 //
 // Design:
 //  * One thread per lane; a block runs TILE lanes, a fixed contiguous lane
@@ -66,10 +72,23 @@
 //    ticket after __threadfence) reduces the partial rows into the output
 //    row. Min, max and integer sums are exact in any order, so the row
 //    equals the plain reductions.
+//  * Nested merge (hybrid frames, U = 1): the nested stage's kernels leave
+//    each valid nested emitter's children by rank in a child-row buffer and
+//    its claim window (start, n) in a device record. Before the global
+//    claim, a dead lane whose claim rank in a window (ring distance from
+//    the window's cursor, or dead-slot rank minus the window's start) is r
+//    < n loads child r's row by a direct indexed load, becomes alive and
+//    takes the emitter's type; the global claim then ranks from the cursor
+//    the nested windows advanced (ring) or from the dead rank after the
+//    last window. The TPU's pre-shift of the buffer by cursor mod 128 and
+//    its two-segment slices were Mosaic constraints and are not carried
+//    over. The windows are consecutive, so this claims the slots the JAX
+//    package's in-place write-back claims on dead-rank archetypes too.
 //  * The kernel is a template over the claim kind, the narrow phase, the
-//    force fields and the stats (sixteen instantiations, chosen at launch),
-//    so the main path's kernel carries none of their registers, barriers or
-//    shared memory.
+//    force fields, the stats and the merge (twenty instantiations, chosen
+//    at launch: the four merge ones set the narrow phase and field flags
+//    and gate them by the launch's counts), so the main path's kernel
+//    carries none of their registers, barriers or shared memory.
 //  * Spawner structure (emitter/type counts, pacing kinds, curve kinds and
 //    knot counts, elision flags, collision types) and all
 //    parameters come from one small device table read at run time; branches
@@ -140,6 +159,16 @@ struct Args {
   int unroll;
   int n;
   int pack_render;
+  // kMerge (hybrid frames of nested archetypes, U = 1): the nested scalars
+  // (NS_* records, one per valid nested emitter), the child rows
+  // [n_merge][child_rows][merge_m] by rank, and the pre-spawn alive flag
+  const int* nested;
+  const float* child;
+  const int* any_alive;
+  int n_merge;
+  int merge_m;
+  int child_rows;
+  int merge_e[MAX_E];  // emitter of each record
 };
 
 __device__ __forceinline__ float tabf(const int* tab, int i) { return __int_as_float(__ldg(tab + i)); }
@@ -855,13 +884,19 @@ __global__ void __launch_bounds__(1024) tile_scan_kernel(const int* __restrict__
 
 // kRing: ring claim (else the dead-rank claim with the alive plane, U = 1);
 // kCollide: the narrow phase runs; kFields: the scene has force fields;
-// kStats: the launch writes the stats row. The sixteen instantiations keep
-// each block's registers, barriers and shared memory out of the kernels
-// that do not run it (the main path's is <true, false, false, false>).
-template <bool kRing, bool kCollide, bool kFields, bool kStats>
+// kStats: the launch writes the stats row; kMerge: a hybrid frame of a
+// nested archetype (U = 1): the nested children merge before the global
+// claim, and the narrow phase and field block run where the launch passes
+// colliders or fields (their flags are set; the counts gate them at run
+// time). The twenty instantiations keep each block's registers, barriers
+// and shared memory out of the kernels that do not run it (the main path's
+// is <true, false, false, false, false>).
+template <bool kRing, bool kCollide, bool kFields, bool kStats, bool kMerge>
 __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict__ tab, Args a) {
   __shared__ int s_cursor[MAX_U];
   __shared__ int s_bounds[MAX_U][MAX_E + 1];
+  __shared__ int s_mstart[kMerge ? MAX_E : 1], s_mn[kMerge ? MAX_E : 1], s_mti[kMerge ? MAX_E : 1];
+  __shared__ int s_rank_base;
   __shared__ int s_warp[TILE / 32];
   __shared__ int s_col[kCollide ? COLLIDER_WORDS : 1];
   __shared__ int s_ff[kFields ? FIELD_WORDS : 1];
@@ -900,9 +935,26 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
     }
     int mq = *a.mq_in;
     int cursor = *a.cursor_in;
+    // the children's claim windows (kernel :1172-1227): ring windows start
+    // at their cursor, dead-rank windows at a dead-slot rank, and the
+    // global dead-rank claim after the last of them
+    bool anyp = false;
+    s_rank_base = 0;
+    if (kMerge) {
+      anyp = *a.any_alive != 0;
+      for (int mi = 0; mi < a.n_merge; ++mi) {
+        const int* rec = a.nested + NS_AT + mi * NS_STRIDE;
+        s_mstart[mi] = rec[NS_START];
+        s_mn[mi] = rec[NS_N];
+        s_mti[mi] = tabi(tab, H_PINDEX + a.merge_e[mi]);
+        if (!kRing) s_rank_base = rec[NS_NEXT];
+      }
+    }
     for (int u = 0; u < a.unroll; ++u) {
+      // active() is nested-aware (core.rs:288-302; kernel :1241-1250): a
+      // nested emitter counts only while a lane lived before the spawns
       bool active = false;
-      for (int e = 0; e < E; ++e) active = active || en[e];
+      for (int e = 0; e < E; ++e) active = active || (tabi(tab, H_MODE + e) == MODE_NESTED ? en[e] && anyp : en[e]);
       s_cursor[u] = cursor;
       int bound = 0;
       s_bounds[u][0] = 0;
@@ -911,7 +963,9 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
         bool gate = active && en[e];
         int pk = tabi(tab, H_PACING + e);
         int n_sp;
-        if (pk == PACING_ONE_SHOT) {
+        if (tabi(tab, H_MODE + e) == MODE_NESTED) {  // spawned by the nested phase; scalars pass through
+          n_sp = 0;
+        } else if (pk == PACING_ONE_SHOT) {
           n_sp = gate ? (int)tabf(tab, row + EM_COUNT) : 0;
           en[e] = en[e] && !gate;
         } else if (pk == PACING_ON_DEMAND) {
@@ -981,15 +1035,50 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
     for (int u = 0; u < a.unroll; ++u) {
       float life = const_life ? life_c : f[LIFETIME];
       bool alive0 = kRing ? f[AGE] < life : a.alive_in[g] != 0;
+      if (kMerge && !alive0) {
+        // ---- nested child merge (kernel :1172-1227): the child of rank r
+        // of record mi takes the dead lane whose claim rank in that
+        // record's window is r < n; a direct indexed load of its row ----
+        for (int mi = 0; mi < a.n_merge; ++mi) {
+          int r = kRing ? g - s_mstart[mi] : dead_rank - s_mstart[mi];
+          if (kRing && r < 0) r += n;
+          if (r >= 0 && r < s_mn[mi]) {
+            const float* c = a.child + (size_t)mi * a.child_rows * a.merge_m + r;
+            const int m = a.merge_m;
+            int k = 0;
+            f[PX] = c[(k++) * m];
+            f[PY] = c[(k++) * m];
+            f[PZ] = c[(k++) * m];
+            f[VX] = c[(k++) * m];
+            f[VY] = c[(k++) * m];
+            f[VZ] = c[(k++) * m];
+            if (!elide_rot) {
+              f[QX] = c[(k++) * m];
+              f[QY] = c[(k++) * m];
+              f[QZ] = c[(k++) * m];
+              f[QW] = c[(k++) * m];
+              f[WX] = c[(k++) * m];
+              f[WY] = c[(k++) * m];
+              f[WZ] = c[(k++) * m];
+            }
+            f[INITIAL_SCALE] = c[(k++) * m];
+            f[AGE] = c[(k++) * m];
+            if (!const_life) f[LIFETIME] = c[k * m];
+            ty = s_mti[mi];
+            alive0 = true;
+            break;
+          }
+        }
+      }
       bool spawned = false;
       const int total = s_bounds[u][E];
       if (!alive0 && total > 0) {
-        int rank = dead_rank;
+        int rank = dead_rank - s_rank_base;
         if (kRing) {
           rank = g - s_cursor[u];
           if (rank < 0) rank += n;
         }
-        if (rank < total) {
+        if (rank >= 0 && rank < total) {
           spawned = true;
           int e = 0;
           while (!(rank >= s_bounds[u][e] && rank < s_bounds[u][e + 1])) ++e;
@@ -1056,7 +1145,7 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
       float npx = f[PX] + vx * dt, npy = f[PY] + vy * dt, npz = f[PZ] + vz * dt;
       float nvx = vx, nvy = vy, nvz = vz;
       bool destroyed = false;
-      if (kCollide && moved && tabi(tab, H_HAS_COL + ty) != 0) {
+      if (kCollide && n_col > 0 && moved && tabi(tab, H_HAS_COL + ty) != 0) {
         // ---- narrow phase on a participating lane (kernel :1421-1456) ----
         npx = f[PX];
         npy = f[PY];
@@ -1081,7 +1170,7 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
       if (survivor) {
         float ax = tabf(tab, trow + TY_ACCEL + 0), ay = tabf(tab, trow + TY_ACCEL + 1);
         float az = tabf(tab, trow + TY_ACCEL + 2);
-        if (kFields) {  // scene force fields at the post-move position (kernel :1462-1472)
+        if (kFields && n_ff > 0) {  // scene force fields at the post-move position (kernel :1462-1472)
           float fx, fy, fz;
           field_accel(s_ff, n_ff, npx, npy, npz, &fx, &fy, &fz);
           const float fm = tabf(tab, trow + TY_FIELD_MASK);
@@ -1177,11 +1266,282 @@ __global__ void __launch_bounds__(TILE) fused_step_kernel(const int* __restrict_
   }
 }
 
+// ---- nested emission: the cadence pass (kernel row 8) and the child rows ----
+// Replaces bevy_firework_tpu/ops/fused_step.py `_make_nested_cadence_kernel`
+// (:683, called by `nested_cadence_pass` :805/:866) and the child stage of
+// bevy_firework_tpu/step.py `_nested_spawn` (:411-453, composed XLA there).
+// The TPU carried the count cumsum across its in-order tiles in SMEM; CUDA
+// blocks run concurrently, so the pass is count -> scan -> apply, as the
+// dead-rank claim: nested_count_kernel writes each tile's parent-count sum,
+// tile_scan_kernel scans them, nested_apply_kernel recounts each lane, adds
+// a block scan to its tile's offset for the inclusive cum, and writes the
+// advanced anchors. Fetch mode has each parent lane write its own
+// children's parent fields to out[r], r in [cum - count, min(cum, M)): a
+// direct store replaces the TPU's exact MXU row fetch (`_exact_row_fetch`,
+// :663) and its chunked one-hot search (:771-800), both Mosaic workarounds.
+// Bound on this card: the launches. At 131072 lanes the pass moves ~3 MB
+// (alive, ptype, age and the anchor in, the anchor and cum out), ~1 us at
+// 3.35 TB/s, against a few microseconds per launch.
+
+struct NestedArgs {
+  const uint8_t* alive;            // pre-spawn alive plane
+  const int* ptype;                // null: single type
+  const float* age;
+  const float* lifetime;           // null: the table's constant
+  const float* le_in;              // this emitter's last_emitted row
+  const uint8_t* gate;             // the emitter's gate (one byte)
+  float* le_out;
+  int* cum;                        // cum mode: the inclusive count cumsum; null in fetch mode
+  const float* fetch_in[MAX_FETCH];  // fetch mode: parent planes
+  float* fetch_out;                // fetch mode: [n_fetch][m] parent values by child rank
+  int n_fetch;
+  int* tile_counts;
+  int* tile_offsets;
+  const int* start_in;             // the window start (null: 0)
+  const int* dead_counts;          // dead-rank archetypes: the claim's tile counts and offsets
+  const int* dead_offsets;
+  int* rec;                        // this emitter's NS record
+  int* any_alive;                  // NS_ANY (null: not written)
+  int e, n, m, ring;
+};
+
+// One lane's parent count (0 off the parent mask), its reset anchor, the
+// full advance and its lifetime (step.nested_cadence's op order).
+struct NestedLane {
+  int count;
+  float base_le, next_full, life;
+  bool pm;
+};
+
+__device__ __forceinline__ NestedLane nested_lane(const int* tab, const NestedArgs& a, int g) {
+  NestedLane l;
+  const int row = EM_AT + a.e * EM_STRIDE;
+  const bool alive = a.alive[g] != 0;
+  l.life = a.lifetime ? a.lifetime[g] : tabf(tab, H_CONST_LIFE_VAL);
+  l.base_le = alive ? a.le_in[g] : __int_as_float((int)0xff7fffffu);  // lazy reset to f32::MIN
+  l.pm = alive && *a.gate != 0;
+  if (a.ptype) l.pm = l.pm && a.ptype[g] == tabi(tab, H_TARGET + a.e);
+  emission_count(a.age[g], l.base_le, l.life, tabf(tab, row + EM_OFF_START), tabf(tab, row + EM_OFF_END),
+                 tabf(tab, row + EM_COUNT), &l.count, &l.next_full);
+  if (!l.pm) l.count = 0;
+  return l;
+}
+
+// inclusive scan of x over the block (all threads call it; s_warp holds
+// TILE / 32 words and is free again on return)
+__device__ int block_inclusive_scan(int x, int* s_warp, int* block_total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const int v = s_warp[w];
+    if (w < warp) before += v;
+    all += v;
+  }
+  __syncthreads();
+  *block_total = all;
+  return before + x;
+}
+
+__global__ void __launch_bounds__(TILE) nested_count_kernel(const int* __restrict__ tab, NestedArgs a, int n_tiles) {
+  __shared__ int s_warp[TILE / 32];
+  // fetch mode: ranks at or above the total keep 0 (the apply kernel writes
+  // the others)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n_fetch * a.m; i += gridDim.x * blockDim.x)
+    a.fetch_out[i] = 0.0f;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g = tile * TILE + threadIdx.x;
+    int c = 0;
+    bool alive = false;
+    if (g < a.n) {
+      c = nested_lane(tab, a, g).count;
+      alive = a.alive[g] != 0;
+    }
+    int sum;
+    block_inclusive_scan(c, s_warp, &sum);
+    const bool any = __syncthreads_or(alive);
+    if (threadIdx.x == 0) {
+      a.tile_counts[tile] = sum;
+      if (any && a.any_alive) *a.any_alive = 1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TILE) nested_apply_kernel(const int* __restrict__ tab, NestedArgs a, int n_tiles) {
+  __shared__ int s_warp[TILE / 32];
+  const int row = EM_AT + a.e * EM_STRIDE;
+  const float off_s = tabf(tab, row + EM_OFF_START), off_e = tabf(tab, row + EM_OFF_END);
+  const float between = (off_e - off_s) / tabf(tab, row + EM_COUNT);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g = tile * TILE + threadIdx.x;
+    NestedLane l;
+    l.count = 0;
+    if (g < a.n) l = nested_lane(tab, a, g);
+    int unused;
+    const int cum = a.tile_offsets[tile] + block_inclusive_scan(l.count, s_warp, &unused);
+    if (g >= a.n) continue;
+    // deferral: only ranks below M materialise; a cut parent advances its
+    // anchor by what was emitted (cadence.emission_next_last's op order)
+    const int lo = cum - l.count;
+    const int emitted = min(cum, a.m) - min(lo, a.m);
+    const float last_pct = l.base_le / l.life;
+    const float clamped = pmax(last_pct, off_s);
+    const float trunc = (clamped + (float)emitted * between) * l.life;
+    const float nl = emitted < l.count ? trunc : l.next_full;
+    a.le_out[g] = l.pm ? nl : l.base_le;
+    if (a.cum) a.cum[g] = cum;
+    for (int r = lo; r < min(cum, a.m); ++r)
+      for (int k = 0; k < a.n_fetch; ++k) a.fetch_out[k * a.m + r] = a.fetch_in[k][g];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    // the emitter's scalars: total, children this frame, its claim window
+    const int total = a.tile_offsets[n_tiles - 1] + a.tile_counts[n_tiles - 1];
+    const int n_sp = min(total, a.m);
+    const int start = a.start_in ? *a.start_in : 0;
+    a.rec[NS_TOTAL] = total;
+    a.rec[NS_N] = n_sp;
+    a.rec[NS_START] = start;
+    if (a.ring) {
+      a.rec[NS_NEXT] = (int)(((long long)start + n_sp) % a.n);
+    } else {  // dead-rank: children beyond the pool's dead lanes drop
+      const int n_tail = (a.n + TILE - 1) / TILE - 1;
+      const int dead = a.dead_offsets[n_tail] + a.dead_counts[n_tail];
+      a.rec[NS_NEXT] = start + n_sp;
+      a.rec[NS_DROPPED] = n_sp - min(n_sp, max(dead - start, 0));
+    }
+  }
+}
+
+// threefry-2x32, 20 rounds (prng.threefry2x32)
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1, uint32_t* o0,
+                                             uint32_t* o1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = (x1 << rot[i % 2][j]) | (x1 >> (32 - rot[i % 2][j]));
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  *o0 = x0;
+  *o1 = x1;
+}
+
+struct ChildArgs {
+  const float* parent_vals;        // fetch mode: [n_parent][m] by rank; null in cum mode
+  const int* cum;                  // cum mode: the inclusive count cumsum [n]
+  const float* planes[MAX_FETCH];  // cum mode: parent planes (nested_parent_fields order)
+  int n_parent;
+  int* rec;                        // ring hybrid frames: this emitter's record (drops counted); else null
+  const uint8_t* alive;            // ... and the pre-spawn alive plane
+  float* out;                      // [child_rows][m]
+  float frame[FRAME_WORDS];
+  uint32_t k0, k1;                 // fold_in(frame_key, 1000 + e)
+  int e, n, m, n_draws;
+};
+
+// One thread per child rank r: the uniforms uniform(fold_in(frame_key,
+// 1000 + e), (n_draws, M)) at flat index i * M + r (threefry-2x32 of
+// (hi, lo) of the index, the xor of its words, the top 23 bits as a float
+// in [1, 2) minus 1), then the child's init (step.nested_child_rows' op
+// order). Bound: the launch (M ranks, 12 threefry evaluations each).
+__global__ void __launch_bounds__(TILE) nested_child_rows_kernel(const int* __restrict__ tab, ChildArgs a) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  bool drop = false;
+  if (r < a.m) {
+    const bool elide_rot = tabi(tab, H_ELIDE_ROT) != 0;
+    const bool const_life = tabi(tab, H_CONST_LIFE) != 0;
+    float p[MAX_FETCH];
+    if (a.parent_vals) {
+      for (int k = 0; k < a.n_parent; ++k) p[k] = a.parent_vals[k * a.m + r];
+    } else {  // the first lane whose cum exceeds r, clamped into the pool
+      int lo = 0, hi = a.n;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a.cum[mid] <= r) lo = mid + 1;
+        else hi = mid;
+      }
+      const int par = lo < a.n ? lo : a.n - 1;
+      for (int k = 0; k < a.n_parent; ++k) p[k] = a.planes[k][par];
+    }
+    float u[12];
+    for (int i = 0; i < a.n_draws; ++i) {
+      uint32_t b0, b1;
+      threefry2x32(a.k0, a.k1, 0u, (uint32_t)(i * a.m + r), &b0, &b1);
+      u[i] = __int_as_float((int)(((b0 ^ b1) >> 9) | 0x3f800000u)) - 1.0f;
+    }
+    const int row = EM_AT + a.e * EM_STRIDE;
+    const int ti = tabi(tab, H_PINDEX + a.e);
+    const int trow = TY_AT + ti * TY_STRIDE;
+    float offx, offy, offz, ivx, ivy, ivz;
+    shape_point(tab, row + EM_SHAPE, u[0], u[1], u[2], &offx, &offy, &offz);
+    randvec3(tab, row + EM_IVEL, u[3], u[4], u[5], &ivx, &ivy, &ivz);
+    const float rlo = tabf(tab, row + EM_RADIAL_LO), rhi = tabf(tab, row + EM_RADIAL_HI);
+    const float radial = rlo + (rhi - rlo) * u[6];
+    const float l2 = offx * offx + offy * offy + offz * offz;
+    const float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
+    float wvx = ivx, wvy = ivy, wvz = ivz;
+    const int pv = a.n_parent - 3;  // parent velocity follows position [and rotation]
+    if (!elide_rot) quat_rotate(p[3], p[4], p[5], p[6], ivx, ivy, ivz, &wvx, &wvy, &wvz);
+    const float spd = a.frame[FR_MOD_SPEED], inh = tabf(tab, row + EM_INHERIT);
+    float* o = a.out + r;
+    const int m = a.m;
+    int k = 0;
+    o[(k++) * m] = p[0] + offx;
+    o[(k++) * m] = p[1] + offy;
+    o[(k++) * m] = p[2] + offz;
+    o[(k++) * m] = spd * (wvx + offx * inv * radial) + inh * p[pv];
+    o[(k++) * m] = spd * (wvy + offy * inv * radial) + inh * p[pv + 1];
+    o[(k++) * m] = spd * (wvz + offz * inv * radial) + inh * p[pv + 2];
+    if (!elide_rot) {
+      for (int q = 0; q < 4; ++q) o[(k++) * m] = tabf(tab, row + EM_INIT_ROT + q);
+      float avx, avy, avz;
+      randvec3(tab, row + EM_IANG, u[9], u[10], u[11], &avx, &avy, &avz);
+      o[(k++) * m] = avx;
+      o[(k++) * m] = avy;
+      o[(k++) * m] = avz;
+    }
+    const float slo = tabf(tab, trow + TY_ISCALE_LO), shi = tabf(tab, trow + TY_ISCALE_HI);
+    o[(k++) * m] = (slo + (shi - slo) * u[7]) * a.frame[FR_MOD_SCALE];
+    o[(k++) * m] = 0.0f;
+    if (!const_life) {
+      const float llo = tabf(tab, trow + TY_LIFE_LO), lhi = tabf(tab, trow + TY_LIFE_HI);
+      o[k * m] = llo + (lhi - llo) * u[8];
+    }
+    // ring hybrid frames: a child whose window slot lives is dropped
+    if (a.rec) {
+      const int n_sp = a.rec[NS_N];
+      const int slot = (int)(((long long)a.rec[NS_START] + r) % a.n);
+      drop = r < n_sp && a.alive[slot] != 0;
+    }
+  }
+  if (a.rec) {
+    const unsigned b = __ballot_sync(0xffffffffu, drop);
+    if ((threadIdx.x & 31) == 0 && b) atomicAdd(a.rec + NS_DROPPED, __popc(b));
+  }
+}
+
 using KernelFn = void (*)(const int*, Args);
 
 template <bool R, bool C, bool F>
 KernelFn select_stats(bool stats) {
-  return stats ? fused_step_kernel<R, C, F, true> : fused_step_kernel<R, C, F, false>;
+  return stats ? fused_step_kernel<R, C, F, true, false> : fused_step_kernel<R, C, F, false, false>;
+}
+template <bool R>
+KernelFn select_merge(bool stats) {
+  return stats ? fused_step_kernel<R, true, true, true, true> : fused_step_kernel<R, true, true, false, true>;
 }
 template <bool R, bool C>
 KernelFn select_fields(bool fields, bool stats) {
@@ -1208,15 +1568,24 @@ extern "C" {
 // records (n_fields 0: no force fields). dump_out is the u8 dump plane or
 // null. stats_out (STATS_WORDS words) or null; with it, stats_partial holds
 // MAX_BLOCKS rows of scratch and stats_ticket one word that is 0 at launch.
+// A hybrid frame of a nested archetype (U = 1) passes any_alive (one int,
+// the pre-spawn flag), the nested scalars (NS_* records of n_merge
+// emitters, merge_e[i] the emitter of record i) and the child rows
+// [n_merge][child_rows][merge_m]; other launches pass a null any_alive.
 // Returns the cudaError_t of the launch (0 = success).
 int bf_fused_step(const void* tables, const void* colliders, int n_colliders, void* const* field_in,
                   void* const* field_out, const void* ptype_in, void* ptype_out, const void* alive_in,
                   void* alive_out, const void* tile_dead_offset, void* const* scal_in, void* const* scal_out,
                   void* const* render_out, const float* frame, const uint32_t* seeds, int unroll, int n,
                   const int* fields, int n_fields, void* dump_out, void* stats_partial, void* stats_ticket,
-                  void* stats_out, void* stream) {
+                  void* stats_out, const void* any_alive, const void* nested, const void* child, int n_merge,
+                  const int* merge_e, int merge_m, int child_rows, void* stream) {
   if (unroll < 1 || unroll > MAX_U || n <= 0 || n_colliders < 0 || n_colliders > MAX_C || n_fields < 0 ||
       n_fields > MAX_F)
+    return (int)cudaErrorInvalidValue;
+  const bool merge = any_alive != nullptr;
+  if (merge && (unroll != 1 || n_merge < 0 || n_merge > MAX_E || (n_merge > 0 && (nested == nullptr ||
+                child == nullptr || merge_m <= 0))))
     return (int)cudaErrorInvalidValue;
   if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
     return (int)cudaErrorInvalidValue;
@@ -1256,10 +1625,21 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, vo
   for (int i = 0; i < MAX_U; ++i) a.seeds[i] = i < unroll ? seeds[i] : 0u;
   a.unroll = unroll;
   a.n = n;
+  a.any_alive = (const int*)any_alive;
+  a.nested = (const int*)nested;
+  a.child = (const float*)child;
+  a.n_merge = merge ? n_merge : 0;
+  a.merge_m = merge_m;
+  a.child_rows = child_rows;
+  for (int i = 0; i < MAX_E; ++i) a.merge_e[i] = i < a.n_merge ? merge_e[i] : 0;
 
   const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
-  const KernelFn kernel = alive_in == nullptr ? select_collide<true>(collide, with_fields, stats)
-                                              : select_collide<false>(collide, with_fields, stats);
+  KernelFn kernel;
+  if (merge)
+    kernel = alive_in == nullptr ? select_merge<true>(stats) : select_merge<false>(stats);
+  else
+    kernel = alive_in == nullptr ? select_collide<true>(collide, with_fields, stats)
+                                 : select_collide<false>(collide, with_fields, stats);
   long long blocks = ((long long)n + TILE - 1) / TILE;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;  // tile-stride beyond that
   kernel<<<(int)blocks, TILE, 0, (cudaStream_t)stream>>>((const int*)tables, a);
@@ -1278,6 +1658,94 @@ int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   tile_scan_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>((const int*)counts, (int*)offsets, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// One nested emitter's cadence pass over n lanes (kernel row 8): count,
+// scan and apply launches on `stream`. alive (u8), age, le_in and le_out
+// are [n]; ptype [n] or null (one type); lifetime [n] or null (the table's
+// constant); gate one byte. Cum mode: cum [n] out, n_fetch 0. Fetch mode:
+// cum null, fetch_in a host array of n_fetch device planes [n], fetch_out
+// [n_fetch][m]. scratch holds 2 * ceil(n / TILE) ints. record (NS_STRIDE
+// ints) receives the emitter's scalars, the window starting at *start_in
+// (null: 0); dead-rank archetypes (ring 0) pass the claim's tile counts
+// and offsets for the drop count. any_alive (or null) is set to 1 when a
+// lane is alive. Returns the cudaError_t of the launches.
+int bf_nested_cadence(const void* tables, int e, const void* alive, const void* ptype, const void* age,
+                      const void* lifetime, const void* le_in, const void* gate, void* le_out, void* cum,
+                      void* const* fetch_in, void* fetch_out, int n_fetch, void* scratch, const void* start_in,
+                      const void* dead_counts, const void* dead_offsets, void* record, void* any_alive, int n,
+                      int m, int ring, void* stream) {
+  if (n <= 0 || m <= 0 || m > n || e < 0 || e >= MAX_E || n_fetch < 0 || n_fetch > MAX_FETCH ||
+      (n_fetch > 0) == (cum != nullptr) || (!ring && (dead_counts == nullptr || dead_offsets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  NestedArgs a;
+  a.alive = (const uint8_t*)alive;
+  a.ptype = (const int*)ptype;
+  a.age = (const float*)age;
+  a.lifetime = (const float*)lifetime;
+  a.le_in = (const float*)le_in;
+  a.gate = (const uint8_t*)gate;
+  a.le_out = (float*)le_out;
+  a.cum = (int*)cum;
+  for (int k = 0; k < MAX_FETCH; ++k) a.fetch_in[k] = k < n_fetch ? (const float*)fetch_in[k] : nullptr;
+  a.fetch_out = (float*)fetch_out;
+  a.n_fetch = n_fetch;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  a.tile_counts = (int*)scratch;
+  a.tile_offsets = (int*)scratch + n_tiles;
+  a.start_in = (const int*)start_in;
+  a.dead_counts = (const int*)dead_counts;
+  a.dead_offsets = (const int*)dead_offsets;
+  a.rec = (int*)record;
+  a.any_alive = (int*)any_alive;
+  a.e = e;
+  a.n = n;
+  a.m = m;
+  a.ring = ring;
+  const int blocks = n_tiles < MAX_BLOCKS ? n_tiles : MAX_BLOCKS;
+  const cudaStream_t st = (cudaStream_t)stream;
+  nested_count_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile_scan_kernel<<<1, 1024, 0, st>>>(a.tile_counts, a.tile_offsets, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nested_apply_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// The child rows of nested emitter e for its m ranks, on `stream`: out is
+// [child_rows][m] (the active fields' order); frame FRAME_WORDS host floats;
+// (k0, k1) = fold_in(frame_key, 1000 + e); n_draws uniform rows. Parents:
+// fetch mode parent_vals [n_parent][m] by rank; cum mode cum [n] and
+// parent_planes, a host array of n_parent device planes [n]. record and
+// alive (a ring hybrid frame; else null): the emitter's NS record, whose
+// NS_DROPPED counts the children whose window slot is alive. Returns the
+// cudaError_t of the launch.
+int bf_nested_child_rows(const void* tables, int e, const float* frame, uint32_t k0, uint32_t k1,
+                         const void* parent_vals, const void* cum, void* const* parent_planes, int n_parent,
+                         void* record, const void* alive, void* out, int n_draws, int n, int m, void* stream) {
+  if (n <= 0 || m <= 0 || e < 0 || e >= MAX_E || (n_parent != 6 && n_parent != 10) || n_draws < 8 ||
+      n_draws > 12 || (parent_vals == nullptr) == (cum == nullptr) || (record != nullptr && alive == nullptr))
+    return (int)cudaErrorInvalidValue;
+  ChildArgs a;
+  a.parent_vals = (const float*)parent_vals;
+  a.cum = (const int*)cum;
+  for (int k = 0; k < MAX_FETCH; ++k)
+    a.planes[k] = (cum != nullptr && k < n_parent) ? (const float*)parent_planes[k] : nullptr;
+  a.n_parent = n_parent;
+  a.rec = (int*)record;
+  a.alive = (const uint8_t*)alive;
+  a.out = (float*)out;
+  for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = frame[i];
+  a.k0 = k0;
+  a.k1 = k1;
+  a.e = e;
+  a.n = n;
+  a.m = m;
+  a.n_draws = n_draws;
+  nested_child_rows_kernel<<<(m + TILE - 1) / TILE, TILE, 0, (cudaStream_t)stream>>>((const int*)tables, a);
   return (int)cudaGetLastError();
 }
 

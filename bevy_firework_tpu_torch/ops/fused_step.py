@@ -1,22 +1,36 @@
-"""The fused step: the CUDA kernel wrapper and the dispatch around it.
+"""The fused step: the CUDA kernel wrappers and the dispatch around them.
 
 `fused_step` advances a pool by U <= 8 frames in one launch of the
 hand-written Hopper kernel (`csrc/fused_step.cu`, which replaces the JAX
 package's Pallas `_make_kernel` with its main-path, render-pack, collision,
-dead-rank-claim, force-field, dump and kernel-stats blocks), optionally
-writing the render-pack planes of the last frame. Destroy-on-collision
-archetypes claim by dead-slot rank: before their step, `tile_dead_offsets`
-launches the claim's count and scan kernels. Scene force fields ride the
-frame input (`FrameInput.force_fields`) and enter the launch arguments by
-value; archetypes with a destroyed handler get the dump plane
-(`StepOutputs.destroyed_mask`). Dispatch is by the device of the pool's
-tensors and nothing else:
+dead-rank-claim, force-field, dump, kernel-stats and nested-merge blocks),
+optionally writing the render-pack planes of the last frame.
+Destroy-on-collision archetypes claim by dead-slot rank: before their step,
+`tile_dead_offsets` launches the claim's count and scan kernels. Scene
+force fields ride the frame input (`FrameInput.force_fields`) and enter the
+launch arguments by value; archetypes with a destroyed handler get the dump
+plane (`StepOutputs.destroyed_mask`).
+
+Archetypes with a nested emitter step hybrid frames (`fused_step_hybrid`,
+the JAX package's hybrid with its in-kernel merge, unfolded): per valid
+nested emitter the cadence pass (`nested_cadence_pass`: count, scan and
+apply kernels, kernel row 8) and the child-rows kernel
+(`nested_child_rows`: threefry draws, the XLA child stage of the JAX
+package), then one step launch whose merge block (row 9) places the
+children before the global claim. The frame's nested scalars (totals,
+children, windows, drops, the pre-spawn alive flag) stay in one device
+buffer (`table_layout` NS_*) that the kernels read and write: no frame
+waits on the card.
+
+Dispatch is by the device of the pool's tensors and nothing else:
   * CUDA tensors: the kernels are launched, or the call raises;
   * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
-    frames, `render.pack_render_planes`, `tile_dead_offsets`' cumsum),
-    which keep the kernel's op order and random-bit layout.
-Archetypes and tables outside the kernel's scope raise on either device;
-nothing falls back.
+    frames or one `step.hybrid_frame`, `step.nested_cadence`,
+    `step.nested_child_rows`, `render.pack_render_planes`,
+    `tile_dead_offsets`' cumsum), which keep the kernels' op order and
+    random-bit layout.
+Tables outside the kernel's capacities raise on either device; nothing
+falls back.
 
 The stats of a frame (AABB, alive and per-type counts): on the card the
 kernel's stats block writes them in one row whenever they are asked for, and
@@ -35,11 +49,27 @@ import numpy as np
 import torch
 
 from ..colliders import COLLIDER_HULL, ColliderTable, masked_layers
-from ..compiled import MODE_GLOBAL, SpawnerParams, SpawnerStatic
+from ..compiled import SpawnerParams, SpawnerStatic
 from ..pool import FrameInput, PoolState
-from ..prng import frame_seeds
+from ..prng import frame_seeds, threefry_fold_in, threefry_split
 from ..render import pack_render_planes
-from ..step import active_f32_fields, check_scope, collision_on, epilogue, fields_on, plain_frames
+from ..step import (
+    active_f32_fields,
+    collision_on,
+    epilogue,
+    fields_on,
+    has_nested,
+    hybrid_frame,
+    nested_cadence,
+    nested_child_field_rows,
+    nested_draw_rows,
+    nested_emitters,
+    nested_m,
+    nested_parent_fields,
+    nested_parents,
+    plain_frames,
+)
+from ..step import nested_child_rows as plain_child_rows
 from . import table_layout as L
 
 MAX_UNROLL = L.MAX_U
@@ -51,26 +81,26 @@ COLLISION_UNROLL = 2
 
 def can_fuse(static: SpawnerStatic) -> bool:
     """Global-only archetypes (the JAX package's fused-path condition)."""
-    return all(m == MODE_GLOBAL for m in static.mode_kinds)
+    return not has_nested(static)
 
 
 def can_unroll(static: SpawnerStatic) -> bool:
     """U frames per launch are sound where every cross-frame dependency
-    lives in the fields and scalars: ring claims, derived alive, no dump
-    (whose mask is per frame)."""
+    lives in the fields and scalars: global emitters only (a nested frame's
+    cadence passes and child stage run between launches), ring claims,
+    derived alive, no dump (whose mask is per frame)."""
     return can_fuse(static) and static.derived_alive
 
 
 def check_kernel_scope(static: SpawnerStatic, colliders=None, frame: Optional[FrameInput] = None,
                        unroll: int = 1) -> None:
-    """Raise NotImplementedError for an archetype or call the kernel (and its
-    plain version) does not cover, ValueError for a bad unroll."""
-    check_scope(static)
+    """Raise NotImplementedError for a table beyond the kernel's capacities,
+    ValueError for a bad unroll."""
     if not 1 <= unroll <= MAX_UNROLL:
         raise ValueError(f"unroll must be in 1..{MAX_UNROLL}, got {unroll}")
     if unroll > 1 and not can_unroll(static):
-        raise ValueError("unroll > 1 needs ring claims and no destroyed handler (destroy-on-collision and dump "
-                         "archetypes step one frame per launch)")
+        raise ValueError("unroll > 1 needs global emitters only, ring claims and no destroyed handler "
+                         "(nested, destroy-on-collision and dump archetypes step one frame per launch)")
     if static.num_emitters > L.MAX_E or static.num_types > L.MAX_T:
         raise NotImplementedError(f"the kernel's tables hold at most {L.MAX_E} emitters and {L.MAX_T} types")
     if colliders is not None and colliders.count > L.MAX_C:
@@ -97,6 +127,8 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
     fl[L.H_CONST_LIFE_VAL] = 0.0 if static.const_lifetime is None else static.const_lifetime
     words[L.H_PACING:L.H_PACING + E] = static.pacing_kinds
     words[L.H_PINDEX:L.H_PINDEX + E] = static.particle_indices
+    words[L.H_MODE:L.H_MODE + E] = static.mode_kinds
+    words[L.H_TARGET:L.H_TARGET + E] = static.target_types
     for t, (k, n) in enumerate(static.scale_curve_meta):
         words[L.H_SCALE_KIND + t], words[L.H_SCALE_N + t] = k, n
     for t, (bk, bn, ek, en) in enumerate(static.color_curve_meta):
@@ -217,6 +249,11 @@ def tile_dead_offsets(alive: torch.Tensor) -> torch.Tensor:
     pool, the number of dead lanes before it (int32 [ceil(N / TILE)]). On a
     CUDA tensor the count and scan kernels run (`csrc/fused_step.cu`); on a
     CPU tensor their plain version, a per-tile sum and an exclusive cumsum."""
+    return _dead_tiles(alive)[1]
+
+
+def _dead_tiles(alive: torch.Tensor):
+    """(per-tile dead counts, exclusive tile offsets) of `tile_dead_offsets`."""
     n = alive.shape[0]
     n_tiles = -(-n // L.TILE)
     if alive.device.type == "cuda":
@@ -231,13 +268,13 @@ def tile_dead_offsets(alive: torch.Tensor) -> torch.Tensor:
         if rc != 0:
             raise RuntimeError(f"dead-rank claim kernels failed to launch: {lib.bf_error_string(rc).decode()}")
         tile_dead_offsets.launches += 1
-        return offsets
+        return counts, offsets
     if alive.device.type != "cpu":
         raise ValueError(f"no dead-rank claim for device {alive.device}")
     dead = torch.zeros(n_tiles * L.TILE, dtype=torch.int32)
     dead[:n] = (~alive).to(torch.int32)
     counts = dead.view(n_tiles, L.TILE).sum(1, dtype=torch.int32)
-    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return counts, torch.cumsum(counts, 0, dtype=torch.int32) - counts
 
 
 tile_dead_offsets.launches = 0  # count + scan launches (CUDA path only)
@@ -255,11 +292,15 @@ def _checked(t: torch.Tensor, dtype, device, shape: tuple) -> torch.Tensor:
 
 
 def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-            seeds: list, pack_render: bool, stats: bool):
+            seeds: list, pack_render: bool, stats: bool, hybrid: Optional[dict] = None):
     """One step launch on the current stream (after the dead-rank claim's
     count and scan, for archetypes without ring claims). Returns (fields,
     scal, render planes or None, dump plane or None, stats row or None):
-    new tensors; the inputs are not modified."""
+    new tensors; the inputs are not modified. hybrid (a hybrid frame's
+    merge; see `_hybrid_launches`): the nested scalars `ns`, the child rows
+    `child`, the records' `emitters`, the pre-spawn flag `any_alive`, the
+    ring cursor after the nested claims `cursor` and, on dead-rank
+    archetypes, the claim's tile `offsets` of the pre-spawn alive plane."""
     from . import _build
 
     lib = _build.load()
@@ -282,13 +323,20 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     alive_in = alive_out = offsets = None
     if not static.ring_claim:
         alive_in = _checked(state.alive, torch.bool, dev, (N,))
-        offsets = tile_dead_offsets(alive_in)
+        offsets = tile_dead_offsets(alive_in) if hybrid is None else hybrid["offsets"]
         alive_out = fields["alive"] = torch.empty_like(alive_in)
     names = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "ring_cursor")
     dtypes = (torch.float32, torch.float32, torch.bool, torch.int32, torch.int32)
     E = static.num_emitters
     shapes = ((E,), (E,), (E,), (), ())
     s_in = [_checked(getattr(state, k), d, dev, sh) for k, d, sh in zip(names, dtypes, shapes)]
+    if hybrid is not None:
+        s_in[4] = _checked(hybrid["cursor"], torch.int32, dev, ())
+        merge_e = (ctypes.c_int * L.MAX_E)(*hybrid["emitters"])
+        merge = (hybrid["any_alive"].data_ptr(), hybrid["ns"].data_ptr(), hybrid["child"].data_ptr(),
+                 len(hybrid["emitters"]), merge_e, hybrid["child"].shape[2], hybrid["child"].shape[1])
+    else:
+        merge = (None, None, None, 0, None, 0, 0)
     s_out = [torch.empty_like(t) for t in s_in]
     render = [torch.empty(N, dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)] if pack_render else None
     dump = torch.empty(N, dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
@@ -299,13 +347,7 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         ticket = torch.zeros(1, dtype=torch.int32, device=dev)
     field_words, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
         else (None, 0)
-    row = np.zeros(L.FRAME_WORDS, np.float32)
-    for at, value in ((L.FR_DT, frame.dt), (L.FR_MOD_SCALE, frame.modifier_scale),
-                      (L.FR_MOD_SPEED, frame.modifier_speed), (L.FR_PVEL, frame.parent_velocity),
-                      (L.FR_TRANS, frame.transform_translation), (L.FR_ROT, frame.transform_rotation)):
-        v = value.numpy().reshape(-1)
-        row[at:at + v.size] = v
-    frame_row = (ctypes.c_float * L.FRAME_WORDS)(*row.tolist())
+    frame_row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
     seed_row = (ctypes.c_uint32 * len(seeds))(*seeds)
 
     def ptr(t):
@@ -316,7 +358,7 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         _ptr_array(ins), _ptr_array(outs), ptr(ptype_in), ptr(ptype_out), ptr(alive_in), ptr(alive_out),
         ptr(offsets), _ptr_array(s_in), _ptr_array(s_out), None if render is None else _ptr_array(render),
         frame_row, seed_row, len(seeds), N, None if field_words is None else field_words.ctypes.data, n_fields,
-        ptr(dump), ptr(partial), ptr(ticket), ptr(stats_row), torch.cuda.current_stream(dev).cuda_stream,
+        ptr(dump), ptr(partial), ptr(ticket), ptr(stats_row), *merge, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
@@ -338,6 +380,8 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         raise ValueError(f"colliders on {colliders.device}, pool on {state.device}")
     if fields_on(frame) and frame.force_fields.device != state.device:
         raise ValueError(f"force fields on {frame.force_fields.device}, pool on {state.device}")
+    if has_nested(static):
+        return fused_step_hybrid(static, params, colliders, state, frame, pack_render, stats)
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
         fields, scal, planes, dump, row = _launch(static, params, colliders, state, frame, seeds, pack_render,
@@ -366,6 +410,217 @@ fused_step.collide_launches = 0  # of which with the narrow phase
 fused_step.fields_launches = 0  # of which with force fields
 fused_step.dump_launches = 0  # of which writing the dump plane
 fused_step.stats_launches = 0  # of which writing the stats row
+fused_step.merge_launches = 0  # of which hybrid frames with the nested merge block
+
+
+def _cadence_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_in,
+                    le_out, gate, M: int, fetch: tuple, record, start=None, dead_tiles=None, any_alive=None):
+    """Launch one nested cadence pass (count, scan, apply) on the current
+    stream. fetch: parent planes (fetch mode) or () (cum mode). Returns (cum
+    or None, fetched [len(fetch), M] or None); the record receives the
+    emitter's NS_* scalars."""
+    dev = age.device
+    N = age.shape[0]
+    for t, dt_ in ((alive, torch.bool), (age, torch.float32), (le_in, torch.float32), (le_out, torch.float32)):
+        _checked(t, dt_, dev, (N,))
+    if not static.single_type:
+        _checked(ptype, torch.int32, dev, (N,))
+    if lifetime is not None:
+        _checked(lifetime, torch.float32, dev, (N,))
+    _checked(gate, torch.bool, dev, ())
+    for t in fetch:
+        _checked(t, torch.float32, dev, (N,))
+    cum = None if fetch else torch.empty(N, dtype=torch.int32, device=dev)
+    out = torch.empty((len(fetch), M), dtype=torch.float32, device=dev) if fetch else None
+    scratch = torch.empty(2 * -(-N // L.TILE), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.bf_nested_cadence(
+        kernel_tables(static, params).data_ptr(), e, alive.data_ptr(), None if static.single_type else ptype.data_ptr(),
+        age.data_ptr(), ptr(lifetime), le_in.data_ptr(), gate.data_ptr(), le_out.data_ptr(), ptr(cum),
+        _ptr_array(fetch) if fetch else None, ptr(out), len(fetch), scratch.data_ptr(), ptr(start),
+        None if dead_tiles is None else dead_tiles[0].data_ptr(), None if dead_tiles is None else dead_tiles[1].data_ptr(),
+        record.data_ptr(), ptr(any_alive), N, M, int(static.ring_claim), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nested cadence kernels failed to launch: {lib.bf_error_string(rc).decode()}")
+    nested_cadence_pass.launches += 1
+    return cum, out
+
+
+def nested_cadence_pass(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row,
+                        gate, M: int, parent_fields: Optional[dict] = None):
+    """Kernel row 8, one nested emitter's cadence pass over the pool (the JAX
+    package's `nested_cadence_pass`): returns (new_le [N] f32, cum [N] i32
+    or None, total i32 0-d, parent values name -> [M] f32 or None), as
+    `step.nested_cadence`, its plain version. alive [N] bool, ptype [N]
+    i32, age [N] f32, lifetime [N] f32 or None (the archetype's constant),
+    le_row the emitter's [N] anchors, gate a 0-d bool. parent_fields
+    (fetch mode): name -> [N] f32. On CUDA tensors the count, scan and
+    apply kernels run (the scalars land in a device record; nothing syncs);
+    on CPU tensors the plain version."""
+    if age.device.type == "cuda":
+        from . import _build
+
+        lib = _build.load()
+        dev = age.device
+        names = tuple(parent_fields) if parent_fields else ()
+        record = torch.zeros(L.NS_STRIDE, dtype=torch.int32, device=dev)
+        new_le = torch.empty_like(le_row)
+        dead_tiles = None if static.ring_claim else _dead_tiles(alive)
+        cum, out = _cadence_launch(lib, static, params, e, alive, ptype, age, lifetime, le_row, new_le, gate, M,
+                                   tuple(parent_fields[k] for k in names), record, dead_tiles=dead_tiles)
+        return new_le, cum, record[L.NS_TOTAL], (dict(zip(names, out)) if names else None)
+    if age.device.type != "cpu":
+        raise ValueError(f"no nested cadence pass for device {age.device}")
+    life = lifetime if lifetime is not None else torch.full((), float(static.const_lifetime), dtype=torch.float32)
+    return nested_cadence(static, params, e, alive, ptype, age, life, le_row, gate, M, parent_fields)
+
+
+nested_cadence_pass.launches = 0  # cadence passes launched (count + scan + apply each; CUDA path only)
+
+
+def _frame_row(frame: FrameInput) -> np.ndarray:
+    row = np.zeros(L.FRAME_WORDS, np.float32)
+    for at, value in ((L.FR_DT, frame.dt), (L.FR_MOD_SCALE, frame.modifier_scale),
+                      (L.FR_MOD_SPEED, frame.modifier_speed), (L.FR_PVEL, frame.parent_velocity),
+                      (L.FR_TRANS, frame.transform_translation), (L.FR_ROT, frame.transform_rotation)):
+        v = value.numpy().reshape(-1)
+        row[at:at + v.size] = v
+    return row
+
+
+def _child_launch(lib, static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, frame_key, M: int,
+                  out, parent_vals=None, cum=None, planes=(), record=None, alive=None):
+    dev = out.device
+    key = threefry_fold_in(frame_key, 1000 + e)
+    row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
+    rc = lib.bf_nested_child_rows(
+        kernel_tables(static, params).data_ptr(), e, row, int(key[0]), int(key[1]),
+        None if parent_vals is None else parent_vals.data_ptr(), None if cum is None else cum.data_ptr(),
+        _ptr_array(planes) if cum is not None else None, len(nested_parent_fields(static)),
+        None if record is None else record.data_ptr(), None if alive is None else alive.data_ptr(), out.data_ptr(),
+        nested_draw_rows(static), (cum.shape[0] if cum is not None else alive.shape[0] if alive is not None else M), M,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nested child-rows kernel failed to launch: {lib.bf_error_string(rc).decode()}")
+    nested_child_rows.launches += 1
+
+
+def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, frame_key, M: int,
+                      parent_vals: Optional[dict] = None, cum=None, parent_planes: Optional[dict] = None):
+    """The children of nested emitter e by rank, [len(active_f32_fields), M]
+    f32 (the JAX package's child stage, step.py:411-453; threefry draws
+    under fold_in(frame_key, 1000 + e)). Parents: `parent_vals` (name -> [M],
+    fetch mode), or `cum` [N] with `parent_planes` (name -> [N], cum mode:
+    rank r's parent is the first lane whose cum exceeds r). On CUDA tensors
+    the child-rows kernel runs; on CPU tensors `step.nested_child_rows`."""
+    names = nested_parent_fields(static)
+    dev = (cum if cum is not None else parent_vals["px"]).device
+    if dev.type == "cuda":
+        from . import _build
+
+        lib = _build.load()
+        out = torch.empty((len(nested_child_field_rows(static)), M), dtype=torch.float32, device=dev)
+        if cum is not None:
+            _child_launch(lib, static, params, frame, e, frame_key, M, out, cum=_checked(cum, torch.int32, dev,
+                          (cum.shape[0],)), planes=[_checked(parent_planes[k], torch.float32, dev, cum.shape)
+                                                    for k in names])
+        else:
+            pv = torch.stack([_checked(parent_vals[k], torch.float32, dev, (M,)) for k in names])
+            _child_launch(lib, static, params, frame, e, frame_key, M, out, parent_vals=pv)
+        return out
+    if dev.type != "cpu":
+        raise ValueError(f"no nested child rows for device {dev}")
+    if cum is not None:
+        idx = nested_parents(cum, M)
+        parent_vals = {k: parent_planes[k][idx] for k in names}
+    return plain_child_rows(static, params, frame, e, parent_vals, frame_key, M)
+
+
+nested_child_rows.launches = 0  # child-rows kernel launches (CUDA path only)
+
+
+def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+                     pack_render: bool, stats: bool):
+    """One hybrid frame on the card: per valid nested emitter a cadence pass
+    (fetch mode on the ring, cum mode on dead-rank archetypes) and the
+    child-rows kernel, then the step launch with the merge block. Returns
+    (new_state, outputs or None, render planes or None)."""
+    from . import _build
+
+    lib = _build.load()
+    dev = state.device
+    N = state.capacity
+    M = nested_m(static, N)
+    es = nested_emitters(static)
+    new_key, frame_key = threefry_split(state.rng_key.numpy())
+    new_key, kernel_key = threefry_split(new_key)
+    ns = torch.zeros(L.NS_AT + len(es) * L.NS_STRIDE, dtype=torch.int32, device=dev)
+    alive = _checked(state.alive, torch.bool, dev, (N,))
+    dead_tiles = None if static.ring_claim else _dead_tiles(alive)
+    lifetime = None if static.const_lifetime is not None else state.lifetime
+    last_emitted = state.last_emitted.clone()
+    child = torch.empty((len(es), len(nested_child_field_rows(static)), M), dtype=torch.float32, device=dev)
+    planes = tuple(getattr(state, k) for k in nested_parent_fields(static))
+    start = state.ring_cursor if static.ring_claim else None
+    for j, e in enumerate(es):
+        record = ns[L.NS_AT + j * L.NS_STRIDE:L.NS_AT + (j + 1) * L.NS_STRIDE]
+        le = last_emitted[e]
+        # the gate is the emitter's enabled bit: where a parent lives (the
+        # only lanes the pass counts), active() holds whenever it is set
+        cum, fetched = _cadence_launch(lib, static, params, e, alive, state.ptype, state.age, lifetime, le, le,
+                                       state.enabled[e], M, planes if static.ring_claim else (), record, start,
+                                       dead_tiles, ns[L.NS_ANY])
+        if static.ring_claim:
+            _child_launch(lib, static, params, frame, e, frame_key, M, child[j], parent_vals=fetched, record=record,
+                          alive=alive)
+        else:
+            _child_launch(lib, static, params, frame, e, frame_key, M, child[j], cum=cum, planes=planes)
+        start = record[L.NS_NEXT]
+    any_alive = ns[L.NS_ANY] if es else alive.any().to(torch.int32)
+    hybrid = {"ns": ns, "child": child, "emitters": es, "any_alive": any_alive,
+              "cursor": start if (static.ring_claim and es) else state.ring_cursor,
+              "offsets": None if dead_tiles is None else dead_tiles[1]}
+    fields, scal, planes_out, dump, row = _launch(static, params, colliders, state, frame, [int(kernel_key[1])],
+                                                  pack_render, stats, hybrid)
+    fused_step.launches += 1
+    fused_step.merge_launches += 1
+    fused_step.render_launches += pack_render
+    fused_step.collide_launches += collision_on(static, colliders)
+    fused_step.fields_launches += fields_on(frame)
+    fused_step.dump_launches += dump is not None
+    fused_step.stats_launches += stats
+
+    def nested_counts():
+        recs = ns[L.NS_AT:].view(len(es), L.NS_STRIDE)
+        return ((recs[:, L.NS_TOTAL] - recs[:, L.NS_N]).sum(dtype=torch.int32),
+                recs[:, L.NS_DROPPED].sum(dtype=torch.int32))
+
+    new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(new_key.astype(np.int64)), stats,
+                              dump, None if row is None else stats_from_row(static, row), last_emitted, nested_counts)
+    return new_state, out, planes_out
+
+
+def fused_step_hybrid(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+                      pack_render: bool = False, stats: bool = True):
+    """One hybrid frame of an archetype with a nested emitter (the JAX
+    package's `fused_step_hybrid` with its in-kernel merge, unfolded):
+    returns (state, outputs) or, with pack_render, (state, outputs, planes).
+    On the card the nested kernels and one merge-block step launch run; on
+    the CPU `step.hybrid_frame`."""
+    check_kernel_scope(static, colliders, frame, 1)
+    if state.device.type == "cuda":
+        new_state, out, planes = _hybrid_launches(static, params, colliders, state, frame, pack_render, stats)
+    elif state.device.type == "cpu":
+        new_state, out = hybrid_frame(static, params, state, frame, stats, colliders)
+        planes = pack_render_planes(static, params, new_state) if pack_render else None
+    else:
+        raise ValueError(f"no step for device {state.device}")
+    if pack_render:
+        return new_state, out, tuple(planes)
+    return new_state, out
 
 
 def step_auto(static, params, colliders, state, frame, kernel_stats: bool = False):

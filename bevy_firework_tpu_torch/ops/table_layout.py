@@ -53,6 +53,8 @@ H_EMIS_KIND = H_BASE_N + MAX_T  # [T] emissive gradient kind
 H_EMIS_N = H_EMIS_KIND + MAX_T  # [T] ... knots
 H_HAS_COL = H_EMIS_N + MAX_T  # [T] type collides
 H_DUMP = H_HAS_COL + MAX_T  # [T] type has a destroyed handler (dump plane)
+H_MODE = H_DUMP + MAX_T  # [E] emission mode (MODE_GLOBAL / MODE_NESTED)
+H_TARGET = H_MODE + MAX_E  # [E] nested emitter's parent type
 
 # ---- emitter rows (f32): slot offsets within a row ----
 EM_AT, EM_STRIDE = 128, 48
@@ -124,10 +126,22 @@ ST_ALIVE = 6  # i32: survivors
 ST_TYPES = 7  # [MAX_T] i32: survivors per type
 STATS_WORDS = ST_TYPES + MAX_T
 
+# ---- nested scalars (device int32 buffer, zeroed per frame; kernel in- and outputs) ----
+# A header word, then one record per valid nested emitter, in emitter order.
+NS_ANY = 0  # header: 1 when a lane lived before the frame's spawns (the nested count kernels set it)
+NS_AT = 1  # first record
+NS_STRIDE = 8
+NS_TOTAL = 0  # children the emitter's parents ask for this frame
+NS_N = 1  # children claiming this frame: min(total, M); the rest are deferred
+NS_START = 2  # the claim window's start: ring cursor, or the dead-slot rank on dead-rank archetypes
+NS_NEXT = 3  # the next emitter's start: NS_START + NS_N (mod N on the ring)
+NS_DROPPED = 4  # children whose window slot was not dead (pool capacity overflow)
+MAX_FETCH = 10  # parent fields a fetch-mode cadence pass reads (nested_parent_fields)
+
 # ---- launch geometry ----
 MAX_BLOCKS = 132 * 8  # the step tile-strides beyond 8 blocks per SM (stats partials)
 
-assert H_DUMP + MAX_T <= EM_AT and EM_INIT_ROT + 4 <= EM_STRIDE and TY_FIELD_MASK < TY_STRIDE
+assert H_TARGET + MAX_E <= EM_AT and NS_DROPPED < NS_STRIDE and EM_INIT_ROT + 4 <= EM_STRIDE and TY_FIELD_MASK < TY_STRIDE
 assert CO_PARAMS + 3 <= CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
 
 
@@ -137,7 +151,7 @@ def constants() -> dict:
     curve and shape kinds of the modules that define them."""
     out = {k: v for k, v in globals().items() if k.isupper() and isinstance(v, int)}
     out.update({name.upper(): i for i, name in enumerate(FIELD_SLOTS)})
-    for mod, prefix in ((compiled, "PACING_"), (curve, "CURVE_"), (emission_shape, "SHAPE_"),
+    for mod, prefix in ((compiled, "PACING_"), (compiled, "MODE_"), (curve, "CURVE_"), (emission_shape, "SHAPE_"),
                         (colliders, "COLLIDER_"), (force_fields, "FIELD_")):
         out.update({k: v for k, v in vars(mod).items() if k.startswith(prefix) and isinstance(v, int)})
     return out

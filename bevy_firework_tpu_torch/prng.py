@@ -7,7 +7,14 @@ Two generators, both counter-based and stateless:
     new key i is threefry2x32(key, (0, i))). `PoolState.rng_key` advances
     through it exactly like the JAX package's key, and each frame's draw
     seed is word 0 of the frame key, as `bevy_firework_tpu.ops.fused_step`
-    takes it.
+    takes it. `threefry_fold_in` and `threefry_uniform` are
+    `jax.random.fold_in` and `jax.random.uniform` under the same setting:
+    fold_in(key, d) = threefry2x32(key, (0, d)); the uniform at flat index
+    i draws threefry2x32(key, (hi(i), lo(i))), keeps the xor of the two
+    output words, and maps its top 23 bits into [1, 2) minus 1. The nested
+    child stage draws its rows with them, so its children match the JAX
+    package's lane for lane (the CUDA child-rows kernel evaluates the same
+    function per rank).
   * Philox-4x32-10 (Salmon et al., SC'11, the Random123 constants) written
     in torch int64 ops with 32-bit masking. The CUDA step kernel implements
     the same function, so kernel and plain version draw the same bits for
@@ -30,10 +37,11 @@ _MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+def threefry2x32(k0, k1, x0, x1):
     """threefry-2x32 with 20 rounds on Python ints holding uint32 values
     (scalar ints: a frame's key split is two evaluations, and numpy's
-    per-op overhead on 2-element arrays cost ~0.1 ms per split)."""
+    per-op overhead on 2-element arrays cost ~0.1 ms per split), or on
+    int64 tensors holding them (every intermediate stays below 2^62)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK32
     x1 = (x1 + ks[1]) & _MASK32
@@ -55,6 +63,21 @@ def threefry_split(key) -> tuple[np.ndarray, np.ndarray]:
     b0, b1 = threefry2x32(k0, k1, 0, 1)
     # split's key i is threefry2x32(key, (0, i))
     return np.array([a0, a1], np.uint32), np.array([b0, b1], np.uint32)
+
+
+def threefry_fold_in(key, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)`: a uint32[2] numpy array."""
+    k0, k1 = (int(v) & _MASK32 for v in key)
+    return np.array(threefry2x32(k0, k1, 0, int(data) & _MASK32), np.uint32)
+
+
+def threefry_uniform(key, shape, device=None) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32)` in [0, 1), on `device`."""
+    k0, k1 = (int(v) & _MASK32 for v in key)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK32)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
 
 
 def frame_seeds(key, n: int) -> tuple[np.ndarray, list[int]]:

@@ -20,10 +20,12 @@ run inside the step that produced their events.
 
 The JAX Scene steps spawners of one archetype as one vmapped group; its
 per-member results are those of solo steps (its `scene.py:72-74`), which is
-what stepping one by one gives. Not ported yet, each raising
+what stepping one by one gives. Nested spawners (textures, fireworks) step
+hybrid frames through the same entry points; `nested_buffer` sizes their
+per-emitter child buffer. Not ported yet, each raising
 NotImplementedError naming its ROADMAP item: archetype groups (queue 1
 item 11; stepping one by one stands in), trails, async events and render,
-`render_items(method="compact")`, nested spawners.
+`render_items(method="compact")`.
 
 Differences from the reference by design (as in the JAX package): time is
 an input (`step(dt)`), parent velocity and the effect modifier are explicit
@@ -56,7 +58,6 @@ from .render import (
     sort_instances_back_to_front,
 )
 from .settings import EffectModifier, EmissionModeKind, EmissionPacingKind, ParticleSpawner, SpawnTransformMode
-from .step import check_scope
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
 _DUMP_FIELDS = ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw", "wx", "wy", "wz", "initial_scale", "age",
@@ -260,8 +261,7 @@ class Scene:
 
     def _compile(self, spawner: ParticleSpawner, nested_buffer: int) -> CompiledSpawner:
         """compile_spawner on the scene's device, memoised per (settings,
-        nested_buffer) where the settings hash; raises for what the step
-        does not run yet."""
+        nested_buffer) where the settings hash."""
         try:
             key = (spawner, int(nested_buffer))
             compiled = self._compile_cache.get(key)
@@ -269,7 +269,6 @@ class Scene:
             key, compiled = None, None
         if compiled is None:
             compiled = compile_spawner(spawner, nested_buffer=nested_buffer, device=self.device)
-            check_scope(compiled.static)
             if key is not None:
                 self._compile_cache[key] = compiled
         return compiled

@@ -23,10 +23,25 @@ Every expression keeps the op order of `bevy_firework_tpu.step` and of the
 kernel, so on the card the kernel and this function agree bit for bit up to
 libm (`sinf`/`cosf`).
 
-Scope: the global branch of the reference's spawn/update chain, with
-colliders of every kind, destroy-on-collision, scene force fields and the
-destroyed-particle mask. Nested emitters raise NotImplementedError naming
-the ROADMAP item that ports them.
+Scope: the reference's spawn/update chain with colliders of every kind,
+destroy-on-collision, scene force fields, the destroyed-particle mask and
+nested emission. Archetypes with a nested emitter step one hybrid frame at
+a time, the plain version of `bevy_firework_tpu.ops.fused_step.
+fused_step_hybrid` with its in-kernel child merge (`hybrid_frame`): each
+valid nested emitter in order runs its cadence pass (`nested_cadence`, the
+plain version of the nested-cadence kernels) and its child stage
+(`nested_child_rows`, threefry draws under `fold_in(frame_key, 1000 + e)`,
+the plain version of the child-rows kernel), all on the pre-spawn alive;
+then `advance` merges the children into their claim windows before the
+global claim, whose ring cursor starts where the nested claims left it.
+Nested children therefore match the JAX package's lane for lane; the
+hybrid's global spawns draw Philox like the fused path, seeded by word 1 of
+the hybrid's kernel key. The JAX hybrid writes children back in place
+where its Mosaic merge does not apply (dead-rank archetypes, pools no
+larger than the child buffer); here every case merges, which claims the
+same slots (consecutive claim windows over the pre-spawn ring or dead
+ranks) and leaves `last_emitted` in the same clamp class (the JAX
+package's tests/test_nested.py canonicalises it the same way).
 """
 
 from __future__ import annotations
@@ -42,9 +57,9 @@ from .curve import eval_curve_static
 from .emission_shape import sample_shape_comp
 from .force_fields import field_accel
 from .pool import FrameInput, PoolState
-from .prng import frame_seeds, lane_uniforms
+from .prng import frame_seeds, lane_uniforms, threefry_fold_in, threefry_split, threefry_uniform
 from .rand import sample_randf32, sample_randvec3_comp
-from .utils.f32 import rem_euclid
+from .utils.f32 import F32_MIN, rem_euclid
 from .utils.quat import quat_from_scaled_axis_comp, quat_mul_comp, quat_rotate_comp
 
 ROTATION_FIELDS = ("qx", "qy", "qz", "qw", "wx", "wy", "wz")
@@ -61,14 +76,41 @@ class StepOutputs:
     aabb_min: torch.Tensor  # [3] min(pos - scale) over live
     aabb_max: torch.Tensor  # [3] max(pos + scale)
     destroyed_mask: torch.Tensor  # [N] bool: died this frame, of a type with a destroyed handler
-    nested_deferred: torch.Tensor  # int32 scalar (0: no nested emitters here)
+    # Nested accounting (no silent losses): children beyond the per-frame
+    # child buffer M are deferred to later frames (their parents' cadence
+    # anchors advance only by what was materialised); children whose claim
+    # window slot was not dead (pool capacity) are dropped, and counted.
+    nested_deferred: torch.Tensor  # int32 scalar
     nested_dropped: torch.Tensor  # int32 scalar
 
 
-def check_scope(static: SpawnerStatic) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if any(m == MODE_NESTED for m in static.mode_kinds):
-        raise NotImplementedError("nested emitters: ROADMAP queue 1 item 12 is not ported yet")
+def has_nested(static: SpawnerStatic) -> bool:
+    """The archetype has a nested emitter: it steps hybrid frames."""
+    return any(m == MODE_NESTED for m in static.mode_kinds)
+
+
+def nested_emitters(static: SpawnerStatic) -> tuple:
+    """The valid nested emitters, in emitter order (an invalid pacing never
+    emits, core.rs:481-484)."""
+    return tuple(e for e in range(static.num_emitters)
+                 if static.mode_kinds[e] == MODE_NESTED and static.nested_valid[e])
+
+
+def nested_m(static: SpawnerStatic, capacity: int) -> int:
+    """The per-emitter per-frame child buffer: nested_m, at most the pool."""
+    return min(static.nested_m, capacity)
+
+
+def active_flag(static: SpawnerStatic, enabled, any_alive=None):
+    """`ParticleSpawnerData::active` (core.rs:288-302): a global emitter
+    counts while enabled, a nested one only while any particle lives
+    (`any_alive`, a 0-d bool; unused by global-only archetypes)."""
+    if not has_nested(static):
+        return enabled.any()
+    active = torch.zeros((), dtype=torch.bool, device=enabled.device)
+    for e in range(static.num_emitters):
+        active = active | (enabled[e] & any_alive if static.mode_kinds[e] == MODE_NESTED else enabled[e])
+    return active
 
 
 def fields_on(frame: FrameInput) -> bool:
@@ -137,20 +179,27 @@ def scale_factor(static: SpawnerStatic, params: SpawnerParams, ptype, age_pct):
     return sf
 
 
-def cadence(static: SpawnerStatic, params: SpawnerParams, scal: dict, dt):
-    """One frame of the reference's spawn bookkeeping (core.rs:395-427) on
-    the scalar state: returns (bounds, new scalars) with bounds[e] the
-    cumulative spawn count before emitter e (int32 0-d tensors)."""
+def cadence(static: SpawnerStatic, params: SpawnerParams, scal: dict, dt, any_alive=None):
+    """One frame of the reference's spawn bookkeeping (core.rs:395-427) for
+    the global emitters on the scalar state: returns (bounds, new scalars)
+    with bounds[e] the cumulative spawn count before emitter e (int32 0-d
+    tensors). Nested emitters spawn nothing here and keep their scalars;
+    any_alive (the pre-spawn flag) enters the active flag for them."""
     tic, last, en, mq = scal["time_in_cycle"], scal["last_emission"], scal["enabled"], scal["manual_queued"]
     E = static.num_emitters
-    active = en.any()  # every emitter is global in this slice
+    active = active_flag(static, en, any_alive)
     zero_i = torch.zeros((), dtype=torch.int32, device=tic.device)
     bounds = [zero_i]
     new_tic, new_last, new_en = [], [], []
     for e in range(E):
         gate = active & en[e]
         pk = static.pacing_kinds[e]
-        if pk == PACING_ONE_SHOT:
+        if static.mode_kinds[e] == MODE_NESTED:  # spawned by the nested phase
+            n_sp = zero_i
+            new_en.append(en[e])
+            new_tic.append(tic[e])
+            new_last.append(last[e])
+        elif pk == PACING_ONE_SHOT:
             n_sp = torch.where(gate, params.count[e].to(torch.int32), zero_i)
             new_en.append(en[e] & ~gate)  # disable after the burst
             new_tic.append(tic[e])
@@ -179,13 +228,29 @@ def cadence(static: SpawnerStatic, params: SpawnerParams, scal: dict, dt):
     return bounds, new
 
 
+@dataclasses.dataclass(frozen=True)
+class NestedSpawns:
+    """A hybrid frame's nested children, for `advance` to merge before the
+    global claim (the plain version of the kernel's merge block)."""
+
+    any_alive: torch.Tensor  # 0-d bool: a lane lived before the frame's spawns
+    # per valid nested emitter: (emitter, window start, children n, rows
+    # [len(active_f32_fields), M] indexed by child rank)
+    windows: tuple
+    # the ring cursor after the nested claims, or on dead-rank archetypes the
+    # dead-slot rank where the global claim starts (int32 0-d)
+    next_start: torch.Tensor
+
+
 def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: dict, frame: FrameInput, seed: int,
-            colliders=None):
+            colliders=None, nested: NestedSpawns = None):
     """One sub-frame on the active fields (+ ptype, + alive on dead-rank
     archetypes) and the scalar state. Returns the new (fields, scal, dump):
     dump is the sub-frame's destroyed mask (lanes alive after the spawn and
     not surviving it, of a type with a destroyed handler), None when no type
-    has one."""
+    has one. nested: the frame's nested children, merged first: the child
+    of rank r of emitter e takes the dead lane whose claim rank (ring
+    distance from the window start, or dead-slot rank minus it) is r < n."""
     T = static.num_types
     dt = frame.dt
     f = dict(fields)
@@ -193,14 +258,32 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     ptype = f["ptype"]
     life = lifetime_of(static, f)
     alive0 = f["age"] < life if static.ring_claim else f["alive"]
+    lanes = torch.arange(N, dtype=torch.int64, device=f["age"].device)
+    dead_pre = ~alive0
+    rank_base = 0
+    if nested is not None:
+        # ---- nested child merge (the kernel's merge block) ----
+        drank = None if static.ring_claim else dead_rank(dead_pre)
+        for e, start, n, rows in nested.windows:
+            r = torch.remainder(lanes - start, N) if static.ring_claim else drank - start
+            m = ~alive0 & (r >= 0) & (r < n)
+            ri = r.clamp(0, rows.shape[1] - 1)
+            for k, row in zip(active_f32_fields(static), rows):
+                f[k] = torch.where(m, row[ri], f[k])
+            alive0 = alive0 | m
+            if not static.single_type:
+                ptype = torch.where(m, torch.full_like(ptype, static.particle_indices[e]), ptype)
+        if static.ring_claim:
+            scal = dict(scal, ring_cursor=nested.next_start)
+        else:
+            rank_base = nested.next_start
     dead = ~alive0
 
     cursor0 = scal["ring_cursor"]
-    bounds, scal = cadence(static, params, scal, dt)
+    bounds, scal = cadence(static, params, scal, dt, None if nested is None else nested.any_alive)
     total = bounds[-1]
-    lanes = torch.arange(N, dtype=torch.int64, device=f["age"].device)
-    rank = torch.remainder(lanes - cursor0, N) if static.ring_claim else dead_rank(dead)
-    spawned = dead & (rank < total)
+    rank = torch.remainder(lanes - cursor0, N) if static.ring_claim else dead_rank(dead_pre) - rank_base
+    spawned = dead & (rank >= 0) & (rank < total)
 
     # ---- spawn init (kernel spawn block; draws in prng's lane layout) ----
     u = lane_uniforms(seed, lanes, n_draws(static))
@@ -208,6 +291,8 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     orot = frame.transform_rotation
     pvel = frame.parent_velocity
     for e in range(static.num_emitters):
+        if static.mode_kinds[e] == MODE_NESTED:
+            continue
         m = spawned & (rank >= bounds[e]) & (rank < bounds[e + 1])
         offx, offy, offz = sample_shape_comp(params.shape_params[e], u[0], u[1], u[2])
         ivx, ivy, ivz = sample_randvec3_comp(params.ivel_params[e], u[3], u[4], u[5])
@@ -325,22 +410,27 @@ def split_state(static: SpawnerStatic, state: PoolState):
 
 
 def finished_latch(static: SpawnerStatic, state: PoolState, enabled, alive_any):
-    """notify_finished (core.rs:674-688): all empty, no active emitter, not
-    yet notified. Returns (finished_event, finished_notified)."""
-    active_now = enabled.any()  # every emitter is global in this slice
+    """notify_finished (core.rs:674-688): all empty, no active emitter (the
+    active flag on the post-frame state, nested-aware as the JAX epilogue's,
+    its `_epilogue_tail`), not yet notified. Returns (finished_event,
+    finished_notified)."""
+    active_now = active_flag(static, enabled, alive_any)
     finished = ~alive_any & ~active_now & ~state.finished_notified
     return finished, state.finished_notified | finished
 
 
 def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fields: dict, scal: dict,
-             new_key: torch.Tensor, stats: bool = True, dump=None, stats_row=None):
+             new_key: torch.Tensor, stats: bool = True, dump=None, stats_row=None, last_emitted=None,
+             nested_counts=None):
     """Assemble the post-frame PoolState, and with `stats` the StepOutputs
     (AABB over pos ± scale, alive and per-type counts, finished latch, the
     destroyed mask `dump` of the last sub-frame). The stats are torch
     reductions here, or, given the kernel's stats row (`stats_row`, the
     in-kernel stats of `ops.fused_step`), read from it: then only the
     finished latch is computed. Without `stats` only the finished latch is
-    computed (chain frames whose outputs nobody reads)."""
+    computed (chain frames whose outputs nobody reads). Hybrid frames pass
+    the new `last_emitted` rows and `nested_counts`, a function returning
+    the frame's (deferred, dropped) children, called only for the outputs."""
     kw = {k: getattr(state, k) for k in ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw",
                                          "wx", "wy", "wz", "initial_scale", "age", "lifetime")}
     kw.update({k: v for k, v in fields.items() if k not in ("ptype", "alive")})
@@ -354,7 +444,7 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
         alive_any = alive.any()
     finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     new_state = PoolState(
-        **kw, ptype=ptype, alive=alive, last_emitted=state.last_emitted,
+        **kw, ptype=ptype, alive=alive, last_emitted=state.last_emitted if last_emitted is None else last_emitted,
         time_in_cycle=scal["time_in_cycle"], last_emission=scal["last_emission"], enabled=scal["enabled"],
         manual_queued=scal["manual_queued"], finished_notified=notified, ring_cursor=scal["ring_cursor"],
         rng_key=new_key,
@@ -363,11 +453,15 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
         return new_state, None
     if stats_row is None:
         aabb_min, aabb_max, alive_count, per_type = stat_reductions(static, params, kw, ptype, alive)
-    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    if nested_counts is None:
+        deferred = dropped = torch.zeros((), dtype=torch.int32, device=alive.device)
+    else:
+        deferred, dropped = nested_counts()
     out = StepOutputs(
         alive_count=alive_count, alive_count_per_type=per_type, finished_event=finished,
         aabb_valid=alive_any, aabb_min=aabb_min, aabb_max=aabb_max,
-        destroyed_mask=torch.zeros_like(alive) if dump is None else dump, nested_deferred=zero, nested_dropped=zero,
+        destroyed_mask=torch.zeros_like(alive) if dump is None else dump, nested_deferred=deferred,
+        nested_dropped=dropped,
     )
     return new_state, out
 
@@ -385,11 +479,192 @@ def stat_reductions(static: SpawnerStatic, params: SpawnerParams, kw: dict, ptyp
     return aabb_min, aabb_max, alive.sum(dtype=torch.int32), per_type
 
 
+# --------------------------------------------------------------------------
+# nested emission (the JAX package's step._spawn_phase nested branch with
+# kernel_cadence, and step._nested_spawn)
+# --------------------------------------------------------------------------
+
+
+def nested_child_field_rows(static: SpawnerStatic) -> tuple:
+    """The child rows' order, shared by the child stage and the kernel's
+    merge: exactly the f32 fields a nested spawn writes (the active fields)."""
+    return active_f32_fields(static)
+
+
+def nested_parent_fields(static: SpawnerStatic) -> tuple:
+    """The parent-state fields a nested spawn reads (core.rs:502-518):
+    position, [rotation unless elided pool-wide,] velocity."""
+    if static.elide_rotation:
+        return ("px", "py", "pz", "vx", "vy", "vz")
+    return ("px", "py", "pz", "qx", "qy", "qz", "qw", "vx", "vy", "vz")
+
+
+def nested_draw_rows(static: SpawnerStatic) -> int:
+    """Uniform rows of the child stage (the JAX package's step.py:414): 0-6
+    shape, velocity, radial, 7 scale, 8 lifetime, 9-11 angular velocity,
+    the rows the archetype reads."""
+    return 12 if not static.elide_rotation else (9 if static.const_lifetime is None else 8)
+
+
+def nested_cadence(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row, gate,
+                   M: int, parent_fields=None):
+    """The plain version of the nested-cadence kernels (kernel row 8; the JAX
+    package's `_make_nested_cadence_kernel`, in its op order): per parent
+    lane of emitter e, the lazy reset of dead lanes' anchors, the emission
+    count (alive, gated, of the target type), the inclusive count cumsum,
+    the deferral-truncated `last_emitted` advance and the total. Returns
+    (new_le [N] f32, cum [N] i32 or None, total i32 0-d, parent values or
+    None). With `parent_fields` (fetch mode: name -> [N] f32) the values of
+    each child rank's parent come back instead of cum: name -> [M] f32,
+    zeros for ranks at or above the total. lifetime: the [N] field or the
+    archetype's 0-d constant."""
+    off_s, off_e, cnt = params.off_start[e], params.off_end[e], params.count[e]
+    base_le = torch.where(alive, le_row, torch.full_like(le_row, F32_MIN))  # lazy reset
+    pm = alive & gate
+    if not static.single_type:
+        pm = pm & (ptype == static.target_types[e])
+    counts, next_full = compute_emission_count(age, base_le, lifetime, off_s, off_e, cnt)
+    counts = torch.where(pm, counts, torch.zeros_like(counts))
+    cum = torch.cumsum(counts, 0, dtype=torch.int32)
+    total = cum[-1]
+    emitted = cum.clamp_max(M) - (cum - counts).clamp_max(M)
+    # cadence.emission_next_last, in its op order
+    last_pct = base_le / lifetime
+    clamped = torch.maximum(last_pct, off_s)
+    between = (off_e - off_s) / cnt
+    trunc = (clamped + emitted.to(torch.float32) * between) * lifetime
+    new_le = torch.where(pm, torch.where(emitted < counts, trunc, next_full), base_le)
+    if parent_fields is None:
+        return new_le, cum, total, None
+    ranks = torch.arange(M, dtype=torch.int32, device=cum.device)
+    parent = nested_parents(cum, M)
+    valid = ranks < total
+    return new_le, None, total, {k: torch.where(valid, v[parent], torch.zeros((), device=v.device))
+                                 for k, v in parent_fields.items()}
+
+
+def nested_parents(cum: torch.Tensor, M: int) -> torch.Tensor:
+    """Child rank -> parent lane: the first lane whose inclusive count cumsum
+    exceeds the rank (the JAX package's `_monotone_inverse`, a TPU
+    workaround for this search), clamped into the pool."""
+    ranks = torch.arange(M, dtype=torch.int32, device=cum.device)
+    return torch.searchsorted(cum, ranks, right=True).clamp_max(cum.shape[0] - 1)
+
+
+def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, parent: dict,
+                      frame_key, M: int) -> torch.Tensor:
+    """The plain version of the child-rows kernel: the children of emitter e
+    by rank (the JAX package's step.py:411-453), from `parent` (name -> [M]
+    parent values of each rank) and the uniforms uniform(fold_in(frame_key,
+    1000 + e), (n_rows, M)). Returns [len(nested_child_field_rows), M] f32."""
+    dev = parent["px"].device
+    u = threefry_uniform(threefry_fold_in(frame_key, 1000 + e), (nested_draw_rows(static), M), dev)
+    ti = static.particle_indices[e]
+    offx, offy, offz = sample_shape_comp(params.shape_params[e], u[0], u[1], u[2])
+    ivx, ivy, ivz = sample_randvec3_comp(params.ivel_params[e], u[3], u[4], u[5])
+    radial = sample_randf32(u[6], params.radial_lo[e], params.radial_hi[e])
+    l2 = offx * offx + offy * offy + offz * offz
+    inv = torch.where(l2 > 0, 1.0 / torch.sqrt(l2), torch.zeros_like(l2))
+    if static.elide_rotation:  # parent rotation is the identity pool-wide
+        wvx, wvy, wvz = ivx, ivy, ivz
+    else:
+        wvx, wvy, wvz = quat_rotate_comp(parent["qx"], parent["qy"], parent["qz"], parent["qw"], ivx, ivy, ivz)
+    spd = frame.modifier_speed
+    inh = params.inherit[e]
+    rows = {"px": parent["px"] + offx, "py": parent["py"] + offy, "pz": parent["pz"] + offz,
+            "vx": spd * (wvx + offx * inv * radial) + inh * parent["vx"],
+            "vy": spd * (wvy + offy * inv * radial) + inh * parent["vy"],
+            "vz": spd * (wvz + offz * inv * radial) + inh * parent["vz"],
+            "initial_scale": sample_randf32(u[7], params.initial_scale_lo[ti], params.initial_scale_hi[ti])
+            * frame.modifier_scale,
+            "age": torch.zeros(M, dtype=torch.float32, device=dev)}
+    if not static.elide_rotation:
+        rot = params.init_rot[e]
+        avx, avy, avz = sample_randvec3_comp(params.iangvel_params[e], u[9], u[10], u[11])
+        rows.update(qx=rot[0].expand(M), qy=rot[1].expand(M), qz=rot[2].expand(M), qw=rot[3].expand(M),
+                    wx=avx, wy=avy, wz=avz)
+    if static.const_lifetime is None:
+        rows["lifetime"] = sample_randf32(u[8], params.lifetime_lo[ti], params.lifetime_hi[ti])
+    return torch.stack([rows[k] for k in nested_child_field_rows(static)])
+
+
+def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, frame_key):
+    """The nested half of a hybrid frame (the JAX package's `_spawn_phase`
+    with skip_global and kernel_cadence, and `_nested_spawn`'s merge
+    payload): per valid nested emitter in order, on the pre-spawn state,
+    the cadence pass and the child stage, the claim window advanced by
+    each emitter's children. Returns (NestedSpawns, last_emitted [E, N],
+    deferred, dropped): ring windows start at the ring cursor and drop the
+    children whose slot lives; dead-rank windows start at dead-slot rank 0
+    and drop the children beyond the dead lanes."""
+    N = state.capacity
+    M = nested_m(static, N)
+    life = lifetime_of(static, {"lifetime": state.lifetime, "age": state.age})
+    alive = state.age < life if static.ring_claim else state.alive
+    dead = ~alive
+    any_alive = alive.any()
+    active = active_flag(static, state.enabled, any_alive)
+    last_emitted = state.last_emitted.clone()
+    zero = torch.zeros((), dtype=torch.int32, device=alive.device)
+    start = state.ring_cursor if static.ring_claim else zero
+    deferred = dropped = zero
+    n_dead = None if static.ring_claim else dead.sum(dtype=torch.int32)
+    parents = {k: getattr(state, k) for k in nested_parent_fields(static)}
+    windows = []
+    for e in nested_emitters(static):
+        gate = active & state.enabled[e]
+        # fetch mode on the ring, cum mode on dead-rank archetypes (both
+        # give each rank its parent; the kernels run both)
+        new_le, cum, total, pv = nested_cadence(static, params, e, alive, state.ptype, state.age, life,
+                                                state.last_emitted[e], gate, M,
+                                                parents if static.ring_claim else None)
+        last_emitted[e] = new_le
+        n = total.clamp_max(M)
+        deferred = deferred + (total - n)
+        if pv is None:
+            idx = nested_parents(cum, M)
+            pv = {k: v[idx] for k, v in parents.items()}
+        rows = nested_child_rows(static, params, frame, e, pv, frame_key, M)
+        windows.append((e, start, n, rows))
+        if static.ring_claim:
+            r = torch.arange(M, dtype=torch.int64, device=alive.device)
+            ok = (r < n) & dead[torch.remainder(start + r, N)]
+            dropped = dropped + (n - ok.sum(dtype=torch.int32))
+            start = torch.remainder(start + n, N).to(torch.int32)
+        else:
+            dropped = dropped + (n - n.clamp_max((n_dead - start).clamp_min(0)))
+            start = start + n
+    return NestedSpawns(any_alive, tuple(windows), start), last_emitted, deferred, dropped
+
+
+def hybrid_frame(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput,
+                 stats: bool = True, colliders=None):
+    """One hybrid frame (the plain version of `ops.fused_step.
+    fused_step_hybrid`): the key chain of the JAX hybrid (new_key,
+    frame_key = split(key); new_key, kernel_key = split(new_key); the
+    global spawns' Philox seed is word 1 of kernel_key), the nested phase,
+    then `advance` with the children merged first. Returns (new_state,
+    StepOutputs or None)."""
+    new_key, frame_key = threefry_split(state.rng_key.numpy())
+    new_key, kernel_key = threefry_split(new_key)
+    nested, last_emitted, deferred, dropped = nested_phase(static, params, state, frame, frame_key)
+    fields, scal = split_state(static, state)
+    fields, scal, dump = advance(static, params, fields, scal, frame, int(kernel_key[1]), colliders, nested)
+    return epilogue(static, params, state, fields, scal, torch.as_tensor(new_key.astype(np.int64)), stats, dump,
+                    last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped))
+
+
 def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, n: int = 1,
                  stats: bool = True, colliders=None):
     """n frames of the plain version from `state`, on its device: the frame
-    keys split in order, `advance` n times, one `epilogue`. Returns
-    (new_state, StepOutputs, or None without `stats`)."""
+    keys split in order, `advance` n times, one `epilogue`; archetypes with
+    a nested emitter run n hybrid frames. Returns (new_state, StepOutputs,
+    or None without `stats`)."""
+    if has_nested(static):
+        out = None
+        for i in range(n):
+            state, out = hybrid_frame(static, params, state, frame, stats and i == n - 1, colliders)
+        return state, out
     key, seeds = frame_seeds(state.rng_key.numpy(), n)
     fields, scal = split_state(static, state)
     dump = None
@@ -401,5 +676,4 @@ def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
 def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
     """Advance one spawner's pool by one frame (plain PyTorch, any device).
     Returns (new_state, StepOutputs)."""
-    check_scope(static)
     return plain_frames(static, params, state, frame, colliders=colliders)

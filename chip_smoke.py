@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the fused step kernels (ops/csrc/fused_step.cu) from this checkout,
-holds them against their plain PyTorch versions, and runs the paths
-`bench.py` measures for the JAX package (stress_test through
+Builds the fused step and nested kernels (ops/csrc/fused_step.cu) from this
+checkout, holds them against their plain PyTorch versions, and runs the
+paths `bench.py` measures for the JAX package (stress_test through
 multi_step_auto at 100k and 1M live; stress_test_collision against its two
-cuboids and against 8 hulls at 1M) plus the interactive sparks and
-collision flows, through the kernels. Phases:
+cuboids and against 8 hulls at 1M; the nested_60k and nested_chained
+cells) plus the interactive sparks, collision, fireworks and textures
+flows, through the kernels. Phases:
 
   1. card: name and power limit (nvidia-smi), kernel build time;
   2. deterministic config (constant draws, live rotation), N = 131072:
@@ -67,12 +68,31 @@ collision flows, through the kernels. Phases:
      and bench.py's events_dump_overhead scene (4 spawners at 3000/s,
      capacity 8192, a floor, destroy-on-collision): records delivered ==
      the plain version's destroyed count, ms per Scene.step with and
-     without the handler.
+     without the handler;
+ 19. nested_det, N = 131072: the nested cadence kernels (cum and fetch
+     mode, a rate window and a burst whose total exceeds M, ranks across
+     blocks) and the child-rows kernel (both parent modes) against their
+     plain versions, then 30 hybrid frames of a ring, a chained and a
+     destroy-on-collision (dead-rank) nested archetype whose children meet
+     no sinf/cosf: bit for bit, anchors and nested counts included;
+ 20. nested_60k: bench.py's nested cell (4000 rockets/s, 10 children each,
+     capacity 131072, nested_buffer 1024, ~60k live): a 150-frame
+     multi_step_auto chain under torch.cuda.set_sync_debug_mode("error")
+     (no frame synchronises) against 150 plain frames (counts, cursor,
+     cadence exact; f32 within 4 ulp), differential ms/frame, and the
+     device time per frame of the cadence kernels, the child-rows kernel
+     and the merge step launch, with the cadence share of the frame;
+ 21. nested_chained: the same for bench.py's 3-stage chained cell;
+ 22. nested_flows: effects.fireworks() and effects.textures() (with its
+     colliders) through Scene on the card for 600 frames each, against the
+     plain version replaying the flow on the card: per-type counts every
+     frame, state, dense rows; ms per Scene.step.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
-chains, the collision flow, the fields chain and the Scene flows) and read
-just after it; the kernels' summary reports those counts only. Every phase
+chains, the collision flow, the fields chain, the Scene flows, the two
+nested chains and the nested flows) and read just after it; the kernels'
+summary reports those counts only. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 from this run's shapes) and the final `{"ok": true, "device": ...}` line
@@ -133,16 +153,16 @@ def emit(obj):
 
 def ptxas_summary(report: str) -> list:
     """Per kernel of ptxas's report: its name (the step kernel's template
-    arguments ring, collide, fields, stats spelled out), registers, stack,
-    spill bytes and shared memory."""
+    arguments ring, collide, fields, stats, merge spelled out), registers,
+    stack, spill bytes and shared memory."""
     import re
 
     out = []
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"'(\S+)'", block).group(1)
-        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
         if t:
-            name = "fused_step_kernel<ring={},collide={},fields={},stats={}>".format(*t.groups())
+            name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={}>".format(*t.groups())
         else:
             name = re.search(r"([a-z_]+_kernel)E", name).group(1)
         row = {"kernel": name, "registers": int(re.search(r"Used (\d+) registers", block).group(1))}
@@ -201,7 +221,8 @@ def main() -> int:
     scalars = ("ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued", "alive", "rng_key")
     max_err = {"fused_step": 0.0, "fused_step.pack_render": 0.0, "fused_step.collide": 0.0,
                "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
-               "fused_step.stats": 0.0}
+               "fused_step.stats": 0.0, "nested_cadence": 0.0, "fused_step.nested_merge": 0.0,
+               "nested_child_rows": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
         for k in scalars:
@@ -224,7 +245,9 @@ def main() -> int:
     counters = {"fused_step": (fs.fused_step, "launches"), "render": (fs.fused_step, "render_launches"),
                 "collide": (fs.fused_step, "collide_launches"), "fields": (fs.fused_step, "fields_launches"),
                 "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
-                "dead_rank_claim": (fs.tile_dead_offsets, "launches")}
+                "dead_rank_claim": (fs.tile_dead_offsets, "launches"), "merge": (fs.fused_step, "merge_launches"),
+                "nested_cadence": (fs.nested_cadence_pass, "launches"),
+                "nested_child_rows": (fs.nested_child_rows, "launches")}
 
     def counted(fn):
         """fn() with the kernels' launch counters set to 0 just before it and
@@ -879,10 +902,288 @@ def main() -> int:
           "events": {"spawners": 4, "frames": 220, "records_delivered": delivered, "plain_destroyed": want,
                      "ms_per_scene_step_with_handler": on_ms, "ms_per_scene_step_without_handler": off_ms}})
 
+    # ------------------------------------------------ 19. nested_det
+    from bevy_firework_tpu_torch.step import nested_cadence, nested_child_rows as plain_child_rows, nested_parents
+
+    def det_nested(destroy=False, chained=False):
+        """A rocket emitter with constant draws and nested children (box
+        offsets, random speeds, no spread: no sinf/cosf), chained
+        grandchildren optional; with `destroy` the rockets fall on a floor
+        (dead-rank claim, cum mode)."""
+        col = ParticleCollisionSettings(restitution=0.5, friction=0.2, destroy_on_collision=True) if destroy else None
+        types = [bt.ParticleSettings(lifetime=bt.RandF32.constant(0.6), linear_drag=0.1, collision_settings=col,
+                                     acceleration=(0.0, -9.81 if destroy else 0.0, 0.0)),
+                 bt.ParticleSettings(lifetime=bt.RandF32(0.3, 0.5), linear_drag=0.2, acceleration=(0.0, -2.0, 0.0)),
+                 bt.ParticleSettings(lifetime=bt.RandF32.constant(0.4), linear_drag=0.3)]
+        child = dict(emission_shape=bt.EmissionShape.box((0.1, 0.2, 0.1)),
+                     initial_velocity=bt.RandVec3(bt.RandF32(0.1, 0.9), (0.0, 1.0, 0.0), 0.0),
+                     initial_velocity_radial=bt.RandF32(0.2, 1.0), inherit_parent_velocity=True)
+        ems = [bt.EmissionSettings(particle_index=0, emission_pacing=bt.EmissionPacing.rate(1e5),
+                                   initial_velocity=bt.RandVec3.constant((0.3, 2.0, 0.1))),
+               bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
+                                   emission_pacing=bt.EmissionPacing.count_over_duration(6.0, 1.0, 0.1, 1.0), **child)]
+        if chained:
+            ems.append(bt.EmissionSettings(particle_index=2, emission_mode=bt.EmissionMode.nested(1),
+                                           emission_pacing=bt.EmissionPacing.count_over_duration(3.0, 1.0, 0.2, 0.9),
+                                           **child))
+        return bt.ParticleSpawner(particle_settings=types[:3 if chained else 2], emission_settings=ems)
+
+    n_det = 131072
+    cn = bt.compile_spawner(det_nested(), nested_buffer=1024, device=dev)
+    burst = bt.compile_spawner(bt.ParticleSpawner(
+        particle_settings=[bt.ParticleSettings(), bt.ParticleSettings()],
+        emission_settings=[bt.EmissionSettings(), bt.EmissionSettings(
+            particle_index=1, emission_mode=bt.EmissionMode.nested(0),
+            emission_pacing=bt.EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 0.001))]), device=dev)
+    rng = np.random.default_rng(19)
+    life_np = rng.uniform(0.5, 2.0, n_det).astype(np.float32)
+    age_np = (rng.uniform(0.0, 1.0, n_det) * life_np).astype(np.float32)
+    le_np = np.where(rng.uniform(size=n_det) < 0.5, np.finfo(np.float32).min,
+                     age_np * rng.uniform(0.0, 1.0, n_det)).astype(np.float32)
+    cin = {"alive": torch.from_numpy(rng.uniform(size=n_det) < 0.5).to(dev),
+           "ptype": torch.from_numpy(rng.integers(0, 2, n_det).astype(np.int32)).to(dev),
+           "age": torch.from_numpy(age_np).to(dev), "life": torch.from_numpy(life_np).to(dev),
+           "le": torch.from_numpy(le_np).to(dev)}
+    planes_det = {k: torch.from_numpy(rng.normal(size=n_det).astype(np.float32)).to(dev)
+                  for k in ("px", "py", "pz", "vx", "vy", "vz")}
+    gate = torch.ones((), dtype=torch.bool, device=dev)
+    cad_res = {}
+    for name, cc, M in (("rate_window", cn, 1024), ("burst", burst, 4096)):
+        for fetch in (False, True):
+            pf = planes_det if fetch else None
+            args = (cc.static, cc.params, 1, cin["alive"], cin["ptype"], cin["age"], cin["life"], cin["le"], gate, M)
+            k_le, k_cum, k_total, k_pv = fs.nested_cadence_pass(*args, parent_fields=pf)
+            p_le, p_cum, p_total, p_pv = nested_cadence(*args, parent_fields=pf)
+            check(torch.equal(k_le, p_le) and int(k_total) == int(p_total), f"nested_det cadence {name}: new_le/total")
+            if fetch:
+                for k in pf:
+                    check(torch.equal(k_pv[k], p_pv[k]), f"nested_det cadence {name}: parent {k}")
+            else:
+                check(torch.equal(k_cum, p_cum), f"nested_det cadence {name}: cum")
+            max_err["nested_cadence"] = max(max_err["nested_cadence"], float((k_le - p_le).abs().max()))
+            cad_res[f"{name}_{'fetch' if fetch else 'cum'}"] = {"total": int(k_total), "m": M}
+    check(cad_res["burst_cum"]["total"] > 4096, f"nested_det: burst total {cad_res['burst_cum']}")
+    # child rows: both parent modes, rates of the rate-window pass
+    _le, cum_det, _t, _pv = nested_cadence(cn.static, cn.params, 1, cin["alive"], cin["ptype"], cin["age"],
+                                           cin["life"], cin["le"], gate, 1024)
+    fkey = np.array([19, 2026], np.uint32)
+    fr_det = bt.make_frame_input(1 / 60, modifier_scale=1.2, modifier_speed=0.9)
+    pv_det = {k: v[nested_parents(cum_det, 1024)] for k, v in planes_det.items()}
+    rows_plain = plain_child_rows(cn.static, cn.params, fr_det, 1, pv_det, fkey, 1024)
+    for kw in ({"cum": cum_det, "parent_planes": planes_det}, {"parent_vals": pv_det}):
+        rows_k = fs.nested_child_rows(cn.static, cn.params, fr_det, 1, fkey, 1024, **kw)
+        check(torch.equal(rows_k, rows_plain), f"nested_det child rows ({list(kw)[0]}) differ by "
+              f"{ulp_diff(rows_k, rows_plain)} ulp")
+        max_err["nested_child_rows"] = max(max_err["nested_child_rows"], float((rows_k - rows_plain).abs().max()))
+    # hybrid frames: ring (single and chained) and dead-rank, 30 frames each
+    floor_det = bt.compile_colliders([bt.Collider.halfspace(position=(0.0, -0.2, 0.0))], device=dev)
+    hyb_res = {}
+    for name, destroy, chained in (("ring", False, False), ("chained", False, True), ("dead_rank", True, False)):
+        ch = bt.compile_spawner(det_nested(destroy, chained), nested_buffer=1024, device=dev)
+        check(ch.static.ring_claim == (not destroy), f"nested_det {name}: claim kind")
+        tab = floor_det if destroy else None
+        s = bt.init_pool_for(ch, n_det)
+        deferred = dropped = 0
+        for i in range(30):
+            sk, ok = fs.fused_step(ch.static, ch.params, tab, s, fdet)
+            sp_, op = plain_frames(ch.static, ch.params, s, fdet, 1, colliders=tab)
+            compare(ch, sk, sp_, {}, f"nested_det {name} frame {i}", kernel="fused_step.nested_merge")
+            for k in ("last_emitted", "ptype"):
+                check(torch.equal(getattr(sk, k), getattr(sp_, k)), f"nested_det {name} frame {i}: {k}")
+            for k in ("alive_count_per_type", "nested_deferred", "nested_dropped"):
+                check(torch.equal(getattr(ok, k), getattr(op, k)), f"nested_det {name} frame {i}: {k}")
+            deferred += int(ok.nested_deferred)
+            dropped += int(ok.nested_dropped)
+            s = sk
+        hyb_res[name] = {"per_type": ok.alive_count_per_type.tolist(), "deferred": deferred, "dropped": dropped}
+        check(int(ok.alive_count_per_type[1]) > 5000, f"nested_det {name}: {hyb_res[name]}")
+    check(hyb_res["ring"]["deferred"] > 0, "nested_det: no deferral")
+    torch.cuda.synchronize()
+    emit({"phase": "nested_det", "card": card, "n": n_det, "cadence": cad_res, "hybrid": hyb_res,
+          "rule": "cadence kernels (cum and fetch mode), child rows and 30 hybrid frames == plain, bit for bit"})
+
+    # ------------------------------------- 20./21. nested_60k, nested_chained
+    def bench_nested(chained):
+        """bench.py's _measure_nested / _measure_nested_chained spawners."""
+        if not chained:
+            return bt.ParticleSpawner(
+                particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), linear_drag=0.1),
+                                   bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), linear_drag=0.3)],
+                emission_settings=[
+                    bt.EmissionSettings(particle_index=0, emission_pacing=bt.EmissionPacing.rate(4000.0),
+                                        initial_velocity=bt.RandVec3(bt.RandF32(2.0, 6.0), (0, 1, 0), 0.5)),
+                    bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
+                                        emission_pacing=bt.EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 1.0),
+                                        initial_velocity=bt.RandVec3(bt.RandF32(0.2, 1.0), (0, 1, 0), 3.14),
+                                        inherit_parent_velocity=True)])
+        return bt.ParticleSpawner(
+            particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(1.5), linear_drag=0.2),
+                               bt.ParticleSettings(lifetime=bt.RandF32.constant(1.0), linear_drag=0.3),
+                               bt.ParticleSettings(lifetime=bt.RandF32.constant(0.5), linear_drag=0.5)],
+            emission_settings=[
+                bt.EmissionSettings(particle_index=0, emission_pacing=bt.EmissionPacing.rate(2000.0),
+                                    initial_velocity=bt.RandVec3(bt.RandF32(3.0, 8.0), (0, 1, 0), 0.4)),
+                bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
+                                    emission_pacing=bt.EmissionPacing.count_over_duration(8.0, 1.0, 0.0, 1.0),
+                                    inherit_parent_velocity=True),
+                bt.EmissionSettings(particle_index=2, emission_mode=bt.EmissionMode.nested(1),
+                                    emission_pacing=bt.EmissionPacing.count_over_duration(3.0, 1.0, 0.1, 0.9),
+                                    inherit_parent_velocity=True)])
+
+    cadence_names = ("nested_count_kernel", "tile_scan_kernel", "nested_apply_kernel")
+
+    def nested_path(label, chained, warm=150, n_frames=100):
+        """bench.py's nested cell: a `warm`-frame multi_step_auto chain from an
+        empty pool (launches counted; no frame may synchronise) against as
+        many plain frames, differential ms/frame, and device times per frame
+        of the cadence kernels, the child-rows kernel and the step launch."""
+        cm = bt.compile_spawner(bench_nested(chained), nested_buffer=1024, device=dev)
+        capacity = 16 * 8192
+        frame = bt.make_frame_input(1 / 60)
+        state0 = bt.init_pool_for(cm, capacity, seed=0)
+        n_em = len(cm.static.mode_kinds) - 1
+        fs.kernel_tables(cm.static, cm.params)  # set-up: the table's one host-to-device copy
+
+        def chain():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fs.multi_step_auto(cm.static, cm.params, None, state0, frame, warm)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        (state, out), counts = counted(chain)
+        torch.cuda.synchronize()
+        check(counts["fused_step"] == counts["merge"] == warm and counts["nested_cadence"] == n_em * warm
+              and counts["nested_child_rows"] == n_em * warm and counts["stats"] == 1,
+              f"{label}: the chain's launches {counts}")
+        ref, ref_out = plain_frames(cm.static, cm.params, state0, frame, warm)
+        for k in ("alive_count", "alive_count_per_type", "nested_deferred", "nested_dropped"):
+            check(torch.equal(getattr(out, k), getattr(ref_out, k)), f"{label}: {k} differs from plain")
+        for k in ("ring_cursor", "time_in_cycle", "last_emission", "alive", "ptype", "rng_key"):
+            check(torch.equal(getattr(ref, k).cpu(), getattr(state, k).cpu()), f"{label}: {k} differs from plain")
+        worst = {}
+        for k in active_f32_fields(cm.static) + ("last_emitted",):
+            a, b = getattr(ref, k), getattr(state, k)
+            worst[k] = ulp_diff(a, b)
+            max_err["fused_step.nested_merge"] = max(max_err["fused_step.nested_merge"], float((a - b).abs().max()))
+            check(worst[k] <= 4, f"{label}: {k} {worst[k]} ulp from plain")
+            check(bool(torch.isfinite(b).all()), f"{label}: non-finite {k}")
+        alive = int(out.alive_count)
+
+        def run(n):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, _o = fs.multi_step_auto(cm.static, cm.params, None, state, frame, n)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            return st
+
+        def differential(fn, n, reps):
+            diffs = []
+            for _ in range(reps):
+                t_n = event_ms(lambda: fn(n), 1)
+                t_2n = event_ms(lambda: fn(2 * n), 1)
+                diffs.append((t_2n - t_n) / n)
+            return statistics.median(diffs)
+
+        ms = differential(run, n_frames, 5)
+        plain_ms = differential(lambda n: plain_frames(cm.static, cm.params, state, frame, n, stats=False), 5, 3)
+        # device time per frame of each kernel group, one hybrid frame per call
+        def frame_call():
+            return fs.fused_step(cm.static, cm.params, None, state, frame, stats=False)
+
+        n_active = len(active_f32_fields(cm.static))
+        M = 1024
+        n_par = len(fs.nested_parent_fields(cm.static))
+        n_rows = len(fs.nested_child_field_rows(cm.static))
+        cad_bound = bound(capacity * (1 + 4 + 4 + 4) + 2 * n_par * 4 * M, 20 * capacity)
+        child_bound = bound((n_par + n_rows) * 4 * M, M * (60 + 12 * 100))
+        children = int(out.alive_count_per_type[1:].sum())
+        step_bound = bound(2 * 4 * n_active * capacity + 8 * capacity + n_em * n_rows * 4 * M,
+                           INTEGRATE_OPS * alive)
+        cad_ms = device_ms(f"{label} cadence", frame_call, 10, True, cad_bound["bound_ms"], cadence_names)
+        child_ms = device_ms(f"{label} child rows", frame_call, 10, True, child_bound["bound_ms"],
+                             ("nested_child_rows_kernel",))
+        step_ms = device_ms(f"{label} step", frame_call, 10, True, step_bound["bound_ms"])
+        frame_dev_ms = device_ms(f"{label} frame", frame_call, 10, False,
+                                 n_em * (cad_bound["bound_ms"] + child_bound["bound_ms"]) + step_bound["bound_ms"])
+        plain_frame_ms = device_ms(f"{label} plain frame", lambda: plain_frames(cm.static, cm.params, state, frame, 1,
+                                                                                 stats=False), 3, False,
+                                   step_bound["bound_ms"])
+        res = {"phase": label, "card": card, "capacity": capacity, "live": alive,
+               "per_type": out.alive_count_per_type.tolist(), "children_live": children, "chain_frames": warm,
+               "launches": counts, "max_ulp": worst, "rule": "counts, cursor, cadence exact; f32 <= 4 ulp; "
+               "no frame synchronises (sync debug mode error)", "ms_per_frame": ms,
+               "particle_steps_per_s": alive / (ms * 1e-3), "plain_ms_per_frame": plain_ms,
+               "cadence_ms_per_pass": cad_ms, "cadence_ms_per_frame": n_em * cad_ms,
+               "child_rows_ms_per_launch": child_ms, "child_rows_ms_per_frame": n_em * child_ms,
+               "step_ms_per_launch": step_ms, "device_ms_per_frame": frame_dev_ms,
+               "plain_frame_device_ms": plain_frame_ms,
+               "cadence_share_of_device_frame": n_em * cad_ms / frame_dev_ms,
+               "cadence_share_of_frame": n_em * cad_ms / ms, "nested_emitters": n_em,
+               "bounds": {"cadence": cad_bound, "child_rows": child_bound, "step": step_bound},
+               "frame_wall_ms": event_ms(frame_call, 20)}
+        emit(res)
+        return res, counts
+
+    n60k, n60k_counts = nested_path("nested_60k", False)
+    nch, nch_counts = nested_path("nested_chained", True)
+
+    # ------------------------------------------------ 22. nested_flows
+    from bevy_firework_tpu_torch.render import compact_dense
+
+    def nested_flow(name, frames=600):
+        """effects.<name>() through Scene on the card, then the same flow
+        replayed by the plain version on the card: per-type counts every
+        frame, the final state and the dense render rows."""
+        made = getattr(effects, name)()
+        sp_, tf_ = made[0], made[1]
+        cols = made[2] if len(made) > 2 else None
+        sc = bt.Scene(colliders=cols, device=dev)
+        sid = sc.add_spawner(sp_, transform=tf_)
+        counts_k = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            sc.step(1 / 60)
+            counts_k.append(sc._spawners[sid].outputs.alive_count_per_type)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / frames * 1e3
+        slot = sc._spawners[sid]
+        cf_ = slot.compiled
+        tab = sc._colliders if cf_.static.any_collision else None
+        fr = bt.make_frame_input(1 / 60, translation=tf_.translation, rotation=tf_.rotation)
+        st = bt.init_pool_for(cf_, slot.capacity, seed=slot.seed)
+        for i in range(frames):
+            st, op = plain_frames(cf_.static, cf_.params, st, fr, 1, colliders=tab)
+            check(torch.equal(op.alive_count_per_type, counts_k[i]), f"{name} flow frame {i}: per-type counts")
+        compare(cf_, slot.state, st, {k: 64 for k in active_f32_fields(cf_.static)}, f"{name} flow",
+                kernel="fused_step.nested_merge")
+        rows = {}
+        for t in range(cf_.num_types):
+            a = compact_dense(bt.pack_instances_dense(cf_.params, slot.state, t)[0].cpu().numpy())
+            b = compact_dense(bt.pack_instances_dense(cf_.params, st, t)[0].cpu().numpy())
+            check(a.shape == b.shape and np.allclose(a, b, rtol=1e-5, atol=1e-5), f"{name} flow: type {t} rows")
+            rows[t] = int(a.shape[0])
+        items = sc.render_items()
+        check({i.type_index for i in items} == set(range(cf_.num_types)), f"{name} flow: render items")
+        return {"frames": frames, "per_type": counts_k[-1].tolist(), "rows": rows, "ms_per_scene_step": step_ms,
+                "capacity": slot.capacity}
+
+    flows_n, flows_counts = counted(lambda: {"fireworks": nested_flow("fireworks"),
+                                             "textures": nested_flow("textures")})
+    check(flows_counts["merge"] == 1200 and flows_counts["nested_cadence"] == 1200, f"nested flows: {flows_counts}")
+    check(flows_n["fireworks"]["per_type"][1] > 100 and flows_n["textures"]["per_type"][1] > 100,
+          f"nested flows: {flows_n}")
+    emit({"phase": "nested_flows", "card": card, "launches": flows_counts, **flows_n,
+          "rule": "Scene on the card == the plain flow replayed on the card: per-type counts every frame, state "
+                  "within 64 ulp, dense rows"})
+
     # counts from the main-path runs alone: the two stress_test chains, the
     # sparks flow, the destroy run, the two collision chains, the collision
     # flow, the fields chain and the Scene flows
-    runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, f1m_counts, scene_counts)
+    runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, f1m_counts, scene_counts,
+            n60k_counts, nch_counts, flows_counts)
 
     def total(key):
         return sum(r[key] for r in runs)
@@ -892,6 +1193,23 @@ def main() -> int:
     def entry(name, replaces, key, ms, plain_ms, b, **extra):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": total(key),
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, **extra}
+
+    # plain versions of the nested kernels at nested_60k's shapes, timed on
+    # the card: the cadence pass (cum mode) and the child rows
+    c60 = bt.compile_spawner(bench_nested(False), nested_buffer=1024, device=dev)
+    s60, _o = fs.multi_step_auto(c60.static, c60.params, None, bt.init_pool_for(c60, 16 * 8192), fdet, 150)
+    life60 = torch.full((), 2.0, dtype=torch.float32, device=dev)
+    par60 = {k: getattr(s60, k) for k in fs.nested_parent_fields(c60.static)}
+
+    def plain_cadence():
+        return nested_cadence(c60.static, c60.params, 1, s60.alive, s60.ptype, s60.age, life60, s60.last_emitted[1],
+                              s60.enabled[1], 1024, par60)
+
+    pv60 = plain_cadence()[3]
+    plain_cad_ms = device_ms("nested plain cadence", plain_cadence, 5, False, n60k["bounds"]["cadence"]["bound_ms"])
+    plain_child_ms = device_ms("nested plain child rows", lambda: plain_child_rows(
+        c60.static, c60.params, fdet, 1, pv60, np.array([1, 2], np.uint32), 1024), 5, False,
+        n60k["bounds"]["child_rows"]["bound_ms"])
 
     # every device time below was held to its bound where it was measured
     kernels = [
@@ -917,17 +1235,32 @@ def main() -> int:
               ms_without=stats_t["ms_without"], plain_reductions_ms=stats_t["plain_reductions_ms"]),
         entry("fused_step.dump", "bevy_firework_tpu/ops/fused_step.py:1567", "dump", dump_t["ms"],
               dump_t["plain_ms"], dump_bound, ms_without=dump_t["ms_without"]),
+        entry("nested_cadence", "bevy_firework_tpu/ops/fused_step.py:683", "nested_cadence",
+              n60k["cadence_ms_per_pass"], plain_cad_ms, n60k["bounds"]["cadence"],
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:866", kernels=list(cadence_names),
+              chained_ms=nch["cadence_ms_per_pass"], share_of_frame_60k=n60k["cadence_share_of_frame"],
+              share_of_frame_chained=nch["cadence_share_of_frame"]),
+        entry("fused_step.nested_merge", "bevy_firework_tpu/ops/fused_step.py:1172", "merge",
+              n60k["step_ms_per_launch"], n60k["plain_frame_device_ms"], n60k["bounds"]["step"],
+              chained_ms=nch["step_ms_per_launch"], chained_plain_ms=nch["plain_frame_device_ms"]),
+        entry("nested_child_rows", "bevy_firework_tpu/step.py:411-453", "nested_child_rows",
+              n60k["child_rows_ms_per_launch"], plain_child_ms, n60k["bounds"]["child_rows"],
+              chained_ms=nch["child_rows_ms_per_launch"], reference_route="composed XLA, not Pallas"),
     ]
     emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live); collide: 1310720 lanes "
                           "stress_test_collision; dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
-                          "131072 lanes, the ring archetype with a handler",
+                          "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
+                          "nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: nested_chained)",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, collide "
                   "U=2 (u8_ms U=8), dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
-                  "plane (ms_without: the same archetype without a handler); plain_ms: device time of the plain "
-                  "version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1) or of the plain dead_rank "
-                  "cumsum; plain_reductions_ms: the plain reductions (step.stat_reductions, the CPU's stats); "
+                  "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "
+                  "scan + apply), nested_merge the hybrid step launch, nested_child_rows one launch; plain_ms: "
+                  "device time of the plain version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1 / "
+                  "a hybrid frame for nested_merge), of the plain dead_rank cumsum, of step.nested_cadence (fetch "
+                  "mode) or step.nested_child_rows; plain_reductions_ms: the plain reductions "
+                  "(step.stat_reductions, the CPU's stats); "
                   "*_wall_ms: CUDA-event wall time per call; bound_ms: the larger of bound_bytes over 3.35 TB/s "
                   "and bound_ops (f32, lower-bound counts) over 67 TFLOP/s; library_ms: no single PyTorch call "
                   "computes these functions; every device time was held to its bound, a trace below it traced "

@@ -6,6 +6,7 @@ Imports torch and the port only, so on a machine without JAX it runs as
 Every test that launches the kernel carries the `cuda` marker and skips
 without a CUDA device; the table test runs anywhere."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -341,3 +342,143 @@ def test_kernel_stats_match_epilogue(cuda, n, types):
         s = sk
     assert fs.fused_step.stats_launches - before == 8
     assert int(ok.alive_count) > 20000 and int((ok.alive_count_per_type > 0).sum()) == types
+
+
+# ---- nested emission: the cadence kernels, the child rows, the hybrid frame ----
+
+def _nested_spawner(destroy=False, chained=False, shape=None, spread=0.0):
+    """A global rocket emitter (constant draws) and nested children of type
+    1 (and with `chained` grandchildren of type 2); with `destroy` the
+    rockets fall back and die on a floor (`NESTED_FLOOR`) before their
+    lifetime ends, so dead lanes open behind the cursor. Children draw box
+    offsets, random speeds and radial speeds: with spread 0 their draws meet
+    no sinf/cosf, so kernel and plain version agree bit for bit."""
+    col = ParticleCollisionSettings(restitution=0.5, friction=0.2, destroy_on_collision=True) if destroy else None
+    types = [pt.ParticleSettings(lifetime=pt.RandF32.constant(0.6), linear_drag=0.1, collision_settings=col,
+                                 acceleration=(0.0, -9.81 if destroy else 0.0, 0.0)),
+             pt.ParticleSettings(lifetime=pt.RandF32(0.3, 0.5), linear_drag=0.2, acceleration=(0.0, -2.0, 0.0)),
+             pt.ParticleSettings(lifetime=pt.RandF32.constant(0.4), linear_drag=0.3)]
+    child = dict(emission_shape=shape or pt.EmissionShape.box((0.1, 0.2, 0.1)),
+                 initial_velocity=pt.RandVec3(pt.RandF32(0.1, 0.9), (0.0, 1.0, 0.0), spread),
+                 initial_velocity_radial=pt.RandF32(0.2, 1.0), inherit_parent_velocity=True)
+    emitters = [pt.EmissionSettings(particle_index=0, emission_pacing=pt.EmissionPacing.rate(20000.0),
+                                    initial_velocity=pt.RandVec3.constant((0.3, 2.0, 0.1))),
+                pt.EmissionSettings(particle_index=1, emission_mode=pt.EmissionMode.nested(0),
+                                    emission_pacing=pt.EmissionPacing.count_over_duration(6.0, 1.0, 0.1, 1.0),
+                                    **child)]
+    if chained:
+        emitters.append(pt.EmissionSettings(particle_index=2, emission_mode=pt.EmissionMode.nested(1),
+                                            emission_pacing=pt.EmissionPacing.count_over_duration(
+                                                3.0, 1.0, 0.2, 0.9), **child))
+    return pt.ParticleSpawner(particle_settings=types if chained else types[:2], emission_settings=emitters)
+
+
+NESTED_FLOOR = [pt.Collider.halfspace(position=(0.0, -0.2, 0.0))]
+
+
+def _cadence_inputs(n, seed, device):
+    """Random pool planes for a nested cadence pass: half the lanes alive,
+    two types, ages inside the lifetime, anchors unset (f32::MIN) or set."""
+    rng = np.random.default_rng(seed)
+    life = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    age = (rng.uniform(0.0, 1.0, n) * life).astype(np.float32)
+    le = np.where(rng.uniform(size=n) < 0.5, np.finfo(np.float32).min,
+                  age * rng.uniform(0.0, 1.0, n)).astype(np.float32)
+    t = {"alive": torch.from_numpy(rng.uniform(size=n) < 0.5), "ptype": torch.from_numpy(rng.integers(0, 2, n,
+                                                                                                    dtype=np.int32)),
+         "age": torch.from_numpy(age), "lifetime": torch.from_numpy(life), "le": torch.from_numpy(le)}
+    for k in ("px", "py", "pz", "vx", "vy", "vz"):
+        t[k] = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", [False, True])
+def test_nested_cadence_kernels_match_plain(cuda, fetch):
+    """Kernel row 8 on 100003 lanes (391 tiles, a ragged tail) with a burst
+    pacing whose total exceeds M = 4096, so the deferral cuts parents and
+    child ranks straddle tiles: new_le, cum (or the fetched parent values),
+    and the total equal the plain version's bit for bit."""
+    from bevy_firework_tpu_torch.step import nested_cadence
+
+    c = pt.compile_spawner(_nested_spawner(), device=cuda)
+    c_burst = pt.compile_spawner(pt.ParticleSpawner(
+        particle_settings=[pt.ParticleSettings(), pt.ParticleSettings()],
+        emission_settings=[pt.EmissionSettings(), pt.EmissionSettings(
+            particle_index=1, emission_mode=pt.EmissionMode.nested(0),
+            emission_pacing=pt.EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 0.001))]), device=cuda)
+    for cc in (c, c_burst):
+        t = _cadence_inputs(100003, 5, cuda)
+        gate = torch.ones((), dtype=torch.bool, device=cuda)
+        pf = {k: t[k] for k in ("px", "py", "pz", "vx", "vy", "vz")} if fetch else None
+        args = (cc.static, cc.params, 1, t["alive"], t["ptype"], t["age"], t["lifetime"], t["le"], gate, 4096)
+        k_le, k_cum, k_total, k_pv = fs.nested_cadence_pass(*args, parent_fields=pf)
+        p_le, p_cum, p_total, p_pv = nested_cadence(*args, parent_fields=pf)
+        assert torch.equal(k_le, p_le) and int(k_total) == int(p_total)
+        if fetch:
+            for k in pf:
+                assert torch.equal(k_pv[k], p_pv[k]), k
+        else:
+            assert torch.equal(k_cum, p_cum)
+    assert int(k_total) > 4096  # the burst: deferral cut it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elide", [True, False])
+def test_nested_child_rows_kernel_matches_plain(cuda, elide):
+    """The child-rows kernel against its plain version on the card, both
+    parent modes, with and without live rotation (spread and a sphere:
+    sinf/cosf within 4 ulp)."""
+    from bevy_firework_tpu_torch.step import nested_cadence, nested_child_rows
+
+    sp = _nested_spawner(spread=0.0 if elide else 0.7, shape=None if elide else pt.EmissionShape.sphere(0.2))
+    if not elide:
+        es = list(sp.emission_settings)
+        es[1] = dataclasses.replace(es[1], initial_angular_velocity=pt.RandVec3(pt.RandF32(1.0, 2.0), (1, 0, 0), 0.3))
+        sp = dataclasses.replace(sp, emission_settings=tuple(es))
+    c = pt.compile_spawner(sp, device=cuda)
+    assert c.static.elide_rotation == elide
+    t = _cadence_inputs(65536, 9, cuda)
+    for k in ("qx", "qy", "qz"):
+        t[k] = torch.zeros_like(t["px"])
+    t["qw"] = torch.ones_like(t["px"])
+    names = fs.nested_parent_fields(c.static)
+    planes = {k: t[k] for k in names}
+    gate = torch.ones((), dtype=torch.bool, device=cuda)
+    _le, cum, _total, _pv = nested_cadence(c.static, c.params, 1, t["alive"], t["ptype"], t["age"], t["lifetime"],
+                                           t["le"], gate, 1024)
+    key = np.array([7, 123456], np.uint32)
+    f = pt.make_frame_input(1 / 60, modifier_scale=1.3, modifier_speed=0.7)
+    pv = {k: v[fs.nested_parents(cum, 1024)] for k, v in planes.items()}
+    p_rows = nested_child_rows(c.static, c.params, f, 1, pv, key, 1024)
+    for kw in ({"cum": cum, "parent_planes": planes}, {"parent_vals": pv}):
+        k_rows = fs.nested_child_rows(c.static, c.params, f, 1, key, 1024, **kw)
+        assert k_rows.shape == p_rows.shape == (len(active_f32_fields(c.static)), 1024)
+        assert _ulps(k_rows, p_rows) <= (0 if elide else 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ring", "chained", "dead_rank"])
+def test_hybrid_frames_match_plain(cuda, case):
+    """Hybrid frames (cadence passes, child rows, the merge launch) against
+    the plain hybrid frame on the card: every field, the cursor, the
+    anchors and the nested counts bit for bit, frame by frame; a
+    multi_step_auto chain equals as many plain frames."""
+    c = pt.compile_spawner(_nested_spawner(destroy=case == "dead_rank", chained=case == "chained"),
+                           nested_buffer=1024, device=cuda)
+    table = pt.compile_colliders(NESTED_FLOOR, device=cuda) if case == "dead_rank" else None
+    f = pt.make_frame_input(1 / 60)
+    s = pt.init_pool_for(c, 65536)
+    for i in range(24):
+        sk, ok = fs.fused_step(c.static, c.params, table, s, f)
+        sp, op = plain_frames(c.static, c.params, s, f, 1, colliders=table)
+        for k in active_f32_fields(c.static) + SCALARS + ("last_emitted", "rng_key"):
+            assert torch.equal(getattr(sk, k).cpu(), getattr(sp, k).cpu()), (i, k)
+        for k in ("alive_count", "alive_count_per_type", "nested_deferred", "nested_dropped"):
+            assert torch.equal(getattr(ok, k), getattr(op, k)), (i, k)
+        s = sk
+    assert int(ok.alive_count_per_type[1]) > 1000
+    sc, _o = fs.multi_step_auto(c.static, c.params, table, s, f, 5)
+    ref, _o = plain_frames(c.static, c.params, s, f, 5, colliders=table)
+    for k in active_f32_fields(c.static) + SCALARS + ("last_emitted",):
+        assert torch.equal(getattr(sc, k), getattr(ref, k)), k

@@ -154,6 +154,33 @@ def test_threefry_split_matches_jax_random_split():
     np.testing.assert_array_equal(k_end, np.asarray(k_jax))
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_threefry_fold_in_matches_jax(seed):
+    """fold_in bit for bit against jax.random.fold_in (threefry,
+    partitionable), for random keys and data, the child stage's 1000 + e
+    among them."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**32, size=(32, 2), dtype=np.uint64).astype(np.uint32)
+    data = [0, 1, 1000, 1003, 2**31 + 5, 2**32 - 1] + rng.integers(0, 2**32, 26, dtype=np.uint64).tolist()
+    fold = jax.jit(jax.random.fold_in)
+    for k, d in zip(keys, data):
+        np.testing.assert_array_equal(prng.threefry_fold_in(k, int(d)), np.asarray(fold(k, np.uint32(d))))
+
+
+@pytest.mark.parametrize("shape", [(1,), (12, 1024), (9, 333), (3, 7, 5)])
+def test_threefry_uniform_matches_jax(shape):
+    """uniform(key, shape, float32) bit for bit against jax.random.uniform
+    for several keys: the flat index's (hi, lo) counters, the xor of the
+    output words, the top 23 bits as a float in [1, 2) minus 1."""
+    rng = np.random.default_rng(len(shape))
+    for k in rng.integers(0, 2**32, size=(4, 2), dtype=np.uint64).astype(np.uint32):
+        want = np.asarray(jax.random.uniform(jnp.asarray(k), shape, jnp.float32))
+        got = prng.threefry_uniform(k, shape).numpy()
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert 0.0 <= got.min() and got.max() < 1.0
+
+
 def _philox_reference(ctr, key):
     """Philox-4x32-10 transliterated from the Random123 specification with
     Python integers."""

@@ -463,13 +463,8 @@ def test_unported_scene_features_raise():
     """What the port does not run yet raises NotImplementedError naming its
     ROADMAP item; a Scene on the card without one raises too."""
     scene = pt.Scene(device="cpu")
-    nested = pt.ParticleSpawner(
-        particle_settings=[pt.ParticleSettings(), pt.ParticleSettings()],
-        emission_settings=[pt.EmissionSettings(),
-                           pt.EmissionSettings(particle_index=1, emission_mode=pt.EmissionMode.nested(0))])
     for call in (lambda: scene.add_spawner(_sparks(pt), trail=object()), scene.enable_async_events,
-                 scene.enable_async_render, scene.render_async, lambda: scene.render_items(method="compact"),
-                 lambda: scene.add_spawner(nested)):
+                 scene.enable_async_render, scene.render_async, lambda: scene.render_items(method="compact")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     if not torch.cuda.is_available():

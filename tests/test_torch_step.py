@@ -192,20 +192,26 @@ def test_random_lifetime_and_multi_type_chain_equals_single_steps():
 
 
 def test_out_of_scope_archetypes_raise():
-    """Nested emitters are not ported yet and raise, naming their ROADMAP
-    item; the destroyed-particle dump and force fields are ported
-    (test_torch_force_fields.py, test_torch_scene.py) and step."""
+    """Archetypes beyond the global slice step: a nested archetype runs
+    hybrid frames (its children appear, counted per type), the
+    destroyed-particle dump gives its mask and force fields their table."""
     from bevy_firework_tpu_torch.settings import EmissionMode, ParticleCollisionSettings, ParticleEventHandlers
 
     f = pt.make_frame_input(1 / 60)
     nested = pt.ParticleSpawner(
         particle_settings=[pt.ParticleSettings(), pt.ParticleSettings()],
-        emission_settings=[pt.EmissionSettings(),
-                           pt.EmissionSettings(particle_index=1, emission_mode=EmissionMode.nested(0))],
+        emission_settings=[pt.EmissionSettings(emission_pacing=pt.EmissionPacing.rate(300.0)),
+                           pt.EmissionSettings(particle_index=1, emission_mode=EmissionMode.nested(0),
+                                               emission_pacing=pt.EmissionPacing.count_over_duration(
+                                                   4.0, 1.0, 0.0, 0.05))],
     )
     c = pt.compile_spawner(nested, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        pt.step_auto(c.static, c.params, None, pt.init_pool_for(c, 64), f)
+    s = pt.init_pool_for(c, 256)
+    for _ in range(6):
+        s, out = pt.step_auto(c.static, c.params, None, s, f)
+    per_type = out.alive_count_per_type.tolist()  # 6 frames at 300/s and up to 4 children each
+    assert 29 <= per_type[0] <= 30 and 0 < per_type[1] <= 4 * per_type[0]
+    assert sum(per_type) == int(out.alive_count) and int(out.nested_dropped) == 0
     dump = pt.ParticleSpawner(particle_settings=[pt.ParticleSettings(
         collision_settings=ParticleCollisionSettings(destroy_on_collision=True),
         event_handlers=ParticleEventHandlers(particles_destroyed=print))])
