@@ -3,7 +3,7 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of `bevy_firework_tpu` (JAX/Pallas, the reference it is tested
 against), module for module. This package imports torch and numpy only. On
-CUDA tensors the step runs the fused kernel of `ops/csrc/fused_step.cu`,
+CUDA tensors the step runs the fused kernel of `ops/csrc/` (`fused_step_kernel.cuh`),
 built with nvcc at first use; on CPU tensors it runs the kernel's plain
 PyTorch version.
 
@@ -15,13 +15,15 @@ friction, the 4-substep bounce, destroy-on-collision with its dead-rank
 slot claim), scene force fields, the destroyed-particle mask and its
 events, the kernel's stats, nested emission (hybrid frames: the nested
 cadence pass, threefry child rows and the in-kernel child merge;
-`fused_step_hybrid`, `nested_cadence_pass`), the effect library and
-effects (textures and fireworks included), and the `Scene` facade for
-spawners stepped one by one (colliders and force fields with slot reuse,
-`particles_destroyed` and `on_finished` events, AABBs, render items). Every
-entry point runs on the card unless given `device="cpu"`. Not yet: the
-nested fold, archetype groups and fleets, trails, async events and render,
-checkpoints, sharding (see ROADMAP.md).
+`fused_step_hybrid`, `nested_cadence_pass`), fleets (S same-archetype
+pools in one launch of the fleet kernel: `fused_step_fleet`,
+`multi_step_fleet`, `Fleet`, the stack helpers of `parallel.sharding`),
+the effect library and effects (textures and fireworks included), and the
+`Scene` facade with archetype groups (one fleet launch per group;
+colliders and force fields with slot reuse, `particles_destroyed` and
+`on_finished` events, AABBs, render items). Every entry point runs on the
+card unless given `device="cpu"`. Not yet: the nested fold, trails, async
+events and render, checkpoints, mesh sharding (see ROADMAP.md).
 """
 
 from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition
@@ -34,16 +36,22 @@ from .curve import (
     gradient_uneven_samples,
 )
 from .emission_shape import EmissionShape
+from .fleet import Fleet
 from .force_fields import FieldTable, ForceField, compile_force_fields
 from .ops.fused_step import (
     fused_step,
+    fused_step_fleet,
     fused_step_hybrid,
     multi_step_auto,
     multi_step_auto_packed,
+    multi_step_fleet,
+    multi_step_fleet_stacked,
     nested_cadence_pass,
     step_auto,
+    step_auto_fleet,
     step_auto_packed,
 )
+from .parallel.sharding import stack_frames, stack_params, stack_pools
 from .pool import FrameInput, PoolState, init_pool, init_pool_for, make_frame_input
 from .rand import RandF32, RandVec3
 from .render import (
@@ -78,14 +86,15 @@ from .step import StepOutputs, step
 
 __all__ = [
     "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle", "EffectModifier",
-    "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape", "FieldTable", "FireworkCurve",
+    "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape", "FieldTable", "FireworkCurve", "Fleet",
     "FireworkGradient", "FireworkUniform", "ForceField", "FrameInput", "ParticleCollisionSettings",
     "ParticleEventHandlers", "ParticleSettings", "ParticleSpawner", "PoolState", "RandF32", "RandVec3", "RenderItem",
     "Scene", "SpawnTransformMode", "SpawnerParams", "SpawnerStatic", "StepOutputs", "Transform",
     "aabb_intersects_frustum", "compile_colliders", "compile_force_fields", "compile_spawner", "estimate_capacity",
-    "frustum_planes", "fused_step", "fused_step_hybrid", "gradient_constant", "gradient_even_samples", "gradient_uneven_samples",
-    "hull_decomposition", "init_pool", "init_pool_for", "instances_to_bytes", "make_frame_input", "make_uniform",
-    "multi_step_auto", "multi_step_auto_packed", "nested_cadence_pass", "pack_instances_dense", "planes_to_rows",
+    "frustum_planes", "fused_step", "fused_step_fleet", "fused_step_hybrid", "gradient_constant",
+    "gradient_even_samples", "gradient_uneven_samples", "hull_decomposition", "init_pool", "init_pool_for",
+    "instances_to_bytes", "make_frame_input", "make_uniform", "multi_step_auto", "multi_step_auto_packed",
+    "multi_step_fleet", "multi_step_fleet_stacked", "nested_cadence_pass", "pack_instances_dense", "planes_to_rows",
     "sort_instances_back_to_front", "spawner_from_dict", "spawner_from_json", "spawner_to_dict", "spawner_to_json",
-    "step", "step_auto", "step_auto_packed",
+    "stack_frames", "stack_params", "stack_pools", "step", "step_auto", "step_auto_fleet", "step_auto_packed",
 ]

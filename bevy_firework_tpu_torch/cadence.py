@@ -5,7 +5,7 @@ carry-based conversion from elapsed cycle time to an integer emit count.
   * `compute_emission_count`: torch, broadcasting (the plain step);
   * `np_compute_emission_count`: numpy f32 scalar oracle.
 
-The CUDA kernel (`ops/csrc/fused_step.cu`, `emission_count`) keeps this op
+The CUDA kernel (`ops/csrc/fused_step_kernel.cuh`, `emission_count`) keeps this op
 order and is compiled without FMA contraction, so all three agree bit for
 bit. Rust's `as usize` saturates negative floats to 0; the carry still uses
 the raw (possibly negative) float count.

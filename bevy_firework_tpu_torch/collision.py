@@ -1,5 +1,5 @@
 """Particle-vs-scene collision, plain PyTorch: the plain version of the CUDA
-step kernel's narrow phase (`ops/csrc/fused_step.cu`, `collide`).
+step kernel's narrow phase (`ops/csrc/fused_step_kernel.cuh`, `collide`).
 
 Port of `bevy_firework_tpu.collision`: the reference's substepped
 raycast-and-bounce loop (reference `src/core.rs:744-800`) over an analytic

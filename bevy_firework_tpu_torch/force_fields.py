@@ -12,7 +12,7 @@ Four kinds, as in the JAX package:
 
 Fields add onto the per-type constant acceleration at the post-move
 position, before drag, for the types whose `affected_by_fields` is set
-(`step.advance`; the kernel at `ops/csrc/fused_step.cu` `field_accel`).
+(`step.advance`; the kernel at `ops/csrc/fused_step_kernel.cuh` `field_accel`).
 Lanes on a field's singular locus (the point centre, the vortex axis) get 0
 from it.
 

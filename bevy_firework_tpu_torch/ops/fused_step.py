@@ -1,7 +1,7 @@
 """The fused step: the CUDA kernel wrappers and the dispatch around them.
 
 `fused_step` advances a pool by U <= 8 frames in one launch of the
-hand-written Hopper kernel (`csrc/fused_step.cu`, which replaces the JAX
+hand-written Hopper kernel (`csrc/fused_step_kernel.cuh`, which replaces the JAX
 package's Pallas `_make_kernel` with its main-path, render-pack, collision,
 dead-rank-claim, force-field, dump, kernel-stats and nested-merge blocks),
 optionally writing the render-pack planes of the last frame.
@@ -50,9 +50,19 @@ import torch
 
 from ..colliders import COLLIDER_HULL, ColliderTable, masked_layers
 from ..compiled import SpawnerParams, SpawnerStatic
+from ..parallel.sharding import (
+    frame_slot,
+    is_stacked_params,
+    num_slots,
+    params_slot,
+    stack_outputs,
+    stack_pools,
+    state_slot,
+)
 from ..pool import FrameInput, PoolState
-from ..prng import frame_seeds, threefry_fold_in, threefry_split
+from ..prng import frame_seeds, frame_seeds_stacked, threefry_fold_in, threefry_split
 from ..render import pack_render_planes
+from ..utils.device import upload
 from ..step import (
     active_f32_fields,
     collision_on,
@@ -167,10 +177,18 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
 def kernel_tables(static: SpawnerStatic, params: SpawnerParams) -> torch.Tensor:
     """`pack_tables` on the params' device, built once per (params, static)
     and kept in the params object (a frozen dataclass; the cache lives in
-    its __dict__, beside the fields it is derived from)."""
+    its __dict__, beside the fields it is derived from). Stacked params
+    (a fleet's) give [S, TABLE_WORDS]: their members' tables stacked, or
+    one table packed per slot. The copy to the card does not wait."""
     cache = params.__dict__.setdefault("_kernel_tables", {})
     if static not in cache:
-        cache[static] = torch.from_numpy(pack_tables(static, params)).to(params.device)
+        if not is_stacked_params(params):
+            cache[static] = upload(torch.from_numpy(pack_tables(static, params)), params.device)
+        elif "_members" in params.__dict__:
+            cache[static] = torch.stack([kernel_tables(static, p) for p in params.__dict__["_members"]])
+        else:
+            rows = [pack_tables(static, params_slot(params, i)) for i in range(params.count.shape[0])]
+            cache[static] = upload(torch.from_numpy(np.stack(rows)), params.device)
     return cache[static]
 
 
@@ -238,32 +256,35 @@ def kernel_fields(table) -> np.ndarray:
 
 def stats_from_row(static: SpawnerStatic, row: torch.Tensor):
     """(aabb_min, aabb_max, alive count, per-type counts) from the kernel's
-    stats row."""
+    stats row ([STATS_WORDS], or a fleet's [S, STATS_WORDS]: [S]-leading)."""
     f = row.view(torch.float32)
-    return (f[L.ST_MIN:L.ST_MIN + 3], f[L.ST_MAX:L.ST_MAX + 3], row[L.ST_ALIVE],
-            row[L.ST_TYPES:L.ST_TYPES + static.num_types])
+    return (f[..., L.ST_MIN:L.ST_MIN + 3], f[..., L.ST_MAX:L.ST_MAX + 3], row[..., L.ST_ALIVE],
+            row[..., L.ST_TYPES:L.ST_TYPES + static.num_types])
 
 
 def tile_dead_offsets(alive: torch.Tensor) -> torch.Tensor:
     """The dead-rank claim's tile offsets: for each TILE-lane tile of the
-    pool, the number of dead lanes before it (int32 [ceil(N / TILE)]). On a
-    CUDA tensor the count and scan kernels run (`csrc/fused_step.cu`); on a
-    CPU tensor their plain version, a per-tile sum and an exclusive cumsum."""
+    pool, the number of dead lanes before it (int32 [ceil(N / TILE)]); for
+    a stacked alive plane [S, N], per slot ([S, ceil(N / TILE)], each
+    slot's offsets from 0). On a CUDA tensor the count and scan kernels run
+    (`csrc/fused_step.cu`); on a CPU tensor their plain version, a per-tile
+    sum and an exclusive cumsum."""
     return _dead_tiles(alive)[1]
 
 
 def _dead_tiles(alive: torch.Tensor):
     """(per-tile dead counts, exclusive tile offsets) of `tile_dead_offsets`."""
-    n = alive.shape[0]
+    lead, n = tuple(alive.shape[:-1]), alive.shape[-1]
     n_tiles = -(-n // L.TILE)
     if alive.device.type == "cuda":
         from . import _build
 
         lib = _build.load()
-        alive = _checked(alive, torch.bool, alive.device, (n,))
-        counts = torch.empty(n_tiles, dtype=torch.int32, device=alive.device)
+        alive = _checked(alive, torch.bool, alive.device, lead + (n,))
+        counts = torch.empty(lead + (n_tiles,), dtype=torch.int32, device=alive.device)
         offsets = torch.empty_like(counts)
         rc = lib.bf_dead_rank_offsets(alive.data_ptr(), counts.data_ptr(), offsets.data_ptr(), n,
+                                      int(np.prod(lead, dtype=np.int64)),
                                       torch.cuda.current_stream(alive.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"dead-rank claim kernels failed to launch: {lib.bf_error_string(rc).decode()}")
@@ -271,10 +292,10 @@ def _dead_tiles(alive: torch.Tensor):
         return counts, offsets
     if alive.device.type != "cpu":
         raise ValueError(f"no dead-rank claim for device {alive.device}")
-    dead = torch.zeros(n_tiles * L.TILE, dtype=torch.int32)
-    dead[:n] = (~alive).to(torch.int32)
-    counts = dead.view(n_tiles, L.TILE).sum(1, dtype=torch.int32)
-    return counts, torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    dead = torch.zeros(lead + (n_tiles * L.TILE,), dtype=torch.int32)
+    dead[..., :n] = (~alive).to(torch.int32)
+    counts = dead.view(lead + (n_tiles, L.TILE)).sum(-1, dtype=torch.int32)
+    return counts, torch.cumsum(counts, -1, dtype=torch.int32) - counts
 
 
 tile_dead_offsets.launches = 0  # count + scan launches (CUDA path only)
@@ -282,6 +303,12 @@ tile_dead_offsets.launches = 0  # count + scan launches (CUDA path only)
 
 def _ptr_array(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
+
+
+def _from_slot(tensors: list, c0: int) -> list:
+    """Slot-stacked tensors from slot c0 on (views; None stays None), for a
+    fleet's later launch chunks; at slot 0 the list itself."""
+    return tensors if not c0 else [None if t is None else t[c0:] for t in tensors]
 
 
 def _checked(t: torch.Tensor, dtype, device, shape: tuple) -> torch.Tensor:
@@ -292,7 +319,7 @@ def _checked(t: torch.Tensor, dtype, device, shape: tuple) -> torch.Tensor:
 
 
 def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-            seeds: list, pack_render: bool, stats: bool, hybrid: Optional[dict] = None):
+            seeds: list, pack_render: bool, stats: bool, hybrid: Optional[dict] = None, fleet: Optional[dict] = None):
     """One step launch on the current stream (after the dead-rank claim's
     count and scan, for archetypes without ring claims). Returns (fields,
     scal, render planes or None, dump plane or None, stats row or None):
@@ -300,7 +327,12 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     merge; see `_hybrid_launches`): the nested scalars `ns`, the child rows
     `child`, the records' `emitters`, the pre-spawn flag `any_alive`, the
     ring cursor after the nested claims `cursor` and, on dead-rank
-    archetypes, the claim's tile `offsets` of the pre-spawn alive plane."""
+    archetypes, the claim's tile `offsets` of the pre-spawn alive plane.
+    fleet (kernel row 7; `state` stacked over S slots, seeds [S][U] flat):
+    the `table` ([S, TABLE_WORDS] or one shared [TABLE_WORDS]) and the
+    per-slot records `slot_rows` [S, SLOT_WORDS] on the card; the slots
+    launch in chunks of SEED_WORDS // U. Returns the number of launches
+    last."""
     from . import _build
 
     lib = _build.load()
@@ -309,26 +341,29 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         raise ValueError(f"params on {params.device}, pool on {dev}")
     n_col = colliders.count if collision_on(static, colliders) else 0
     N = state.capacity
+    S = state.px.shape[0] if fleet is not None else 1
+    lead = (S,) if fleet is not None else ()
+    unroll = len(seeds) // S
     fields = {}
     ins, outs = [None] * L.N_FIELDS, [None] * L.N_FIELDS
     for name in active_f32_fields(static):
         i = L.FIELD_SLOTS.index(name)
-        ins[i] = _checked(getattr(state, name), torch.float32, dev, (N,))
+        ins[i] = _checked(getattr(state, name), torch.float32, dev, lead + (N,))
         outs[i] = fields[name] = torch.empty_like(ins[i])
     ptype_in = ptype_out = None
     if not static.single_type:
-        ptype_in = _checked(state.ptype, torch.int32, dev, (N,))
+        ptype_in = _checked(state.ptype, torch.int32, dev, lead + (N,))
         ptype_out = torch.empty_like(ptype_in)
     fields["ptype"] = state.ptype if ptype_out is None else ptype_out
     alive_in = alive_out = offsets = None
     if not static.ring_claim:
-        alive_in = _checked(state.alive, torch.bool, dev, (N,))
+        alive_in = _checked(state.alive, torch.bool, dev, lead + (N,))
         offsets = tile_dead_offsets(alive_in) if hybrid is None else hybrid["offsets"]
         alive_out = fields["alive"] = torch.empty_like(alive_in)
     names = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "ring_cursor")
     dtypes = (torch.float32, torch.float32, torch.bool, torch.int32, torch.int32)
     E = static.num_emitters
-    shapes = ((E,), (E,), (E,), (), ())
+    shapes = (lead + (E,), lead + (E,), lead + (E,), lead, lead)
     s_in = [_checked(getattr(state, k), d, dev, sh) for k, d, sh in zip(names, dtypes, shapes)]
     if hybrid is not None:
         s_in[4] = _checked(hybrid["cursor"], torch.int32, dev, ())
@@ -338,32 +373,50 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     else:
         merge = (None, None, None, 0, None, 0, 0)
     s_out = [torch.empty_like(t) for t in s_in]
-    render = [torch.empty(N, dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)] if pack_render else None
-    dump = torch.empty(N, dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
+    render = [torch.empty(lead + (N,), dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)] \
+        if pack_render else None
+    dump = torch.empty(lead + (N,), dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
     stats_row = partial = ticket = None
-    if stats:  # the row, one partial row per block, and the last-block ticket (zeroed)
-        stats_row = torch.empty(L.STATS_WORDS, dtype=torch.int32, device=dev)
-        partial = torch.empty(L.MAX_BLOCKS * L.STATS_WORDS, dtype=torch.int32, device=dev)
-        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-    field_words, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
-        else (None, 0)
-    frame_row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
-    seed_row = (ctypes.c_uint32 * len(seeds))(*seeds)
+    if stats:  # the rows, one partial row per block, and one last-block ticket per slot (zeroed)
+        stats_row = torch.empty(lead + (L.STATS_WORDS,), dtype=torch.int32, device=dev)
+        partial = torch.empty((S, L.launch_blocks(N) * L.STATS_WORDS), dtype=torch.int32, device=dev)
+        ticket = torch.zeros(S, dtype=torch.int32, device=dev)
+    if fleet is None:
+        table, tab_stride, slot_rows = kernel_tables(static, params), 0, None
+        field_words, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
+            else (None, 0)
+        frame_row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
+    else:
+        table, slot_rows = fleet["table"], fleet["slot_rows"]
+        tab_stride = L.TABLE_WORDS if table.dim() == 2 else 0
+        field_words, n_fields, frame_row = None, fleet["n_fields"], None
+    field_ptr = None if field_words is None else field_words.ctypes.data
+    col_ptr = kernel_colliders(colliders).data_ptr() if n_col else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.bf_fused_step(
-        kernel_tables(static, params).data_ptr(), ptr(kernel_colliders(colliders)) if n_col else None, n_col,
-        _ptr_array(ins), _ptr_array(outs), ptr(ptype_in), ptr(ptype_out), ptr(alive_in), ptr(alive_out),
-        ptr(offsets), _ptr_array(s_in), _ptr_array(s_out), None if render is None else _ptr_array(render),
-        frame_row, seed_row, len(seeds), N, None if field_words is None else field_words.ctypes.data, n_fields,
-        ptr(dump), ptr(partial), ptr(ticket), ptr(stats_row), *merge, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
+    per_launch = L.SEED_WORDS // unroll
+    launches = 0
+    for c0 in range(0, S, per_launch):  # one chunk for a solo launch
+        c1 = min(S, c0 + per_launch)
+        c_ins, c_outs, c_s_in, c_s_out = (_from_slot(ts, c0) for ts in (ins, outs, s_in, s_out))
+        pi, po, ai, ao, off, dmp, part, tick, row, srows = _from_slot(
+            [ptype_in, ptype_out, alive_in, alive_out, offsets, dump, partial, ticket, stats_row, slot_rows], c0)
+        seed_row = (ctypes.c_uint32 * ((c1 - c0) * unroll))(*seeds[c0 * unroll:c1 * unroll])
+        rc = lib.bf_fused_step(
+            ptr(table[c0:] if c0 and tab_stride else table), col_ptr, n_col, _ptr_array(c_ins), _ptr_array(c_outs),
+            ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in), _ptr_array(c_s_out),
+            None if render is None else _ptr_array(_from_slot(render, c0)), frame_row, seed_row, unroll, N,
+            field_ptr, n_fields, ptr(dmp), ptr(part), ptr(tick), ptr(row), *merge, c1 - c0, tab_stride, ptr(srows),
+            stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
+        launches += 1
     scal = dict(zip(names, s_out))
-    return fields, scal, render, dump, stats_row
+    return fields, scal, render, dump, stats_row, launches
 
 
 def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
@@ -384,8 +437,8 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         return fused_step_hybrid(static, params, colliders, state, frame, pack_render, stats)
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
-        fields, scal, planes, dump, row = _launch(static, params, colliders, state, frame, seeds, pack_render,
-                                                  stats)
+        fields, scal, planes, dump, row, _n = _launch(static, params, colliders, state, frame, seeds, pack_render,
+                                                      stats)
         fused_step.launches += 1
         fused_step.render_launches += pack_render
         fused_step.collide_launches += collision_on(static, colliders)
@@ -583,8 +636,8 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     hybrid = {"ns": ns, "child": child, "emitters": es, "any_alive": any_alive,
               "cursor": start if (static.ring_claim and es) else state.ring_cursor,
               "offsets": None if dead_tiles is None else dead_tiles[1]}
-    fields, scal, planes_out, dump, row = _launch(static, params, colliders, state, frame, [int(kernel_key[1])],
-                                                  pack_render, stats, hybrid)
+    fields, scal, planes_out, dump, row, _n = _launch(static, params, colliders, state, frame,
+                                                      [int(kernel_key[1])], pack_render, stats, hybrid)
     fused_step.launches += 1
     fused_step.merge_launches += 1
     fused_step.render_launches += pack_render
@@ -677,3 +730,159 @@ def multi_step_auto_packed(static, params, colliders, state, frame, n_frames: in
     if n_frames > 1:
         state, _o = multi_step_auto(static, params, colliders, state, frame, n_frames - 1)
     return step_auto_packed(static, params, colliders, state, frame)
+
+
+# --------------------------------------------------------------------------
+# fleets: S same-archetype pools in one launch (kernel row 7)
+# --------------------------------------------------------------------------
+
+
+def can_fleet(static: SpawnerStatic) -> bool:
+    """The fleet kernel applies (the JAX package's `_fleet_kernel_ok`):
+    global-only archetypes (`can_fuse`). The JAX package also asks for a
+    TPU and a tile-aligned capacity; this kernel takes any capacity."""
+    return can_fuse(static)
+
+
+def fleet_slot_rows(frames: FrameInput, device: torch.device) -> torch.Tensor:
+    """A stacked frame's per-slot records on `device`: [S, SLOT_WORDS]
+    int32 (each slot's frame row at SL_FRAME, its field records at
+    SL_FIELDS), built on the host and copied without a wait once per
+    (frames, device); a caller that keeps the stacked frame while nothing
+    changes (the Scene, Fleet, a chain) copies nothing more."""
+    cache = frames.__dict__.setdefault("_slot_rows", {})
+    if device not in cache:
+        S = frames.dt.shape[0]
+        rows = np.zeros((S, L.SLOT_WORDS), np.int32)
+        fl = rows.view(np.float32)
+        for at, value in ((L.FR_DT, frames.dt), (L.FR_MOD_SCALE, frames.modifier_scale),
+                          (L.FR_MOD_SPEED, frames.modifier_speed), (L.FR_PVEL, frames.parent_velocity),
+                          (L.FR_TRANS, frames.transform_translation), (L.FR_ROT, frames.transform_rotation)):
+            v = value.numpy().reshape(S, -1)
+            fl[:, L.SL_FRAME + at:L.SL_FRAME + at + v.shape[1]] = v
+        for i, table in enumerate(frames.force_fields or ()):
+            rows[i, L.SL_FIELDS:] = kernel_fields(table)
+        cache[device] = upload(torch.from_numpy(rows), device)
+    return cache[device]
+
+
+def _fleet_fields(frames: FrameInput, device) -> int:
+    """The stacked frame's field count per slot (0 without fields), checked
+    against the kernel's capacity and the pool's device."""
+    if frames.force_fields is None:
+        return 0
+    for table in frames.force_fields:
+        if table.device != device:
+            raise ValueError(f"force fields on {table.device}, pool on {device}")
+    n = frames.force_fields[0].count
+    if n > L.MAX_F:
+        raise NotImplementedError(f"the kernel's field row holds at most {L.MAX_F} force fields")
+    return n
+
+
+def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, states: PoolState,
+                     frames: FrameInput, pack_render: bool = False, unroll: int = 1, stats: bool = True):
+    """Advance a whole same-archetype group by `unroll` frames in one launch
+    (kernel row 7; the JAX package's `fused_step_fleet`): `states` [S]-
+    stacked (equal capacities), `params` [S]-stacked or one SpawnerParams
+    shared by every slot, `colliders` one shared scene table, `frames`
+    [S]-stacked (`parallel.sharding.stack_frames`). Slot for slot bit-equal
+    to S solo `fused_step` calls: each slot splits its own key, draws with
+    its own seeds by its lane within the slot, and claims and reduces over
+    its own pool. Returns (states, outputs) or, with pack_render, (states,
+    outputs, planes), every leaf [S]-leading; outputs is None without
+    `stats`. On CUDA tensors the fleet kernel runs (S * unroll seeds per
+    launch at most SEED_WORDS: larger fleets launch in chunks); on CPU
+    tensors the plain version, S solo plain steps stacked."""
+    if not can_fleet(static):
+        raise ValueError("fused_step_fleet takes global-only archetypes (can_fleet); archetypes with a nested "
+                         "emitter step through step_auto_fleet")
+    check_kernel_scope(static, colliders, None, unroll)
+    S, dev = num_slots(states), states.device
+    if tuple(frames.dt.shape) != (S,):
+        raise ValueError(f"frames must be stacked over the {S} slots, got dt of shape {tuple(frames.dt.shape)}")
+    n_fields = _fleet_fields(frames, dev)
+    if collision_on(static, colliders) and colliders.device != dev:
+        raise ValueError(f"colliders on {colliders.device}, pool on {dev}")
+    if dev.type == "cuda":
+        keys, seeds = frame_seeds_stacked(states.rng_key.numpy(), unroll)
+        fleet = {"table": kernel_tables(static, params), "slot_rows": fleet_slot_rows(frames, dev),
+                 "n_fields": n_fields}
+        fields, scal, planes, dump, rows, n = _launch(static, params, colliders, states, frames,
+                                                      seeds.reshape(-1).tolist(), pack_render, stats, fleet=fleet)
+        fused_step_fleet.launches += n
+        fused_step_fleet.render_launches += n * pack_render
+        fused_step_fleet.collide_launches += n * collision_on(static, colliders)
+        fused_step_fleet.fields_launches += n * (n_fields > 0)
+        fused_step_fleet.dump_launches += n * (dump is not None)
+        fused_step_fleet.stats_launches += n * stats
+        new_states, out = epilogue(static, params, states, fields, scal, torch.from_numpy(keys.astype(np.int64)),
+                                   stats, dump, None if rows is None else stats_from_row(static, rows))
+    elif dev.type == "cpu":
+        solo = [plain_frames(static, params_slot(params, i), state_slot(states, i), frame_slot(frames, i), unroll,
+                             stats, colliders) for i in range(S)]
+        new_states = stack_pools([st for st, _o in solo])
+        out = stack_outputs([o for _s, o in solo]) if stats else None
+        planes = None
+        if pack_render:
+            per_slot = [pack_render_planes(static, params_slot(params, i), st) for i, (st, _o) in enumerate(solo)]
+            planes = [torch.stack(p) for p in zip(*per_slot)]
+    else:
+        raise ValueError(f"no step for device {dev}")
+    if pack_render:
+        return new_states, out, tuple(planes)
+    return new_states, out
+
+
+fused_step_fleet.launches = 0  # fleet kernel launches (CUDA path only)
+fused_step_fleet.render_launches = 0  # of which with the render pack
+fused_step_fleet.collide_launches = 0  # of which with the narrow phase
+fused_step_fleet.fields_launches = 0  # of which with force fields
+fused_step_fleet.dump_launches = 0  # of which writing the dump plane
+fused_step_fleet.stats_launches = 0  # of which writing the stats rows
+
+
+def step_auto_fleet(static, params, colliders, states, frames):
+    """One frame of an [S]-stacked fleet (the JAX package's
+    `step_auto_fleet`): `fused_step_fleet` for global-only archetypes.
+    Archetypes with a nested emitter step each member through
+    `fused_step_hybrid` and stack the results: the JAX package vmaps its
+    hybrid there (its ops/fused_step.py:2903-2905), so this is the
+    reference's own dispatch rule, not a fallback. Returns (states,
+    outputs)."""
+    if can_fleet(static):
+        return fused_step_fleet(static, params, colliders, states, frames)
+    solo = [fused_step_hybrid(static, params_slot(params, i), colliders, state_slot(states, i),
+                              frame_slot(frames, i)) for i in range(num_slots(states))]
+    return stack_pools([st for st, _o in solo]), stack_outputs([o for _s, o in solo])
+
+
+def multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames: int):
+    """n frames of a whole fleet ([S]-stacked params or one shared params,
+    states and frames): launches follow `chain_shape(n, chain_unroll(...))`,
+    each one fleet launch for every slot, with stats on the last launch
+    only; nested archetypes step n frames of `step_auto_fleet`. Returns
+    (final states, outputs of the last frame)."""
+    if n_frames < 1:
+        raise ValueError("multi_step_fleet_stacked needs n_frames >= 1")
+    if not can_fleet(static):
+        out = None
+        for _ in range(n_frames):
+            states, out = step_auto_fleet(static, params, colliders, states, frames)
+        return states, out
+    shape = chain_shape(n_frames, chain_unroll(static, colliders))
+    out = None
+    for i, u in enumerate(shape):
+        states, out = fused_step_fleet(static, params, colliders, states, frames, unroll=u,
+                                       stats=i == len(shape) - 1)
+    return states, out
+
+
+def multi_step_fleet(static, params, colliders, states, frames, n_frames: int):
+    """multi_step_fleet_stacked with ONE params shared by every slot (the
+    common fleet: S spawners of one configuration). The kernel reads the
+    one table for every slot, so nothing is broadcast."""
+    if is_stacked_params(params):
+        raise ValueError("multi_step_fleet takes one shared SpawnerParams; stacked params go to "
+                         "multi_step_fleet_stacked")
+    return multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames)

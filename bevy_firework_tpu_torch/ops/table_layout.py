@@ -138,11 +138,28 @@ NS_NEXT = 3  # the next emitter's start: NS_START + NS_N (mod N on the ring)
 NS_DROPPED = 4  # children whose window slot was not dead (pool capacity overflow)
 MAX_FETCH = 10  # parent fields a fetch-mode cadence pass reads (nested_parent_fields)
 
+# ---- fleet launches (kernel row 7): S slots of one archetype per launch ----
+# Per-slot records in one device int32 buffer [S, SLOT_WORDS]: the slot's
+# frame row and its force-field records (f32 bitwise), staged per block.
+SL_FRAME = 0  # FRAME_WORDS f32
+SL_FIELDS = 16  # FIELD_WORDS: the FF_* records
+SLOT_WORDS = SL_FIELDS + FIELD_WORDS
+# Draw seeds ride the launch arguments, [slot][u]: a launch takes at most
+# SEED_WORDS // U slots, and a larger fleet launches in chunks of that many.
+SEED_WORDS = 128
+
 # ---- launch geometry ----
-MAX_BLOCKS = 132 * 8  # the step tile-strides beyond 8 blocks per SM (stats partials)
+MAX_BLOCKS = 132 * 8  # the step tile-strides beyond 8 blocks per SM per slot (stats partials)
 
 assert H_TARGET + MAX_E <= EM_AT and NS_DROPPED < NS_STRIDE and EM_INIT_ROT + 4 <= EM_STRIDE and TY_FIELD_MASK < TY_STRIDE
 assert CO_PARAMS + 3 <= CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
+assert SL_FRAME + FRAME_WORDS <= SL_FIELDS and SEED_WORDS >= MAX_U
+
+
+def launch_blocks(n: int) -> int:
+    """Blocks per slot of a step launch over n lanes (the C launcher's
+    grid.x): one per TILE-lane tile, at most MAX_BLOCKS."""
+    return min(-(-n // TILE), MAX_BLOCKS)
 
 
 def constants() -> dict:

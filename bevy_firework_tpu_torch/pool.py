@@ -11,6 +11,10 @@ on the host, `prng.threefry_split`, so no frame waits on the card for it)
 and every `FrameInput` leaf (host-provided per frame; 0-d CPU tensors act
 as scalars in ops with CUDA tensors, and the kernel wrapper passes them as
 launch arguments).
+
+A fleet's pools stack on a leading slot axis (`parallel.sharding.
+stack_pools`): [S, N] planes, [S, E] and [S] scalars, rng_key [S, 2];
+`capacity`, `num_emitters` and `alive_count` read the trailing axes.
 """
 
 from __future__ import annotations
@@ -70,7 +74,8 @@ class PoolState:
         return self.px.device
 
     def alive_count(self) -> torch.Tensor:
-        return self.alive.sum(dtype=torch.int32)
+        """Live lanes: a 0-d count, or [S] counts of a stacked pool."""
+        return self.alive.sum(-1, dtype=torch.int32)
 
     def to(self, device) -> "PoolState":
         kw = {k: getattr(self, k).to(device) for k in POOL_FIELDS if k != "rng_key"}

@@ -91,6 +91,45 @@ def frame_seeds(key, n: int) -> tuple[np.ndarray, list[int]]:
     return np.array([k0, k1], np.uint32), seeds
 
 
+def _threefry2x32_u32(k0: np.ndarray, k1: np.ndarray, x0: np.ndarray, x1: np.ndarray):
+    """threefry2x32 on numpy uint32 arrays (wrapping arithmetic, in-place
+    ufuncs: a few dozen array operations whatever the array length)."""
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    tmp = np.empty_like(x1)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 += x1
+            np.left_shift(x1, np.uint32(r), out=tmp)
+            x1 >>= np.uint32(32 - r)
+            x1 |= tmp
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3]
+        x1 += np.uint32(i + 1)
+    return x0, x1
+
+
+def frame_seeds_stacked(keys, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """`frame_seeds` over S keys at once (a fleet's per-slot key chains, as
+    the JAX fleet prelude splits each slot's key): keys [S, 2] uint32 words;
+    returns the keys after the n frames [S, 2] uint32 and the draw seeds
+    [S, n] uint32. One frame's two splits (counters 0 and 1) run as one
+    evaluation over 2S lanes, a cost per frame that does not grow with S."""
+    keys = np.asarray(keys).astype(np.uint32).reshape(-1, 2)
+    S = keys.shape[0]
+    k0, k1 = np.tile(keys[:, 0], 2), np.tile(keys[:, 1], 2)
+    x1 = np.repeat(np.array([0, 1], np.uint32), S)
+    zero = np.zeros(2 * S, np.uint32)
+    seeds = np.empty((S, n), np.uint32)
+    for f in range(n):
+        a0, a1 = _threefry2x32_u32(k0, k1, zero, x1)
+        seeds[:, f] = a0[S:]
+        k0, k1 = np.tile(a0[:S], 2), np.tile(a1[:S], 2)
+    return np.stack([k0[:S], k1[:S]], axis=1), seeds
+
+
 # --------------------------------------------------------------------------
 # Philox-4x32-10 (torch int64 with 32-bit masking)
 # --------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Where a main-path frame's time goes on the card.
 
     python -m bevy_firework_tpu_torch.profile_step [--out FILE]
+    python3 bevy_firework_tpu_torch/profile_step.py --launch [--root DIR]
+    python3 bevy_firework_tpu_torch/profile_step.py --flows [--root DIR]
 
 Runs stress_test through `multi_step_auto` at 100k and 1M live (as
 chip_smoke.py's phases 6 and 7 do) and, for each, traces 8-frame chain
@@ -11,6 +13,15 @@ per size with, for each: wall and device ms per frame, the fused_step
 kernel's device ms per launch, and the device's busy share of the wall
 time; then the host functions that take most of an 8-frame call
 (cProfile). Needs a CUDA device.
+
+With --launch it prints only the device time of one U = 8 launch of the
+main path (stats off, as chip_smoke.py's `u8_kernel_device_ms`) at both
+sizes. With --flows it prints one JSON line of the solo path's end-to-end
+times: main_100k and main_1M ms/frame and the tornado and fireworks flows'
+ms per Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch
+from DIR instead (run the file, not the module): two trees, such as a
+parent commit unpacked beside this checkout, are then timed by the same
+code on one card; alternate the trees' runs to spread drift.
 """
 
 from __future__ import annotations
@@ -104,15 +115,153 @@ def profile_size(rate: float, capacity: int, calls: int = 30):
     return res
 
 
+def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> dict:
+    """Device time of one U = 8 launch (stats off) of stress_test after a
+    140-frame chain at this size: the median over `traces` traces of the
+    kernel's time averaged over the launches each trace holds."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(rate))
+    c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    f = bt.make_frame_input(1 / 60)
+    s, out = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, capacity), f, 140)
+
+    def launch():
+        return fs.fused_step(c.static, c.params, None, s, f, unroll=8, stats=False)
+
+    launch()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                launch()
+            torch.cuda.synchronize()
+        kern, _total, count = device_times(prof, "fused_step_kernel")
+        if count:
+            per.append(kern / count / 1e3)
+    return {"rate": rate, "capacity": capacity, "live": int(out.alive_count),
+            "u8_kernel_device_ms": statistics.median(per) if per else None, "traces": per}
+
+
+def flows_ms(windows: int = 3) -> dict:
+    """The solo path's end-to-end times, as chip_smoke.py measures them:
+    ms/frame of stress_test's multi_step_auto chain at 100k and 1M live
+    ((t(2n) - t(n)) / n with CUDA events after 140 warm-up frames, median
+    of 5), and ms per Scene.step of the tornado flow (dust under three
+    force fields moved every frame) and the fireworks flow (nested
+    emission), each the median of `windows` windows (300 and 600 frames)
+    after 60 warm-up frames; `min` beside each median (host-bound times
+    only lose to contention, so the least is the host's own cost)."""
+    import math
+    import statistics
+
+    import torch
+
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects, library
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    def event_ms(fn):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    res = {}
+    sp, _tf = effects.stress_test()
+    for label, rate, cap, n in (("main_100k", 100_000.0, 1 << 17, 400), ("main_1M", 1_000_000.0, 160 * 8192, 150)):
+        es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(rate))
+        c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+        f = bt.make_frame_input(1 / 60)
+        s, out = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, cap, seed=0), f, 140)
+
+        def run(k):
+            return fs.multi_step_auto(c.static, c.params, None, s, f, k)
+
+        run(n)
+        diffs = [(event_ms(lambda: run(2 * n)) - event_ms(lambda: run(n))) / n for _ in range(5)]
+        res[label] = {"live": int(out.alive_count), "ms_per_frame": statistics.median(diffs), "min": min(diffs),
+                      "runs": diffs}
+
+    def scene_windows(sc, frames, before_step=lambda f: None):
+        def steps(f0, k):
+            for f in range(f0, f0 + k):
+                before_step(f)
+                sc.step(1 / 60)
+
+        steps(0, 60)
+        per = []
+        for w in range(windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(60 + w * frames, frames)
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) / frames * 1e3)
+        return {"live": sc.alive_count(), "ms_per_scene_step": statistics.median(per), "min": min(per),
+                "windows": per}
+
+    def fields(x, z):
+        return [bt.ForceField.vortex((x, 0.0, z), (0.0, 1.0, 0.0), strength=12.0, radius=6.0),
+                bt.ForceField.axial((x, 0.0, z), (0.0, 1.0, 0.0), strength=25.0, radius=7.0),
+                bt.ForceField.turbulence((0.0, 2.0, 0.0), strength=1.8, radius=8.0, frequency=2.2)]
+
+    tornado = bt.Scene(force_fields=fields(0.0, 0.0), device="cuda")
+    tornado.add_spawner(library.dust(updraft=2.5, drag=2.0, emit_radius=1.2), capacity=8192)
+
+    def wander(f):
+        x, z = 0.8 * math.sin(f * 0.02), 0.8 * math.cos(f * 0.017)
+        tornado.set_force_field(0, position=(x, 0.0, z))
+        tornado.set_force_field(1, position=(x, 0.0, z))
+
+    res["tornado"] = scene_windows(tornado, 300, wander)
+    fsp, ftf = effects.fireworks()
+    fireworks = bt.Scene(device="cuda")
+    fireworks.add_spawner(fsp, transform=ftf)
+    res["fireworks"] = scene_windows(fireworks, 600)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
+    ap.add_argument("--launch", action="store_true", help="time one U = 8 launch per size, nothing else")
+    ap.add_argument("--flows", action="store_true",
+                    help="time the solo path end to end (main_100k, main_1M, tornado, fireworks), nothing else")
+    ap.add_argument("--root", help="import bevy_firework_tpu_torch from this directory")
     args = ap.parse_args()
+    if args.root:
+        import sys
+        from pathlib import Path
+
+        sys.path[0] = str(Path(args.root).resolve())  # in place of this file's own directory
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     lines = []
+    if args.flows:
+        r = {"flows": flows_ms(), "root": args.root or ".", "card": card}
+        print(json.dumps(r), flush=True)
+        if args.out:
+            with open(args.out, "a") as fh:
+                fh.write(json.dumps(r) + "\n")
+        return
     for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
-        r = profile_size(rate, cap)
+        r = launch_ms(rate, cap) if args.launch else profile_size(rate, cap)
+        if args.root:
+            r["root"] = args.root
         r["card"] = card
         lines.append(json.dumps(r))
         print(lines[-1], flush=True)

@@ -1,6 +1,6 @@
 """The per-frame step, plain PyTorch: spawn -> integrate (+ collide) -> stats.
 
-This is the plain version of the CUDA step kernel (`ops/csrc/fused_step.cu`)
+This is the plain version of the CUDA step kernel (`ops/csrc/fused_step_kernel.cuh`)
 and follows it, not the JAX package's XLA step, wherever the two differ:
   * randomness is the kernel's layout (`prng`): one Philox draw set per
     lane per frame, seeded by word 0 of the frame key; the XLA step draws
@@ -104,9 +104,10 @@ def nested_m(static: SpawnerStatic, capacity: int) -> int:
 def active_flag(static: SpawnerStatic, enabled, any_alive=None):
     """`ParticleSpawnerData::active` (core.rs:288-302): a global emitter
     counts while enabled, a nested one only while any particle lives
-    (`any_alive`, a 0-d bool; unused by global-only archetypes)."""
+    (`any_alive`, a 0-d bool; unused by global-only archetypes, whose
+    flag is per slot for a fleet's [S, E] enabled rows)."""
     if not has_nested(static):
-        return enabled.any()
+        return enabled.any(-1)  # per slot of a stacked [S, E]
     active = torch.zeros((), dtype=torch.bool, device=enabled.device)
     for e in range(static.num_emitters):
         active = active | (enabled[e] & any_alive if static.mode_kinds[e] == MODE_NESTED else enabled[e])
@@ -430,7 +431,10 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     finished latch is computed. Without `stats` only the finished latch is
     computed (chain frames whose outputs nobody reads). Hybrid frames pass
     the new `last_emitted` rows and `nested_counts`, a function returning
-    the frame's (deferred, dropped) children, called only for the outputs."""
+    the frame's (deferred, dropped) children, called only for the outputs.
+    A fleet launch (global-only archetypes) passes its stacked pool with
+    the kernel's per-slot stats rows: every op then runs over the leading
+    [S] axis, one op for all slots, and the outputs are [S]-stacked."""
     kw = {k: getattr(state, k) for k in ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw",
                                          "wx", "wy", "wz", "initial_scale", "age", "lifetime")}
     kw.update({k: v for k, v in fields.items() if k not in ("ptype", "alive")})
@@ -441,7 +445,7 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
         aabb_min, aabb_max, alive_count, per_type = stats_row
         alive_any = alive_count > 0
     else:
-        alive_any = alive.any()
+        alive_any = alive.any(-1)
     finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     new_state = PoolState(
         **kw, ptype=ptype, alive=alive, last_emitted=state.last_emitted if last_emitted is None else last_emitted,
@@ -454,7 +458,7 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     if stats_row is None:
         aabb_min, aabb_max, alive_count, per_type = stat_reductions(static, params, kw, ptype, alive)
     if nested_counts is None:
-        deferred = dropped = torch.zeros((), dtype=torch.int32, device=alive.device)
+        deferred = dropped = torch.zeros(alive.shape[:-1], dtype=torch.int32, device=alive.device)
     else:
         deferred, dropped = nested_counts()
     out = StepOutputs(

@@ -21,3 +21,13 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device` without waiting for the card: staged in
+    pinned memory and copied non-blocking on the current stream (PyTorch's
+    caching host allocator keeps the staging block until the copy lands,
+    so nothing rewrites it early). On the CPU the tensor itself."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

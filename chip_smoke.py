@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the fused step and nested kernels (ops/csrc/fused_step.cu) from this
+Builds the fused step, fleet and nested kernels (ops/csrc/, one nvcc per
+source, all started together) from this
 checkout, holds them against their plain PyTorch versions, and runs the
 paths `bench.py` measures for the JAX package (stress_test through
 multi_step_auto at 100k and 1M live; stress_test_collision against its two
 cuboids and against 8 hulls at 1M; the nested_60k and nested_chained
-cells) plus the interactive sparks, collision, fireworks and textures
-flows, through the kernels. Phases:
+cells; the fleet_16x55k, scene_batch_12, scene_hetero_100 and
+group_churn_12 cells) plus the interactive sparks, collision, fireworks
+and textures flows, through the kernels. Phases:
 
   1. card: name and power limit (nvidia-smi), kernel build time;
   2. deterministic config (constant draws, live rotation), N = 131072:
@@ -86,13 +88,42 @@ flows, through the kernels. Phases:
  22. nested_flows: effects.fireworks() and effects.textures() (with its
      colliders) through Scene on the card for 600 frames each, against the
      plain version replaying the flow on the card: per-type counts every
-     frame, state, dense rows; ms per Scene.step.
+     frame, state, dense rows; ms per Scene.step;
+ 23. fleet_det, N = 131072, S = 3 (tests/torch_fleet_configs.py): a ring,
+     a destroy-on-collision archetype with a handler (dead-rank claim,
+     dump), 3 types with stats, force fields, the render pack and U = 8,
+     slots differing in params, seeds, frames and fields: every slot of
+     each fleet launch == a solo launch of its pool == the plain frames,
+     bit for bit (rotation <= 2 ulp);
+ 24. fleet_16x55k: bench.py's fleet cell (stress_test at 55000/s, 16 slots
+     x 65536 lanes): a 140-frame multi_step_fleet chain under sync debug
+     mode "error" == 16 solo multi_step_auto chains bit for bit and == the
+     plain version (counts exact, f32 <= 4 ulp); differential ms/frame of
+     the fleet chain beside the 16 solo chains', and the U = 8 fleet
+     launch's device time beside its bound, the 16 solo launches' and the
+     plain version's;
+ 25. fleet_flow: the README's one-shot Fleet flow, extended (tests/
+     torch_fleet_configs.py: 8 slots of 64 lanes, five bursts activated at
+     two frames, drain_finished every frame, 200 frames) on the card
+     against the same flow stepped by the plain version on the card and by
+     the Fleet on the CPU: finished slots and live counts every frame,
+     integer leaves and keys exact, the render items; f32 bit for bit
+     against the card's plain replay where the burst emits from a box
+     (within 4 ulp with its circle's sinf/cosf), within 1e-5 of the CPU;
+ 26. scene_groups: bench.py's scene_batch_12, scene_hetero_100 and
+     group_churn_12 through Scene on the card (one fleet launch per
+     archetype group and frame, the render pack on: render_items is called
+     once before timing): every member == the plain version replaying its
+     frames on the card; ms per Scene.step beside the same spawners stepped
+     one by one through step_auto_packed (the render pack too),
+     interleaved.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
 chains, the collision flow, the fields chain, the Scene flows, the two
-nested chains and the nested flows) and read just after it; the kernels'
-summary reports those counts only. Every phase
+nested chains, the nested flows, the fleet chain, the Fleet flow and the
+scene groups)
+and read just after it; the kernels' summary reports those counts only. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 from this run's shapes) and the final `{"ok": true, "device": ...}` line
@@ -112,6 +143,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 # An H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM3
@@ -147,22 +179,28 @@ def check(cond, msg):
         raise CheckFailed(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
 def ptxas_summary(report: str) -> list:
     """Per kernel of ptxas's report: its name (the step kernel's template
-    arguments ring, collide, fields, stats, merge spelled out), registers,
-    stack, spill bytes and shared memory."""
+    arguments ring, collide, fields, stats, merge, fleet spelled out),
+    registers, stack, spill bytes and shared memory."""
     import re
 
     out = []
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"'(\S+)'", block).group(1)
-        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
         if t:
-            name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={}>".format(*t.groups())
+            name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
         else:
             name = re.search(r"([a-z_]+_kernel)E", name).group(1)
         row = {"kernel": name, "registers": int(re.search(r"Used (\d+) registers", block).group(1))}
@@ -222,7 +260,7 @@ def main() -> int:
     max_err = {"fused_step": 0.0, "fused_step.pack_render": 0.0, "fused_step.collide": 0.0,
                "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
                "fused_step.stats": 0.0, "nested_cadence": 0.0, "fused_step.nested_merge": 0.0,
-               "nested_child_rows": 0.0}
+               "nested_child_rows": 0.0, "fused_step.fleet": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
         for k in scalars:
@@ -247,7 +285,12 @@ def main() -> int:
                 "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
                 "dead_rank_claim": (fs.tile_dead_offsets, "launches"), "merge": (fs.fused_step, "merge_launches"),
                 "nested_cadence": (fs.nested_cadence_pass, "launches"),
-                "nested_child_rows": (fs.nested_child_rows, "launches")}
+                "nested_child_rows": (fs.nested_child_rows, "launches"),
+                "fleet": (fs.fused_step_fleet, "launches"), "fleet_render": (fs.fused_step_fleet, "render_launches"),
+                "fleet_collide": (fs.fused_step_fleet, "collide_launches"),
+                "fleet_fields": (fs.fused_step_fleet, "fields_launches"),
+                "fleet_dump": (fs.fused_step_fleet, "dump_launches"),
+                "fleet_stats": (fs.fused_step_fleet, "stats_launches")}
 
     def counted(fn):
         """fn() with the kernels' launch counters set to 0 just before it and
@@ -358,7 +401,7 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         for _attempt in range(3):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only: a light trace
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
@@ -469,14 +512,14 @@ def main() -> int:
         for u in unrolls:
             least = bounds[f"u{u}"]["bound_ms"]
             res[f"u{u}_kernel_device_ms"] = device_ms(f"{label} U={u}", launch(u), 20, True, least)
-            res[f"plain_{u}_frames_device_ms"] = device_ms(f"{label} plain {u}", plain(u), 3, False, least)
+            res[f"plain_{u}_frames_device_ms"] = device_ms(f"{label} plain {u}", plain(u), 1, False, least)
             res[f"u{u}_launch_wall_ms"] = event_ms(launch(u), 20)
-            res[f"plain_{u}_frames_wall_ms"] = event_ms(plain(u), 3)
+            res[f"plain_{u}_frames_wall_ms"] = event_ms(plain(u), 1)
         least_r, least_c = bounds["render"]["bound_ms"], bounds["claim"]["bound_ms"]
         res.update(render_kernel_device_ms=device_ms(f"{label} render", launch(1, True), 20, True, least_r),
-                   plain_render_frame_device_ms=device_ms(f"{label} plain render", plain_render, 3, False, least_r),
+                   plain_render_frame_device_ms=device_ms(f"{label} plain render", plain_render, 1, False, least_r),
                    render_launch_wall_ms=event_ms(launch(1, True), 20),
-                   plain_render_frame_wall_ms=event_ms(plain_render, 3),
+                   plain_render_frame_wall_ms=event_ms(plain_render, 1),
                    claim_kernels_device_ms=device_ms(f"{label} claim", lambda: fs.tile_dead_offsets(state.alive), 20,
                                                      True, least_c, claim_kernels_names),
                    plain_dead_rank_device_ms=device_ms(f"{label} plain claim", lambda: dead_rank(~state.alive), 20,
@@ -862,7 +905,11 @@ def main() -> int:
         return out
 
     flows, scene_counts = counted(scene_flows)
-    check(scene_counts["fields"] == 300 and scene_counts["dump"] == 4 * 220 and scene_counts["stats"] > 0,
+    # the events scene's 4 spawners are one archetype group: one fleet
+    # launch per frame (and its claim), with the dump plane where the
+    # handler is
+    check(scene_counts["fields"] == 300 and scene_counts["dump"] == 0 and scene_counts["fleet_dump"] == 220
+          and scene_counts["fleet"] == 2 * 220 and scene_counts["stats"] > 0 and scene_counts["fleet_stats"] == 440,
           f"scene flows: launches {scene_counts}")
     # sparks: 750 live, rows 64 B each, equal to a CPU Scene's (the plain versions)
     scs, live, first, second = flows["sparks"]
@@ -1179,19 +1226,313 @@ def main() -> int:
           "rule": "Scene on the card == the plain flow replayed on the card: per-type counts every frame, state "
                   "within 64 ulp, dense rows"})
 
-    # counts from the main-path runs alone: the two stress_test chains, the
-    # sparks flow, the destroy run, the two collision chains, the collision
-    # flow, the fields chain and the Scene flows
+    # ------------------------------------------------ 23. fleet_det
+    from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools, state_slot
+    from bevy_firework_tpu_torch.pool import POOL_FIELDS
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_fleet_configs as fleet_cfg
+
+    fleet_det = {}
+    for case in fleet_cfg.CASES:
+        r = fleet_cfg.check_fleet_equals_solo(case, dev, 131072, plain=True)
+        check(len(set(r["live"])) == fleet_cfg.S and min(r["live"]) > 5000, f"fleet_det {case}: {r}")
+        check(case != "destroy_dump" or r["destroyed"] > 10000, f"fleet_det {case}: {r}")
+        max_err["fused_step.fleet"] = max(max_err["fused_step.fleet"], r["max_abs_err_plain"])
+        fleet_det[case] = r
+    torch.cuda.synchronize()
+    emit({"phase": "fleet_det", "card": card, "n": 131072, "slots": fleet_cfg.S, "cases": fleet_det,
+          "rule": "each slot of every fleet launch == a solo launch of its pool, bit for bit (pool, key, outputs, "
+                  "render planes), and == the plain frames (rotation <= 2 ulp); slots differ in params, seeds, "
+                  "frames, fields; dead-rank claim, dump, stats, fields, render pack, U = 8"})
+
+    # ------------------------------------------------ 24. fleet_16x55k
+    S16, cap16 = 16, 8 * 8192
+    es16 = dataclasses.replace(stress_sp.emission_settings[0], emission_pacing=EmissionPacing.rate(55_000.0))
+    c16 = bt.compile_spawner(dataclasses.replace(stress_sp, emission_settings=(es16,)), device=dev)
+    pools16 = [bt.init_pool_for(c16, cap16, seed=i) for i in range(S16)]
+    frames16 = [bt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(S16)]
+    st16_0, fr16 = stack_pools(pools16), stack_frames(frames16)
+    fs.kernel_tables(c16.static, c16.params)  # set-up: the table's and the frame rows' one copy each
+    fs.fleet_slot_rows(fr16, dev)
+    torch.cuda.synchronize()
+
+    def fleet_chain(states, n):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fs.multi_step_fleet(c16.static, c16.params, None, states, fr16, n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    (st16, out16), fleet_counts = counted(lambda: fleet_chain(st16_0, 140))
+    torch.cuda.synchronize()
+    want16 = len(fs.chain_shape(140, fs.chain_unroll(c16.static)))
+    check(fleet_counts["fleet"] == want16 and fleet_counts["fused_step"] == 0 and fleet_counts["fleet_stats"] == 1,
+          f"fleet_16x55k: the chain's launches {fleet_counts}")
+    secs16, t_mark = {}, time.perf_counter()
+    worst16 = {}
+    for i in range(S16):
+        si = state_slot(st16, i)
+        solo, solo_out = fs.multi_step_auto(c16.static, c16.params, None, pools16[i], frames16[i], 140)
+        for k in POOL_FIELDS:
+            check(torch.equal(getattr(si, k).cpu(), getattr(solo, k).cpu()), f"fleet_16x55k slot {i}: {k} != solo")
+        ref, ref_out = plain_frames(c16.static, c16.params, pools16[i], frames16[i], 140)
+        check(int(ref_out.alive_count) == int(out16.alive_count[i]) == int(solo_out.alive_count),
+              f"fleet_16x55k slot {i}: live count")
+        for k in ("ring_cursor", "time_in_cycle", "last_emission", "alive", "rng_key"):
+            check(torch.equal(getattr(ref, k).cpu(), getattr(si, k).cpu()), f"fleet_16x55k slot {i}: {k} != plain")
+        for k in active_f32_fields(c16.static):
+            a, b = getattr(ref, k), getattr(si, k)
+            worst16[k] = max(worst16.get(k, 0), ulp_diff(a, b))
+            max_err["fused_step.fleet"] = max(max_err["fused_step.fleet"], float((a - b).abs().max()))
+            check(worst16[k] <= 4 and bool(torch.isfinite(b).all()), f"fleet_16x55k slot {i}: {k} {worst16[k]} ulp")
+    alive16 = int(out16.alive_count.sum())
+    check(alive16 > 16 * 50000, f"fleet_16x55k: {alive16} live")
+
+    def solo16(n):
+        sts = [state_slot(st16, i) for i in range(S16)]
+        for i in range(S16):
+            sts[i], _o = fs.multi_step_auto(c16.static, c16.params, None, sts[i], frames16[i], n)
+        return sts
+
+    def differential16(fn, n, reps):
+        diffs = []
+        for _ in range(reps):
+            t_n = event_ms(lambda: fn(n), 1)
+            t_2n = event_ms(lambda: fn(2 * n), 1)
+            diffs.append((t_2n - t_n) / n)
+        return statistics.median(diffs)
+
+    secs16["checks"], t_mark = time.perf_counter() - t_mark, time.perf_counter()
+    fleet_ms = differential16(lambda n: fleet_chain(st16, n), 100, 5)
+    solo16_ms = differential16(solo16, 100, 3)
+    n_active16 = len(active_f32_fields(c16.static))
+    bound16 = bound(2 * 4 * n_active16 * cap16 * S16, 8 * INTEGRATE_OPS * alive16)
+
+    def fleet_launch():
+        return fs.fused_step_fleet(c16.static, c16.params, None, st16, fr16, unroll=8, stats=False)
+
+    def solo_launches():
+        return [fs.fused_step(c16.static, c16.params, None, state_slot(st16, i), frames16[i], unroll=8, stats=False)
+                for i in range(S16)]
+
+    def plain16():
+        return [plain_frames(c16.static, c16.params, state_slot(st16, i), frames16[i], 8, stats=False)
+                for i in range(S16)]
+
+    secs16["chains_timed"], t_mark = time.perf_counter() - t_mark, time.perf_counter()
+    fleet_dev_ms = device_ms("fleet_16x55k U=8", fleet_launch, 20, True, bound16["bound_ms"])
+    # the 16 solo launches: their mean device time per launch, times 16
+    solo16_dev_ms = S16 * device_ms("fleet_16x55k solo U=8", solo_launches, 5, True, bound16["bound_ms"] / S16)
+    plain16_ms = device_ms("fleet_16x55k plain", plain16, 1, False, bound16["bound_ms"])
+    secs16["device_times"] = time.perf_counter() - t_mark
+    res16 = {"phase": "fleet_16x55k", "card": card, "slots": S16, "capacity": cap16, "rate": 55_000.0,
+             "live": alive16, "chain_frames": 140, "chain_launches": fleet_counts["fleet"], "launches": fleet_counts,
+             "max_ulp": worst16, "rule": "every slot == its solo multi_step_auto chain bit for bit; == plain: counts, "
+             "cursor, cadence exact, f32 <= 4 ulp; no frame synchronises (sync debug mode error)",
+             "ms_per_frame": fleet_ms, "particle_steps_per_s": alive16 / (fleet_ms * 1e-3),
+             "solo16_ms_per_frame": solo16_ms, "u8_fleet_kernel_device_ms": fleet_dev_ms,
+             "u8_solo16_kernels_device_ms": solo16_dev_ms, "plain_8_frames_device_ms": plain16_ms,
+             "u8_fleet_launch_wall_ms": event_ms(fleet_launch, 20), "u8_solo16_launches_wall_ms": event_ms(
+                 solo_launches, 5), "bound": bound16, "seconds": secs16}
+    emit(res16)
+
+    # ------------------------------------------------ 25. fleet_flow
+    t_mark = time.perf_counter()
+    flow_card, flow_counts = counted(lambda: {sh: fleet_cfg.one_shot_fleet_flow(dev, sh)
+                                              for sh in fleet_cfg.FLOW_SHAPES})
+    torch.cuda.synchronize()
+    flow_res = {"card_seconds": time.perf_counter() - t_mark}
+    check(flow_counts["fleet"] == 200 * len(fleet_cfg.FLOW_SHAPES) and flow_counts["fused_step"] == 0,
+          f"fleet_flow: launches {flow_counts}")
+    for sh, fc in flow_card.items():
+        check(sorted(s for fin in fc["finished"] for s in fin) == sorted(fc["activated"]),
+              f"fleet_flow {sh}: finished {fc['finished']} for activated {fc['activated']}")
+        flow_res[sh] = {"activated": fc["activated"], "peak_live": max(fc["live"]),
+                        "finished_at": {str(f + 1): s for f, s in enumerate(fc["finished"]) if s}}
+        for ref, run in (("plain", fleet_cfg.one_shot_fleet_flow(dev, sh, plain=True)),
+                         ("cpu", fleet_cfg.one_shot_fleet_flow("cpu", sh))):
+            diff = fleet_cfg.compare_fleet_flows(fc, run)
+            check(fleet_cfg.flow_rule_holds(sh, ref, diff), f"fleet_flow {sh}: card != {ref} Fleet: {diff}")
+            flow_res[sh]["vs_" + ref] = diff
+            if ref == "plain":
+                max_err["fused_step.fleet"] = max(max_err["fused_step.fleet"], diff["max_abs"])
+    emit({"phase": "fleet_flow", "card": card, "frames": 200, "slots": 8, "capacity": 64, "launches": flow_counts,
+          **flow_res, "rule": "Fleet on the card against the same flow stepped by the plain version on the card and "
+                              "by the Fleet on the CPU: finished slots and live counts every frame, integer leaves and "
+                              "keys at frames 1, 30, 100, 160, 200, render items' slots and counts at frames 1 and "
+                              "100 exact; f32 against the card's plain replay bit for bit with a box emission, "
+                              "within 4 ulp with the one_shot circle's sinf/cosf; against the CPU within 1e-5"})
+
+    # ------------------------------------------------ 26. scene_groups
+    def scene_batch_12():
+        sp_ = effects.sparks(rate=6000.0)[0]
+        sc = bt.Scene(device=dev)
+        for i in range(12):
+            sc.add_spawner(sp_, capacity=8192, transform=bt.Transform(translation=(float(i), 0.0, 0.0)))
+        return sc
+
+    def scene_hetero_100():
+        sparks2k = effects.sparks(rate=2000.0)[0]
+        pbr = effects.pbr()[0]
+        smoke = dataclasses.replace(pbr, emission_settings=tuple(
+            dataclasses.replace(e, emission_pacing=EmissionPacing.rate(800.0)) for e in pbr.emission_settings))
+        bouncy = bt.ParticleSpawner(
+            particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), collision_settings=(
+                ParticleCollisionSettings(restitution=0.6, friction=0.2)))],
+            emission_settings=[bt.EmissionSettings(emission_pacing=EmissionPacing.rate(500.0), initial_velocity=(
+                bt.RandVec3(magnitude=bt.RandF32(2.0, 5.0), direction=(0, 1, 0), spread=0.6)))])
+        oneshotish = dataclasses.replace(sparks2k, particle_settings=tuple(
+            dataclasses.replace(p, lifetime=bt.RandF32(0.5, 1.5)) for p in sparks2k.particle_settings))
+        archetypes = [sparks2k, smoke, bouncy, oneshotish]
+        sc = bt.Scene(colliders=[bt.Collider.halfspace(position=(0.0, -1.0, 0.0))], device=dev)
+        for i in range(100):
+            sc.add_spawner(archetypes[i % 4], capacity=8192,
+                           transform=bt.Transform(translation=(float(i % 10), 0.0, float(i // 10))))
+        return sc
+
+    def replay_check(sc, frames_of, label):
+        """Every member of the scene against the plain version replaying its
+        frames on the card from a fresh pool: counts, cursor and cadence
+        exact, f32 within 64 ulp, dense rows within 1e-5."""
+        worst = 0
+        for sid, slot in sc._spawners.items():
+            cm = slot.compiled
+            tab = sc._colliders if cm.static.any_collision else None
+            st = bt.init_pool_for(cm, slot.capacity, seed=slot.seed)
+            fr = bt.make_frame_input(1 / 60, translation=slot.transform.translation)
+            for _ in range(frames_of[sid]):
+                st, op = plain_frames(cm.static, cm.params, st, fr, 1, colliders=tab)
+            w = compare(cm, slot.state, st, {k: 64 for k in active_f32_fields(cm.static)}, f"{label} sid {sid}",
+                        kernel="fused_step.fleet")
+            worst = max([worst] + list(w.values()))
+            a = compact_dense(bt.pack_instances_dense(cm.params, slot.state, 0)[0].cpu().numpy())
+            b = compact_dense(bt.pack_instances_dense(cm.params, st, 0)[0].cpu().numpy())
+            check(a.shape == b.shape and np.allclose(a, b, rtol=1e-5, atol=1e-5), f"{label} sid {sid}: rows")
+        return worst
+
+    def one_by_one(sc):
+        """The scene's spawners, to step one by one through step_auto_packed
+        from their states now: [compiled, colliders, state, frame] each."""
+        return [[slot.compiled, sc._colliders if slot.compiled.static.any_collision else None, slot.state,
+                 sc._frame_for(slot, 1 / 60)] for slot in sc._spawners.values()]
+
+    def step_one_by_one(items, n, churn=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n):
+            if churn is not None:  # the churn cell's edit: the oldest member out, a fresh pool in
+                items.append([items[0][0], None, bt.init_pool_for(items[0][0], 8192, seed=churn + k), items[0][3]])
+                items.pop(0)
+            for it in items:
+                it[2], _o, _p = bt.step_auto_packed(it[0].static, it[0].params, it[1], it[2], it[3])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    group_counts = {}
+
+    def grouped(fn):
+        """fn() with its launches added to the scene cells' counts."""
+        result, cnt = counted(fn)
+        for k, v in cnt.items():
+            group_counts[k] = group_counts.get(k, 0) + v
+        return result
+
+    groups_res = {}
+    for name, make, n_groups in (("scene_batch_12", scene_batch_12, 1), ("scene_hetero_100", scene_hetero_100, 4)):
+        t_cell = time.perf_counter()
+        sc = make()
+        grouped(lambda: [sc.step(1 / 60) for _ in range(30)])
+        check(sc._last_step_dispatches == n_groups and len(sc._batches) == n_groups,
+              f"{name}: {sc._last_step_dispatches} dispatch groups")
+        worst = replay_check(sc, {sid: 30 for sid in sc._spawners}, name)
+        sc.render_items()  # render demand on: every group packs, as step_auto_packed does one by one
+        items = one_by_one(sc)
+        before = dict(group_counts)
+        g_ms, o_ms = [], []
+        for _ in range(3):  # interleaved windows of 40 frames
+            g_ms.append(grouped(lambda: step_ms(sc, 40)))
+            o_ms.append(step_one_by_one(items, 40))
+        launched = group_counts["fleet"] - before.get("fleet", 0)
+        packed = group_counts["fleet_render"] - before.get("fleet_render", 0)
+        check(launched == packed == 120 * n_groups and group_counts["fused_step"] == 0,
+              f"{name}: launches {group_counts}")
+        groups_res[name] = {"spawners": len(sc._spawners), "dispatch_groups": sc._last_step_dispatches,
+                            "live": sc.alive_count(), "ms_per_scene_step": statistics.median(g_ms),
+                            "one_by_one_ms_per_frame": statistics.median(o_ms), "windows": {"grouped": g_ms,
+                            "one_by_one": o_ms}, "max_ulp_vs_plain": worst,
+                            "seconds": time.perf_counter() - t_cell}
+
+    # group_churn_12: one member out and a new one in per frame
+    t_cell = time.perf_counter()
+    sc = scene_batch_12()
+    sp6k = effects.sparks(rate=6000.0)[0]
+    frames_of = {sid: 0 for sid in sc._spawners}
+
+    def churn_steps(n, k0):
+        for k in range(n):
+            sc.remove_spawner(min(sc._spawners))
+            del frames_of[min(frames_of)]
+            sid = sc.add_spawner(sp6k, capacity=8192, transform=bt.Transform(translation=(float(100 + k0 + k), 0.0,
+                                                                                             0.0)))
+            frames_of[sid] = 0
+            sc.step(1 / 60)
+            for s_ in frames_of:
+                frames_of[s_] += 1
+
+    def steady_steps(n):
+        for _ in range(n):
+            sc.step(1 / 60)
+            for s_ in frames_of:
+                frames_of[s_] += 1
+
+    grouped(lambda: steady_steps(30))
+    grouped(lambda: churn_steps(1, 0))
+    worst = replay_check(sc, frames_of, "group_churn_12")
+    sc.render_items()  # render demand on, as for the cells above
+    items = one_by_one(sc)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grouped(fn)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 40 * 1e3
+
+    c_ms, s_ms, o_ms = [], [], []
+    for w in range(3):  # interleaved windows of 40 frames
+        c_ms.append(timed(lambda: churn_steps(40, 1 + 40 * w)))
+        s_ms.append(timed(lambda: steady_steps(40)))
+        o_ms.append(step_one_by_one(items, 40, churn=1000 + 40 * w))
+    worst = max(worst, replay_check(sc, frames_of, "group_churn_12 after churn"))
+    groups_res["group_churn_12"] = {"spawners": 12, "dispatch_groups": sc._last_step_dispatches,
+                                    "live": sc.alive_count(), "churn_ms_per_scene_step": statistics.median(c_ms),
+                                    "steady_ms_per_scene_step": statistics.median(s_ms),
+                                    "one_by_one_churn_ms_per_frame": statistics.median(o_ms),
+                                    "windows": {"churn": c_ms, "steady": s_ms, "one_by_one": o_ms},
+                                    "max_ulp_vs_plain": worst, "seconds": time.perf_counter() - t_cell}
+    # one fleet launch per group and frame: batch_12 and hetero_100 150
+    # frames each (1 and 4 groups), the churn cell 31 + 3 * 80 frames
+    check(group_counts["fused_step"] == 0 and group_counts["fleet"] == 150 * 1 + 150 * 4 + 31 + 240,
+          f"scene_groups: launches {group_counts}")
+    emit({"phase": "scene_groups", "card": card, "launches": group_counts, **groups_res,
+          "rule": "members == the plain version replaying their frames on the card (counts exact, f32 <= 64 ulp, "
+                  "rows); one fleet launch per archetype group and frame; timed with the render pack on, grouped "
+                  "and one by one (step_auto_packed)"})
+
+    # counts from the main-path runs alone (every run listed in the
+    # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, f1m_counts, scene_counts,
-            n60k_counts, nch_counts, flows_counts)
+            n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts)
 
-    def total(key):
-        return sum(r[key] for r in runs)
+    def total(keys):
+        keys = (keys,) if isinstance(keys, str) else keys
+        return sum(r.get(k, 0) for r in runs for k in keys)
 
-    src = "bevy_firework_tpu_torch/ops/csrc/fused_step.cu"
+    csrc = "bevy_firework_tpu_torch/ops/csrc/"
 
-    def entry(name, replaces, key, ms, plain_ms, b, **extra):
-        return {"name": name, "route": "cuda", "source": src, "replaces": replaces, "launches": total(key),
+    def entry(name, replaces, key, ms, plain_ms, b, source="fused_step_kernel.cuh", **extra):
+        return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces, "launches": total(key),
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, **extra}
 
     # plain versions of the nested kernels at nested_60k's shapes, timed on
@@ -1216,27 +1557,29 @@ def main() -> int:
         entry("fused_step", "bevy_firework_tpu/ops/fused_step.py:913", "fused_step", r100k["u8_kernel_device_ms"],
               r100k["plain_8_frames_device_ms"], r100k["bounds"]["u8"],
               launch_wall_ms=r100k["u8_launch_wall_ms"], plain_wall_ms=r100k["plain_8_frames_wall_ms"]),
-        entry("fused_step.pack_render", "bevy_firework_tpu/ops/fused_step.py:1523", "render",
+        entry("fused_step.pack_render", "bevy_firework_tpu/ops/fused_step.py:1523", ("render", "fleet_render"),
               r100k["render_kernel_device_ms"], r100k["plain_render_frame_device_ms"], r100k["bounds"]["render"],
               launch_wall_ms=r100k["render_launch_wall_ms"], plain_wall_ms=r100k["plain_render_frame_wall_ms"]),
-        entry("fused_step.collide", "bevy_firework_tpu/ops/fused_step.py:349", "collide", c1m["u2_kernel_device_ms"],
+        entry("fused_step.collide", "bevy_firework_tpu/ops/fused_step.py:349", ("collide", "fleet_collide"),
+              c1m["u2_kernel_device_ms"],
               c1m["plain_2_frames_device_ms"], c1m["bounds"]["u2"],
               u8_ms=c1m["u8_kernel_device_ms"], plain_u8_ms=c1m["plain_8_frames_device_ms"],
               hull8_ms=h8["u2_kernel_device_ms"], hull8_plain_ms=h8["plain_2_frames_device_ms"]),
         entry("fused_step.dead_rank_claim", "bevy_firework_tpu/ops/fused_step.py:173", "dead_rank_claim",
-              claim["claim_kernels_device_ms"], claim["plain_dead_rank_device_ms"], claim_bound,
+              claim["claim_kernels_device_ms"], claim["plain_dead_rank_device_ms"], claim_bound, source="fused_step.cu",
               kernels=["dead_count_kernel", "tile_scan_kernel", "fused_step_kernel block_dead_rank"],
               ms_1M=c1m["claim_kernels_device_ms"], plain_ms_1M=c1m["plain_dead_rank_device_ms"]),
-        entry("fused_step.fields", "bevy_firework_tpu/ops/fused_step.py:1462", "fields", f1m["u8_kernel_device_ms"],
+        entry("fused_step.fields", "bevy_firework_tpu/ops/fused_step.py:1462", ("fields", "fleet_fields"),
+              f1m["u8_kernel_device_ms"],
               f1m["plain_8_frames_device_ms"], f1m["bounds"]["u8"],
               main_1M_ms=r1m["u8_kernel_device_ms"], also_replaces="bevy_firework_tpu/force_fields.py:197"),
-        entry("fused_step.stats", "bevy_firework_tpu/ops/fused_step.py:1580", "stats", stats_t["ms"],
+        entry("fused_step.stats", "bevy_firework_tpu/ops/fused_step.py:1580", ("stats", "fleet_stats"), stats_t["ms"],
               stats_t["plain_ms"], stats_bound,
               ms_without=stats_t["ms_without"], plain_reductions_ms=stats_t["plain_reductions_ms"]),
-        entry("fused_step.dump", "bevy_firework_tpu/ops/fused_step.py:1567", "dump", dump_t["ms"],
+        entry("fused_step.dump", "bevy_firework_tpu/ops/fused_step.py:1567", ("dump", "fleet_dump"), dump_t["ms"],
               dump_t["plain_ms"], dump_bound, ms_without=dump_t["ms_without"]),
         entry("nested_cadence", "bevy_firework_tpu/ops/fused_step.py:683", "nested_cadence",
-              n60k["cadence_ms_per_pass"], plain_cad_ms, n60k["bounds"]["cadence"],
+              n60k["cadence_ms_per_pass"], plain_cad_ms, n60k["bounds"]["cadence"], source="fused_step.cu",
               also_replaces="bevy_firework_tpu/ops/fused_step.py:866", kernels=list(cadence_names),
               chained_ms=nch["cadence_ms_per_pass"], share_of_frame_60k=n60k["cadence_share_of_frame"],
               share_of_frame_chained=nch["cadence_share_of_frame"]),
@@ -1244,21 +1587,29 @@ def main() -> int:
               n60k["step_ms_per_launch"], n60k["plain_frame_device_ms"], n60k["bounds"]["step"],
               chained_ms=nch["step_ms_per_launch"], chained_plain_ms=nch["plain_frame_device_ms"]),
         entry("nested_child_rows", "bevy_firework_tpu/step.py:411-453", "nested_child_rows",
-              n60k["child_rows_ms_per_launch"], plain_child_ms, n60k["bounds"]["child_rows"],
+              n60k["child_rows_ms_per_launch"], plain_child_ms, n60k["bounds"]["child_rows"], source="fused_step.cu",
               chained_ms=nch["child_rows_ms_per_launch"], reference_route="composed XLA, not Pallas"),
+        entry("fused_step.fleet", "bevy_firework_tpu/ops/fused_step.py:2358", "fleet",
+              res16["u8_fleet_kernel_device_ms"], res16["plain_8_frames_device_ms"], bound16,
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:2029 (grid=(S, tiles) :2031)",
+              solo16_ms=res16["u8_solo16_kernels_device_ms"], launch_wall_ms=res16["u8_fleet_launch_wall_ms"],
+              solo16_wall_ms=res16["u8_solo16_launches_wall_ms"]),
     ]
     emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live); collide: 1310720 lanes "
                           "stress_test_collision; dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
                           "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
-                          "nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: nested_chained)",
+                          "nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: nested_chained); fleet: "
+                          "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s)",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, collide "
                   "U=2 (u8_ms U=8), dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
                   "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "
-                  "scan + apply), nested_merge the hybrid step launch, nested_child_rows one launch; plain_ms: "
+                  "scan + apply), nested_merge the hybrid step launch, nested_child_rows one launch, fleet one U=8 "
+                  "launch of all 16 slots (solo16_ms: the 16 slots' solo U=8 launches); plain_ms: "
                   "device time of the plain version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1 / "
-                  "a hybrid frame for nested_merge), of the plain dead_rank cumsum, of step.nested_cadence (fetch "
+                  "a hybrid frame for nested_merge, 16 x 8 for fleet), of the plain dead_rank cumsum, of "
+                  "step.nested_cadence (fetch "
                   "mode) or step.nested_child_rows; plain_reductions_ms: the plain reductions "
                   "(step.stat_reductions, the CPU's stats); "
                   "*_wall_ms: CUDA-event wall time per call; bound_ms: the larger of bound_bytes over 3.35 TB/s "

@@ -482,3 +482,75 @@ def test_hybrid_frames_match_plain(cuda, case):
     ref, _o = plain_frames(c.static, c.params, s, f, 5, colliders=table)
     for k in active_f32_fields(c.static) + SCALARS + ("last_emitted",):
         assert torch.equal(getattr(sc, k), getattr(ref, k)), k
+
+
+# ---------------------------------------------------------------------------
+# fleets (kernel row 7): S pools of one archetype in one launch
+# ---------------------------------------------------------------------------
+
+import torch_fleet_configs as fleet_cfg  # noqa: E402
+from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools, state_slot  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", fleet_cfg.CASES)
+def test_fleet_kernel_equals_solo_launches(cuda, case):
+    """Each slot of a fleet launch equals a solo launch of its pool, bit for
+    bit (pool, keys, outputs, render planes), and the plain frames of its
+    pool (rotation within 2 ulp), on slots whose params, seeds, frames and
+    fields differ; 16421 lanes per slot: a ragged last tile."""
+    before = fs.fused_step_fleet.launches
+    res = fleet_cfg.check_fleet_equals_solo(case, cuda, 16421, plain=True)
+    assert fs.fused_step_fleet.launches > before
+    assert len(set(res["live"])) == fleet_cfg.S and min(res["live"]) > 1000, res
+    if case == "destroy_dump":
+        assert res["destroyed"] > 1000, res
+
+
+@pytest.mark.cuda
+def test_fleet_launches_in_chunks_of_the_seed_row(cuda):
+    """20 slots at U = 8 take two launches (16 slots of seeds per launch);
+    every slot equals its solo chain, and a chain's stats come from its
+    last launch."""
+    c = pt.compile_spawner(_det_spawner(), device=cuda)
+    pools = [pt.init_pool_for(c, 4096, seed=i) for i in range(20)]
+    frames = [pt.make_frame_input(1 / 50, translation=(float(i), 0.0, 0.0)) for i in range(20)]
+    before = fs.fused_step_fleet.launches
+    st, out = fs.multi_step_fleet(c.static, c.params, None, stack_pools(pools), stack_frames(frames), 17)
+    assert fs.fused_step_fleet.launches - before == 2 * 2 + 1  # two U=8 launches, one U=1, each in 2 chunks
+    for i in (0, 7, 15, 16, 19):
+        si, oi = fs.multi_step_auto(c.static, c.params, None, pools[i], frames[i], 17)
+        for k in ("px", "py", "qx", "qw", "age", "ring_cursor", "time_in_cycle", "rng_key"):
+            assert torch.equal(getattr(state_slot(st, i), k), getattr(si, k)), (i, k)
+        assert int(out.alive_count[i]) == int(oi.alive_count) > 0
+
+
+@pytest.mark.cuda
+def test_fleet_dead_rank_offsets_restart_per_slot(cuda):
+    """The claim's count and scan over a stacked [S, N] alive plane: each
+    slot's tile offsets equal a solo claim over its pool."""
+    g = torch.Generator().manual_seed(5)
+    alive = torch.rand((3, 70001), generator=g) < torch.tensor([[0.2], [0.5], [0.9]])
+    offs = fs.tile_dead_offsets(alive.to(cuda))
+    assert torch.equal(offs.cpu(), fs.tile_dead_offsets(alive))
+    for i in range(3):
+        assert torch.equal(offs[i], fs.tile_dead_offsets(alive[i].to(cuda)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", fleet_cfg.FLOW_SHAPES)
+def test_fleet_one_shot_flow_on_the_card(cuda, shape):
+    """The README's one-shot Fleet flow through `Fleet` on the card, against
+    the same flow stepped by the plain version on the card and by the CPU
+    Fleet: the same finished slots from `drain_finished` every frame (every
+    activated slot once), the same live counts, integer leaves and keys
+    exact, equal render items; f32 under `flow_rule_holds` (bit for bit
+    against the card's plain replay with a box emission)."""
+    before = fs.fused_step_fleet.launches
+    card = fleet_cfg.one_shot_fleet_flow(cuda, shape)
+    assert fs.fused_step_fleet.launches - before == 200
+    assert sorted(s for fin in card["finished"] for s in fin) == sorted(card["activated"])
+    for reference, run in (("plain", fleet_cfg.one_shot_fleet_flow(cuda, shape, plain=True)),
+                           ("cpu", fleet_cfg.one_shot_fleet_flow("cpu", shape))):
+        diff = fleet_cfg.compare_fleet_flows(card, run)
+        assert fleet_cfg.flow_rule_holds(shape, reference, diff), (reference, diff)

@@ -514,3 +514,239 @@ def test_step_n_packs_the_last_frame_once_rendering():
         assert torch.equal(getattr(st, k), getattr(ref, k)) and torch.equal(getattr(slot.state, k), getattr(ref, k)), k
     with pytest.raises(ValueError, match="n_frames"):
         pfs.multi_step_auto_packed(c.static, c.params, None, s0, f, 0)
+
+
+# ---------------------------------------------------------- archetype groups
+
+
+def _sparks_like(pkg, rate, lifetime=0.5):
+    return pkg.ParticleSpawner(
+        particle_settings=[pkg.ParticleSettings(lifetime=pkg.RandF32.constant(lifetime))],
+        emission_settings=[pkg.EmissionSettings(
+            emission_pacing=pkg.EmissionPacing.rate(rate),
+            initial_velocity=pkg.RandVec3(pkg.RandF32(1.0, 2.0), (0, 1, 0), 0.4))])
+
+
+def _same_pool(a, b, label=""):
+    """Two port pools equal leaf for leaf, bit for bit."""
+    for k, v in pt.interop.pool_to_numpy(a).items():
+        np.testing.assert_array_equal(v, pt.interop.pool_to_numpy(b)[k], err_msg=f"{label} {k}")
+
+
+def _solo_scene(seed, spawner, **kw):
+    s = pt.Scene(seed=seed, device="cpu")
+    s.add_spawner(spawner, **kw)
+    return s
+
+
+def test_scene_batches_same_archetype_spawners():
+    """12 same-archetype spawners (different transforms, rates, seeds) step
+    as ONE group whose members equal isolated scenes bit for bit; a
+    different archetype makes a second group: two dispatch groups, as in
+    the JAX Scene; render items still come per spawner."""
+    rates = [100.0 + 25.0 * i for i in range(12)]
+    big = pt.Scene(seed=7, device="cpu")
+    sids = [big.add_spawner(_sparks_like(pt, r), capacity=256, transform=pt.Transform(translation=(float(i), 0, 0)))
+            for i, r in enumerate(rates)]
+    other = big.add_spawner(pt.ParticleSpawner(
+        particle_settings=[pt.ParticleSettings(lifetime=pt.RandF32.constant(1.0))],
+        emission_settings=[pt.EmissionSettings(emission_pacing=pt.EmissionPacing.one_shot(5))]), capacity=256)
+    solos = [_solo_scene(7 + i, _sparks_like(pt, r), capacity=256,
+                         transform=pt.Transform(translation=(float(i), 0, 0))) for i, r in enumerate(rates)]
+    jbig = jx.Scene(seed=7)
+    for i, r in enumerate(rates):
+        jbig.add_spawner(_sparks_like(jx, r), capacity=256, transform=jx.Transform(translation=(float(i), 0, 0)))
+    for _ in range(30):
+        big.step(DT)
+        jbig.step(DT)
+        for s in solos:
+            s.step(DT)
+    assert big._last_step_dispatches == 2 and jbig._last_step_dispatches == 1
+    assert len(big._batches) == 1  # the 12 sparks; the one-shot steps alone
+    for i, sid in enumerate(sids):
+        _same_pool(big._spawners[sid].state, solos[i]._spawners[0].state, f"spawner {i}")
+        assert abs(big.alive_count(sid) - jbig.alive_count(sid)) <= 1
+    assert big.alive_count(other) == 5
+    assert len(big.render_items()) == 13
+
+
+def test_group_churn_restacks_on_the_device():
+    """Membership churn in a batched group: adds, removes (one per frame)
+    and a set_spawner reset mid-group; after every frame each member equals
+    an isolated scene driven through the same edits, bit for bit. The kept
+    members' rows are gathered from the last batch (take_insert), not
+    restacked from their pools."""
+    from bevy_firework_tpu_torch import scene as scenemod
+
+    taken = []
+    real = scenemod.take_insert
+    scenemod.take_insert = lambda *a: taken.append(len(a[2])) or real(*a)
+    try:
+        scene = pt.Scene(seed=3, device="cpu")
+        solos = {}
+
+        def add(rate, translation):
+            sid = scene.add_spawner(_sparks_like(pt, rate), capacity=256, transform=pt.Transform(translation=translation))
+            solos[sid] = _solo_scene(3 + sid, _sparks_like(pt, rate), capacity=256,
+                                     transform=pt.Transform(translation=translation))
+            return sid
+
+        def step():
+            scene.step(DT)
+            for s in solos.values():
+                s.step(DT)
+            assert scene._last_step_dispatches == 1
+            for sid, s in solos.items():
+                _same_pool(scene._spawners[sid].state, s._spawners[0].state, f"sid {sid}")
+
+        sids = [add(100.0 + 20.0 * i, (float(i), 0.0, 0.0)) for i in range(6)]
+        for _ in range(5):
+            step()
+        for k in range(4):
+            gone = sids.pop(k % len(sids))
+            scene.remove_spawner(gone)
+            del solos[gone]
+            sids.append(add(300.0 + 10.0 * k, (0.0, float(k), 0.0)))
+            step()
+        scene.set_spawner(sids[0], _sparks_like(pt, 777.0))
+        solos[sids[0]].set_spawner(0, _sparks_like(pt, 777.0))
+        for _ in range(4):
+            step()
+    finally:
+        scenemod.take_insert = real
+    assert taken == [1, 1, 1, 1, 1]  # each churn frame and the reset insert one new member's rows
+
+
+def test_scene_batched_events_fire_per_spawner():
+    """on_finished per member of a group (one [S] flag read per group)."""
+    fired = []
+    scene = pt.Scene(device="cpu")
+    for i in range(3):
+        sid = scene.add_spawner(pt.ParticleSpawner(
+            particle_settings=[pt.ParticleSettings(lifetime=pt.RandF32.constant(0.05 * (i + 1)))],
+            emission_settings=[pt.EmissionSettings(emission_pacing=pt.EmissionPacing.one_shot(3))]), capacity=64)
+        scene.on_finished(sid, fired.append)
+    for _ in range(30):
+        scene.step(DT)
+    assert sorted(fired) == [0, 1, 2]
+
+
+def test_scene_step_n_batched_matches_step_loop():
+    """Grouped step_n (one multi_step_fleet_stacked chain) == the same scene
+    stepped frame by frame, bit for bit; one dispatch group."""
+    a, b = pt.Scene(seed=3, device="cpu"), pt.Scene(seed=3, device="cpu")
+    for i in range(4):
+        for s in (a, b):
+            s.add_spawner(_sparks_like(pt, 200.0 + 40 * i, 0.4), capacity=128,
+                          transform=pt.Transform(translation=(float(i), 0.0, 0.0)))
+    for _ in range(25):
+        a.step(DT)
+    b.step_n(DT, 25)
+    assert a._last_step_dispatches == b._last_step_dispatches == 1
+    for sid in a.spawner_ids():
+        _same_pool(a._spawners[sid].state, b._spawners[sid].state, f"sid {sid}")
+
+
+def test_batched_group_mutation_restacks_correctly():
+    """queue_particles and set_enabled on one member of a stacked group take
+    its row off the batch and the next step re-inserts it: every member
+    equals an isolated scene doing the same edits; a member's state read
+    from a batch stays as it was after later steps (no aliasing)."""
+    def sp():
+        return pt.ParticleSpawner(
+            particle_settings=[pt.ParticleSettings(lifetime=pt.RandF32.constant(5.0))],
+            emission_settings=[pt.EmissionSettings(emission_pacing=pt.EmissionPacing.on_demand())])
+
+    big = pt.Scene(seed=2, device="cpu")
+    sids = [big.add_spawner(sp(), capacity=64) for _ in range(3)]
+    solos = [_solo_scene(2 + i, sp(), capacity=64) for i in range(3)]
+
+    def step_all():
+        big.step(DT)
+        for s in solos:
+            s.step(DT)
+
+    for _ in range(3):
+        step_all()
+    before = big._spawners[sids[0]].state
+    kept = before.px.clone()
+    big.queue_particles(sids[1], 7)
+    solos[1].queue_particles(0, 7)
+    step_all()
+    big.set_enabled(sids[2], False)
+    solos[2].set_enabled(0, False)
+    big.queue_particles(sids[2], 9)  # queued but disabled: no spawn
+    solos[2].queue_particles(0, 9)
+    for _ in range(2):
+        step_all()
+    for i, sid in enumerate(sids):
+        _same_pool(big._spawners[sid].state, solos[i]._spawners[0].state, f"slot {i}")
+    assert big.alive_count(sids[1]) == 7 and big.alive_count(sids[2]) == 0
+    assert int(big._spawners[sids[2]].state.manual_queued) == 9
+    assert torch.equal(before.px, kept)
+
+
+def test_grouped_destroyed_records_per_spawner():
+    """A group of three destroy-on-collision spawners with handlers: one
+    gather per group, and each handler gets exactly the records its
+    isolated scene's handler gets, frame by frame."""
+    def spawner(sink):
+        return det_spawner(pt, ps=dict(
+            collision_settings=pt.ParticleCollisionSettings(destroy_on_collision=True),
+            event_handlers=pt.ParticleEventHandlers(particles_destroyed=sink.append)))
+
+    ceiling = [pt.Collider.halfspace(position=(0.0, 0.4, 0.0), rotation=FLIP)]
+    got, want = [[] for _ in range(3)], [[] for _ in range(3)]
+    big = pt.Scene(colliders=ceiling, device="cpu")
+    solos = []
+    for i in range(3):
+        tf = pt.Transform(translation=(float(i), -0.1 * i, 0.0))
+        big.add_spawner(spawner(got[i]), capacity=1024, transform=tf)
+        solos.append(pt.Scene(colliders=ceiling, seed=i, device="cpu"))
+        solos[-1].add_spawner(spawner(want[i]), capacity=1024, transform=tf)
+    # the three spawners differ only in their handlers: one archetype
+    assert len({s.compiled.static for s in big._spawners.values()}) == 1
+    for _ in range(30):
+        big.step(1 / 50)
+        for s in solos:
+            s.step(1 / 50)
+        assert big._last_step_dispatches == 1
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 5 and sum(map(len, g)) > 100
+        assert [[dataclasses.astuple(r) for r in rs] for rs in g] == [[dataclasses.astuple(r) for r in rs] for rs in w]
+
+
+def test_grouped_scene_matches_jax_scene():
+    """Four deterministic spawners of one archetype (rates 1000-2500/s at
+    1/50 s: whole counts per frame, no cadence seam) with their own
+    transforms, as one group in both Scenes: every member's bookkeeping
+    exact and its live lanes within 1e-4 (dead lanes' fields carry no
+    meaning), AABBs and render rows within 1e-4, one dispatch group each."""
+    js, ps = _scenes()
+    for i in range(4):
+        tf = dict(translation=(float(i), 0.5 * i, -1.0), rotation=(0.0, math.sin(0.2 * i), 0.0, math.cos(0.2 * i)))
+        js.add_spawner(det_spawner(jx, pacing=jx.EmissionPacing.rate(1000.0 + 500 * i)), capacity=2048,
+                       transform=jx.Transform(**tf))
+        ps.add_spawner(det_spawner(pt, pacing=pt.EmissionPacing.rate(1000.0 + 500 * i)), capacity=2048,
+                       transform=pt.Transform(**tf))
+    for _ in range(30):
+        js.step(1 / 50)
+        ps.step(1 / 50)
+    assert js._last_step_dispatches == ps._last_step_dispatches == 1
+    from test_torch_common import EXACT, F32_LANE, jax_pool_numpy
+
+    for sid in ps.spawner_ids():
+        got, want = pt.interop.pool_to_numpy(ps._spawners[sid].state), jax_pool_numpy(js._spawners[sid].state)
+        for k in EXACT + ("time_in_cycle", "last_emission"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        live = want["alive"]
+        assert live.sum() >= 300
+        for k in F32_LANE:
+            np.testing.assert_allclose(got[k][live], want[k][live], atol=ATOL, rtol=0, err_msg=k)
+        for a, b in zip(ps.aabb(sid), js.aabb(sid)):
+            np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
+    _rows_match(js.render_items(), ps.render_items())
+    js.step(1 / 50)
+    ps.step(1 / 50)  # the group's in-kernel render pack
+    assert all(ps._spawners[sid].render_planes is not None for sid in ps.spawner_ids())
+    _rows_match(js.render_items(), ps.render_items())

@@ -61,11 +61,18 @@ def test_port_imports_no_jax():
 
 
 def test_kernel_table_layout_matches_cuda_source():
-    """The CUDA source takes every layout name (table slots, field slots,
+    """The CUDA sources take every layout name (table slots, field slots,
     frame and field rows, the stats row, kinds, the float constants and the
-    turbulence basis) from the header `table_layout` generates and defines
-    none itself, so the wrapper and the kernel share one layout."""
-    code = re.sub(r"//.*", "", (REPO / "bevy_firework_tpu_torch/ops/csrc/fused_step.cu").read_text())
+    turbulence basis) from the header `table_layout` generates and define
+    none themselves, so the wrapper and the kernels share one layout; every
+    source the build compiles reaches it through the kernel header."""
+    from bevy_firework_tpu_torch.ops import _build
+
+    csrc = REPO / "bevy_firework_tpu_torch/ops/csrc"
+    assert sorted(p.name for p in csrc.iterdir()) == sorted(_build.SOURCES + _build.HEADERS)
+    for name in _build.SOURCES:
+        assert '#include "fused_step_kernel.cuh"' in (csrc / name).read_text(), name
+    code = re.sub(r"//.*", "", "".join((csrc / n).read_text() for n in _build.SOURCES + _build.HEADERS))
     assert '#include "table_layout.h"' in code
     own = {"TWO_PI", "PI_F"}  # the kernel's float constants
     generated = set(L.constants()) | set(L.float_constants()) | set(L.array_constants())
