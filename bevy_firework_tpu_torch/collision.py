@@ -28,9 +28,17 @@ term as `friction_dv * rj * rinv`, and `participating` lanes (alive after
 spawn, not dead by age, of a collision type) as the only lanes with a travel
 budget. Every expression is one IEEE operation per step in a fixed order, so
 on the card the kernel and this module agree bit for bit.
+
+From LOOP_MIN_COLLIDERS colliders the kernel skips, per warp and substep,
+the colliders that no active lane of the warp can reach (the JAX kernel's
+looped narrow phase, `_collide_tile` :452-563). `broad_phase_keep` is that
+test's plain version; the plain narrow phase here tests every collider, so
+it stays the yardstick the skipping kernel must equal.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -51,6 +59,11 @@ from .utils.quat import quat_rotate_comp
 BIG = float(np.float32(1e30))
 EPS = float(np.float32(1e-12))
 SUBSTEPS = 4
+# The broad phase (the JAX package's looped narrow phase, its
+# LOOP_MIN_COLLIDERS and reach = max(max_dist) * 1.001 + 0.01)
+LOOP_MIN_COLLIDERS = 5
+REACH_SCALE = float(np.float32(1.001))
+REACH_MARGIN = float(np.float32(0.01))
 
 
 def _normalize_or_zero(vx, vy, vz):
@@ -313,6 +326,103 @@ def raycast_scene(table: ColliderTable, lane_mask, px, py, pz, dx, dy, dz, max_d
     return hit, torch.where(hit, best, 0.0), bnx, bny, bnz
 
 
+def bounding_radius(kind: int, p0, p1, p2, sqrt=np.sqrt):
+    """The broad phase's bounding-sphere radius about a collider's position
+    (the JAX kernel's, `_collide_tile` :496-505), in f32 operations on its
+    params (numpy float32 scalars, or 0-d tensors with sqrt=torch.sqrt): a
+    sphere's radius, a cuboid's half-diagonal, a capsule's radius plus half
+    segment, a hull's precomputed radius, a cylinder's or cone's
+    sqrt(p0^2 + p1^2). A halfspace has none: 0."""
+    if kind in (COLLIDER_SPHERE, COLLIDER_HULL):
+        return p0
+    if kind == COLLIDER_CUBOID:
+        return sqrt(p0 * p0 + p1 * p1 + p2 * p2)
+    if kind == COLLIDER_CAPSULE:
+        return p0 + p1
+    if kind in (COLLIDER_CYLINDER, COLLIDER_CONE):
+        return sqrt(p0 * p0 + p1 * p1)
+    return p0 * 0
+
+
+def broad_phase_keep(table: ColliderTable, px, py, pz, max_dist, active, group: int = 32) -> torch.Tensor:
+    """The kernel's broad phase in plain PyTorch: per `group`-lane group (a
+    warp: 32 consecutive lanes) and collider, whether the substep tests the
+    collider: [ceil(N / group), C] bool. The group's box is the AABB of its
+    `active` lanes (a lane's NaN coordinate stays out of it, as fminf leaves
+    it); its reach the longest active max_dist (NaN left out) times
+    REACH_SCALE plus REACH_MARGIN. A collider is kept when the group has an
+    active lane, its masked layers are not 0 and its bounding volume comes
+    within reach of the box: a halfspace by the box's support distance to
+    its plane (an unrotated one by min y less the plane's y), the other
+    kinds by the distance from their position to the box's closest point
+    against bounding_radius + reach. A comparison that meets NaN keeps the
+    collider. The same f32 operations as the kernel's; the tests and
+    chip_smoke use it."""
+    n = px.shape[0]
+    g = -(-n // group)
+    dev = px.device
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    inf, zero, one, half = f32(float("inf")), f32(0.0), f32(1.0), f32(0.5)
+    pad = g * group - n
+
+    def fold(v, fill, op):
+        w = torch.where(active & ~torch.isnan(v), v, fill)
+        return op(torch.cat([w, fill.expand(pad)]).view(g, group), dim=1)
+
+    mnx, mny, mnz = (fold(v, inf, torch.amin) for v in (px, py, pz))
+    mxx, mxy, mxz = (fold(v, -inf, torch.amax) for v in (px, py, pz))
+    reach = fold(max_dist, zero, torch.amax) * f32(REACH_SCALE) + f32(REACH_MARGIN)
+    any_active = torch.cat([active, torch.zeros(pad, dtype=torch.bool, device=dev)]).view(g, group).any(1)
+    layers = masked_layers(table)
+    keep = []
+    for ci in range(table.count):
+        cx, cy, cz = table.position[ci, 0], table.position[ci, 1], table.position[ci, 2]
+        kind = table.kinds[ci]
+        if kind == COLLIDER_HALFSPACE and table.identity_rot[ci]:
+            far = (mny - cy) > reach
+        elif kind == COLLIDER_HALFSPACE:
+            qx, qy, qz, qw = (table.rotation[ci, j] for j in range(4))
+            nx, ny, nz = quat_rotate_comp(qx, qy, qz, qw, zero, one, zero)
+            signed = ((mnx + mxx) * half - cx) * nx + ((mny + mxy) * half - cy) * ny + ((mnz + mxz) * half - cz) * nz
+            support = nx.abs() * ((mxx - mnx) * half) + ny.abs() * ((mxy - mny) * half) + nz.abs() * ((mxz - mnz) * half)
+            far = (signed - support) > reach
+        else:
+            radius = bounding_radius(kind, *(table.params[ci, j] for j in range(3)), sqrt=torch.sqrt)
+            d2 = zero
+            for c, lo, hi in ((cx, mnx, mxx), (cy, mny, mxy), (cz, mnz, mxz)):
+                q = torch.where(c < lo, lo, c)
+                q = torch.where(q > hi, hi, q)  # the kernel's clampf
+                d2 = d2 + (c - q) * (c - q)
+            rr = radius + reach
+            far = d2 > rr * rr
+        keep.append(any_active & (layers[ci] != 0) & ~far)
+    if not keep:
+        return torch.zeros((g, 0), dtype=torch.bool, device=dev)
+    return torch.stack(keep, 1)
+
+
+_substep_log = None  # the list `record_substeps` fills, or None
+
+
+@contextlib.contextmanager
+def record_substeps():
+    """Within the block, every particle_collision substep appends its ray
+    inputs before its raycast to the yielded list, a dict of px, py, pz,
+    dx, dy, dz, max_dist, active (the substep's lane_active) and lane_mask:
+    `broad_phase_keep`'s inputs for a frame's substeps (the skip share that
+    chip_smoke reports, the winners the tests hold it to). Records only;
+    no result changes."""
+    global _substep_log
+    _substep_log = []
+    try:
+        yield _substep_log
+    finally:
+        _substep_log = None
+
+
 def particle_collision(table: ColliderTable, px, py, pz, vx, vy, vz, dt, restitution, friction, destroy_flag,
                        lane_mask, participating=None):
     """`particle_collision` (reference `src/core.rs:744-800`) on [N] lanes.
@@ -335,6 +445,9 @@ def particle_collision(table: ColliderTable, px, py, pz, vx, vy, vz, dt, restitu
         dy = torch.where(ok, vy * inv, 1.0)
         dz = torch.where(ok, vz * inv, 0.0)
         max_dist = speed * delta
+        if _substep_log is not None:
+            _substep_log.append(dict(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz, max_dist=max_dist,
+                                     active=lane_active, lane_mask=lane_mask))
         hit, dist, nx, ny, nz = raycast_scene(table, lane_mask, px, py, pz, dx, dy, dz, max_dist)
         hit = hit & lane_active
         dist = torch.where(hit, dist, 0.0)

@@ -48,19 +48,27 @@
 //    offset before the step, and the step adds a block-local ballot scan.
 //  * Collision: per lane, one loop over the colliders in table order with a
 //    strict `dist < best` (the first of tied colliders wins, as in the XLA
-//    path and the TPU kernel's (dist, index) tie-break); collider rows and
-//    hull planes sit in shared memory, loaded once per block; unrotated
-//    colliders skip the quaternion rotations. The TPU's per-tile substep
-//    gating and its grouped, broad-phase-culled collider loop were VPU
-//    measures and are not carried over: a lane leaves the substep loop as
-//    soon as it has no travel budget, which is the same per-lane result.
+//    path and the TPU kernel's (dist, index) tie-break); the collider rows
+//    and each hull's own plane rows sit in shared memory, loaded once per
+//    block, or past SMEM_COLLIDER_WORDS are read in place (warp-uniform
+//    addresses); unrotated colliders skip the quaternion rotations. Below
+//    LOOP_MIN_COLLIDERS colliders a lane leaves the substep loop as soon as
+//    it has no travel budget (the TPU's per-tile substep gating gives the
+//    same per-lane result). From LOOP_MIN_COLLIDERS on, the TPU's looped
+//    narrow phase with its broad phase (`_collide_tile` :452-563) becomes a
+//    per-warp broad phase: the substep loop is warp-uniform, the warp's
+//    active lanes fold a box and a reach by shuffles, and a collider no
+//    lane can reach is skipped by the whole warp (collide_broad). Its
+//    (kind, rotation) grouping of the colliders was a Mosaic measure and is
+//    not carried over: a warp's lanes test one collider at a time, so the
+//    kind switch is warp-uniform.
 //  * Randomness: Philox-4x32-10, key (seed_u, 0), counter (g, block, 0, 0),
 //    uniforms from the top 24 bits, draw order shape 0-2, velocity 3-5,
 //    radial 6, scale 7, then lifetime, then angular velocity. The torch
 //    version in bevy_firework_tpu_torch/prng.py gives the same bits.
-//  * Force fields: the scene's field records ride the launch arguments by
-//    value (a table the host edits every frame costs no device copy) and are
-//    staged once per block in shared memory; each surviving lane evaluates
+//  * Force fields: the scene's field records sit in a device buffer (one
+//    copy per edited table) and are staged once per block in shared memory
+//    (past SMEM_FIELD_WORDS read in place); each surviving lane evaluates
 //    them at its post-move position and adds them, weighted by its type's
 //    opt-in, to the type's acceleration before drag (the plain version's op
 //    order). A lane on a field's singular locus gets 0 from it by a select.
@@ -68,9 +76,10 @@
 //    gated by the type's destroyed handler; written when the launch passes
 //    it (dump archetypes step one frame per launch).
 //  * Stats: the TPU carried its SMEM stat rows across its in-order grid;
-//    CUDA blocks run concurrently, so each thread folds its lanes (min, max,
-//    counts over the last sub-frame's survivors), each block reduces its
-//    threads into one partial row, and the last block to finish (an atomic
+//    CUDA blocks run concurrently, so each thread folds its lanes (min, max
+//    and the alive count over the last sub-frame's survivors), each warp
+//    counts its survivors per type (a ballot per type), each block reduces
+//    these into one partial row, and the last block to finish (an atomic
 //    ticket after __threadfence) reduces the partial rows into the output
 //    row. Min, max and integer sums are exact in any order, so the row
 //    equals the plain reductions.
@@ -109,8 +118,11 @@
 //    carries none of their registers, barriers or shared memory.
 //  * Spawner structure (emitter/type counts, pacing kinds, curve kinds and
 //    knot counts, elision flags, collision types) and all
-//    parameters come from one small device table read at run time; branches
-//    on it are warp-uniform. The table's and the collider table's layouts,
+//    parameters come from one small device table read at run time, sized
+//    by its emitters, types and knots (its header holds the row offsets);
+//    branches on it are warp-uniform. The arrays those counts size (the
+//    cadence windows, the merge records, the per-type counts) live in
+//    dynamic shared memory. The table's and the collider table's layouts,
 //    the field slots, the frame row, the kind enumerations and the narrow
 //    phase's float constants are defined once, in ops/table_layout.py; the
 //    build generates "table_layout.h" from it, so this file states none of
@@ -137,7 +149,8 @@
 // on the dead-rank claim, plus 1 B for the dump plane. Arithmetic per
 // lane-frame is a few dozen flops outside spawn lanes; spawn lanes add three
 // Philox blocks and the samplers' sinf/cosf; colliding lanes add up to 4
-// substeps x C ray tests, which at C = 8 hulls makes the step
+// substeps x C ray tests (from LOOP_MIN_COLLIDERS, the tests of the
+// colliders their warp's box keeps), which at C = 8 hulls makes the step
 // arithmetic-bound; a turbulence field adds 9 cosf and ~80 flops per lane
 // and sub-frame, the other kinds ~25 flops each. The stats add one row per
 // block and a final pass over at most MAX_BLOCKS rows.
@@ -250,12 +263,12 @@ struct NestedLane {
 
 __device__ __forceinline__ NestedLane nested_lane(const int* tab, const NestedArgs& a, int g) {
   NestedLane l;
-  const int row = EM_AT + a.e * EM_STRIDE;
+  const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
   const bool alive = a.alive[g] != 0;
   l.life = a.lifetime ? a.lifetime[g] : tabf(tab, H_CONST_LIFE_VAL);
   l.base_le = alive ? a.le_in[g] : __int_as_float((int)0xff7fffffu);  // lazy reset to f32::MIN
   l.pm = alive && *a.gate != 0;
-  if (a.ptype) l.pm = l.pm && a.ptype[g] == tabi(tab, H_TARGET + a.e);
+  if (a.ptype) l.pm = l.pm && a.ptype[g] == tabi(tab, row + EM_TARGET);
   emission_count(a.age[g], l.base_le, l.life, tabf(tab, row + EM_OFF_START), tabf(tab, row + EM_OFF_END),
                  tabf(tab, row + EM_COUNT), &l.count, &l.next_full);
   if (!l.pm) l.count = 0;
@@ -309,7 +322,7 @@ __global__ void __launch_bounds__(TILE) nested_count_kernel(const int* __restric
 
 __global__ void __launch_bounds__(TILE) nested_apply_kernel(const int* __restrict__ tab, NestedArgs a, int n_tiles) {
   __shared__ int s_warp[TILE / 32];
-  const int row = EM_AT + a.e * EM_STRIDE;
+  const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
   const float off_s = tabf(tab, row + EM_OFF_START), off_e = tabf(tab, row + EM_OFF_END);
   const float between = (off_e - off_s) / tabf(tab, row + EM_COUNT);
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -340,6 +353,7 @@ __global__ void __launch_bounds__(TILE) nested_apply_kernel(const int* __restric
     const int start = a.start_in ? *a.start_in : 0;
     a.rec[NS_TOTAL] = total;
     a.rec[NS_N] = n_sp;
+    a.rec[NS_EMITTER] = a.e;
     a.rec[NS_START] = start;
     if (a.ring) {
       a.rec[NS_NEXT] = (int)(((long long)start + n_sp) % a.n);
@@ -417,8 +431,8 @@ __global__ void __launch_bounds__(TILE) nested_child_rows_kernel(const int* __re
       threefry2x32(a.k0, a.k1, 0u, (uint32_t)(i * a.m + r), &b0, &b1);
       u[i] = __int_as_float((int)(((b0 ^ b1) >> 9) | 0x3f800000u)) - 1.0f;
     }
-    const int row = EM_AT + a.e * EM_STRIDE;
-    const int ti = tabi(tab, H_PINDEX + a.e);
+    const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
+    const int ti = tabi(tab, row + EM_PINDEX);
     const int trow = TY_AT + ti * TY_STRIDE;
     float offx, offy, offz, ivx, ivy, ivz;
     shape_point(tab, row + EM_SHAPE, u[0], u[1], u[2], &offx, &offy, &offz);
@@ -483,44 +497,48 @@ extern "C" {
 // hold device pointers: field_in/field_out have N_FIELDS slots (null for an
 // elided field), scal_in/scal_out 5 (time_in_cycle f32[E], last_emission
 // f32[E], enabled u8[E], manual_queued i32, ring_cursor i32), render_out
-// N_RENDER or null. colliders is a COLLIDER_WORDS table with n_colliders
-// rows (n_colliders 0: no narrow phase). Non-ring archetypes (U = 1) pass
-// the alive planes (u8) and the tile offsets bf_dead_rank_offsets wrote;
-// ring archetypes pass nulls. frame is FRAME_WORDS host floats, seeds
-// `unroll` host words, fields FIELD_WORDS host words holding n_fields
-// records (n_fields 0: no force fields). dump_out is the u8 dump plane or
-// null. stats_out (STATS_WORDS words) or null; with it, stats_partial holds
-// MAX_BLOCKS rows of scratch and stats_ticket one word that is 0 at launch.
+// N_RENDER or null. tables is the spawner table of n_emitters emitters and
+// n_types types (pack_tables). colliders is the collider table of
+// n_colliders rows and collider_words words (pack_colliders; n_colliders 0:
+// no narrow phase). Non-ring archetypes (U = 1) pass the alive planes (u8)
+// and the tile offsets bf_dead_rank_offsets wrote; ring archetypes pass
+// nulls. frame is FRAME_WORDS host floats, seeds `unroll` host words, fields
+// n_fields FF_STRIDE records in device memory (n_fields 0: no force
+// fields). dump_out is the u8 dump plane or null. stats_out (ST_TYPES +
+// n_types words) or null; with it, stats_partial holds one such row per
+// block (at most MAX_BLOCKS) and stats_ticket one word that is 0 at launch.
 // A hybrid frame of a nested archetype (U = 1) passes any_alive (one int,
 // the pre-spawn flag), the nested scalars (NS_* records of n_merge
-// emitters, merge_e[i] the emitter of record i) and the child rows
+// emitters, each naming its emitter) and the child rows
 // [n_merge][child_rows][merge_m]; other launches pass a null any_alive.
 // A fleet launch (kernel row 7) steps n_slots pools of n lanes each, of one
 // archetype: every plane is [n_slots][n], the scalars [n_slots][E] or
 // [n_slots], the tile offsets [n_slots][ceil(n / TILE)], the dump and
-// render planes [n_slots][n], the stats row [n_slots][STATS_WORDS] with
-// stats_partial [n_slots][min(ceil(n / TILE), MAX_BLOCKS)] rows and
-// n_slots tickets; tables holds one TABLE_WORDS table per slot tab_stride
-// words apart (0: one for all), seeds [n_slots][unroll] host words, and
-// slot_rows (device, [n_slots][SLOT_WORDS]) each slot's frame row and
-// field records in place of frame and fields (which it ignores). A solo
-// launch passes n_slots 1 and a null slot_rows. Returns the cudaError_t of
-// the launch (0 = success).
-int bf_fused_step(const void* tables, const void* colliders, int n_colliders, void* const* field_in,
-                  void* const* field_out, const void* ptype_in, void* ptype_out, const void* alive_in,
-                  void* alive_out, const void* tile_dead_offset, void* const* scal_in, void* const* scal_out,
-                  void* const* render_out, const float* frame, const uint32_t* seeds, int unroll, int n,
-                  const int* fields, int n_fields, void* dump_out, void* stats_partial, void* stats_ticket,
-                  void* stats_out, const void* any_alive, const void* nested, const void* child, int n_merge,
-                  const int* merge_e, int merge_m, int child_rows, int n_slots, int tab_stride,
-                  const void* slot_rows, void* stream) {
-  if (unroll < 1 || unroll > MAX_U || n <= 0 || n_colliders < 0 || n_colliders > MAX_C || n_fields < 0 ||
-      n_fields > MAX_F || n_slots < 1 || n_slots * unroll > SEED_WORDS || (long long)n_slots * n > 0x7FFFFFFFLL ||
-      tab_stride < 0 || (n_slots > 1 && slot_rows == nullptr))
-    return (int)cudaErrorInvalidValue;
+// render planes [n_slots][n], the stats row [n_slots][ST_TYPES + n_types]
+// with stats_partial [n_slots][min(ceil(n / TILE), MAX_BLOCKS)] rows and
+// n_slots tickets; tables holds one table per slot tab_stride words apart
+// (0: one for all), seeds [n_slots][unroll] host words, and slot_rows
+// (device, [n_slots][slot_words]) each slot's frame row and n_fields field
+// records in place of frame and fields (which it ignores). A solo launch
+// passes n_slots 1 and a null slot_rows. Returns the cudaError_t of the
+// launch (0 = success).
+int bf_fused_step(const void* tables, const void* colliders, int n_colliders, int collider_words,
+                  void* const* field_in, void* const* field_out, const void* ptype_in, void* ptype_out,
+                  const void* alive_in, void* alive_out, const void* tile_dead_offset, void* const* scal_in,
+                  void* const* scal_out, void* const* render_out, const float* frame, const uint32_t* seeds,
+                  int unroll, int n, int n_emitters, int n_types, const void* fields, int n_fields, void* dump_out,
+                  void* stats_partial, void* stats_ticket, void* stats_out, const void* any_alive,
+                  const void* nested, const void* child, int n_merge, int merge_m, int child_rows, int n_slots,
+                  int tab_stride, const void* slot_rows, int slot_words, void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
-  if (merge && (unroll != 1 || fleet || n_merge < 0 || n_merge > MAX_E || (n_merge > 0 && (nested == nullptr ||
-                child == nullptr || merge_m <= 0))))
+  if (unroll < 1 || unroll > MAX_U || n <= 0 || n_emitters < 1 || n_types < 1 || n_colliders < 0 ||
+      collider_words < n_colliders * CO_STRIDE || (n_colliders > 0 && colliders == nullptr) || n_fields < 0 ||
+      (n_fields > 0 && !fleet && fields == nullptr) || n_slots < 1 || n_slots * unroll > SEED_WORDS ||
+      (long long)n_slots * n > 0x7FFFFFFFLL || tab_stride < 0 || (n_slots > 1 && !fleet) ||
+      (fleet && slot_words < SL_FIELDS + n_fields * FF_STRIDE))
+    return (int)cudaErrorInvalidValue;
+  if (merge && (unroll != 1 || fleet || n_merge < 0 || (n_merge > 0 && (nested == nullptr || child == nullptr ||
+                merge_m <= 0))))
     return (int)cudaErrorInvalidValue;
   if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
     return (int)cudaErrorInvalidValue;
@@ -538,6 +556,8 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, vo
   a.tile_dead_offset = (const int*)tile_dead_offset;
   a.colliders = (const int*)colliders;
   a.n_colliders = n_colliders;
+  a.col_words = collider_words;
+  a.col_smem = n_colliders > 0 && collider_words <= SMEM_COLLIDER_WORDS;
   a.tic_in = (const float*)scal_in[0];
   a.last_in = (const float*)scal_in[1];
   a.en_in = (const uint8_t*)scal_in[2];
@@ -555,31 +575,43 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, vo
   a.stats_ticket = (unsigned*)stats_ticket;
   a.stats_out = (int*)stats_out;
   for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = fleet ? 0.0f : frame[i];
-  for (int i = 0; i < FIELD_WORDS; ++i) a.fields[i] = !fleet && i < n_fields * FF_STRIDE ? fields[i] : 0;
+  a.fields = fleet ? nullptr : (const int*)fields;
   a.n_fields = n_fields;
+  a.ff_smem = n_fields > 0 && n_fields * FF_STRIDE <= SMEM_FIELD_WORDS;
   a.slot_rows = (const int*)slot_rows;
+  a.slot_words = slot_words;
   a.tab_stride = tab_stride;
   for (int i = 0; i < SEED_WORDS; ++i) a.seeds[i] = i < n_slots * unroll ? seeds[i] : 0u;
   a.unroll = unroll;
   a.n = n;
+  a.E = n_emitters;
+  a.T = n_types;
   a.any_alive = (const int*)any_alive;
   a.nested = (const int*)nested;
   a.child = (const float*)child;
   a.n_merge = merge ? n_merge : 0;
   a.merge_m = merge_m;
   a.child_rows = child_rows;
-  for (int i = 0; i < MAX_E; ++i) a.merge_e[i] = i < a.n_merge ? merge_e[i] : 0;
 
   const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
   const bool ring = alive_in == nullptr;
   const void* kernel = fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(
                                    collide, with_fields, stats, 0)
                              : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, with_fields, stats, merge);
+  // the tables' shared memory (the kernel's smem_layout with its flags: a
+  // count of 0 stages nothing); past the default, the instantiation opts in
+  const SmemLayout lay = smem_layout(unroll, n_emitters, a.n_merge, stats ? n_types : 0,
+                                     a.ff_smem ? n_fields * FF_STRIDE : 0, a.col_smem ? collider_words : 0);
+  const size_t smem = (size_t)lay.words * sizeof(int);
+  if (smem > (size_t)DEFAULT_SMEM_BYTES) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   long long blocks = ((long long)n + TILE - 1) / TILE;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;  // tile-stride beyond that
   const int* tab = (const int*)tables;
   void* params[] = {(void*)&tab, (void*)&a};
-  cudaError_t err = cudaLaunchKernel(kernel, dim3((unsigned)blocks, (unsigned)n_slots), dim3(TILE), params, 0,
+  cudaError_t err = cudaLaunchKernel(kernel, dim3((unsigned)blocks, (unsigned)n_slots), dim3(TILE), params, smem,
                                      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -617,7 +649,7 @@ int bf_nested_cadence(const void* tables, int e, const void* alive, const void* 
                       void* const* fetch_in, void* fetch_out, int n_fetch, void* scratch, const void* start_in,
                       const void* dead_counts, const void* dead_offsets, void* record, void* any_alive, int n,
                       int m, int ring, void* stream) {
-  if (n <= 0 || m <= 0 || m > n || e < 0 || e >= MAX_E || n_fetch < 0 || n_fetch > MAX_FETCH ||
+  if (n <= 0 || m <= 0 || m > n || e < 0 || n_fetch < 0 || n_fetch > MAX_FETCH ||
       (n_fetch > 0) == (cum != nullptr) || (!ring && (dead_counts == nullptr || dead_offsets == nullptr)))
     return (int)cudaErrorInvalidValue;
   NestedArgs a;
@@ -667,7 +699,7 @@ int bf_nested_cadence(const void* tables, int e, const void* alive, const void* 
 int bf_nested_child_rows(const void* tables, int e, const float* frame, uint32_t k0, uint32_t k1,
                          const void* parent_vals, const void* cum, void* const* parent_planes, int n_parent,
                          void* record, const void* alive, void* out, int n_draws, int n, int m, void* stream) {
-  if (n <= 0 || m <= 0 || e < 0 || e >= MAX_E || (n_parent != 6 && n_parent != 10) || n_draws < 8 ||
+  if (n <= 0 || m <= 0 || e < 0 || (n_parent != 6 && n_parent != 10) || n_draws < 8 ||
       n_draws > 12 || (parent_vals == nullptr) == (cum == nullptr) || (record != nullptr && alive == nullptr))
     return (int)cudaErrorInvalidValue;
   ChildArgs a;

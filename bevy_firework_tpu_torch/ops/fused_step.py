@@ -7,9 +7,9 @@ dead-rank-claim, force-field, dump, kernel-stats and nested-merge blocks),
 optionally writing the render-pack planes of the last frame.
 Destroy-on-collision archetypes claim by dead-slot rank: before their step,
 `tile_dead_offsets` launches the claim's count and scan kernels. Scene
-force fields ride the frame input (`FrameInput.force_fields`) and enter the
-launch arguments by value; archetypes with a destroyed handler get the dump
-plane (`StepOutputs.destroyed_mask`).
+force fields ride the frame input (`FrameInput.force_fields`); their records
+go to the card once per table (`kernel_fields`); archetypes with a destroyed
+handler get the dump plane (`StepOutputs.destroyed_mask`).
 
 Archetypes with a nested emitter step hybrid frames (`fused_step_hybrid`,
 the JAX package's hybrid with its in-kernel merge, unfolded): per valid
@@ -29,8 +29,11 @@ Dispatch is by the device of the pool's tensors and nothing else:
     `step.nested_child_rows`, `render.pack_render_planes`,
     `tile_dead_offsets`' cumsum), which keep the kernels' op order and
     random-bit layout.
-Tables outside the kernel's capacities raise on either device; nothing
-falls back.
+The kernel's tables are sized from the spawner and the scene, so the card
+takes every count of emitters, types, knots, colliders and force fields
+that the CPU takes; nothing falls back. From LOOP_MIN_COLLIDERS colliders
+the narrow phase skips, per warp and substep, the colliders no active lane
+can reach (`broad_phase_on`; its plain version `collision.broad_phase_keep`).
 
 The stats of a frame (AABB, alive and per-type counts): on the card the
 kernel's stats block writes them in one row whenever they are asked for, and
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from ..colliders import COLLIDER_HULL, ColliderTable, masked_layers
+from ..collision import LOOP_MIN_COLLIDERS, bounding_radius
 from ..compiled import SpawnerParams, SpawnerStatic
 from ..parallel.sharding import (
     frame_slot,
@@ -102,47 +106,40 @@ def can_unroll(static: SpawnerStatic) -> bool:
     return can_fuse(static) and static.derived_alive
 
 
-def check_kernel_scope(static: SpawnerStatic, colliders=None, frame: Optional[FrameInput] = None,
-                       unroll: int = 1) -> None:
-    """Raise NotImplementedError for a table beyond the kernel's capacities,
-    ValueError for a bad unroll."""
+def broad_phase_on(static: SpawnerStatic, colliders) -> bool:
+    """The narrow phase runs with its per-warp broad phase: LOOP_MIN_COLLIDERS
+    colliders or more (the JAX package's looped form engages there)."""
+    return collision_on(static, colliders) and colliders.count >= LOOP_MIN_COLLIDERS
+
+
+def check_kernel_scope(static: SpawnerStatic, unroll: int = 1) -> None:
+    """Raise ValueError for an unroll the archetype cannot take. The tables
+    are sized from the spawner and the scene, so every count the plain
+    version takes, the kernel takes too."""
     if not 1 <= unroll <= MAX_UNROLL:
         raise ValueError(f"unroll must be in 1..{MAX_UNROLL}, got {unroll}")
     if unroll > 1 and not can_unroll(static):
         raise ValueError("unroll > 1 needs global emitters only, ring claims and no destroyed handler "
                          "(nested, destroy-on-collision and dump archetypes step one frame per launch)")
-    if static.num_emitters > L.MAX_E or static.num_types > L.MAX_T:
-        raise NotImplementedError(f"the kernel's tables hold at most {L.MAX_E} emitters and {L.MAX_T} types")
-    if colliders is not None and colliders.count > L.MAX_C:
-        raise NotImplementedError(f"the kernel's collider table holds at most {L.MAX_C} colliders")
-    if frame is not None and frame.force_fields is not None and frame.force_fields.count > L.MAX_F:
-        raise NotImplementedError(f"the kernel's field row holds at most {L.MAX_F} force fields")
 
 
 def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
-    """The kernel's table buffer (int32 words, f32 values stored bitwise):
-    spawner structure in a header, then emitter rows, type rows and curve
-    rows, at the slots `table_layout` names."""
+    """The kernel's table buffer (int32 words, f32 values stored bitwise),
+    sized by its emitters, types and knots (`table_layout.table_words`): a
+    header with the counts and the row offsets that follow from them, then
+    type rows, emitter rows and per type a block of curve rows, at the slots
+    `table_layout` names."""
     p = params.to_numpy()
     K = p["scale_ts"].shape[1]
-    if K > L.MAX_K:
-        raise NotImplementedError(f"curves with more than {L.MAX_K} knots are outside the kernel's tables")
-    words = np.zeros(L.TABLE_WORDS, np.int32)
-    fl = words.view(np.float32)
     E, T = static.num_emitters, static.num_types
-    words[[L.H_E, L.H_SINGLE, L.H_ELIDE_ROT]] = [E, int(static.single_type), int(static.elide_rotation)]
-    words[L.H_HAS_COL:L.H_HAS_COL + T] = static.collision_types
-    words[L.H_DUMP:L.H_DUMP + T] = static.destroyed_dump_types
-    words[L.H_CONST_LIFE] = int(static.const_lifetime is not None)
+    em_at = L.TY_AT + T * L.TY_STRIDE
+    cv_at = em_at + E * L.EM_STRIDE
+    words = np.zeros(L.table_words(E, T, K), np.int32)
+    fl = words.view(np.float32)
+    words[[L.H_E, L.H_T, L.H_K, L.H_SINGLE, L.H_ELIDE_ROT, L.H_CONST_LIFE, L.H_EM_AT, L.H_CV_AT]] = [
+        E, T, K, int(static.single_type), int(static.elide_rotation), int(static.const_lifetime is not None), em_at,
+        cv_at]
     fl[L.H_CONST_LIFE_VAL] = 0.0 if static.const_lifetime is None else static.const_lifetime
-    words[L.H_PACING:L.H_PACING + E] = static.pacing_kinds
-    words[L.H_PINDEX:L.H_PINDEX + E] = static.particle_indices
-    words[L.H_MODE:L.H_MODE + E] = static.mode_kinds
-    words[L.H_TARGET:L.H_TARGET + E] = static.target_types
-    for t, (k, n) in enumerate(static.scale_curve_meta):
-        words[L.H_SCALE_KIND + t], words[L.H_SCALE_N + t] = k, n
-    for t, (bk, bn, ek, en) in enumerate(static.color_curve_meta):
-        words[[L.H_BASE_KIND + t, L.H_BASE_N + t, L.H_EMIS_KIND + t, L.H_EMIS_N + t]] = [bk, bn, ek, en]
     emitter_slots = ((L.EM_COUNT, "count"), (L.EM_DURATION, "duration"), (L.EM_OFF_START, "off_start"),
                      (L.EM_OFF_END, "off_end"), (L.EM_SHAPE, "shape_params"), (L.EM_IVEL, "ivel_params"),
                      (L.EM_IANG, "iangvel_params"), (L.EM_RADIAL_LO, "radial_lo"), (L.EM_RADIAL_HI, "radial_hi"),
@@ -158,19 +155,27 @@ def pack_tables(static: SpawnerStatic, params: SpawnerParams) -> np.ndarray:
         fl[at:at + v.size] = v
 
     for e in range(E):
+        row = em_at + e * L.EM_STRIDE
         for slot, name in emitter_slots:
-            put(L.EM_AT + e * L.EM_STRIDE + slot, p[name][e])
+            put(row + slot, p[name][e])
+        words[[row + L.EM_PACING, row + L.EM_PINDEX, row + L.EM_MODE, row + L.EM_TARGET]] = [
+            static.pacing_kinds[e], static.particle_indices[e], static.mode_kinds[e], static.target_types[e]]
     for t in range(T):
+        row = L.TY_AT + t * L.TY_STRIDE
         for slot, name in type_slots:
-            put(L.TY_AT + t * L.TY_STRIDE + slot, p[name][t])
-        words[L.TY_AT + t * L.TY_STRIDE + L.TY_COLL_MASK] = np.uint32(p["collision_mask"][t]).view(np.int32)
+            put(row + slot, p[name][t])
+        words[row + L.TY_COLL_MASK] = np.uint32(p["collision_mask"][t]).view(np.int32)
+        (k, n), (bk, bn, ek, en) = static.scale_curve_meta[t], static.color_curve_meta[t]
+        words[[row + s for s in (L.TY_SCALE_KIND, L.TY_SCALE_N, L.TY_BASE_KIND, L.TY_BASE_N, L.TY_EMIS_KIND,
+                                 L.TY_EMIS_N, L.TY_HAS_COL, L.TY_DUMP)]] = [
+            k, n, bk, bn, ek, en, int(static.collision_types[t]), int(static.destroyed_dump_types[t])]
         curve_rows = {L.CV_SCALE_TS: p["scale_ts"][t], L.CV_SCALE_VS: p["scale_vs"][t],
                       L.CV_BASE_TS: p["base_ts"][t], L.CV_EMIS_TS: p["emis_ts"][t]}
         for c in range(4):
             curve_rows[L.CV_BASE_TS + 1 + c] = p["base_vs"][t][:, c]
             curve_rows[L.CV_EMIS_TS + 1 + c] = p["emis_vs"][t][:, c]
         for r, vals in curve_rows.items():
-            put(L.CV_AT + t * L.CV_STRIDE + r * L.MAX_K, vals)
+            put(cv_at + (t * L.CV_ROWS + r) * K, vals)
     return words
 
 
@@ -178,8 +183,9 @@ def kernel_tables(static: SpawnerStatic, params: SpawnerParams) -> torch.Tensor:
     """`pack_tables` on the params' device, built once per (params, static)
     and kept in the params object (a frozen dataclass; the cache lives in
     its __dict__, beside the fields it is derived from). Stacked params
-    (a fleet's) give [S, TABLE_WORDS]: their members' tables stacked, or
-    one table packed per slot. The copy to the card does not wait."""
+    (a fleet's) give [S, words]: their members' tables stacked, or one
+    table packed per slot (one archetype: one size). The copy to the card
+    does not wait."""
     cache = params.__dict__.setdefault("_kernel_tables", {})
     if static not in cache:
         if not is_stacked_params(params):
@@ -194,16 +200,18 @@ def kernel_tables(static: SpawnerStatic, params: SpawnerParams) -> torch.Tensor:
 
 def pack_colliders(colliders: ColliderTable) -> np.ndarray:
     """The kernel's collider table (int32 words, f32 values stored bitwise):
-    one row per collider, then each hull's plane rows, at the slots
-    `table_layout` names. Disabled colliders carry layers 0
-    (`masked_layers`); the uint32 layers keep their bits."""
-    if colliders.count > L.MAX_C:
-        raise NotImplementedError(f"the kernel's collider table holds at most {L.MAX_C} colliders")
-    words = np.zeros(L.COLLIDER_WORDS, np.int32)
+    one row per collider at the slots `table_layout` names, then each
+    hull's own plane rows, which its row points to (CO_PLANES). Each row
+    carries the broad phase's bounding radius (`collision.bounding_radius`,
+    f32). Disabled colliders carry layers 0 (`masked_layers`); the uint32
+    layers keep their bits."""
+    C = colliders.count
+    words = np.zeros(C * L.CO_STRIDE + 4 * sum(colliders.hull_counts), np.int32)
     fl = words.view(np.float32)
     pos, rot, par = (getattr(colliders, k).cpu().numpy() for k in ("position", "rotation", "params"))
     layers = masked_layers(colliders).cpu().numpy().astype(np.uint32).view(np.int32)
     planes = colliders.hull_planes.cpu().numpy()
+    at = C * L.CO_STRIDE
     for ci, kind in enumerate(colliders.kinds):
         row = ci * L.CO_STRIDE
         words[row + L.CO_KIND] = kind
@@ -213,9 +221,12 @@ def pack_colliders(colliders: ColliderTable) -> np.ndarray:
         fl[row + L.CO_POS:row + L.CO_POS + 3] = pos[ci]
         fl[row + L.CO_ROT:row + L.CO_ROT + 4] = rot[ci]
         fl[row + L.CO_PARAMS:row + L.CO_PARAMS + 3] = par[ci]
+        fl[row + L.CO_RADIUS] = bounding_radius(kind, *par[ci])
         if kind == COLLIDER_HULL:
-            at = L.CO_PLANES_AT + ci * L.CO_PLANE_STRIDE
-            fl[at:at + L.CO_PLANE_STRIDE] = planes[ci].reshape(-1)
+            n = colliders.hull_counts[ci]
+            words[row + L.CO_PLANES] = at
+            fl[at:at + 4 * n] = planes[ci, :n].reshape(-1)
+            at += 4 * n
     return words
 
 
@@ -228,12 +239,10 @@ def kernel_colliders(colliders: ColliderTable) -> torch.Tensor:
 
 
 def pack_fields(table) -> np.ndarray:
-    """The kernel's force-field row (int32 words, f32 values stored bitwise):
-    one FF_STRIDE record per field at the slots `table_layout` names, from
-    the table's host rows."""
-    if table.count > L.MAX_F:
-        raise NotImplementedError(f"the kernel's field row holds at most {L.MAX_F} force fields")
-    words = np.zeros(L.FIELD_WORDS, np.int32)
+    """The kernel's force-field records (int32 words, f32 values stored
+    bitwise): one FF_STRIDE record per field at the slots `table_layout`
+    names, from the table's host rows."""
+    words = np.zeros(table.count * L.FF_STRIDE, np.int32)
     fl = words.view(np.float32)
     rows = table.rows
     for i, kind in enumerate(table.kinds):
@@ -246,17 +255,19 @@ def pack_fields(table) -> np.ndarray:
     return words
 
 
-def kernel_fields(table) -> np.ndarray:
-    """`pack_fields`, built once per table and kept in it (host memory: the
-    row is copied into the launch arguments, never to the device)."""
+def kernel_fields(table) -> torch.Tensor:
+    """`pack_fields` on the table's device, built once per table and kept in
+    it; the copy to the card does not wait (a Scene that moves a field
+    builds a new table, and so one copy, per edited frame)."""
     if "_kernel_fields" not in table.__dict__:
-        table.__dict__["_kernel_fields"] = pack_fields(table)
+        table.__dict__["_kernel_fields"] = upload(torch.from_numpy(pack_fields(table)), table.device)
     return table.__dict__["_kernel_fields"]
 
 
 def stats_from_row(static: SpawnerStatic, row: torch.Tensor):
     """(aabb_min, aabb_max, alive count, per-type counts) from the kernel's
-    stats row ([STATS_WORDS], or a fleet's [S, STATS_WORDS]: [S]-leading)."""
+    stats row ([stats_words(T)], or a fleet's [S, stats_words(T)]:
+    [S]-leading)."""
     f = row.view(torch.float32)
     return (f[..., L.ST_MIN:L.ST_MIN + 3], f[..., L.ST_MAX:L.ST_MAX + 3], row[..., L.ST_ALIVE],
             row[..., L.ST_TYPES:L.ST_TYPES + static.num_types])
@@ -329,10 +340,9 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     ring cursor after the nested claims `cursor` and, on dead-rank
     archetypes, the claim's tile `offsets` of the pre-spawn alive plane.
     fleet (kernel row 7; `state` stacked over S slots, seeds [S][U] flat):
-    the `table` ([S, TABLE_WORDS] or one shared [TABLE_WORDS]) and the
-    per-slot records `slot_rows` [S, SLOT_WORDS] on the card; the slots
-    launch in chunks of SEED_WORDS // U. Returns the number of launches
-    last."""
+    the `table` ([S, words] or one shared [words]) and the per-slot records
+    `slot_rows` [S, slot_words(F)] on the card; the slots launch in chunks
+    of SEED_WORDS // U. Returns the number of launches last."""
     from . import _build
 
     lib = _build.load()
@@ -362,36 +372,34 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         alive_out = fields["alive"] = torch.empty_like(alive_in)
     names = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "ring_cursor")
     dtypes = (torch.float32, torch.float32, torch.bool, torch.int32, torch.int32)
-    E = static.num_emitters
+    E, T = static.num_emitters, static.num_types
     shapes = (lead + (E,), lead + (E,), lead + (E,), lead, lead)
     s_in = [_checked(getattr(state, k), d, dev, sh) for k, d, sh in zip(names, dtypes, shapes)]
     if hybrid is not None:
         s_in[4] = _checked(hybrid["cursor"], torch.int32, dev, ())
-        merge_e = (ctypes.c_int * L.MAX_E)(*hybrid["emitters"])
         merge = (hybrid["any_alive"].data_ptr(), hybrid["ns"].data_ptr(), hybrid["child"].data_ptr(),
-                 len(hybrid["emitters"]), merge_e, hybrid["child"].shape[2], hybrid["child"].shape[1])
+                 len(hybrid["emitters"]), hybrid["child"].shape[2], hybrid["child"].shape[1])
     else:
-        merge = (None, None, None, 0, None, 0, 0)
+        merge = (None, None, None, 0, 0, 0)
     s_out = [torch.empty_like(t) for t in s_in]
     render = [torch.empty(lead + (N,), dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)] \
         if pack_render else None
     dump = torch.empty(lead + (N,), dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
     stats_row = partial = ticket = None
     if stats:  # the rows, one partial row per block, and one last-block ticket per slot (zeroed)
-        stats_row = torch.empty(lead + (L.STATS_WORDS,), dtype=torch.int32, device=dev)
-        partial = torch.empty((S, L.launch_blocks(N) * L.STATS_WORDS), dtype=torch.int32, device=dev)
+        stats_row = torch.empty(lead + (L.stats_words(T),), dtype=torch.int32, device=dev)
+        partial = torch.empty((S, L.launch_blocks(N) * L.stats_words(T)), dtype=torch.int32, device=dev)
         ticket = torch.zeros(S, dtype=torch.int32, device=dev)
     if fleet is None:
         table, tab_stride, slot_rows = kernel_tables(static, params), 0, None
-        field_words, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
+        records, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
             else (None, 0)
         frame_row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
     else:
         table, slot_rows = fleet["table"], fleet["slot_rows"]
-        tab_stride = L.TABLE_WORDS if table.dim() == 2 else 0
-        field_words, n_fields, frame_row = None, fleet["n_fields"], None
-    field_ptr = None if field_words is None else field_words.ctypes.data
-    col_ptr = kernel_colliders(colliders).data_ptr() if n_col else None
+        tab_stride = table.shape[1] if table.dim() == 2 else 0
+        records, n_fields, frame_row = None, fleet["n_fields"], None
+    col = kernel_colliders(colliders) if n_col else None
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
@@ -406,11 +414,11 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
             [ptype_in, ptype_out, alive_in, alive_out, offsets, dump, partial, ticket, stats_row, slot_rows], c0)
         seed_row = (ctypes.c_uint32 * ((c1 - c0) * unroll))(*seeds[c0 * unroll:c1 * unroll])
         rc = lib.bf_fused_step(
-            ptr(table[c0:] if c0 and tab_stride else table), col_ptr, n_col, _ptr_array(c_ins), _ptr_array(c_outs),
-            ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in), _ptr_array(c_s_out),
-            None if render is None else _ptr_array(_from_slot(render, c0)), frame_row, seed_row, unroll, N,
-            field_ptr, n_fields, ptr(dmp), ptr(part), ptr(tick), ptr(row), *merge, c1 - c0, tab_stride, ptr(srows),
-            stream,
+            ptr(table[c0:] if c0 and tab_stride else table), ptr(col), n_col, 0 if col is None else col.numel(),
+            _ptr_array(c_ins), _ptr_array(c_outs), ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in),
+            _ptr_array(c_s_out), None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
+            seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(part), ptr(tick), ptr(row), *merge,
+            c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], stream,
         )
         if rc != 0:
             raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
@@ -428,7 +436,7 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
     still updated); otherwise, on the card, the kernel's stats block
     computes their AABB and counts. kernel_stats is accepted for parity
     with the JAX package's signature and changes nothing."""
-    check_kernel_scope(static, colliders, frame, unroll)
+    check_kernel_scope(static, unroll)
     if collision_on(static, colliders) and colliders.device != state.device:
         raise ValueError(f"colliders on {colliders.device}, pool on {state.device}")
     if fields_on(frame) and frame.force_fields.device != state.device:
@@ -442,6 +450,7 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         fused_step.launches += 1
         fused_step.render_launches += pack_render
         fused_step.collide_launches += collision_on(static, colliders)
+        fused_step.broad_launches += broad_phase_on(static, colliders)
         fused_step.fields_launches += fields_on(frame)
         fused_step.dump_launches += dump is not None
         fused_step.stats_launches += stats
@@ -460,6 +469,7 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
 fused_step.launches = 0  # kernel launches (CUDA path only)
 fused_step.render_launches = 0  # of which with the render pack
 fused_step.collide_launches = 0  # of which with the narrow phase
+fused_step.broad_launches = 0  # of which with its per-warp broad phase (LOOP_MIN_COLLIDERS colliders or more)
 fused_step.fields_launches = 0  # of which with force fields
 fused_step.dump_launches = 0  # of which writing the dump plane
 fused_step.stats_launches = 0  # of which writing the stats row
@@ -642,6 +652,7 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     fused_step.merge_launches += 1
     fused_step.render_launches += pack_render
     fused_step.collide_launches += collision_on(static, colliders)
+    fused_step.broad_launches += broad_phase_on(static, colliders)
     fused_step.fields_launches += fields_on(frame)
     fused_step.dump_launches += dump is not None
     fused_step.stats_launches += stats
@@ -663,7 +674,7 @@ def fused_step_hybrid(static: SpawnerStatic, params: SpawnerParams, colliders, s
     returns (state, outputs) or, with pack_render, (state, outputs, planes).
     On the card the nested kernels and one merge-block step launch run; on
     the CPU `step.hybrid_frame`."""
-    check_kernel_scope(static, colliders, frame, 1)
+    check_kernel_scope(static, 1)
     if state.device.type == "cuda":
         new_state, out, planes = _hybrid_launches(static, params, colliders, state, frame, pack_render, stats)
     elif state.device.type == "cpu":
@@ -746,14 +757,14 @@ def can_fleet(static: SpawnerStatic) -> bool:
 
 def fleet_slot_rows(frames: FrameInput, device: torch.device) -> torch.Tensor:
     """A stacked frame's per-slot records on `device`: [S, SLOT_WORDS]
-    int32 (each slot's frame row at SL_FRAME, its field records at
-    SL_FIELDS), built on the host and copied without a wait once per
+    int32 (each slot's frame row at SL_FRAME, its F field records at
+    SL_FIELDS: SLOT_WORDS = slot_words(F)), built on the host and copied without a wait once per
     (frames, device); a caller that keeps the stacked frame while nothing
     changes (the Scene, Fleet, a chain) copies nothing more."""
     cache = frames.__dict__.setdefault("_slot_rows", {})
     if device not in cache:
         S = frames.dt.shape[0]
-        rows = np.zeros((S, L.SLOT_WORDS), np.int32)
+        rows = np.zeros((S, L.slot_words(frames.force_fields[0].count if frames.force_fields else 0)), np.int32)
         fl = rows.view(np.float32)
         for at, value in ((L.FR_DT, frames.dt), (L.FR_MOD_SCALE, frames.modifier_scale),
                           (L.FR_MOD_SPEED, frames.modifier_speed), (L.FR_PVEL, frames.parent_velocity),
@@ -761,23 +772,20 @@ def fleet_slot_rows(frames: FrameInput, device: torch.device) -> torch.Tensor:
             v = value.numpy().reshape(S, -1)
             fl[:, L.SL_FRAME + at:L.SL_FRAME + at + v.shape[1]] = v
         for i, table in enumerate(frames.force_fields or ()):
-            rows[i, L.SL_FIELDS:] = kernel_fields(table)
+            rows[i, L.SL_FIELDS:] = pack_fields(table)
         cache[device] = upload(torch.from_numpy(rows), device)
     return cache[device]
 
 
 def _fleet_fields(frames: FrameInput, device) -> int:
     """The stacked frame's field count per slot (0 without fields), checked
-    against the kernel's capacity and the pool's device."""
+    against the pool's device."""
     if frames.force_fields is None:
         return 0
     for table in frames.force_fields:
         if table.device != device:
             raise ValueError(f"force fields on {table.device}, pool on {device}")
-    n = frames.force_fields[0].count
-    if n > L.MAX_F:
-        raise NotImplementedError(f"the kernel's field row holds at most {L.MAX_F} force fields")
-    return n
+    return frames.force_fields[0].count
 
 
 def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, states: PoolState,
@@ -797,7 +805,7 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
     if not can_fleet(static):
         raise ValueError("fused_step_fleet takes global-only archetypes (can_fleet); archetypes with a nested "
                          "emitter step through step_auto_fleet")
-    check_kernel_scope(static, colliders, None, unroll)
+    check_kernel_scope(static, unroll)
     S, dev = num_slots(states), states.device
     if tuple(frames.dt.shape) != (S,):
         raise ValueError(f"frames must be stacked over the {S} slots, got dt of shape {tuple(frames.dt.shape)}")
@@ -813,6 +821,7 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
         fused_step_fleet.launches += n
         fused_step_fleet.render_launches += n * pack_render
         fused_step_fleet.collide_launches += n * collision_on(static, colliders)
+        fused_step_fleet.broad_launches += n * broad_phase_on(static, colliders)
         fused_step_fleet.fields_launches += n * (n_fields > 0)
         fused_step_fleet.dump_launches += n * (dump is not None)
         fused_step_fleet.stats_launches += n * stats
@@ -837,6 +846,7 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
 fused_step_fleet.launches = 0  # fleet kernel launches (CUDA path only)
 fused_step_fleet.render_launches = 0  # of which with the render pack
 fused_step_fleet.collide_launches = 0  # of which with the narrow phase
+fused_step_fleet.broad_launches = 0  # of which with its broad phase
 fused_step_fleet.fields_launches = 0  # of which with force fields
 fused_step_fleet.dump_launches = 0  # of which writing the dump plane
 fused_step_fleet.stats_launches = 0  # of which writing the stats rows

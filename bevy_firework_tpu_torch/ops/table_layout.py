@@ -2,28 +2,26 @@
 
 The kernel reads the spawner's structure and parameters from one int32
 device buffer (f32 values stored bitwise), the collider scene from a second
-one, the pool's fields through 16 pointer slots, the frame's inputs from a
-row of 13 floats and the scene's force fields from a row of MAX_F field
-records, both passed by value in the launch arguments; with kernel stats it
-writes one stats row. This module is the only definition of those layouts:
-`ops.fused_step` fills the buffers, the slots and the rows by these names,
-and `ops._build` writes them, with the enumerations the kernel branches on,
-the narrow phase's float constants and the turbulence basis, into a
-generated C++ header (`header()`, included by `csrc/fused_step.cu` as
-"table_layout.h"). The CUDA source names every slot and states no value.
+one and the scene's force-field records from a third; the pool's fields
+through 16 pointer slots and the frame's inputs from a row of 13 floats
+passed by value in the launch arguments; with kernel stats it writes one
+stats row. Every table is sized by what it holds: the spawner table by its
+emitters, types and knots (the header carries the offsets that depend on
+them), the collider table by its colliders and its hulls' planes, the field
+records and the stats row by their counts. This module is the only
+definition of those layouts: `ops.fused_step` fills the buffers, the slots
+and the rows by these names, and `ops._build` writes them, with the
+enumerations the kernel branches on, the narrow phase's float constants and
+the turbulence basis, into a generated C++ header (`header()`, included by
+`csrc/fused_step.cu` as "table_layout.h"). The CUDA source names every slot
+and states no value.
 """
 
 from __future__ import annotations
 
 from .. import colliders, collision, compiled, curve, emission_shape, force_fields
 
-# ---- capacities ----
-MAX_E = 8  # emitters
-MAX_T = 8  # particle types
-MAX_K = 16  # knots per curve
 MAX_U = 8  # sub-frames per launch
-MAX_C = 32  # colliders
-MAX_F = 8  # scene force fields
 TILE = 256  # lanes per tile = threads per block (the dead-rank claim's unit)
 
 # ---- pool field slots (PoolState order; a null pointer marks an elided field) ----
@@ -37,41 +35,21 @@ FR_DT, FR_MOD_SCALE, FR_MOD_SPEED = 0, 1, 2
 FR_PVEL, FR_TRANS, FR_ROT = 3, 6, 9  # xyz, xyz, xyzw
 FRAME_WORDS = 13
 
-# ---- table header (int32 words; [E] or [T] runs where noted) ----
+# ---- spawner table: header, T type rows, E emitter rows, T curve blocks ----
+# header (int32 words)
 H_E = 0  # emitter count
+H_T = 1  # particle type count
+H_K = 2  # knots per curve row (every curve row's length: the curve rows' stride)
 H_SINGLE = 3  # single particle type (no ptype plane)
 H_ELIDE_ROT = 4  # rotation fields elided
 H_CONST_LIFE = 5  # lifetime constant (no lifetime plane) ...
 H_CONST_LIFE_VAL = 6  # ... and its value (f32)
-H_PACING = 8  # [E] pacing kind
-H_PINDEX = H_PACING + MAX_E  # [E] particle type spawned
-H_SCALE_KIND = H_PINDEX + MAX_E  # [T] scale curve kind
-H_SCALE_N = H_SCALE_KIND + MAX_T  # [T] scale curve knots
-H_BASE_KIND = H_SCALE_N + MAX_T  # [T] base color gradient kind
-H_BASE_N = H_BASE_KIND + MAX_T  # [T] ... knots
-H_EMIS_KIND = H_BASE_N + MAX_T  # [T] emissive gradient kind
-H_EMIS_N = H_EMIS_KIND + MAX_T  # [T] ... knots
-H_HAS_COL = H_EMIS_N + MAX_T  # [T] type collides
-H_DUMP = H_HAS_COL + MAX_T  # [T] type has a destroyed handler (dump plane)
-H_MODE = H_DUMP + MAX_T  # [E] emission mode (MODE_GLOBAL / MODE_NESTED)
-H_TARGET = H_MODE + MAX_E  # [E] nested emitter's parent type
+H_EM_AT = 7  # first emitter row: TY_AT + T * TY_STRIDE
+H_CV_AT = 8  # first curve block: H_EM_AT + E * EM_STRIDE
+HEADER_WORDS = 16
 
-# ---- emitter rows (f32): slot offsets within a row ----
-EM_AT, EM_STRIDE = 128, 48
-EM_COUNT = 0  # particles per cycle (one-shot: burst size)
-EM_DURATION = 1
-EM_OFF_START = 2
-EM_OFF_END = 3
-EM_SHAPE = 4  # 8 words: compiled shape row (kind, radius, quat xyzw, half extents y z)
-EM_IVEL = 12  # 7 words: initial velocity RandVec3 (lo, hi, deviation, quat xyzw)
-EM_IANG = 19  # 7 words: initial angular velocity RandVec3
-EM_RADIAL_LO = 26
-EM_RADIAL_HI = 27
-EM_INHERIT = 28  # parent velocity inheritance
-EM_INIT_ROT = 29  # 4 words: initial rotation quat xyzw
-
-# ---- type rows (f32) ----
-TY_AT, TY_STRIDE = EM_AT + MAX_E * EM_STRIDE, 20
+# type rows (f32 unless noted), at a fixed start
+TY_AT, TY_STRIDE = HEADER_WORDS, 28
 TY_ISCALE_LO = 0
 TY_ISCALE_HI = 1
 TY_LIFE_LO = 2
@@ -85,17 +63,50 @@ TY_FRICTION = 13
 TY_DESTROY = 14  # destroy_on_collision (0/1)
 TY_COLL_MASK = 15  # collision filter mask, uint32 bits (int32 word)
 TY_FIELD_MASK = 16  # affected_by_fields (0/1)
+TY_SCALE_KIND = 17  # int: scale curve kind
+TY_SCALE_N = 18  # int: ... knots
+TY_BASE_KIND = 19  # int: base color gradient kind
+TY_BASE_N = 20  # int: ... knots
+TY_EMIS_KIND = 21  # int: emissive gradient kind
+TY_EMIS_N = 22  # int: ... knots
+TY_HAS_COL = 23  # int: the type collides
+TY_DUMP = 24  # int: the type has a destroyed handler (dump plane)
 
-# ---- curve rows (f32, MAX_K words each): row indices within a type's block ----
+# emitter rows (f32 unless noted), from the header's H_EM_AT
+EM_STRIDE = 40
+EM_COUNT = 0  # particles per cycle (one-shot: burst size)
+EM_DURATION = 1
+EM_OFF_START = 2
+EM_OFF_END = 3
+EM_SHAPE = 4  # 8 words: compiled shape row (kind, radius, quat xyzw, half extents y z)
+EM_IVEL = 12  # 7 words: initial velocity RandVec3 (lo, hi, deviation, quat xyzw)
+EM_IANG = 19  # 7 words: initial angular velocity RandVec3
+EM_RADIAL_LO = 26
+EM_RADIAL_HI = 27
+EM_INHERIT = 28  # parent velocity inheritance
+EM_INIT_ROT = 29  # 4 words: initial rotation quat xyzw
+EM_PACING = 33  # int: pacing kind
+EM_PINDEX = 34  # int: particle type spawned
+EM_MODE = 35  # int: emission mode (MODE_GLOBAL / MODE_NESTED)
+EM_TARGET = 36  # int: a nested emitter's parent type
+
+# curve blocks (f32), from the header's H_CV_AT: per type CV_ROWS rows of
+# H_K words each; row indices within a type's block
 CV_SCALE_TS = 0
 CV_SCALE_VS = 1
 CV_BASE_TS = 2  # then one row per channel r g b a
 CV_EMIS_TS = 7  # then one row per channel r g b a
 CV_ROWS = 12
-CV_AT, CV_STRIDE = TY_AT + MAX_T * TY_STRIDE, CV_ROWS * MAX_K
-TABLE_WORDS = CV_AT + MAX_T * CV_STRIDE
+
+
+def table_words(num_emitters: int, num_types: int, knots: int) -> int:
+    """Words of a spawner table with these counts (the header's offsets
+    follow from them)."""
+    return TY_AT + num_types * TY_STRIDE + num_emitters * EM_STRIDE + num_types * CV_ROWS * knots
+
 
 # ---- collider table (a buffer of its own; int32 words, f32 bitwise) ----
+# C rows, then each hull's plane rows in table order
 CO_STRIDE = 16  # words per collider row
 CO_KIND = 0
 CO_IDENT = 1  # unrotated (1): the quaternion rotations are skipped
@@ -104,27 +115,44 @@ CO_LAYERS = 3  # layers, uint32 bits; 0 for a disabled collider (masked_layers)
 CO_POS = 4  # 3 words
 CO_ROT = 7  # 4 words, xyzw
 CO_PARAMS = 11  # 3 words
+CO_PLANES = 14  # a hull's first plane word (from the table's start; 0 for other kinds): rows (nx, ny, nz, d)
+CO_RADIUS = 15  # f32: the broad phase's bounding radius about the position (collision.bounding_radius)
 HULL_MAX_PLANES = colliders.HULL_MAX_PLANES
-CO_PLANE_STRIDE = HULL_MAX_PLANES * 4  # words per collider's plane rows (nx, ny, nz, d)
-CO_PLANES_AT = MAX_C * CO_STRIDE
-COLLIDER_WORDS = CO_PLANES_AT + MAX_C * CO_PLANE_STRIDE
 SUBSTEPS = collision.SUBSTEPS
+# The narrow phase runs its per-warp broad phase from this many colliders
+# (the JAX package's LOOP_MIN_COLLIDERS, bevy_firework_tpu/ops/fused_step.py:96;
+# collision.LOOP_MIN_COLLIDERS)
+LOOP_MIN_COLLIDERS = collision.LOOP_MIN_COLLIDERS
+# A collider table of at most this many words is staged in each block's
+# shared memory; a larger one is read from global memory (warp-uniform
+# addresses: one broadcast load per row word). 48 KB: four blocks' tables
+# fit an SM's 228 KB beside their other shared memory, so the table never
+# holds a collide instantiation (64 or more registers: at most four blocks
+# of TILE threads per SM) below the occupancy its registers allow.
+SMEM_COLLIDER_WORDS = 12 * 1024
 
-# ---- force-field row (launch argument; int32 words, f32 bitwise): MAX_F records ----
+# ---- force-field records (device buffer; int32 words, f32 bitwise): one per field ----
 FF_STRIDE = 12  # words per field
 FF_KIND = 0  # FIELD_* kind (int)
 FF_POS = 1  # 3 words
 FF_AXIS = 4  # 3 words, unit
 FF_PARAMS = 7  # 4 words: strength, radius, frequency, phase
 FF_ACTIVE = 11  # 1.0 live, 0.0 disabled
-FIELD_WORDS = MAX_F * FF_STRIDE
+# records staged in shared memory up to this many words (256 fields); more
+# are read from global memory
+SMEM_FIELD_WORDS = 256 * FF_STRIDE
 
 # ---- stats row (kernel output, int32 words; one per block as partials) ----
 ST_MIN = 0  # 3 f32: min(pos - scale) over survivors
 ST_MAX = 3  # 3 f32: max(pos + scale)
 ST_ALIVE = 6  # i32: survivors
-ST_TYPES = 7  # [MAX_T] i32: survivors per type
-STATS_WORDS = ST_TYPES + MAX_T
+ST_TYPES = 7  # [T] i32: survivors per type
+
+
+def stats_words(num_types: int) -> int:
+    """Words of a stats row for T particle types."""
+    return ST_TYPES + num_types
+
 
 # ---- nested scalars (device int32 buffer, zeroed per frame; kernel in- and outputs) ----
 # A header word, then one record per valid nested emitter, in emitter order.
@@ -136,23 +164,32 @@ NS_N = 1  # children claiming this frame: min(total, M); the rest are deferred
 NS_START = 2  # the claim window's start: ring cursor, or the dead-slot rank on dead-rank archetypes
 NS_NEXT = 3  # the next emitter's start: NS_START + NS_N (mod N on the ring)
 NS_DROPPED = 4  # children whose window slot was not dead (pool capacity overflow)
+NS_EMITTER = 5  # the record's nested emitter (its cadence pass writes it)
 MAX_FETCH = 10  # parent fields a fetch-mode cadence pass reads (nested_parent_fields)
 
 # ---- fleet launches (kernel row 7): S slots of one archetype per launch ----
-# Per-slot records in one device int32 buffer [S, SLOT_WORDS]: the slot's
-# frame row and its force-field records (f32 bitwise), staged per block.
+# Per-slot records in one device int32 buffer [S, slot_words(F)]: the
+# slot's frame row and its F force-field records (f32 bitwise), staged per
+# block.
 SL_FRAME = 0  # FRAME_WORDS f32
-SL_FIELDS = 16  # FIELD_WORDS: the FF_* records
-SLOT_WORDS = SL_FIELDS + FIELD_WORDS
+SL_FIELDS = 16  # F * FF_STRIDE words: the FF_* records
+
+
+def slot_words(num_fields: int) -> int:
+    """Words of a fleet slot's record with F force fields."""
+    return SL_FIELDS + num_fields * FF_STRIDE
+
+
 # Draw seeds ride the launch arguments, [slot][u]: a launch takes at most
 # SEED_WORDS // U slots, and a larger fleet launches in chunks of that many.
 SEED_WORDS = 128
 
 # ---- launch geometry ----
 MAX_BLOCKS = 132 * 8  # the step tile-strides beyond 8 blocks per SM per slot (stats partials)
+DEFAULT_SMEM_BYTES = 48 * 1024  # dynamic shared memory a launch takes without the opt-in attribute
 
-assert H_TARGET + MAX_E <= EM_AT and NS_DROPPED < NS_STRIDE and EM_INIT_ROT + 4 <= EM_STRIDE and TY_FIELD_MASK < TY_STRIDE
-assert CO_PARAMS + 3 <= CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
+assert NS_EMITTER < NS_STRIDE and EM_TARGET < EM_STRIDE and TY_DUMP < TY_STRIDE and H_CV_AT < HEADER_WORDS
+assert CO_RADIUS < CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
 assert SL_FRAME + FRAME_WORDS <= SL_FIELDS and SEED_WORDS >= MAX_U
 
 
@@ -176,9 +213,11 @@ def constants() -> dict:
 
 def float_constants() -> dict:
     """The f32 constants shared with the plain versions: the narrow phase's
-    miss distance and division guard (`collision`), the force fields'
-    singular-locus guard (`force_fields`)."""
-    return {"COLLISION_BIG": collision.BIG, "COLLISION_EPS": collision.EPS, "FIELD_EPS": force_fields.EPS}
+    miss distance and division guard and the broad phase's reach factor and
+    margin (`collision`), the force fields' singular-locus guard
+    (`force_fields`)."""
+    return {"COLLISION_BIG": collision.BIG, "COLLISION_EPS": collision.EPS, "REACH_SCALE": collision.REACH_SCALE,
+            "REACH_MARGIN": collision.REACH_MARGIN, "FIELD_EPS": force_fields.EPS}
 
 
 def array_constants() -> dict:

@@ -14,11 +14,14 @@ kernel's device ms per launch, and the device's busy share of the wall
 time; then the host functions that take most of an 8-frame call
 (cProfile). Needs a CUDA device.
 
-With --launch it prints only the device time of one U = 8 launch of the
-main path (stats off, as chip_smoke.py's `u8_kernel_device_ms`) at both
-sizes. With --flows it prints one JSON line of the solo path's end-to-end
-times: main_100k and main_1M ms/frame and the tornado and fireworks flows'
-ms per Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch
+With --launch it prints only device times per launch (stats off, as
+chip_smoke.py's `*_kernel_device_ms`): the main path's U = 8 launch at
+both sizes, then one line with the fleet's U = 8 launch (fleet_16x55k) and
+the U = 2 and U = 8 launches of the collision cells (collision_1M and
+hull8_1M: stress_test_collision at 1M live against its two cuboids and
+against bench.py's 8 hulls). With --flows it prints one JSON line of the
+solo path's end-to-end times: main_100k and main_1M ms/frame and the
+tornado and fireworks flows' ms per Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch
 from DIR instead (run the file, not the module): two trees, such as a
 parent commit unpacked beside this checkout, are then timed by the same
 code on one card; alternate the trees' runs to spread drift.
@@ -115,28 +118,14 @@ def profile_size(rate: float, capacity: int, calls: int = 30):
     return res
 
 
-def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> dict:
-    """Device time of one U = 8 launch (stats off) of stress_test after a
-    140-frame chain at this size: the median over `traces` traces of the
-    kernel's time averaged over the launches each trace holds."""
+def launch_device_ms(launch, calls: int, traces: int = 3):
+    """(median, per trace) over `traces` torch.profiler traces of `calls`
+    calls of `launch` of the step kernel's device time per launch, averaged
+    over the launches each trace holds."""
     import statistics
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    import bevy_firework_tpu_torch as bt
-    from bevy_firework_tpu_torch.models import effects
-    from bevy_firework_tpu_torch.ops import fused_step as fs
-    from bevy_firework_tpu_torch.settings import EmissionPacing
-
-    sp, _tf = effects.stress_test()
-    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(rate))
-    c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
-    f = bt.make_frame_input(1 / 60)
-    s, out = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, capacity), f, 140)
-
-    def launch():
-        return fs.fused_step(c.static, c.params, None, s, f, unroll=8, stats=False)
 
     launch()
     torch.cuda.synchronize()
@@ -149,8 +138,67 @@ def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> d
         kern, _total, count = device_times(prof, "fused_step_kernel")
         if count:
             per.append(kern / count / 1e3)
-    return {"rate": rate, "capacity": capacity, "live": int(out.alive_count),
-            "u8_kernel_device_ms": statistics.median(per) if per else None, "traces": per}
+    return (statistics.median(per) if per else None), per
+
+
+def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> dict:
+    """Device time of one U = 8 launch (stats off) of stress_test after a
+    140-frame chain at this size (`launch_device_ms`)."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(rate))
+    c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    f = bt.make_frame_input(1 / 60)
+    s, out = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, capacity), f, 140)
+
+    ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, None, s, f, unroll=8, stats=False), calls,
+                               traces)
+    return {"rate": rate, "capacity": capacity, "live": int(out.alive_count), "u8_kernel_device_ms": ms, "traces": per}
+
+
+def cells_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Device time per launch (stats off) of the fleet's U = 8 launch of
+    fleet_16x55k (stress_test at 55000/s, 16 slots of 65536 lanes) and of
+    one U = 2 and one U = 8 launch of stress_test_collision at 5e5/s,
+    capacity 1310720, against its two cuboids and against bench.py's 8
+    hulls (a 6-plane floor and 7 tetrahedra), each after a 140-frame
+    chain."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    f = bt.make_frame_input(1 / 60)
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(55000.0))
+    c16 = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    st = stack_pools([bt.init_pool_for(c16, 65536, seed=i) for i in range(16)])
+    fr = stack_frames([bt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(16)])
+    st, _o = fs.multi_step_fleet(c16.static, c16.params, None, st, fr, 140)
+    ms, per = launch_device_ms(lambda: fs.fused_step_fleet(c16.static, c16.params, None, st, fr, unroll=8,
+                                                           stats=False), calls, traces)
+    res = {"fleet_16x55k": {"u8_fleet_kernel_device_ms": ms, "u8_traces": per}}
+    sp, _tf, cuboids = effects.stress_test_collision()
+    hulls = [bt.Collider.hull([(1, 0, 0, 60.0), (-1, 0, 0, 60.0), (0, 1, 0, 1.0), (0, -1, 0, 1.0), (0, 0, 1, 60.0),
+                               (0, 0, -1, 60.0)], position=(0.0, -1.5, 0.0))]
+    hulls += [bt.Collider.hull_from_points([(0, 0, 0), (2.0, 0, 0), (0, 2.5, 0), (0, 0, 2.0)],
+                                           position=(float(i * 3 - 9), -0.5, float((i % 3) * 3 - 3))) for i in range(7)]
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(500_000.0))
+    c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    for label, cols in (("collision_1M", cuboids), ("hull8_1M", hulls)):
+        table = bt.compile_colliders(cols, device="cuda")
+        s, out = fs.multi_step_auto(c.static, c.params, table, bt.init_pool_for(c, 160 * 8192, seed=0), f, 140)
+        res[label] = {"live": int(out.alive_count)}
+        for u in (2, 8):
+            ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, table, s, f, unroll=u, stats=False),
+                                       calls, traces)
+            res[label].update({f"u{u}_kernel_device_ms": ms, f"u{u}_traces": per})
+    return res
 
 
 def flows_ms(windows: int = 3) -> dict:
@@ -238,7 +286,9 @@ def flows_ms(windows: int = 3) -> dict:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
-    ap.add_argument("--launch", action="store_true", help="time one U = 8 launch per size, nothing else")
+    ap.add_argument("--launch", action="store_true",
+                    help="time the main path's U = 8 launch per size, the fleet's and the collision cells' launches, "
+                         "nothing else")
     ap.add_argument("--flows", action="store_true",
                     help="time the solo path end to end (main_100k, main_1M, tornado, fireworks), nothing else")
     ap.add_argument("--root", help="import bevy_firework_tpu_torch from this directory")
@@ -264,6 +314,9 @@ def main():
             r["root"] = args.root
         r["card"] = card
         lines.append(json.dumps(r))
+        print(lines[-1], flush=True)
+    if args.launch:
+        lines.append(json.dumps({"cells": cells_ms(), "root": args.root or ".", "card": card}))
         print(lines[-1], flush=True)
     if args.out:
         with open(args.out, "w") as fh:

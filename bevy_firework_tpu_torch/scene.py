@@ -298,10 +298,15 @@ def _is_identity_rot(rotation) -> bool:
 
 class Scene:
     def __init__(self, colliders: Optional[List[Collider]] = None, seed: int = 0,
-                 force_fields: Optional[List[ForceField]] = None, device=DEFAULT_DEVICE):
+                 force_fields: Optional[List[ForceField]] = None, combined_signature_limit: int = 16,
+                 device=DEFAULT_DEVICE):
         """A scene whose spawners, collider table and force fields live on
         `device` (the card unless the caller passes "cpu"; raises without a
-        card)."""
+        card). combined_signature_limit is accepted for the JAX Scene's
+        signature and changes nothing: it bounds the compile hitches of that
+        Scene's one-program-per-frame dispatch of every group, a design not
+        ported here (each group is one kernel launch with nothing to
+        compile)."""
         self.device = resolve_device(device)
         self._collider_slots: List[_ColliderSlot] = []
         self._collider_ids: Dict[int, int] = {}  # cid -> slot index

@@ -45,64 +45,85 @@ and textures flows, through the kernels. Phases:
      ulp), its render pack against plain, differential ms/frame, and the
      kernel's device time per U = 2 and per U = 8 launch beside the plain
      version's 2 and 8 frames;
- 12. hull8_1M: the same against bench.py's 8 hulls, 120 frames;
+ 12. hull8_1M: the same against bench.py's 8 hulls, 120 frames (8
+     colliders: the narrow phase's per-warp broad phase runs); for both,
+     the skip share and the narrow phase's operations counted from a
+     recorded plain frame (the U = 2 launch's bound);
  13. collision_flow: effects.collision() with its cuboid through
      step_auto_packed for 400 frames: live count, state and render planes
      equal the plain version's;
- 14. fields_det, N = 131072: the box emitter under one force field of each
+ 14. many_collider_det, N = 131072: the box emitter against the JAX
+     test's 6-collider mix, 33 and 64 mixed colliders (a quarter hulls,
+     some disabled, two overlapping where lanes start inside both) and 200
+     (three in four 16-plane hulls: a table past SMEM_COLLIDER_WORDS, read
+     from global memory): the broad phase == the plain version (no skip)
+     bit for bit over 10 U=1 and 4 U=2 launches; the share of (warp,
+     collider, substep) tests collision.broad_phase_keep skips;
+ 15. caps_det, N = 131072: past the old table caps, 17- and 40-knot
+     curves, 9 emitters, 9 types (render planes and the stats row) and 9
+     force fields, solo and in a 3-slot fleet: kernel == plain, bit for bit;
+     a Scene (200 colliders, 9 fields, 9 emitters and types) and a Fleet
+     (200 colliders) on the card == their plain replay;
+ 16. collider_scaling_1M: tools/collider_scaling_tpu.py's scenes with
+     stress_test_collision at 5e5/s, capacity 1310720, 140 warm-up frames,
+     C in {1, ..., 128} mixed colliders and {8, 16, 32, 64} with a quarter
+     hulls: differential ms/frame, the U = 2 launch's device time (== 2
+     plain frames within 4 ulp) beside its bound, the skip share; at C = 32
+     the plain version's time;
+ 17. fields_det, N = 131072: the box emitter under one force field of each
      kind (and a disabled one), and under all four: kernel == plain bit for
      bit on point, vortex and axial, turbulence within 8 ulp (cosf against
      PyTorch's CUDA cos), over 4 U = 1 and 4 U = 8 launches;
- 15. dump_det, N = 131072: the destroyed-dump plane of a ring archetype with
+ 18. dump_det, N = 131072: the destroyed-dump plane of a ring archetype with
      a particles_destroyed handler (deaths by age) and of a destroy
      archetype with one (dead-rank claim): equal to the plain mask, 12
      frames each;
- 16. stats_det, N = 1310720: the kernel's stats row (AABB, alive and
+ 19. stats_det, N = 1310720: the kernel's stats row (AABB, alive and
      per-type counts) against the plain reductions over the state the same
      launch wrote, for a ring, a dead-rank and a 3-type archetype, by value;
- 17. fields_1M: library.dust at 3e5/s (lifetime 4 s) under the tornado
+ 20. fields_1M: library.dust at 3e5/s (lifetime 4 s) under the tornado
      example's three fields, capacity 1310720: a 300-frame multi_step_auto
      chain (U = 8) against 300 plain frames, ms/frame and the kernel's
      device time per launch beside main_1M's;
- 18. scene_flows: through `Scene` on the card: the sparks flow (750 live;
+ 21. scene_flows: through `Scene` on the card: the sparks flow (750 live;
      state and rows equal a CPU Scene's), the tornado example (300 frames
      of set_force_field; equal to the plain version replayed on the card)
      and bench.py's events_dump_overhead scene (4 spawners at 3000/s,
      capacity 8192, a floor, destroy-on-collision): records delivered ==
      the plain version's destroyed count, ms per Scene.step with and
      without the handler;
- 19. nested_det, N = 131072: the nested cadence kernels (cum and fetch
+ 22. nested_det, N = 131072: the nested cadence kernels (cum and fetch
      mode, a rate window and a burst whose total exceeds M, ranks across
      blocks) and the child-rows kernel (both parent modes) against their
      plain versions, then 30 hybrid frames of a ring, a chained and a
      destroy-on-collision (dead-rank) nested archetype whose children meet
      no sinf/cosf: bit for bit, anchors and nested counts included;
- 20. nested_60k: bench.py's nested cell (4000 rockets/s, 10 children each,
+ 23. nested_60k: bench.py's nested cell (4000 rockets/s, 10 children each,
      capacity 131072, nested_buffer 1024, ~60k live): a 150-frame
      multi_step_auto chain under torch.cuda.set_sync_debug_mode("error")
      (no frame synchronises) against 150 plain frames (counts, cursor,
      cadence exact; f32 within 4 ulp), differential ms/frame, and the
      device time per frame of the cadence kernels, the child-rows kernel
      and the merge step launch, with the cadence share of the frame;
- 21. nested_chained: the same for bench.py's 3-stage chained cell;
- 22. nested_flows: effects.fireworks() and effects.textures() (with its
-     colliders) through Scene on the card for 600 frames each, against the
+ 24. nested_chained: the same for bench.py's 3-stage chained cell;
+ 25. nested_flows: effects.fireworks() and effects.textures() (with its
+     colliders) through Scene on the card for 300 frames each, against the
      plain version replaying the flow on the card: per-type counts every
      frame, state, dense rows; ms per Scene.step;
- 23. fleet_det, N = 131072, S = 3 (tests/torch_fleet_configs.py): a ring,
+ 26. fleet_det, N = 131072, S = 3 (tests/torch_fleet_configs.py): a ring,
      a destroy-on-collision archetype with a handler (dead-rank claim,
      dump), 3 types with stats, force fields, the render pack and U = 8,
      slots differing in params, seeds, frames and fields: every slot of
      each fleet launch == a solo launch of its pool == the plain frames,
      bit for bit (rotation <= 2 ulp);
- 24. fleet_16x55k: bench.py's fleet cell (stress_test at 55000/s, 16 slots
+ 27. fleet_16x55k: bench.py's fleet cell (stress_test at 55000/s, 16 slots
      x 65536 lanes): a 140-frame multi_step_fleet chain under sync debug
      mode "error" == 16 solo multi_step_auto chains bit for bit and == the
      plain version (counts exact, f32 <= 4 ulp); differential ms/frame of
      the fleet chain beside the 16 solo chains', and the U = 8 fleet
      launch's device time beside its bound, the 16 solo launches' and the
      plain version's;
- 25. fleet_flow: the README's one-shot Fleet flow, extended (tests/
+ 28. fleet_flow: the README's one-shot Fleet flow, extended (tests/
      torch_fleet_configs.py: 8 slots of 64 lanes, five bursts activated at
      two frames, drain_finished every frame, 200 frames) on the card
      against the same flow stepped by the plain version on the card and by
@@ -110,7 +131,7 @@ and textures flows, through the kernels. Phases:
      integer leaves and keys exact, the render items; f32 bit for bit
      against the card's plain replay where the burst emits from a box
      (within 4 ulp with its circle's sinf/cosf), within 1e-5 of the CPU;
- 26. scene_groups: bench.py's scene_batch_12, scene_hetero_100 and
+ 29. scene_groups: bench.py's scene_batch_12, scene_hetero_100 and
      group_churn_12 through Scene on the card (one fleet launch per
      archetype group and frame, the render pack on: render_items is called
      once before timing): every member == the plain version replaying its
@@ -120,7 +141,7 @@ and textures flows, through the kernels. Phases:
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
-chains, the collision flow, the fields chain, the Scene flows, the two
+chains, the collision flow, the collider-scaling chains, the fields chain, the Scene flows, the two
 nested chains, the nested flows, the fleet chain, the Fleet flow and the
 scene groups)
 and read just after it; the kernels' summary reports those counts only. Every phase
@@ -153,13 +174,27 @@ PEAK_F32_PER_S = 67e12
 # f32 operations per lane and frame, counted from the kernel's source as
 # lower bounds (spawn lanes, curve evaluation and libm calls beyond one
 # operation each are not counted): the integrate path (age, move, drag),
-# one ray test of one collider, each force-field kind plus the field
-# weighting, and the stats fold.
+# each force-field kind plus the field weighting, and the stats fold.
 INTEGRATE_OPS = 20
-RAY_OPS = 20
 FIELD_OPS = {0: 23, 1: 32, 2: 43, 3: 159}  # FIELD_POINT, VORTEX, AXIAL, TURBULENCE
 FIELD_WEIGHT_OPS = 6
 STATS_OPS = 14
+# The narrow phase's f32 operations (arithmetic, comparisons, sqrtf and
+# divisions one each; selects and the hit's bounce not counted), from
+# csrc/fused_step_kernel.cuh: per active lane and substep the direction and
+# reach (SUBSTEP_OPS); per tested collider the local frame and the two
+# comparisons with the best hit (LOCAL_OPS), the two quaternion rotations
+# of a rotated collider (ROTATE_OPS) and the kind's ray test (RAY_OPS by
+# COLLIDER_* kind; a hull HULL_OPS plus HULL_PLANE_OPS per plane); per warp
+# and substep of the broad phase the box (BOX_OPS) and per collider its
+# test (BROAD_OPS: unrotated halfspace, rotated halfspace, bounding sphere).
+SUBSTEP_OPS = 13
+LOCAL_OPS = 5
+ROTATE_OPS = 63
+RAY_OPS = {0: 8, 1: 39, 2: 51, 3: 103, 4: 89, 5: 113}
+HULL_OPS, HULL_PLANE_OPS = 3, 20
+BOX_OPS = 35
+BROAD_OPS = (2, 60, 17)
 
 
 class CheckFailed(RuntimeError):
@@ -229,10 +264,51 @@ def main() -> int:
     from bevy_firework_tpu_torch.render import pack_render_planes
     from bevy_firework_tpu_torch.settings import EmissionPacing
     from bevy_firework_tpu_torch.settings import ParticleCollisionSettings
+    from bevy_firework_tpu_torch import collision as pcol
+    from bevy_firework_tpu_torch.colliders import COLLIDER_HALFSPACE, COLLIDER_HULL, masked_layers
     from bevy_firework_tpu_torch.step import active_f32_fields, dead_rank, plain_frames
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+
+    def narrow_work(table, log) -> dict:
+        """The narrow phase's work in one recorded plain frame
+        (`collision.record_substeps`), as the kernel does it: per substep
+        the active lanes' tests of the colliders their warp's broad phase
+        keeps (every enabled collider below LOOP_MIN_COLLIDERS colliders).
+        Returns its f32 operations (the ops model above), the tests kept
+        and the tests the warps with an active lane would run without a
+        skip, and the skip share."""
+        kinds, ident = table.kinds, table.identity_rot
+        test_ops = torch.tensor([LOCAL_OPS + (0 if ident[c] else ROTATE_OPS) + (
+            HULL_OPS + HULL_PLANE_OPS * table.hull_counts[c] if kinds[c] == COLLIDER_HULL else RAY_OPS[kinds[c]])
+            for c in range(table.count)], dtype=torch.float64, device=table.device)
+        broad_ops = sum(BROAD_OPS[2 if k != COLLIDER_HALFSPACE else 0 if ident[c] else 1] for c, k in enumerate(kinds))
+        broad = table.count >= L.LOOP_MIN_COLLIDERS
+        enabled = masked_layers(table) != 0
+        ops = kept = tests = 0.0
+        for rec in log:
+            act = rec["active"]
+            groups = -(-act.shape[0] // 32)
+            lanes = torch.cat([act, act.new_zeros(groups * 32 - act.shape[0])]).view(groups, 32)
+            per_group, any_g = lanes.sum(1).double(), lanes.any(1)
+            keep = pcol.broad_phase_keep(table, rec["px"], rec["py"], rec["pz"], rec["max_dist"], act) if broad \
+                else any_g[:, None] & enabled[None, :]
+            kf = keep.double()
+            ops += float(per_group.sum()) * SUBSTEP_OPS + float(per_group @ (kf @ test_ops))
+            if broad:
+                ops += float(any_g.sum()) * (BOX_OPS + broad_ops)
+            kept += float(kf.sum())
+            tests += float(any_g.sum()) * table.count
+        return {"ops": ops, "tests_kept": kept, "tests": tests, "skip_share": 1.0 - kept / tests if tests else 0.0,
+                "broad_phase": broad}
+
+    def recorded_frame(cm, table, state, frame) -> dict:
+        """narrow_work of one plain frame from `state` on the card."""
+        with pcol.record_substeps() as log:
+            plain_frames(cm.static, cm.params, state, frame, 1, stats=False, colliders=table)
+        return narrow_work(table, log)
 
     # ---------------------------------------------------------------- 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -260,7 +336,7 @@ def main() -> int:
     max_err = {"fused_step": 0.0, "fused_step.pack_render": 0.0, "fused_step.collide": 0.0,
                "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
                "fused_step.stats": 0.0, "nested_cadence": 0.0, "fused_step.nested_merge": 0.0,
-               "nested_child_rows": 0.0, "fused_step.fleet": 0.0}
+               "nested_child_rows": 0.0, "fused_step.fleet": 0.0, "fused_step.collide_broad": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
         for k in scalars:
@@ -290,7 +366,8 @@ def main() -> int:
                 "fleet_collide": (fs.fused_step_fleet, "collide_launches"),
                 "fleet_fields": (fs.fused_step_fleet, "fields_launches"),
                 "fleet_dump": (fs.fused_step_fleet, "dump_launches"),
-                "fleet_stats": (fs.fused_step_fleet, "stats_launches")}
+                "fleet_stats": (fs.fused_step_fleet, "stats_launches"),
+                "broad": (fs.fused_step, "broad_launches"), "fleet_broad": (fs.fused_step_fleet, "broad_launches")}
 
     def counted(fn):
         """fn() with the kernels' launch counters set to 0 just before it and
@@ -465,13 +542,21 @@ def main() -> int:
         sr, _o, planes = fs.fused_step(cm.static, cm.params, table, state, frame, pack_render=True)
         compare_planes(cm, sr, planes, label)
         # bounds of the timed calls at this shape: f32 operations per live
-        # lane and frame, bytes of the planes each launch reads and writes
-        lane_ops = INTEGRATE_OPS + RAY_OPS * (0 if table is None else len(colliders))
+        # lane and frame, the narrow phase's counted from a recorded plain
+        # frame from this state (the tests this run's data needs, the skip
+        # included), bytes of the planes each launch reads and writes
+        lane_ops = INTEGRATE_OPS
         if fields is not None:
             lane_ops += FIELD_WEIGHT_OPS + sum(FIELD_OPS[fld.kind] for fld in fields)
+        frame_ops = lane_ops * alive
+        if table is not None:
+            work = recorded_frame(cm, table, state, frame)
+            frame_ops += work["ops"]
+            res.update(narrow_ops_per_frame=work["ops"], skip_share=work["skip_share"],
+                       broad_phase=work["broad_phase"], broad_launches=counts["broad"])
         plane_bytes = 2 * 4 * len(active_f32_fields(cm.static)) * capacity
-        bounds = {f"u{u}": bound(plane_bytes, u * lane_ops * alive) for u in unrolls}
-        bounds["render"] = bound(plane_bytes + 4 * L.N_RENDER * capacity, lane_ops * alive)
+        bounds = {f"u{u}": bound(plane_bytes, u * frame_ops) for u in unrolls}
+        bounds["render"] = bound(plane_bytes + 4 * L.N_RENDER * capacity, frame_ops)
         bounds["claim"] = bound(capacity + 4 * -(-capacity // L.TILE), capacity)
         res["bounds"] = bounds
 
@@ -689,7 +774,164 @@ def main() -> int:
     emit({"phase": "collision_flow", "card": card, "live": int(outf.alive_count), "frames": 400,
           "launches": f_counts, "bytes": int(rows.shape[0]) * 64})
 
-    # ------------------------------------------------ 14. fields_det
+    # ------------------------------------------------ 14. many_collider_det
+    import torch_table_configs as table_cfg
+    from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools, state_slot
+    from bevy_firework_tpu_torch.step import stat_reductions
+
+    mc_res = {}
+    for name, (cols, disabled) in table_cfg.det_scenes().items():
+        c = bt.compile_spawner(box_spawner(), device=dev)
+        table = table_cfg.compile_with_disabled(cols, disabled, dev)
+        words = fs.kernel_colliders(table).numel()
+        check((words > L.SMEM_COLLIDER_WORDS) == (name == "c200"), f"many_collider_det {name}: {words} table words")
+        s = bt.init_pool_for(c, 131072)
+        shares = {}
+        for i, u in enumerate([1] * 10 + [2] * 4):
+            if i in (0, 9):  # the skip share on the first frame's state, and on the tenth's
+                shares[f"frame_{i + 1}"] = recorded_frame(c, table, s, fdet)["skip_share"]
+            before = fs.fused_step.broad_launches
+            sk, _ok = fs.fused_step(c.static, c.params, table, s, fdet, unroll=u)
+            check(fs.fused_step.broad_launches - before == 1, f"many_collider_det {name}: the broad phase did not run")
+            sp_, _op = plain_frames(c.static, c.params, s, fdet, u, colliders=table)
+            compare(c, sk, sp_, {}, f"many_collider_det {name} U={u}", kernel="fused_step.collide_broad")
+            s = sk
+        s_free, _o = plain_frames(c.static, c.params, bt.init_pool_for(c, 131072), fdet, 18)  # no colliders
+        bent = int((s.alive & ((s.vx != s_free.vx) | (s.vy != s_free.vy) | (s.vz != s_free.vz))).sum())
+        check(bent > 1000, f"many_collider_det {name}: only {bent} lanes met a collider")
+        mc_res[name] = {"colliders": table.count, "hulls": sum(k == COLLIDER_HULL for k in table.kinds),
+                        "disabled": len(disabled), "table_words": words,
+                        "global_memory": words > L.SMEM_COLLIDER_WORDS, "live": int(s.alive.sum()),
+                        "lanes_deflected": bent, "skip_share": shares}
+    torch.cuda.synchronize()
+    emit({"phase": "many_collider_det", "card": card, "n": 131072, "scenes": mc_res,
+          "rule": "the broad phase (every scene >= LOOP_MIN_COLLIDERS colliders) == the plain version without a skip, "
+                  "bit for bit over 10 U=1 and 4 U=2 launches; skip_share: the share of (warp, collider, substep) "
+                  "tests collision.broad_phase_keep skips in a plain frame from the first frame's and the tenth's state"})
+
+    # ------------------------------------------------ 15. caps_det
+    caps_res = {}
+    for case in table_cfg.CAPS:
+        cc = bt.compile_spawner(table_cfg.caps_spawner(case), device=dev)
+        s = bt.init_pool_for(cc, 131072)
+        for u in [1] * 3 + [8] * 2:
+            sk, ok, planes = fs.fused_step(cc.static, cc.params, None, s, fdet, unroll=u, pack_render=True)
+            sp_, _op = plain_frames(cc.static, cc.params, s, fdet, u)
+            compare(cc, sk, sp_, {}, f"caps_det {case} U={u}")
+            compare_planes(cc, sk, planes, f"caps_det {case} U={u}")
+            want = stat_reductions(cc.static, cc.params, {k: getattr(sk, k) for k in (
+                "px", "py", "pz", "initial_scale", "age", "lifetime")}, sk.ptype, sk.alive)
+            for got, w in zip((ok.aabb_min, ok.aabb_max, ok.alive_count, ok.alive_count_per_type), want):
+                check(torch.equal(got, w), f"caps_det {case} U={u}: stats row != the plain reductions")
+            s = sk
+        check(int((ok.alive_count_per_type > 0).sum()) == cc.num_types and int(ok.alive_count) > 20000,
+              f"caps_det {case}: {ok.alive_count_per_type.tolist()}")
+        caps_res[case] = {"emitters": cc.num_emitters, "types": cc.num_types, "knots": int(cc.params.scale_ts.shape[1]),
+                          "table_words": fs.kernel_tables(cc.static, cc.params).numel(),
+                          "per_type": ok.alive_count_per_type.tolist()}
+    cb9 = bt.compile_spawner(box_spawner(), device=dev)
+    f9 = bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(table_cfg.nine_fields(), device=dev))
+    s = bt.init_pool_for(cb9, 131072)
+    for u in [1] * 3 + [8] * 2:
+        sk, _ok = fs.fused_step(cb9.static, cb9.params, None, s, f9, unroll=u)
+        sp_, _op = plain_frames(cb9.static, cb9.params, s, f9, u)
+        compare(cb9, sk, sp_, {}, f"caps_det fields9 U={u}", kernel="fused_step.fields")
+        s = sk
+    caps_res["fields9"] = {"fields": 9, "live": int(s.alive.sum())}
+    frames9 = [bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(table_cfg.nine_fields(0.3 * i),
+                                                                               device=dev)) for i in range(3)]
+    pools9 = [bt.init_pool_for(cb9, 65536, seed=i) for i in range(3)]
+    st9 = stack_pools(pools9)
+    for u in (1, 8, 8):
+        st9, _o = fs.fused_step_fleet(cb9.static, cb9.params, None, st9, stack_frames(frames9), unroll=u)
+        for i in range(3):
+            solo, _o = fs.fused_step(cb9.static, cb9.params, None, pools9[i], frames9[i], unroll=u)
+            plain9, _o = plain_frames(cb9.static, cb9.params, pools9[i], frames9[i], u)
+            for k in active_f32_fields(cb9.static) + ("ring_cursor", "alive"):
+                check(torch.equal(getattr(state_slot(st9, i), k), getattr(solo, k)), f"caps_det fleet fields9 {k}")
+            compare(cb9, solo, plain9, {}, f"caps_det fleet fields9 slot {i} U={u}", kernel="fused_step.fleet")
+            pools9[i] = solo
+    caps_res["fields9_fleet"] = {"slots": 3, "fields": 9, "live": [int(p.alive.sum()) for p in pools9]}
+    # the entry points past every old cap at once: a Scene (200 colliders,
+    # nine fields, nine emitters and types) and a Fleet (200 colliders),
+    # each against the plain version replaying it on the card; 3 frames
+    # (the `cuda` test takes 6): a plain frame against 200 colliders costs
+    # seconds of host time
+    nl = 3
+    (sc_l, sid_l), scene_l_counts = counted(lambda: table_cfg.lifted_scene(dev, nl))
+    slot_l = sc_l._spawners[sid_l]
+    st_l, out_l = table_cfg.plain_replay(sc_l, sid_l, nl)
+    compare(slot_l.compiled, slot_l.state, st_l, {}, "caps_det Scene", kernel="fused_step.collide_broad")
+    check(sc_l.alive_count() == int(out_l.alive_count) > 5000 and scene_l_counts["broad"] == nl
+          and scene_l_counts["fields"] == nl, f"caps_det Scene: {sc_l.alive_count()} live, {scene_l_counts}")
+    fleet_l, fleet_l_counts = counted(lambda: table_cfg.lifted_fleet(dev, nl))
+    for i in (0, 1):
+        compare(fleet_l.compiled, state_slot(fleet_l.states, i), table_cfg.fleet_plain_replay(fleet_l, i, nl), {},
+                f"caps_det Fleet slot {i}", kernel="fused_step.fleet")
+    check(fleet_l.alive_count() > 1000 and fleet_l_counts["fleet_broad"] == nl, f"caps_det Fleet: {fleet_l_counts}")
+    caps_res["entry_points"] = {"scene_live": sc_l.alive_count(), "scene_colliders": sc_l._colliders.count,
+                                "fleet_live": fleet_l.alive_count(), "frames": nl}
+    torch.cuda.synchronize()
+    emit({"phase": "caps_det", "card": card, "n": 131072, "cases": caps_res,
+          "rule": "past the old caps (16 knots, 8 emitters, 8 types, 8 fields): kernel == plain bit for bit (state, "
+                  "render planes), stats row == the plain reductions; 9 fields solo and in a 3-slot fleet (each slot "
+                  "== its solo launch == plain); a Scene and a Fleet past every cap == their plain replay"})
+
+    # ------------------------------------------------ 16. collider_scaling_1M
+    es_sc = dataclasses.replace(spc.emission_settings[0], emission_pacing=EmissionPacing.rate(500_000.0))
+    csc = bt.compile_spawner(dataclasses.replace(spc, emission_settings=(es_sc,)), device=dev)
+    fsc = bt.make_frame_input(1 / 60)
+    n_sc = 160 * 8192
+    plane_bytes_sc = 2 * 4 * len(active_f32_fields(csc.static)) * n_sc
+    scaling, scaling_counts = [], {}
+
+    def sc_differential(table, state, n, reps):
+        """Differential ms/frame of multi_step_auto over n and 2n frames."""
+        diffs = []
+        for _ in range(reps):
+            t_n = event_ms(lambda: fs.multi_step_auto(csc.static, csc.params, table, state, fsc, n), 1)
+            t_2n = event_ms(lambda: fs.multi_step_auto(csc.static, csc.params, table, state, fsc, 2 * n), 1)
+            diffs.append((t_2n - t_n) / n)
+        return statistics.median(diffs)
+
+    for hulls, sizes in ((False, (1, 2, 4, 8, 16, 32, 64, 128)), (True, (8, 16, 32, 64))):
+        for C in sizes:
+            table = bt.compile_colliders(table_cfg.scaling_colliders(C, hulls), device=dev)
+            (st, out), cnt = counted(lambda: fs.multi_step_auto(csc.static, csc.params, table,
+                                                                bt.init_pool_for(csc, n_sc, seed=0), fsc, 140))
+            for k, v in cnt.items():
+                scaling_counts[k] = scaling_counts.get(k, 0) + v
+            live = int(out.alive_count)
+            label = f"collider_scaling C={C}{' (1/4 hulls)' if hulls else ''}"
+            # the U = 2 launch against 2 plain frames from the warm state
+            # (f32 within 4 ulp: the spray's draws meet sinf/cosf)
+            sk, _o = fs.fused_step(csc.static, csc.params, table, st, fsc, unroll=2, stats=False)
+            sp_, _o = plain_frames(csc.static, csc.params, st, fsc, 2, stats=False, colliders=table)
+            compare(csc, sk, sp_, {k: 4 for k in active_f32_fields(csc.static)}, label,
+                    kernel="fused_step.collide_broad" if C >= L.LOOP_MIN_COLLIDERS else "fused_step.collide")
+            work = recorded_frame(csc, table, st, fsc)
+            b2 = bound(plane_bytes_sc, 2 * (INTEGRATE_OPS * live + work["ops"]))
+
+            def u2(table=table, st=st):
+                return fs.fused_step(csc.static, csc.params, table, st, fsc, unroll=2, stats=False)
+
+            row = {"colliders": C, "hulls": hulls, "live": live, "ms_per_frame": sc_differential(table, st, 100, 5),
+                   "u2_kernel_device_ms": device_ms(f"{label} U=2", u2, 20, True, b2["bound_ms"]), "bound": b2,
+                   "skip_share": work["skip_share"], "broad_phase": work["broad_phase"],
+                   "tests_kept": work["tests_kept"], "tests": work["tests"], "launches": cnt}
+            if C == 32 and not hulls:
+                row["plain_2_frames_device_ms"] = device_ms(f"{label} plain 2", lambda: plain_frames(
+                    csc.static, csc.params, st, fsc, 2, stats=False, colliders=table), 1, False, b2["bound_ms"])
+            scaling.append(row)
+    check(len({r["live"] for r in scaling}) == 1 and scaling[0]["live"] > 900000,
+          f"collider_scaling: live counts {[r['live'] for r in scaling]} (the ring's count is the cadence's)")
+    emit({"phase": "collider_scaling_1M", "card": card, "capacity": n_sc, "rate": 500_000.0, "warm_frames": 140,
+          "rows": scaling, "rule": "tools/collider_scaling_tpu.py's scenes: per C a 140-frame multi_step_auto chain, "
+                                   "its U=2 launch == 2 plain frames (f32 <= 4 ulp); ms/frame differential over 100 "
+                                   "and 200 frames (median of 5); the U=2 launch's device time against its bound (the narrow "
+                                   "phase's operations counted from a recorded plain frame, the skip included)"})
+
+    # ------------------------------------------------ 17. fields_det
     field_kinds = {
         "point": bt.ForceField.point((0.3, 0.8, -0.2), 6.0, 2.5),
         "vortex": bt.ForceField.vortex((0.1, 0.0, 0.2), (0.3, 0.9, 0.1), 5.0, 3.0),
@@ -721,7 +963,7 @@ def main() -> int:
     emit({"phase": "fields_det", "card": card, "n": 131072, "configs": fdet_res,
           "rule": "bit-equal on point, vortex, axial; turbulence <= 8 ulp (cosf); 4 U=1 and 4 U=8 launches"})
 
-    # ------------------------------------------------ 15. dump_det
+    # ------------------------------------------------ 18. dump_det
     dump_res = {}
     for destroy in (False, True):
         cdm = bt.compile_spawner(box_spawner(destroy=destroy, lifetime=0.1, handler=lambda records: None), device=dev)
@@ -756,7 +998,7 @@ def main() -> int:
     emit({"phase": "dump_det", "card": card, "n": 131072, "frames": 12, "archetypes": dump_res, **dump_t,
           "rule": "dump plane == plain destroyed mask, every frame; fields bit-equal"})
 
-    # ------------------------------------------------ 16. stats_det
+    # ------------------------------------------------ 19. stats_det
     from bevy_firework_tpu_torch.step import stat_reductions
 
     def three_types():
@@ -818,7 +1060,7 @@ def main() -> int:
     emit({"phase": "stats_det", "card": card, "n": n1m, "cases": stats_res, **stats_t,
           "rule": "kernel stats row == the plain reductions of the launch's state by value; state bit-equal"})
 
-    # ------------------------------------------------ 17. fields_1M
+    # ------------------------------------------------ 20. fields_1M
     from bevy_firework_tpu_torch.models import library
 
     def tornado_fields(x=0.0, z=0.0):
@@ -833,7 +1075,7 @@ def main() -> int:
     f1m, f1m_counts, _cm, _st = chain_path("fields_1M", dust1m, 300_000, n1m, 300, 150, 3, fields=tornado_fields(),
                                            f32_ulps=64)
 
-    # ------------------------------------------------ 18. scene_flows
+    # ------------------------------------------------ 21. scene_flows
     sparks_sp = bt.ParticleSpawner(
         particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75))],
         emission_settings=[bt.EmissionSettings(emission_pacing=bt.EmissionPacing.rate(1000.0))])
@@ -949,7 +1191,7 @@ def main() -> int:
           "events": {"spawners": 4, "frames": 220, "records_delivered": delivered, "plain_destroyed": want,
                      "ms_per_scene_step_with_handler": on_ms, "ms_per_scene_step_without_handler": off_ms}})
 
-    # ------------------------------------------------ 19. nested_det
+    # ------------------------------------------------ 22. nested_det
     from bevy_firework_tpu_torch.step import nested_cadence, nested_child_rows as plain_child_rows, nested_parents
 
     def det_nested(destroy=False, chained=False):
@@ -1049,7 +1291,7 @@ def main() -> int:
     emit({"phase": "nested_det", "card": card, "n": n_det, "cadence": cad_res, "hybrid": hyb_res,
           "rule": "cadence kernels (cum and fetch mode), child rows and 30 hybrid frames == plain, bit for bit"})
 
-    # ------------------------------------- 20./21. nested_60k, nested_chained
+    # ------------------------------------- 23./24. nested_60k, nested_chained
     def bench_nested(chained):
         """bench.py's _measure_nested / _measure_nested_chained spawners."""
         if not chained:
@@ -1176,10 +1418,10 @@ def main() -> int:
     n60k, n60k_counts = nested_path("nested_60k", False)
     nch, nch_counts = nested_path("nested_chained", True)
 
-    # ------------------------------------------------ 22. nested_flows
+    # ------------------------------------------------ 25. nested_flows
     from bevy_firework_tpu_torch.render import compact_dense
 
-    def nested_flow(name, frames=600):
+    def nested_flow(name, frames=300):
         """effects.<name>() through Scene on the card, then the same flow
         replayed by the plain version on the card: per-type counts every
         frame, the final state and the dense render rows."""
@@ -1219,18 +1461,17 @@ def main() -> int:
 
     flows_n, flows_counts = counted(lambda: {"fireworks": nested_flow("fireworks"),
                                              "textures": nested_flow("textures")})
-    check(flows_counts["merge"] == 1200 and flows_counts["nested_cadence"] == 1200, f"nested flows: {flows_counts}")
+    check(flows_counts["merge"] == 600 and flows_counts["nested_cadence"] == 600, f"nested flows: {flows_counts}")
     check(flows_n["fireworks"]["per_type"][1] > 100 and flows_n["textures"]["per_type"][1] > 100,
           f"nested flows: {flows_n}")
     emit({"phase": "nested_flows", "card": card, "launches": flows_counts, **flows_n,
           "rule": "Scene on the card == the plain flow replayed on the card: per-type counts every frame, state "
                   "within 64 ulp, dense rows"})
 
-    # ------------------------------------------------ 23. fleet_det
+    # ------------------------------------------------ 26. fleet_det
     from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools, state_slot
     from bevy_firework_tpu_torch.pool import POOL_FIELDS
 
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import torch_fleet_configs as fleet_cfg
 
     fleet_det = {}
@@ -1246,7 +1487,7 @@ def main() -> int:
                   "render planes), and == the plain frames (rotation <= 2 ulp); slots differ in params, seeds, "
                   "frames, fields; dead-rank claim, dump, stats, fields, render pack, U = 8"})
 
-    # ------------------------------------------------ 24. fleet_16x55k
+    # ------------------------------------------------ 27. fleet_16x55k
     S16, cap16 = 16, 8 * 8192
     es16 = dataclasses.replace(stress_sp.emission_settings[0], emission_pacing=EmissionPacing.rate(55_000.0))
     c16 = bt.compile_spawner(dataclasses.replace(stress_sp, emission_settings=(es16,)), device=dev)
@@ -1337,7 +1578,7 @@ def main() -> int:
                  solo_launches, 5), "bound": bound16, "seconds": secs16}
     emit(res16)
 
-    # ------------------------------------------------ 25. fleet_flow
+    # ------------------------------------------------ 28. fleet_flow
     t_mark = time.perf_counter()
     flow_card, flow_counts = counted(lambda: {sh: fleet_cfg.one_shot_fleet_flow(dev, sh)
                                               for sh in fleet_cfg.FLOW_SHAPES})
@@ -1364,7 +1605,7 @@ def main() -> int:
                               "100 exact; f32 against the card's plain replay bit for bit with a box emission, "
                               "within 4 ulp with the one_shot circle's sinf/cosf; against the CPU within 1e-5"})
 
-    # ------------------------------------------------ 26. scene_groups
+    # ------------------------------------------------ 29. scene_groups
     def scene_batch_12():
         sp_ = effects.sparks(rate=6000.0)[0]
         sc = bt.Scene(device=dev)
@@ -1522,8 +1763,8 @@ def main() -> int:
 
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
-    runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, f1m_counts, scene_counts,
-            n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts)
+    runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
+            scene_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts)
 
     def total(keys):
         keys = (keys,) if isinstance(keys, str) else keys
@@ -1565,6 +1806,16 @@ def main() -> int:
               c1m["plain_2_frames_device_ms"], c1m["bounds"]["u2"],
               u8_ms=c1m["u8_kernel_device_ms"], plain_u8_ms=c1m["plain_8_frames_device_ms"],
               hull8_ms=h8["u2_kernel_device_ms"], hull8_plain_ms=h8["plain_2_frames_device_ms"]),
+        entry("fused_step.collide_broad", "bevy_firework_tpu/ops/fused_step.py:452", ("broad", "fleet_broad"),
+              h8["u2_kernel_device_ms"], h8["plain_2_frames_device_ms"], h8["bounds"]["u2"],
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:452-563 (the looped narrow phase and its broad "
+                            "phase; _collider_perm :324 not carried over)",
+              u8_ms=h8["u8_kernel_device_ms"], plain_u8_ms=h8["plain_8_frames_device_ms"],
+              skip_share_hull8=h8["skip_share"],
+              scaling_u2_ms={f"{r['colliders']}{'h' if r['hulls'] else ''}": r["u2_kernel_device_ms"]
+                             for r in scaling},
+              scaling_bound_ms={f"{r['colliders']}{'h' if r['hulls'] else ''}": r["bound"]["bound_ms"]
+                                for r in scaling}),
         entry("fused_step.dead_rank_claim", "bevy_firework_tpu/ops/fused_step.py:173", "dead_rank_claim",
               claim["claim_kernels_device_ms"], claim["plain_dead_rank_device_ms"], claim_bound, source="fused_step.cu",
               kernels=["dead_count_kernel", "tile_scan_kernel", "fused_step_kernel block_dead_rank"],
@@ -1596,13 +1847,14 @@ def main() -> int:
               solo16_wall_ms=res16["u8_solo16_launches_wall_ms"]),
     ]
     emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live); collide: 1310720 lanes "
-                          "stress_test_collision; dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
+                          "stress_test_collision (collide_broad: hull8_1M, 8 hulls; scaling_*: "
+                          "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
                           "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
                           "nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: nested_chained); fleet: "
                           "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s)",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, collide "
-                  "U=2 (u8_ms U=8), dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
+                  "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
                   "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "
                   "scan + apply), nested_merge the hybrid step launch, nested_child_rows one launch, fleet one U=8 "
@@ -1613,7 +1865,9 @@ def main() -> int:
                   "mode) or step.nested_child_rows; plain_reductions_ms: the plain reductions "
                   "(step.stat_reductions, the CPU's stats); "
                   "*_wall_ms: CUDA-event wall time per call; bound_ms: the larger of bound_bytes over 3.35 TB/s "
-                  "and bound_ops (f32, lower-bound counts) over 67 TFLOP/s; library_ms: no single PyTorch call "
+                  "and bound_ops (f32, lower-bound counts; the narrow phase's from a recorded plain frame of the "
+                  "same state, its broad phase's skips included) over 67 TFLOP/s; the broad phase is a run-time "
+                  "branch of the collide instantiations (no new instantiation); library_ms: no single PyTorch call "
                   "computes these functions; every device time was held to its bound, a trace below it traced "
                   "again (trace_faults)",
         "trace_faults": trace_faults,

@@ -344,26 +344,34 @@ def test_hull_cases_port(case):
 def test_pack_colliders_keeps_layer_bits_and_disables():
     """The kernel's collider table: kinds, flags and values at their slots,
     uint32 layers bit for bit, layers 0 for a disabled collider, each
-    hull's own plane rows; more than MAX_C colliders raise."""
+    hull's own plane rows (and no plane words for other kinds), the broad
+    phase's bounding radius; a table of any size (33 colliders here) packs."""
     t = pt.compile_colliders(_mixed_scene(pt), device="cpu")
     t = dataclasses.replace(t, active=torch.tensor([1, 1, 0, 1, 1, 1, 1, 1], dtype=torch.float32))
     w = pfs.pack_colliders(t)
-    rows = w[:L.CO_PLANES_AT].reshape(L.MAX_C, L.CO_STRIDE)
-    assert list(rows[:8, L.CO_KIND]) == list(t.kinds) and list(rows[:8, L.CO_HULL_N]) == list(t.hull_counts)
-    assert list(rows[:8, L.CO_IDENT]) == [int(i) for i in t.identity_rot]
-    layers = rows[:8, L.CO_LAYERS].view(np.uint32)
+    assert w.size == 8 * L.CO_STRIDE + 4 * (6 + 4)  # a 6-plane box and a tetrahedron
+    rows = w[:8 * L.CO_STRIDE].reshape(8, L.CO_STRIDE)
+    assert list(rows[:, L.CO_KIND]) == list(t.kinds) and list(rows[:, L.CO_HULL_N]) == list(t.hull_counts)
+    assert list(rows[:, L.CO_IDENT]) == [int(i) for i in t.identity_rot]
+    layers = rows[:, L.CO_LAYERS].view(np.uint32)
     assert list(layers) == [0b01, 0b10, 0, 0x80000000, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 0b110]
-    np.testing.assert_array_equal(rows[:8, L.CO_ROT:L.CO_ROT + 4].view(np.float32), t.rotation.numpy())
-    planes = w[L.CO_PLANES_AT:].view(np.float32).reshape(L.MAX_C, L.HULL_MAX_PLANES, 4)
-    np.testing.assert_array_equal(planes[6:8], t.hull_planes[6:8].numpy())
-    assert not planes[:6].any()
-    with pytest.raises(NotImplementedError, match="colliders"):
-        pfs.pack_colliders(pt.compile_colliders([pt.Collider.sphere(1.0)] * (L.MAX_C + 1), device="cpu"))
+    np.testing.assert_array_equal(rows[:, L.CO_ROT:L.CO_ROT + 4].view(np.float32), t.rotation.numpy())
+    assert list(rows[:, L.CO_PLANES]) == [0] * 6 + [8 * L.CO_STRIDE, 8 * L.CO_STRIDE + 24]
+    for ci in (6, 7):
+        n = t.hull_counts[ci]
+        planes = w[rows[ci, L.CO_PLANES]:][:4 * n].view(np.float32).reshape(n, 4)
+        np.testing.assert_array_equal(planes, t.hull_planes[ci, :n].numpy())
+    p = t.params.numpy()
+    radius = rows[:, L.CO_RADIUS].view(np.float32)
+    assert radius[1] == p[1, 0] and radius[6] == p[6, 0] and radius[3] == p[3, 0] + p[3, 1]
+    assert radius[2] == np.sqrt(p[2, 0] * p[2, 0] + p[2, 1] * p[2, 1] + p[2, 2] * p[2, 2])
+    many = pfs.pack_colliders(pt.compile_colliders([pt.Collider.sphere(1.0)] * 33, device="cpu"))
+    assert many.size == 33 * L.CO_STRIDE and (many.reshape(33, L.CO_STRIDE)[:, L.CO_KIND] == 1).all()
     c = pt.compile_spawner(det_spawner(pt, ps=dict(
         collision_settings=PortCollisionSettings(0.5, 0.25, True, 0xFFFFFFFF))), device="cpu")
     words = pfs.pack_tables(c.static, c.params)
     ty = L.TY_AT
-    assert words[L.H_HAS_COL] == 1 and not c.static.ring_claim
+    assert words[ty + L.TY_HAS_COL] == 1 and not c.static.ring_claim
     assert words[ty + L.TY_COLL_MASK].view(np.uint32) == 0xFFFFFFFF
     assert list(words[ty + L.TY_RESTITUTION:ty + L.TY_DESTROY + 1].view(np.float32)) == [0.5, 0.25, 1.0]
 

@@ -58,19 +58,21 @@ def _det_spawner():
 
 def test_pack_tables_puts_each_parameter_at_its_named_slot():
     """Live-rotation and curve slots of the kernel's table (the stress_test
-    ones are in test_torch_slice.py)."""
+    ones are in test_torch_slice.py); the curve rows follow the header's
+    knot stride (H_K)."""
     c = pt.compile_spawner(_det_spawner(), device="cpu")
     p = c.params.to_numpy()
-    fl = fs.pack_tables(c.static, c.params).view(np.float32)
-    em, ty, cv = L.EM_AT, L.TY_AT, L.CV_AT
+    w = fs.pack_tables(c.static, c.params)
+    fl = w.view(np.float32)
+    em, ty, cv, K = w[L.H_EM_AT], L.TY_AT, w[L.H_CV_AT], w[L.H_K]
     assert fl[em + L.EM_DURATION] == p["duration"][0] and fl[em + L.EM_COUNT] == p["count"][0]
     np.testing.assert_array_equal(fl[em + L.EM_IANG:em + L.EM_IANG + 7], p["iangvel_params"][0])
     np.testing.assert_array_equal(fl[em + L.EM_INIT_ROT:em + L.EM_INIT_ROT + 4], p["init_rot"][0])
     np.testing.assert_array_equal(fl[ty + L.TY_ACCEL:ty + L.TY_ACCEL + 3], p["acceleration"][0])
     assert fl[ty + L.TY_ANG_DRAG] == p["angular_drag"][0]
-    K = p["scale_ts"].shape[1]
-    np.testing.assert_array_equal(fl[cv + L.CV_SCALE_VS * L.MAX_K:][:K], p["scale_vs"][0])
-    np.testing.assert_array_equal(fl[cv + (L.CV_EMIS_TS + 4) * L.MAX_K:][:K], p["emis_vs"][0][:, 3])
+    assert K == p["scale_ts"].shape[1] and cv == em + L.EM_STRIDE
+    np.testing.assert_array_equal(fl[cv + L.CV_SCALE_VS * K:][:K], p["scale_vs"][0])
+    np.testing.assert_array_equal(fl[cv + (L.CV_EMIS_TS + 4) * K:][:K], p["emis_vs"][0][:, 3])
 
 
 @pytest.mark.cuda
@@ -554,3 +556,98 @@ def test_fleet_one_shot_flow_on_the_card(cuda, shape):
                            ("cpu", fleet_cfg.one_shot_fleet_flow("cpu", shape))):
         diff = fleet_cfg.compare_fleet_flows(card, run)
         assert fleet_cfg.flow_rule_holds(shape, reference, diff), (reference, diff)
+
+
+# ---------------------------------------------------------------------------
+# many colliders (the broad phase) and the lifted table caps
+# ---------------------------------------------------------------------------
+
+import torch_table_configs as table_cfg  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", sorted(table_cfg.det_scenes()))
+def test_broad_phase_kernel_matches_plain(cuda, scene):
+    """From LOOP_MIN_COLLIDERS colliders the narrow phase skips, per warp and
+    substep, the colliders no active lane can reach: the kernel still
+    equals the plain version (every collider, no skip) bit for bit, single
+    and U = 2 launches, on the six-collider mix, on 33 and 64 mixed
+    colliders (a quarter hulls, some disabled, lanes starting inside two)
+    and on 200 read from global memory."""
+    cols, disabled = table_cfg.det_scenes()[scene]
+    c = pt.compile_spawner(_box_spawner(), device=cuda)
+    table = table_cfg.compile_with_disabled(cols, disabled, cuda)
+    assert (fs.kernel_colliders(table).numel() > L.SMEM_COLLIDER_WORDS) == (scene == "c200")
+    s = pt.init_pool_for(c, 131072)
+    before = fs.fused_step.broad_launches
+    s = _assert_kernel_equals_plain(c, table, s, pt.make_frame_input(1 / 60), [1] * 6 + [2] * 3)
+    assert fs.fused_step.broad_launches - before == 9
+    assert int(s.alive.sum()) > 40000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", table_cfg.CAPS)
+def test_lifted_caps_kernel_matches_plain(cuda, case):
+    """Curves of 17 and 40 knots, 9 emitters, 9 types: the kernel equals the
+    plain version bit for bit (state, render planes), and its stats row the
+    plain reductions, over single and U = 8 launches."""
+    c = pt.compile_spawner(table_cfg.caps_spawner(case), device=cuda)
+    s = pt.init_pool_for(c, 131072)
+    f = pt.make_frame_input(1 / 60)
+    for u in [1] * 3 + [8] * 2:
+        sk, ok, planes = fs.fused_step(c.static, c.params, None, s, f, unroll=u, pack_render=True)
+        sp, _op = plain_frames(c.static, c.params, s, f, u)
+        for k in active_f32_fields(c.static) + SCALARS:
+            assert torch.equal(getattr(sk, k), getattr(sp, k)), (u, k)
+        for a, b in zip(planes, pack_render_planes(c.static, c.params, sp)):
+            assert torch.equal(a, b), u
+        kw = {k: getattr(sk, k) for k in ("px", "py", "pz", "initial_scale", "age", "lifetime")}
+        want = stat_reductions(c.static, c.params, kw, sk.ptype, sk.alive)
+        for got, w in zip((ok.aabb_min, ok.aabb_max, ok.alive_count, ok.alive_count_per_type), want):
+            assert torch.equal(got, w), u
+        s = sk
+    assert int((ok.alive_count_per_type > 0).sum()) == c.num_types and int(ok.alive_count) > 20000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", [False, True])
+def test_nine_force_fields_kernel_matches_plain(cuda, fleet):
+    """Nine force fields from the device records: a solo launch equals the
+    plain version bit for bit; a fleet of 3 slots whose fields differ
+    equals each slot's solo launch and plain frames."""
+    c = pt.compile_spawner(_box_spawner(), device=cuda)
+    if not fleet:
+        f = pt.make_frame_input(1 / 60, force_fields=pt.compile_force_fields(table_cfg.nine_fields(), device=cuda))
+        _assert_kernel_equals_plain(c, None, pt.init_pool_for(c, 131072), f, [1] * 3 + [8] * 2)
+        return
+    frames = [pt.make_frame_input(1 / 60, force_fields=pt.compile_force_fields(table_cfg.nine_fields(0.3 * i),
+                                                                               device=cuda)) for i in range(3)]
+    pools = [pt.init_pool_for(c, 65536, seed=i) for i in range(3)]
+    st = stack_pools(pools)
+    for u in (1, 8, 8):
+        st, _o = fs.fused_step_fleet(c.static, c.params, None, st, stack_frames(frames), unroll=u)
+        for i in range(3):
+            solo, _o = fs.fused_step(c.static, c.params, None, pools[i], frames[i], unroll=u)
+            plain, _o = plain_frames(c.static, c.params, pools[i], frames[i], u)
+            for k in active_f32_fields(c.static) + ("ring_cursor", "alive"):
+                assert torch.equal(getattr(state_slot(st, i), k), getattr(solo, k)), (u, i, k)
+                assert torch.equal(getattr(solo, k), getattr(plain, k)), (u, i, k)
+            pools[i] = solo
+
+
+@pytest.mark.cuda
+def test_scene_and_fleet_past_the_old_caps(cuda):
+    """A Scene on the card with 200 colliders, nine force fields, nine
+    emitters and nine types, and a Fleet against the 200 colliders, each
+    equal to the plain version replaying it on the card, bit for bit."""
+    scene, sid = table_cfg.lifted_scene(cuda)
+    st, out = table_cfg.plain_replay(scene, sid)
+    got = scene._spawners[sid].state
+    for k in active_f32_fields(scene._spawners[sid].compiled.static) + SCALARS:
+        assert torch.equal(getattr(got, k), getattr(st, k)), k
+    assert scene.alive_count() == int(out.alive_count) > 5000
+    fleet = table_cfg.lifted_fleet(cuda)
+    for i in (0, 1):
+        want = table_cfg.fleet_plain_replay(fleet, i)
+        for k in active_f32_fields(fleet.compiled.static) + SCALARS:
+            assert torch.equal(getattr(state_slot(fleet.states, i), k), getattr(want, k)), (i, k)

@@ -122,6 +122,23 @@ def test_sparks_flow_scene():
     assert ps.spawner_ids() == [0]
 
 
+def test_combined_signature_limit_is_accepted():
+    """Scene(combined_signature_limit=4) constructs in both packages (the
+    JAX Scene's keyword; the port ignores it) and the port's steps as
+    Scene() does, bit for bit, with the reference's live count."""
+    js, ps = _scenes(combined_signature_limit=lambda pkg: 4)
+    plain = pt.Scene(device="cpu")
+    for scene, pkg in ((js, jx), (ps, pt), (plain, pt)):
+        scene.add_spawner(_sparks(pkg), capacity=2048)
+    for _ in range(60):
+        for scene in (js, ps, plain):
+            scene.step(DT)
+    assert ps.alive_count() == plain.alive_count() == js.alive_count() == 750
+    a, b = ps._spawners[0].state, plain._spawners[0].state
+    for k, v in pt.interop.pool_to_numpy(a).items():
+        np.testing.assert_array_equal(v, pt.interop.pool_to_numpy(b)[k], err_msg=k)
+
+
 def test_one_shot_on_finished_fires_on_the_same_frame():
     """effects.one_shot: a 20-particle burst; on_finished fires once, on the
     frame the last particle dies, in both scenes."""

@@ -97,11 +97,13 @@ def test_pack_tables_holds_the_spawner():
     fl = w.view("float32")
     assert w[L.H_E] == 1 and w[L.H_SINGLE] == 1 and w[L.H_ELIDE_ROT] == 1 and w[L.H_CONST_LIFE] == 1
     assert fl[L.H_CONST_LIFE_VAL] == 1.0
-    assert fl[L.EM_AT + L.EM_COUNT] == 160000.0  # count per cycle
-    shape = fl[L.EM_AT + L.EM_SHAPE:L.EM_AT + L.EM_SHAPE + 8]
+    em = w[L.H_EM_AT]
+    assert em == L.TY_AT + L.TY_STRIDE and w[L.H_T] == 1 and w.size == L.table_words(1, 1, w[L.H_K])
+    assert fl[em + L.EM_COUNT] == 160000.0  # count per cycle
+    shape = fl[em + L.EM_SHAPE:em + L.EM_SHAPE + 8]
     assert tuple(shape) == tuple(c.params.shape_params[0].tolist())
     assert fl[L.TY_AT + L.TY_LIN_DRAG] == c.params.linear_drag[0].item()
-    assert w[L.H_BASE_KIND] == 2 and w[L.H_BASE_N] == 5  # the 5-knot uneven ember gradient
+    assert w[L.TY_AT + L.TY_BASE_KIND] == 2 and w[L.TY_AT + L.TY_BASE_N] == 5  # the 5-knot uneven ember gradient
 
 
 def test_wrapper_has_no_fallback_device():
