@@ -21,9 +21,13 @@ pools in one launch of the fleet kernel: `fused_step_fleet`,
 the effect library and effects (textures and fireworks included), and the
 `Scene` facade with archetype groups (one fleet launch per group;
 colliders and force fields with slot reuse, `particles_destroyed` and
-`on_finished` events, AABBs, render items). Every entry point runs on the
-card unless given `device="cpu"`. Not yet: the nested fold, trails, async
-events and render, checkpoints, mesh sharding (see ROADMAP.md).
+`on_finished` events, AABBs, render items), and the render extract: the
+kernel's f32 or f16 render pack, the pack family (`pack_instances`,
+`pack_instances_planar`, `pack_instances_dense_f16`), the native instance
+ring (`native`) and `AsyncRenderReader` with the Scene's async render.
+Every entry point runs on the card unless given `device="cpu"`. Not yet:
+the nested fold, trails, async events, checkpoints, mesh sharding (see
+ROADMAP.md).
 """
 
 from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition
@@ -61,10 +65,14 @@ from .render import (
     frustum_planes,
     instances_to_bytes,
     make_uniform,
+    pack_instances,
     pack_instances_dense,
+    pack_instances_dense_f16,
+    pack_instances_planar,
     planes_to_rows,
     sort_instances_back_to_front,
 )
+from .render_pipeline import AsyncRenderReader
 from .scene import DestroyedParticle, Scene, Transform, estimate_capacity
 from .settings import (
     BlendMode,
@@ -85,7 +93,7 @@ from .settings import (
 from .step import StepOutputs, step
 
 __all__ = [
-    "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle", "EffectModifier",
+    "AsyncRenderReader", "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle", "EffectModifier",
     "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape", "FieldTable", "FireworkCurve", "Fleet",
     "FireworkGradient", "FireworkUniform", "ForceField", "FrameInput", "ParticleCollisionSettings",
     "ParticleEventHandlers", "ParticleSettings", "ParticleSpawner", "PoolState", "RandF32", "RandVec3", "RenderItem",
@@ -94,7 +102,8 @@ __all__ = [
     "frustum_planes", "fused_step", "fused_step_fleet", "fused_step_hybrid", "gradient_constant",
     "gradient_even_samples", "gradient_uneven_samples", "hull_decomposition", "init_pool", "init_pool_for",
     "instances_to_bytes", "make_frame_input", "make_uniform", "multi_step_auto", "multi_step_auto_packed",
-    "multi_step_fleet", "multi_step_fleet_stacked", "nested_cadence_pass", "pack_instances_dense", "planes_to_rows",
+    "multi_step_fleet", "multi_step_fleet_stacked", "nested_cadence_pass", "pack_instances", "pack_instances_dense",
+    "pack_instances_dense_f16", "pack_instances_planar", "planes_to_rows",
     "sort_instances_back_to_front", "spawner_from_dict", "spawner_from_json", "spawner_to_dict", "spawner_to_json",
     "stack_frames", "stack_params", "stack_pools", "step", "step_auto", "step_auto_fleet", "step_auto_packed",
 ]

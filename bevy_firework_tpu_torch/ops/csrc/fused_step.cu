@@ -3,7 +3,7 @@
 // narrow phase (7 collider kinds, up to 4 bounce substeps,
 // destroy-on-collision), scene force fields, linear drag, quaternion +
 // angular drag, and optionally the destroyed-particle dump plane, the f32
-// render pack and the frame's stats (AABB and counts), for U <= 8 frames
+// or f16 render pack and the frame's stats (AABB and counts), for U <= 8 frames
 // per launch, for one pool or for a fleet of S pools of one archetype in
 // one launch; and for archetypes with nested emitters, the nested cadence
 // pass, the child rows from threefry draws, and the child merge into the
@@ -14,7 +14,7 @@
 // claims, colliders, force fields, the dump, kernel stats, the nested merge
 // and the fleet grid (`fused_step_fleet` :2358, grid=(S, tiles) :2031; no
 // shard or fold blocks): its main-path block (:1162-1521),
-// its render-pack block (:1523-1561, f32 mode), its collision narrow phase
+// its render-pack block (:1523-1561, f32 and f16 modes), its collision narrow phase
 // `_collide_tile` (:349) with `_ray_kind` (:309), its dead-rank claim
 // (`_prefix_exclusive` :173 with the SMEM `dead_carry`, :1142-1149,
 // :1323-1333) with the alive plane in and out (:1023-1026, :1563-1564), its
@@ -145,7 +145,8 @@
 // Bound on this card: memory traffic on the main path. A U-frame launch
 // reads and writes each active field once (8 f32 planes for the stress_test
 // archetype: 64 B per lane, about 8 MB at N = 131072, ~2.5 us at 3.35 TB/s),
-// plus 36 B per lane when the render pack is on, plus 2 B (alive in and out)
+// plus 36 B per lane when the f32 render pack is on (24 B, or 32 B with
+// live rotation, for the f16 record), plus 2 B (alive in and out)
 // on the dead-rank claim, plus 1 B for the dump plane. Arithmetic per
 // lane-frame is a few dozen flops outside spawn lanes; spawn lanes add three
 // Philox blocks and the samplers' sinf/cosf; colliding lanes add up to 4
@@ -496,8 +497,10 @@ extern "C" {
 // Launch one U-frame step on `stream`. Pointer arrays live on the host and
 // hold device pointers: field_in/field_out have N_FIELDS slots (null for an
 // elided field), scal_in/scal_out 5 (time_in_cycle f32[E], last_emission
-// f32[E], enabled u8[E], manual_queued i32, ring_cursor i32), render_out
-// N_RENDER or null. tables is the spawner table of n_emitters emitters and
+// f32[E], enabled u8[E], manual_queued i32, ring_cursor i32); render_mode
+// 0 (render_out null), PACK_F32 (render_out N_RENDER f32 planes) or
+// PACK_F16 (render_out N_RECORD f16 planes by contract column, the
+// quaternion's null when rotation is elided). tables is the spawner table of n_emitters emitters and
 // n_types types (pack_tables). colliders is the collider table of
 // n_colliders rows and collider_words words (pack_colliders; n_colliders 0:
 // no narrow phase). Non-ring archetypes (U = 1) pass the alive planes (u8)
@@ -525,10 +528,10 @@ extern "C" {
 int bf_fused_step(const void* tables, const void* colliders, int n_colliders, int collider_words,
                   void* const* field_in, void* const* field_out, const void* ptype_in, void* ptype_out,
                   const void* alive_in, void* alive_out, const void* tile_dead_offset, void* const* scal_in,
-                  void* const* scal_out, void* const* render_out, const float* frame, const uint32_t* seeds,
-                  int unroll, int n, int n_emitters, int n_types, const void* fields, int n_fields, void* dump_out,
-                  void* stats_partial, void* stats_ticket, void* stats_out, const void* any_alive,
-                  const void* nested, const void* child, int n_merge, int merge_m, int child_rows, int n_slots,
+                  void* const* scal_out, int render_mode, void* const* render_out, const float* frame,
+                  const uint32_t* seeds, int unroll, int n, int n_emitters, int n_types, const void* fields,
+                  int n_fields, void* dump_out, void* stats_partial, void* stats_ticket, void* stats_out,
+                  const void* any_alive, const void* nested, const void* child, int n_merge, int merge_m, int child_rows, int n_slots,
                   int tab_stride, const void* slot_rows, int slot_words, void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
   if (unroll < 1 || unroll > MAX_U || n <= 0 || n_emitters < 1 || n_types < 1 || n_colliders < 0 ||
@@ -543,6 +546,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
     return (int)cudaErrorInvalidValue;
   if (stats_out != nullptr && (stats_partial == nullptr || stats_ticket == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((render_mode != 0 && render_mode != PACK_F32 && render_mode != PACK_F16) ||
+      (render_mode != 0) != (render_out != nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   for (int i = 0; i < N_FIELDS; ++i) {
@@ -568,8 +574,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   a.en_out = (uint8_t*)scal_out[2];
   a.mq_out = (int*)scal_out[3];
   a.cursor_out = (int*)scal_out[4];
-  a.pack_render = render_out != nullptr;
-  for (int i = 0; i < N_RENDER; ++i) a.render[i] = render_out ? (float*)render_out[i] : nullptr;
+  a.pack_render = render_mode;
+  const int n_render = render_mode == PACK_F16 ? N_RECORD : render_mode == PACK_F32 ? N_RENDER : 0;
+  for (int i = 0; i < N_RECORD; ++i) a.render[i] = i < n_render ? render_out[i] : nullptr;
   a.dump = (uint8_t*)dump_out;
   a.stats_partial = (int*)stats_partial;
   a.stats_ticket = (unsigned*)stats_ticket;

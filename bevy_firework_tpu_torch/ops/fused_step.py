@@ -329,12 +329,25 @@ def _checked(t: torch.Tensor, dtype, device, shape: tuple) -> torch.Tensor:
     return t
 
 
+def _pack_mode(pack_render) -> int:
+    """The launch's render-pack mode for a `pack_render` argument, as the JAX
+    package reads it: false 0, "f16" L.PACK_F16 (the f16 record), another
+    true value L.PACK_F32 (9 f32 planes); another string raises."""
+    if isinstance(pack_render, str):
+        if pack_render != "f16":
+            raise ValueError(f"pack_render must be False, True or 'f16', got {pack_render!r}")
+        return L.PACK_F16
+    return L.PACK_F32 if pack_render else 0
+
+
 def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-            seeds: list, pack_render: bool, stats: bool, hybrid: Optional[dict] = None, fleet: Optional[dict] = None):
+            seeds: list, mode: int, stats: bool, hybrid: Optional[dict] = None, fleet: Optional[dict] = None):
     """One step launch on the current stream (after the dead-rank claim's
     count and scan, for archetypes without ring claims). Returns (fields,
     scal, render planes or None, dump plane or None, stats row or None):
-    new tensors; the inputs are not modified. hybrid (a hybrid frame's
+    new tensors; the inputs are not modified. mode: the render pack's
+    (`_pack_mode`): none, the 9 f32 planes, or the record's 12 or 16 f16
+    planes in contract column order. hybrid (a hybrid frame's
     merge; see `_hybrid_launches`): the nested scalars `ns`, the child rows
     `child`, the records' `emitters`, the pre-spawn flag `any_alive`, the
     ring cursor after the nested claims `cursor` and, on dead-rank
@@ -382,8 +395,12 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     else:
         merge = (None, None, None, 0, 0, 0)
     s_out = [torch.empty_like(t) for t in s_in]
-    render = [torch.empty(lead + (N,), dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)] \
-        if pack_render else None
+    render = None
+    if mode == L.PACK_F32:
+        render = [torch.empty(lead + (N,), dtype=torch.float32, device=dev) for _ in range(L.N_RENDER)]
+    elif mode == L.PACK_F16:  # by contract column, no quaternion planes under rotation elision
+        render = [None if static.elide_rotation and 4 <= i < 8 else torch.empty(lead + (N,), dtype=torch.float16,
+                                                                                 device=dev) for i in range(L.N_RECORD)]
     dump = torch.empty(lead + (N,), dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
     stats_row = partial = ticket = None
     if stats:  # the rows, one partial row per block, and one last-block ticket per slot (zeroed)
@@ -416,7 +433,7 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         rc = lib.bf_fused_step(
             ptr(table[c0:] if c0 and tab_stride else table), ptr(col), n_col, 0 if col is None else col.numel(),
             _ptr_array(c_ins), _ptr_array(c_outs), ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in),
-            _ptr_array(c_s_out), None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
+            _ptr_array(c_s_out), mode, None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
             seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(part), ptr(tick), ptr(row), *merge,
             c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], stream,
         )
@@ -424,19 +441,26 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
             raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
         launches += 1
     scal = dict(zip(names, s_out))
+    if render is not None:
+        render = [p for p in render if p is not None]
     return fields, scal, render, dump, stats_row, launches
 
 
 def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-               pack_render: bool = False, unroll: int = 1, stats: bool = True, kernel_stats: bool = False):
+               pack_render=False, unroll: int = 1, stats: bool = True, kernel_stats: bool = False):
     """Advance `unroll` frames (bit-equal to that many single frames).
     Returns (state, outputs) or, with pack_render, (state, outputs, planes):
-    the 9 render-pack planes of the last frame. outputs is None when
+    the render-pack planes of the last frame, for pack_render True the 9
+    f32 planes (instance scale, base rgba, emissive rgba), for "f16" the
+    instance record's 12 f16 planes (px py pz, instance scale, base rgba,
+    emissive rgba) or, with live rotation, 16 (the quaternion after the
+    scale), each the f32 value rounded to nearest even. outputs is None when
     `stats` is False (chain frames nobody reads; the finished latch is
     still updated); otherwise, on the card, the kernel's stats block
     computes their AABB and counts. kernel_stats is accepted for parity
     with the JAX package's signature and changes nothing."""
     check_kernel_scope(static, unroll)
+    mode = _pack_mode(pack_render)
     if collision_on(static, colliders) and colliders.device != state.device:
         raise ValueError(f"colliders on {colliders.device}, pool on {state.device}")
     if fields_on(frame) and frame.force_fields.device != state.device:
@@ -445,10 +469,10 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         return fused_step_hybrid(static, params, colliders, state, frame, pack_render, stats)
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
-        fields, scal, planes, dump, row, _n = _launch(static, params, colliders, state, frame, seeds, pack_render,
-                                                      stats)
+        fields, scal, planes, dump, row, _n = _launch(static, params, colliders, state, frame, seeds, mode, stats)
         fused_step.launches += 1
-        fused_step.render_launches += pack_render
+        fused_step.render_launches += mode == L.PACK_F32
+        fused_step.render_f16_launches += mode == L.PACK_F16
         fused_step.collide_launches += collision_on(static, colliders)
         fused_step.broad_launches += broad_phase_on(static, colliders)
         fused_step.fields_launches += fields_on(frame)
@@ -458,16 +482,17 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
                                   dump, None if row is None else stats_from_row(static, row))
     elif state.device.type == "cpu":
         new_state, out = plain_frames(static, params, state, frame, unroll, stats, colliders)
-        planes = pack_render_planes(static, params, new_state) if pack_render else None
+        planes = pack_render_planes(static, params, new_state, pack_render) if mode else None
     else:
         raise ValueError(f"no step for device {state.device}")
-    if pack_render:
+    if mode:
         return new_state, out, tuple(planes)
     return new_state, out
 
 
 fused_step.launches = 0  # kernel launches (CUDA path only)
-fused_step.render_launches = 0  # of which with the render pack
+fused_step.render_launches = 0  # of which with the f32 render pack
+fused_step.render_f16_launches = 0  # of which with the f16 record
 fused_step.collide_launches = 0  # of which with the narrow phase
 fused_step.broad_launches = 0  # of which with its per-warp broad phase (LOOP_MIN_COLLIDERS colliders or more)
 fused_step.fields_launches = 0  # of which with force fields
@@ -606,7 +631,7 @@ nested_child_rows.launches = 0  # child-rows kernel launches (CUDA path only)
 
 
 def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-                     pack_render: bool, stats: bool):
+                     pack_render, stats: bool):
     """One hybrid frame on the card: per valid nested emitter a cadence pass
     (fetch mode on the ring, cum mode on dead-rank archetypes) and the
     child-rows kernel, then the step launch with the merge block. Returns
@@ -646,11 +671,13 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     hybrid = {"ns": ns, "child": child, "emitters": es, "any_alive": any_alive,
               "cursor": start if (static.ring_claim and es) else state.ring_cursor,
               "offsets": None if dead_tiles is None else dead_tiles[1]}
+    mode = _pack_mode(pack_render)
     fields, scal, planes_out, dump, row, _n = _launch(static, params, colliders, state, frame,
-                                                      [int(kernel_key[1])], pack_render, stats, hybrid)
+                                                      [int(kernel_key[1])], mode, stats, hybrid)
     fused_step.launches += 1
     fused_step.merge_launches += 1
-    fused_step.render_launches += pack_render
+    fused_step.render_launches += mode == L.PACK_F32
+    fused_step.render_f16_launches += mode == L.PACK_F16
     fused_step.collide_launches += collision_on(static, colliders)
     fused_step.broad_launches += broad_phase_on(static, colliders)
     fused_step.fields_launches += fields_on(frame)
@@ -668,21 +695,22 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
 
 
 def fused_step_hybrid(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-                      pack_render: bool = False, stats: bool = True):
+                      pack_render=False, stats: bool = True):
     """One hybrid frame of an archetype with a nested emitter (the JAX
     package's `fused_step_hybrid` with its in-kernel merge, unfolded):
-    returns (state, outputs) or, with pack_render, (state, outputs, planes).
-    On the card the nested kernels and one merge-block step launch run; on
-    the CPU `step.hybrid_frame`."""
+    returns (state, outputs) or, with pack_render (True or "f16", as in
+    `fused_step`), (state, outputs, planes). On the card the nested kernels
+    and one merge-block step launch run; on the CPU `step.hybrid_frame`."""
     check_kernel_scope(static, 1)
+    mode = _pack_mode(pack_render)
     if state.device.type == "cuda":
         new_state, out, planes = _hybrid_launches(static, params, colliders, state, frame, pack_render, stats)
     elif state.device.type == "cpu":
         new_state, out = hybrid_frame(static, params, state, frame, stats, colliders)
-        planes = pack_render_planes(static, params, new_state) if pack_render else None
+        planes = pack_render_planes(static, params, new_state, pack_render) if mode else None
     else:
         raise ValueError(f"no step for device {state.device}")
-    if pack_render:
+    if mode:
         return new_state, out, tuple(planes)
     return new_state, out
 
@@ -789,7 +817,7 @@ def _fleet_fields(frames: FrameInput, device) -> int:
 
 
 def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, states: PoolState,
-                     frames: FrameInput, pack_render: bool = False, unroll: int = 1, stats: bool = True):
+                     frames: FrameInput, pack_render=False, unroll: int = 1, stats: bool = True):
     """Advance a whole same-archetype group by `unroll` frames in one launch
     (kernel row 7; the JAX package's `fused_step_fleet`): `states` [S]-
     stacked (equal capacities), `params` [S]-stacked or one SpawnerParams
@@ -798,14 +826,15 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
     to S solo `fused_step` calls: each slot splits its own key, draws with
     its own seeds by its lane within the slot, and claims and reduces over
     its own pool. Returns (states, outputs) or, with pack_render, (states,
-    outputs, planes), every leaf [S]-leading; outputs is None without
-    `stats`. On CUDA tensors the fleet kernel runs (S * unroll seeds per
+    outputs, planes), every leaf [S]-leading (pack_render True or "f16", as
+    in `fused_step`); outputs is None without `stats`. On CUDA tensors the fleet kernel runs (S * unroll seeds per
     launch at most SEED_WORDS: larger fleets launch in chunks); on CPU
     tensors the plain version, S solo plain steps stacked."""
     if not can_fleet(static):
         raise ValueError("fused_step_fleet takes global-only archetypes (can_fleet); archetypes with a nested "
                          "emitter step through step_auto_fleet")
     check_kernel_scope(static, unroll)
+    mode = _pack_mode(pack_render)
     S, dev = num_slots(states), states.device
     if tuple(frames.dt.shape) != (S,):
         raise ValueError(f"frames must be stacked over the {S} slots, got dt of shape {tuple(frames.dt.shape)}")
@@ -817,9 +846,10 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
         fleet = {"table": kernel_tables(static, params), "slot_rows": fleet_slot_rows(frames, dev),
                  "n_fields": n_fields}
         fields, scal, planes, dump, rows, n = _launch(static, params, colliders, states, frames,
-                                                      seeds.reshape(-1).tolist(), pack_render, stats, fleet=fleet)
+                                                      seeds.reshape(-1).tolist(), mode, stats, fleet=fleet)
         fused_step_fleet.launches += n
-        fused_step_fleet.render_launches += n * pack_render
+        fused_step_fleet.render_launches += n * (mode == L.PACK_F32)
+        fused_step_fleet.render_f16_launches += n * (mode == L.PACK_F16)
         fused_step_fleet.collide_launches += n * collision_on(static, colliders)
         fused_step_fleet.broad_launches += n * broad_phase_on(static, colliders)
         fused_step_fleet.fields_launches += n * (n_fields > 0)
@@ -833,18 +863,20 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
         new_states = stack_pools([st for st, _o in solo])
         out = stack_outputs([o for _s, o in solo]) if stats else None
         planes = None
-        if pack_render:
-            per_slot = [pack_render_planes(static, params_slot(params, i), st) for i, (st, _o) in enumerate(solo)]
+        if mode:
+            per_slot = [pack_render_planes(static, params_slot(params, i), st, pack_render)
+                        for i, (st, _o) in enumerate(solo)]
             planes = [torch.stack(p) for p in zip(*per_slot)]
     else:
         raise ValueError(f"no step for device {dev}")
-    if pack_render:
+    if mode:
         return new_states, out, tuple(planes)
     return new_states, out
 
 
 fused_step_fleet.launches = 0  # fleet kernel launches (CUDA path only)
-fused_step_fleet.render_launches = 0  # of which with the render pack
+fused_step_fleet.render_launches = 0  # of which with the f32 render pack
+fused_step_fleet.render_f16_launches = 0  # of which with the f16 record
 fused_step_fleet.collide_launches = 0  # of which with the narrow phase
 fused_step_fleet.broad_launches = 0  # of which with its broad phase
 fused_step_fleet.fields_launches = 0  # of which with force fields

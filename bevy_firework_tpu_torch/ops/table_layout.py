@@ -28,7 +28,13 @@ TILE = 256  # lanes per tile = threads per block (the dead-rank claim's unit)
 FIELD_SLOTS = ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw", "wx", "wy", "wz",
                "initial_scale", "age", "lifetime")
 N_FIELDS = len(FIELD_SLOTS)
-N_RENDER = 9  # render-pack planes: instance scale, base rgba, emissive rgba
+N_RENDER = 9  # f32 render-pack planes: instance scale, base rgba, emissive rgba
+# The f16 render pack writes the whole instance record, one plane per
+# contract column: px py pz, instance scale, qx qy qz qw, base rgba,
+# emissive rgba (the quaternion's four planes are left out when rotation is
+# elided: 12 planes, else 16)
+N_RECORD = 16
+PACK_F32, PACK_F16 = 1, 2  # a launch's render-pack mode (0: no pack)
 
 # ---- frame row (floats) ----
 FR_DT, FR_MOD_SCALE, FR_MOD_SPEED = 0, 1, 2

@@ -1,16 +1,27 @@
-"""Render boundary, the slice's part: the 64 B/instance contract.
+"""Render boundary: the 64 B/instance contract and the extract's packs.
 
   * `ParticleInstance` rows of 16 f32: [pos xyz, scale, rot xyzw,
     base rgba, emissive rgba] (reference render.rs:95-115).
   * `FireworkUniform {alpha_mode, pbr, fade_edge, fade_scene, flags}`.
 
 `pack_render_planes` is the plain version of the step kernel's render-pack
-block (9 planes: instance scale with 0 on dead lanes, base rgba, emissive
-rgba); `planes_to_rows` compacts live lanes into contract rows on the host
-with numpy. What `Scene.render_items` needs beside them is host numpy too:
-`RenderItem`, `compact_dense`, the back-to-front instance sort and the
-frustum test of a spawner's AABB. Lights, shadows and the other host-side
-render code of the JAX package are framework-free and are not ported yet.
+block: 9 f32 planes (instance scale with 0 on dead lanes, base rgba,
+emissive rgba), or in f16 mode the whole instance record, 12 or 16 f16
+planes; `planes_to_rows` compacts their live lanes into contract rows on
+the host. The packs of one particle type from a pool state, composed torch
+ops on either device: `pack_instances_dense` (every lane, dead ones at
+scale 0) and its f16 twin, and the compacting `pack_instances` (rows) and
+`pack_instances_planar` (planes), an exclusive cumsum and a scatter, as the
+JAX package's XLA composes them. The host side: `RenderItem`,
+`compact_dense` (the native ring library's compaction), the back-to-front
+instance sort and the frustum test of a spawner's AABB. Lights, shadows and
+the other host-side render code of the JAX package are framework-free and
+are not ported yet.
+
+f16 records quantize positions: an f16 ulp is ~2^-10 of the magnitude (1
+mm near 1 unit, 6 cm near 64 units, 0.5 near 1 km), so they suit effects
+within tens of units of the origin or of a local frame; colours and
+quaternions in [0, 1] lose nothing visible. The simulation stays f32.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import native
 from .compiled import CompiledSpawner, SpawnerParams, SpawnerStatic
 from .curve import eval_curve_static, eval_gradient_static
 from .pool import PoolState
@@ -98,10 +110,61 @@ def pack_instances_dense(params: SpawnerParams, state: PoolState, type_index: in
     return planes, sel.sum(dtype=torch.int32)
 
 
-def pack_render_planes(static: SpawnerStatic, params: SpawnerParams, state: PoolState) -> tuple:
-    """Plain version of the kernel's render-pack block on a post-step state:
-    (instance scale, 0 on dead lanes; base r, g, b, a; emissive r, g, b, a),
-    each lane evaluated with its own type's curves."""
+def _compact_index(sel: torch.Tensor) -> torch.Tensor:
+    """Each selected lane's exclusive rank among the selected lanes (its row
+    in the compacted buffer); unselected lanes map to the spare row n."""
+    seli = sel.to(torch.int32)
+    rank = torch.cumsum(seli, 0, dtype=torch.int32) - seli
+    return torch.where(sel, rank, sel.shape[0]).to(torch.int64)
+
+
+def _instance_columns(params: SpawnerParams, state: PoolState, type_index: int) -> list:
+    """The 16 contract columns of every lane as one type (unmasked)."""
+    scale, base, emis = compute_render_fields(params, state, type_index)
+    return [state.px, state.py, state.pz, scale, state.qx, state.qy, state.qz, state.qw, *base, *emis]
+
+
+def pack_instances(params: SpawnerParams, state: PoolState, type_index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The live lanes of one particle type compacted into [N, 16] f32
+    contract rows, slot order kept; rows past the count are zero. Returns
+    (rows, count): an exclusive cumsum and a scatter, no host wait."""
+    n = state.capacity
+    sel = state.alive & (state.ptype == type_index)
+    rows = torch.stack(_instance_columns(params, state, type_index), dim=-1)
+    buf = torch.zeros((n + 1, 16), dtype=torch.float32, device=rows.device)
+    buf.index_copy_(0, _compact_index(sel), rows)
+    return buf[:n], sel.sum(dtype=torch.int32)
+
+
+def pack_instances_planar(params: SpawnerParams, state: PoolState,
+                          type_index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`pack_instances` in the planar layout: [16, N] f32 planes, the first
+    `count` columns the live lanes in slot order, the rest zero. Returns
+    (planes, count)."""
+    n = state.capacity
+    sel = state.alive & (state.ptype == type_index)
+    vals = torch.stack(_instance_columns(params, state, type_index))
+    planes = torch.zeros((16, n + 1), dtype=torch.float32, device=vals.device)
+    planes.index_copy_(1, _compact_index(sel), vals)
+    return planes[:, :n].contiguous(), sel.sum(dtype=torch.int32)
+
+
+def pack_instances_dense_f16(params: SpawnerParams, state: PoolState,
+                             type_index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`pack_instances_dense` in f16 (32 B per instance; rounded to nearest
+    even; see the module's note on position quantization). Returns (planes
+    [16, N] f16, live count)."""
+    planes, count = pack_instances_dense(params, state, type_index)
+    return planes.to(torch.float16), count
+
+
+def pack_render_planes(static: SpawnerStatic, params: SpawnerParams, state: PoolState, mode=True) -> tuple:
+    """Plain version of the kernel's render-pack block on a post-step state,
+    each lane evaluated with its own type's curves. mode True: 9 f32 planes
+    (instance scale, 0 on dead lanes; base r, g, b, a; emissive r, g, b, a).
+    mode "f16": the instance record as f16 planes, the f32 values rounded
+    to nearest even: px, py, pz, instance scale, then qx, qy, qz, qw unless
+    rotation is elided (12 planes, else 16), base rgba, emissive rgba."""
     life = lifetime_of(static, {"age": state.age, "lifetime": state.lifetime})
     age_pct = state.age / life
     ptype = state.ptype
@@ -117,29 +180,45 @@ def pack_render_planes(static: SpawnerStatic, params: SpawnerParams, state: Pool
         else:
             base = [torch.where(ptype == t, b1, b0) for b0, b1 in zip(base, bt)]
             emis = [torch.where(ptype == t, e1, e0) for e0, e1 in zip(emis, et)]
+    if mode == "f16":
+        rot = () if static.elide_rotation else (state.qx, state.qy, state.qz, state.qw)
+        return tuple(p.to(torch.float16) for p in (state.px, state.py, state.pz, inst, *rot, *base, *emis))
     return (inst, *base, *emis)
 
 
+# the rows' constant columns where a record leaves planes out: the identity
+# quaternion of an elided rotation
+ROW_DEFAULTS = (0.0,) * 7 + (1.0,) + (0.0,) * 8
+
+
+def record_columns(planes) -> list:
+    """The 12- or 16-plane f16 record by contract column, None for the
+    quaternion's columns of a 12-plane record."""
+    planes = list(planes)
+    if len(planes) == 12:
+        return planes[:4] + [None] * 4 + planes[4:]
+    if len(planes) != 16:
+        raise ValueError(f"an f16 record has 12 or 16 planes, got {len(planes)}")
+    return planes
+
+
 def planes_to_rows(static: SpawnerStatic, state: PoolState, packed) -> np.ndarray:
-    """Assemble and compact the 16-plane contract from a post-step state and
-    the 9 render-pack planes (scale == 0 marks dead lanes). Under rotation
-    elision the identity quaternion is filled in on the host. Returns
-    [count, 16] f32 rows in slot order."""
-    host = [np.ascontiguousarray(p.cpu().numpy(), dtype=np.float32) for p in packed]
-    live = host[0] != 0.0
-    count = int(live.sum())
-    out = np.empty((count, 16), np.float32)
-    for i, name in enumerate(("px", "py", "pz")):
-        out[:, i] = getattr(state, name).cpu().numpy()[live]
-    out[:, 3] = host[0][live]
-    for i, name in enumerate(("qx", "qy", "qz", "qw")):
-        if static.elide_rotation:
-            out[:, 4 + i] = 1.0 if name == "qw" else 0.0
-        else:
-            out[:, 4 + i] = getattr(state, name).cpu().numpy()[live]
-    for c in range(8):
-        out[:, 8 + c] = host[1 + c][live]
-    return out
+    """Assemble and compact the 16-column contract from a render pack, on
+    the host. packed: the 9 f32 render-pack planes, with positions and the
+    quaternion from the post-step state (under rotation elision the
+    identity quaternion is filled in) -> [count, 16] f32 rows; or the f16
+    record (12 or 16 planes; the state is not read) -> [count, 16] f16 rows.
+    Scale 0 (either sign in f16) marks dead lanes; slot order is kept."""
+    if packed[0].dtype == torch.float16:
+        cols = [None if p is None else p.cpu().numpy() for p in record_columns(packed)]
+        live = (cols[3].view(np.uint16) & 0x7FFF) != 0
+        out = np.empty((int(live.sum()), 16), np.float16)
+        for i, col in enumerate(cols):
+            out[:, i] = np.float16(ROW_DEFAULTS[i]) if col is None else col[live]
+        return out
+    q = (None,) * 4 if static.elide_rotation else (state.qx, state.qy, state.qz, state.qw)
+    cols = [state.px, state.py, state.pz, packed[0], *q, *packed[1:9]]
+    return native.compact_dense_planes([None if p is None else p.cpu().numpy() for p in cols], ROW_DEFAULTS)
 
 
 def instances_to_bytes(buffer: np.ndarray) -> bytes:
@@ -149,9 +228,9 @@ def instances_to_bytes(buffer: np.ndarray) -> bytes:
 
 def compact_dense(planes: np.ndarray) -> np.ndarray:
     """[16, N] dense planes (dead lanes at scale == 0 in plane 3) ->
-    compacted [count, 16] instance rows, slot order kept."""
-    planes = np.ascontiguousarray(planes, dtype=np.float32)
-    return np.ascontiguousarray(planes[:, planes[3] != 0.0].T)
+    compacted [count, 16] instance rows, slot order kept (the ring
+    library's compaction)."""
+    return native.compact_dense(planes)
 
 
 # alpha_mode codes (BlendMode.as_u32) whose blend operators do not commute:
@@ -209,4 +288,5 @@ class RenderItem:
     count: int
     uniform: FireworkUniform
     textures: Tuple[Optional[str], Optional[str], Optional[str]]
+    frame_id: Optional[int] = None  # the step these rows belong to (Scene.render_async); None: synchronous
     layers: int = 1  # RenderLayers bitmask of the spawner

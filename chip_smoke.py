@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Builds the fused step, fleet and nested kernels (ops/csrc/, one nvcc per
-source, all started together) from this
+source, all started together) and the native instance ring from this
 checkout, holds them against their plain PyTorch versions, and runs the
 paths `bench.py` measures for the JAX package (stress_test through
 multi_step_auto at 100k and 1M live; stress_test_collision against its two
 cuboids and against 8 hulls at 1M; the nested_60k and nested_chained
 cells; the fleet_16x55k, scene_batch_12, scene_hetero_100 and
-group_churn_12 cells) plus the interactive sparks, collision, fireworks
-and textures flows, through the kernels. Phases:
+group_churn_12 cells; render_extract_1M and examples/render_loop.py's
+render loop) plus the interactive sparks, collision, fireworks and
+textures flows and the Scene's async render, through the kernels. Phases:
 
   1. card: name and power limit (nvidia-smi), kernel build time;
   2. deterministic config (constant draws, live rotation), N = 131072:
@@ -137,13 +138,40 @@ and textures flows, through the kernels. Phases:
      once before timing): every member == the plain version replaying its
      frames on the card; ms per Scene.step beside the same spawners stepped
      one by one through step_auto_packed (the render pack too),
-     interleaved.
+     interleaved;
+ 30. render_f16_det, N = 131072: the f16 render pack (kernel row 2's f16
+     mode) of the elided-rotation spawner (12 planes) and of phase 2's
+     live-rotation config (16 planes) over 6 U = 1 and 3 U = 8 launches,
+     stress_test at 1e5/s (random draws), a hybrid launch of
+     nested_60k's effect and a 3-slot U = 8 fleet
+     launch: the record == the plain version on the state the launch
+     wrote, bit for bit (NaN by isnan), and == the same launch's f32 pack
+     and positions rounded;
+ 31. render_extract_1M: from the main_1M state (bench.py's
+     render_extract_1M cell), the device time per U = 8 and U = 1 launch
+     with no pack, the f32 pack and the f16 record, each beside its bytes
+     bound; the plain f16 frame's;
+ 32. render_loop: examples/render_loop.py's loop (tests/
+     torch_render_configs.py: stress_test at 30000/s, capacity 65536, 240
+     frames of fused_step + AsyncRenderReader.submit_packed + a draw
+     poll) for the f32 pack and the f16 record: the sim loop's ms/frame
+     without and with the reader (interleaved), frames drawn and
+     published, the reader's copy-stream time per frame beside a pinned
+     copy of the same bytes; a run in which every drawn frame equals the
+     plain pack of its post-step state (every state of that run kept);
+ 33. render_loop_1M: the same at 1e6/s, capacity 1310720 (the checked
+     run 60 frames);
+ 34. scene_async_render: a Scene on the card with async render on (two
+     sparks spawners in one archetype group, a two-type spawner), 120
+     steps: each render_async item == render_items of the frame its
+     frame_id names; compact == dense; ms per Scene.step with async render
+     on and off.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
 chains, the collision flow, the collider-scaling chains, the fields chain, the Scene flows, the two
-nested chains, the nested flows, the fleet chain, the Fleet flow and the
-scene groups)
+nested chains, the nested flows, the fleet chain, the Fleet flow, the
+scene groups, the two render loops and the async Scene)
 and read just after it; the kernels' summary reports those counts only. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
@@ -367,7 +395,9 @@ def main() -> int:
                 "fleet_fields": (fs.fused_step_fleet, "fields_launches"),
                 "fleet_dump": (fs.fused_step_fleet, "dump_launches"),
                 "fleet_stats": (fs.fused_step_fleet, "stats_launches"),
-                "broad": (fs.fused_step, "broad_launches"), "fleet_broad": (fs.fused_step_fleet, "broad_launches")}
+                "broad": (fs.fused_step, "broad_launches"), "fleet_broad": (fs.fused_step_fleet, "broad_launches"),
+                "render_f16": (fs.fused_step, "render_f16_launches"),
+                "fleet_render_f16": (fs.fused_step_fleet, "render_f16_launches")}
 
     def counted(fn):
         """fn() with the kernels' launch counters set to 0 just before it and
@@ -1761,10 +1791,228 @@ def main() -> int:
                   "rows); one fleet launch per archetype group and frame; timed with the render pack on, grouped "
                   "and one by one (step_auto_packed)"})
 
+    # ------------------------------------------------ 30. render_f16_det
+    import torch_render_configs as render_cfg
+
+    max_err["fused_step.pack_render_f16"] = 0.0
+
+    def f16_pair(cm, st, frame, u=1):
+        """A launch with the f16 record and one with the f32 pack from the
+        same state: (state, f16 planes, f32 planes)."""
+        sk, _o, p16 = fs.fused_step(cm.static, cm.params, None, st, frame, unroll=u, pack_render="f16")
+        s32, _o, p32 = fs.fused_step(cm.static, cm.params, None, st, frame, unroll=u, pack_render=True)
+        check(torch.equal(sk.px, s32.px) and torch.equal(sk.age, s32.age), "f16 and f32 pack launches differ")
+        return sk, p16, p32
+
+    def record_check(cm, st, p16, p32, label):
+        err = render_cfg.check_record(cm.static, cm.params, st, p16, p32, label)
+        max_err["fused_step.pack_render_f16"] = max(max_err["fused_step.pack_render_f16"], err)
+
+    t_cell = time.perf_counter()
+    f50 = bt.make_frame_input(1 / 50)
+    f16_res = {}
+    stress_100k = dataclasses.replace(stress_sp, emission_settings=(dataclasses.replace(
+        stress_sp.emission_settings[0], emission_pacing=EmissionPacing.rate(1e5)),))
+    for label, sp_ in (("elided_12", render_cfg.f16_spawner(False)), ("rotating_16", det_spawner()),
+                       ("stress_test_12", stress_100k)):
+        cm = bt.compile_spawner(sp_, device=dev)
+        st = bt.init_pool_for(cm, 131072)
+        for u in [1] * 6 + [8] * 3:
+            st, p16, p32 = f16_pair(cm, st, f50, u)
+            record_check(cm, st, p16, p32, f"render_f16_det {label} U={u}")
+        f16_res[label] = {"planes": len(p16), "live": int(st.alive.sum())}
+    cn = bt.compile_spawner(bench_nested(False), nested_buffer=1024, device=dev)
+    sn, _o = fs.multi_step_auto(cn.static, cn.params, None, bt.init_pool_for(cn, 16 * 8192), fdet, 40)
+    sn, p16, p32 = f16_pair(cn, sn, fdet)
+    record_check(cn, sn, p16, p32, "render_f16_det hybrid")
+    f16_res["hybrid_nested_60k"] = {"planes": len(p16), "live": int(sn.alive.sum())}
+    cf = bt.compile_spawner(det_spawner(), device=dev)
+    frames3 = stack_frames([bt.make_frame_input(1 / 50, translation=(float(i), 0.0, 0.0)) for i in range(3)])
+    stf, _o = fs.multi_step_fleet(cf.static, cf.params, None,
+                                  stack_pools([bt.init_pool_for(cf, 131072, seed=i) for i in range(3)]), frames3, 20)
+    sf16, _o, fp16 = fs.fused_step_fleet(cf.static, cf.params, None, stf, frames3, unroll=8, pack_render="f16")
+    sf32, _o, fp32 = fs.fused_step_fleet(cf.static, cf.params, None, stf, frames3, unroll=8, pack_render=True)
+    for i in range(3):
+        record_check(cf, state_slot(sf16, i), [p[i] for p in fp16], [p[i] for p in fp32], f"render_f16_det fleet {i}")
+    f16_res["fleet_3x131072"] = {"planes": len(fp16), "live": [int(state_slot(sf16, i).alive.sum()) for i in range(3)]}
+    torch.cuda.synchronize()
+    emit({"phase": "render_f16_det", "card": card, "n": 131072, **f16_res, "seconds": time.perf_counter() - t_cell,
+          "rule": "the kernel's f16 record == the plain version (render.pack_render_planes(..., 'f16')) on the state "
+                  "the launch wrote, bit for bit (NaN by isnan), and == the same launch's f32 pack and the state's "
+                  "positions and quaternion rounded to nearest even; 1-frame and U=8 launches, a hybrid launch of "
+                  "nested_60k's effect, a 3-slot U=8 fleet launch"})
+
+    # ------------------------------------------------ 31. render_extract_1M
+    # the main_1M state (stress_test at 1e6/s, capacity 1310720, 140 frames)
+    t_cell = time.perf_counter()
+    cm, st, cap = c1m_main, s1m_main, 160 * 8192
+    frame1m = bt.make_frame_input(1 / 60)
+    live1m = int(st.alive.sum())
+    n_rec = 12 if cm.static.elide_rotation else 16
+    state_bytes = 2 * 4 * len(active_f32_fields(cm.static)) * cap
+    pack_bytes = {"none": 0, "f32": 4 * L.N_RENDER * cap, "f16": 2 * n_rec * cap}
+    modes = {"none": False, "f32": True, "f16": "f16"}
+    ext = {"live": live1m, "capacity": cap, "pack_bytes_per_lane": {k: v / cap for k, v in pack_bytes.items()}}
+    for u in (8, 1):
+        for name, mode in modes.items():
+            b = bound(state_bytes + pack_bytes[name], u * INTEGRATE_OPS * live1m)
+
+            def launch(u=u, mode=mode):
+                return fs.fused_step(cm.static, cm.params, None, st, frame1m, unroll=u, pack_render=mode, stats=False)
+
+            ext[f"u{u}_{name}"] = {"ms": device_ms(f"render_extract_1M U={u} {name}", launch, 20, True, b["bound_ms"]),
+                                   **b}
+
+    def plain_f16_frame():
+        sp_, _o = plain_frames(cm.static, cm.params, st, frame1m, 1, stats=False)
+        return pack_render_planes(cm.static, cm.params, sp_, "f16")
+
+    ext["plain_u1_f16_ms"] = device_ms("render_extract_1M plain f16", plain_f16_frame, 1, False,
+                                       ext["u1_f16"]["bound_ms"])
+    ext["u1_f16_wall_ms"] = event_ms(lambda: fs.fused_step(cm.static, cm.params, None, st, frame1m, pack_render="f16",
+                                                           stats=False), 20)
+    ext["plain_u1_f16_wall_ms"] = event_ms(plain_f16_frame, 1)
+    ext["seconds"] = time.perf_counter() - t_cell
+    emit({"phase": "render_extract_1M", "card": card, **ext,
+          "rule": "device time per launch (torch.profiler, stats off) with no pack, the f32 pack and the f16 record "
+                  "from the main_1M state, each held to its bytes bound (the state's planes read and written, the "
+                  "pack's planes written) over 3.35 TB/s"})
+
+    # ---------------------------------------- 32./33. render_loop, render_loop_1M
+    def pinned_probe_ms(n_bytes, reps=12):
+        """One copy of n_bytes from the card into pinned host memory on a side
+        stream (CUDA events), the median of reps after two warm-ups."""
+        src = torch.ones(n_bytes // 4, dtype=torch.float32, device=dev)
+        dst = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+        stream = torch.cuda.Stream(dev)
+        times = []
+        for _ in range(reps + 2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                a.record(stream)
+                dst.copy_(src, non_blocking=True)
+                b.record(stream)
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times[2:])
+
+    def render_loop_cell(label, rate, capacity, frames, check_frames):
+        """examples/render_loop.py's loop (tests/torch_render_configs.py):
+        stress_test at `rate`, per record (f32 pack, f16 record) the sim
+        loop without and with the reader, interleaved (without, with, with,
+        without), then a run holding every drawn frame to the plain pack of
+        its state."""
+        es = dataclasses.replace(stress_sp.emission_settings[0], emission_pacing=EmissionPacing.rate(float(rate)))
+        cm = bt.compile_spawner(dataclasses.replace(stress_sp, emission_settings=(es,)), device=dev)
+        frame = bt.make_frame_input(1 / 60)
+        n_rec = 12 if cm.static.elide_rotation else 16
+        res = {"capacity": capacity, "rate": rate, "frames": frames}
+        for record, name in ((True, "f32"), ("f16", "f16")):
+            runs = [render_cfg.render_loop(cm, frame, capacity, frames, record, reader=r)
+                    for r in (False, True, True, False)]
+            checked = render_cfg.render_loop(cm, frame, capacity, check_frames, record, check=True)
+            for r in runs[1:3] + [checked]:
+                check(len(r["drawn"]) > 0 and r["drawn"] == sorted(set(r["drawn"])), f"{label} {name}: drawn ids")
+            check(checked["checked"] == len(checked["drawn"]) > 0, f"{label} {name}: {checked['checked']} checked")
+            n_bytes = n_rec * capacity * (4 if record is True else 2)
+            copy = runs[1]["copy_ms"] + runs[2]["copy_ms"]
+            res[name] = {"ms_per_frame_without_reader": [runs[0]["ms_per_frame"], runs[3]["ms_per_frame"]],
+                         "ms_per_frame_with_reader": [runs[1]["ms_per_frame"], runs[2]["ms_per_frame"]],
+                         "frames_drawn": [len(runs[1]["drawn"]), len(runs[2]["drawn"])],
+                         "frames_published": [runs[1]["published"], runs[2]["published"]],
+                         "checked_frames": check_frames, "checked_drawn": checked["checked"],
+                         "skipped_older": checked["skipped"], "live": runs[1]["live"],
+                         "copy_bytes_per_frame": n_bytes, "copy_ms_median": statistics.median(copy),
+                         "copy_ms_min": min(copy), "pinned_probe_ms": pinned_probe_ms(n_bytes)}
+        return res
+
+    t_cell = time.perf_counter()
+    loop_res, loop_counts = counted(lambda: render_loop_cell("render_loop", 30_000, 65536, 240, 240))
+    check(loop_counts["render"] == 4 * 240 + 240 and loop_counts["render_f16"] == 4 * 240 + 240
+          and loop_counts["fused_step"] == 2 * (5 * 240), f"render_loop: launches {loop_counts}")
+    emit({"phase": "render_loop", "card": card, "launches": loop_counts, **loop_res,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "every drawn frame's rows == the plain pack of its post-step state (f32 rows, or f16 rows of the "
+                  "record), drawn frame ids strictly increasing; ms/frame: host clock over frames 11-240 ending in "
+                  "a synchronize; copy_ms: the reader's copy stream per frame (CUDA events) beside one pinned copy "
+                  "of the same bytes"})
+    t_cell = time.perf_counter()
+    loop1m_res, loop1m_counts = counted(lambda: render_loop_cell("render_loop_1M", 1_000_000, 160 * 8192, 240, 60))
+    check(loop1m_counts["render"] == 4 * 240 + 60 and loop1m_counts["render_f16"] == 4 * 240 + 60,
+          f"render_loop_1M: launches {loop1m_counts}")
+    emit({"phase": "render_loop_1M", "card": card, "launches": loop1m_counts, **loop1m_res,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "as render_loop, at 1e6/s and capacity 1310720; the checked run is 60 frames (its states stay on "
+                  "the card until it ends, 42 MB each: a frame drawn late is still checked)"})
+
+    # ------------------------------------------------ 34. scene_async_render
+    def scene_async():
+        """The sparks flow's Scene with async render on: two sparks spawners
+        (one archetype group: each submits its row of the group's render
+        pack) and a two-type spawner (the dense pack per type), 120 steps;
+        every render_async item == render_items of the frame its frame_id
+        names; compact == dense."""
+        sparks_sp = bt.ParticleSpawner(
+            particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75))],
+            emission_settings=[bt.EmissionSettings(emission_pacing=bt.EmissionPacing.rate(1000.0))])
+        two = bt.ParticleSpawner(
+            particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75)),
+                               bt.ParticleSettings(lifetime=bt.RandF32.constant(0.5))],
+            emission_settings=[bt.EmissionSettings(particle_index=t, emission_pacing=bt.EmissionPacing.rate(800.0))
+                               for t in (0, 1)])
+        sc = bt.Scene(device=dev)
+        sc.enable_async_render()
+        for i in range(2):
+            sc.add_spawner(sparks_sp, capacity=2048, transform=bt.Transform(translation=(2.0 * i, 0.0, 0.0)))
+        sc.add_spawner(two, capacity=4096)
+        sync, items_seen, ids = {}, 0, {}
+        for k in range(1, 121):
+            sc.step(1 / 60)
+            for it in sc.render_items():
+                sync[(it.spawner_id, it.type_index, k)] = it.instances.copy()
+            for it in sc.render_async():
+                want = sync.get((it.spawner_id, it.type_index, it.frame_id))
+                check(want is not None and it.instances.shape == want.shape and np.array_equal(it.instances, want),
+                      f"scene_async_render: item {(it.spawner_id, it.type_index)} of frame {it.frame_id} at {k}")
+                ids.setdefault((it.spawner_id, it.type_index), []).append(it.frame_id)
+                items_seen += 1
+        sc.release_async()
+        deadline = time.time() + 30
+        last = {key: v[-1] for key, v in ids.items()}
+        while time.time() < deadline and not (len(last) == 4 and all(v == 120 for v in last.values())):
+            for it in sc.render_async():
+                check(np.array_equal(it.instances, sync[(it.spawner_id, it.type_index, it.frame_id)]),
+                      f"scene_async_render: drained item of frame {it.frame_id}")
+                last[(it.spawner_id, it.type_index)] = it.frame_id
+            time.sleep(0.01)
+        sc.release_async()
+        check(len(last) == 4 and all(v == 120 for v in last.values()), f"scene_async_render: drained {last}")
+        check(all(v == sorted(set(v)) for v in ids.values()), "scene_async_render: frame ids not increasing")
+        dense, compact = sc.render_items(), sc.render_items(method="compact")
+        check(len(dense) == len(compact) == 4 and all(
+            a.spawner_id == b.spawner_id and a.type_index == b.type_index and np.array_equal(a.instances, b.instances)
+            for a, b in zip(dense, compact)), "scene_async_render: compact != dense")
+        t_on = step_ms(sc, 60)
+        sc.disable_async_render()
+        t_off = step_ms(sc, 60)
+        out = {"items_checked": items_seen, "items_per_key": {str(k): len(v) for k, v in ids.items()},
+               "live": sc.alive_count(), "dispatch_groups": sc._last_step_dispatches,
+               "ms_per_scene_step_async_on": t_on, "ms_per_scene_step_async_off": t_off}
+        return out
+
+    t_cell = time.perf_counter()
+    async_res, async_counts = counted(scene_async)
+    check(async_counts["fleet_render"] == 240 and async_counts["fleet"] == 240, f"scene_async_render: {async_counts}")
+    emit({"phase": "scene_async_render", "card": card, "launches": async_counts, **async_res,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "each render_async item == render_items of the frame its frame_id names (rows exact), ids "
+                  "strictly increasing, every item reaches frame 120; render_items(method='compact') == 'dense'"})
+
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
-            scene_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts)
+            scene_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
+            loop1m_counts, async_counts)
 
     def total(keys):
         keys = (keys,) if isinstance(keys, str) else keys
@@ -1800,7 +2048,16 @@ def main() -> int:
               launch_wall_ms=r100k["u8_launch_wall_ms"], plain_wall_ms=r100k["plain_8_frames_wall_ms"]),
         entry("fused_step.pack_render", "bevy_firework_tpu/ops/fused_step.py:1523", ("render", "fleet_render"),
               r100k["render_kernel_device_ms"], r100k["plain_render_frame_device_ms"], r100k["bounds"]["render"],
-              launch_wall_ms=r100k["render_launch_wall_ms"], plain_wall_ms=r100k["plain_render_frame_wall_ms"]),
+              launch_wall_ms=r100k["render_launch_wall_ms"], plain_wall_ms=r100k["plain_render_frame_wall_ms"],
+              u1_1M_ms=ext["u1_f32"]["ms"], u8_1M_ms=ext["u8_f32"]["ms"]),
+        entry("fused_step.pack_render_f16", "bevy_firework_tpu/ops/fused_step.py:1541",
+              ("render_f16", "fleet_render_f16"), ext["u1_f16"]["ms"], ext["plain_u1_f16_ms"], {k: ext["u1_f16"][k] for k in ("bound_ms", "bound_by",
+                                                                                           "bound_bytes", "bound_ops")},
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:1523-1561 (f16 mode; plane count _n_render_planes "
+                            ":652, dtype :1989)",
+              u8_ms=ext["u8_f16"]["ms"], u8_bound_ms=ext["u8_f16"]["bound_ms"], u1_no_pack_ms=ext["u1_none"]["ms"],
+              u8_no_pack_ms=ext["u8_none"]["ms"], launch_wall_ms=ext["u1_f16_wall_ms"],
+              plain_wall_ms=ext["plain_u1_f16_wall_ms"]),
         entry("fused_step.collide", "bevy_firework_tpu/ops/fused_step.py:349", ("collide", "fleet_collide"),
               c1m["u2_kernel_device_ms"],
               c1m["plain_2_frames_device_ms"], c1m["bounds"]["u2"],
@@ -1846,14 +2103,18 @@ def main() -> int:
               solo16_ms=res16["u8_solo16_kernels_device_ms"], launch_wall_ms=res16["u8_fleet_launch_wall_ms"],
               solo16_wall_ms=res16["u8_solo16_launches_wall_ms"]),
     ]
-    emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live); collide: 1310720 lanes "
+    emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live; u*_1M_ms: "
+                          "the main_1M state, 1310720 lanes); pack_render_f16: the main_1M state (1310720 lanes, 12 "
+                          "planes); collide: 1310720 lanes "
                           "stress_test_collision (collide_broad: hull8_1M, 8 hulls; scaling_*: "
                           "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
                           "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
                           "nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: nested_chained); fleet: "
                           "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s)",
-        "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, collide "
+        "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, "
+                  "pack_render_f16 U=1 with the f16 record (u8_ms U=8; *_no_pack_ms the same launches without a "
+                  "pack; plain: a plain frame and render.pack_render_planes(..., 'f16')), collide "
                   "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
                   "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "

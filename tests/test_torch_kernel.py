@@ -8,6 +8,7 @@ without a CUDA device; the table test runs anywhere."""
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import pytest
@@ -651,3 +652,121 @@ def test_scene_and_fleet_past_the_old_caps(cuda):
         want = table_cfg.fleet_plain_replay(fleet, i)
         for k in active_f32_fields(fleet.compiled.static) + SCALARS:
             assert torch.equal(getattr(state_slot(fleet.states, i), k), getattr(want, k)), (i, k)
+
+
+# ---------------------------------------------------------------------------
+# the f16 render pack (kernel row 2's f16 mode) and the async reader
+# ---------------------------------------------------------------------------
+
+import torch_render_configs as render_cfg  # noqa: E402
+from bevy_firework_tpu_torch.render_pipeline import AsyncRenderReader  # noqa: E402
+
+
+def _stress_100k():
+    """stress_test at 1e5/s (random draws, rotation elided)."""
+    from bevy_firework_tpu_torch.models import effects
+
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=pt.EmissionPacing.rate(1e5))
+    return dataclasses.replace(sp, emission_settings=(es,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["elided", "rotating", "stress_test"])
+@pytest.mark.parametrize("unroll", [1, 8])
+def test_f16_render_pack_matches_plain(cuda, case, unroll):
+    """The f16 record (12 planes with rotation elided, 16 with it live)
+    equals the plain version on the state the launch wrote, bit for bit,
+    and the same launch's f32 pack and positions rounded; 131071 lanes (a
+    ragged last tile)."""
+    sp = _stress_100k() if case == "stress_test" else render_cfg.f16_spawner(case == "rotating")
+    c = pt.compile_spawner(sp, device=cuda)
+    s = pt.init_pool_for(c, 131071)
+    f = pt.make_frame_input(1 / 50)
+    before = fs.fused_step.render_f16_launches
+    for _ in range(4):
+        sk, _ok, p16 = fs.fused_step(c.static, c.params, None, s, f, unroll=unroll, pack_render="f16")
+        s32, _o, p32 = fs.fused_step(c.static, c.params, None, s, f, unroll=unroll, pack_render=True)
+        assert torch.equal(sk.px, s32.px)
+        render_cfg.check_record(c.static, c.params, sk, p16, p32, case)
+        s = sk
+    assert fs.fused_step.render_f16_launches - before == 4
+    assert 0 < int(s.alive.sum()) < 131071
+
+
+@pytest.mark.cuda
+def test_f16_render_pack_hybrid_and_fleet(cuda):
+    """The f16 record of a hybrid frame (the merge launch) and of a fleet
+    launch: each equal to the plain version on its post-step state, a fleet
+    slot's record equal to its solo launch's."""
+    c = pt.compile_spawner(_nested_spawner(), nested_buffer=1024, device=cuda)
+    f = pt.make_frame_input(1 / 60)
+    s = pt.init_pool_for(c, 65536)
+    for _ in range(20):
+        s, _o = fs.fused_step(c.static, c.params, None, s, f)
+    sk, _o, p16 = fs.fused_step(c.static, c.params, None, s, f, pack_render="f16")
+    _s, _o, p32 = fs.fused_step(c.static, c.params, None, s, f, pack_render=True)
+    render_cfg.check_record(c.static, c.params, sk, p16, p32, "hybrid")
+    c = pt.compile_spawner(render_cfg.f16_spawner(True), device=cuda)
+    frames = [pt.make_frame_input(1 / 50, translation=(float(i), 0.0, 0.0)) for i in range(3)]
+    pools = [pt.init_pool_for(c, 40000, seed=i) for i in range(3)]
+    st = stack_pools(pools)
+    for u in (8, 1):
+        st2, _o, fp16 = fs.fused_step_fleet(c.static, c.params, None, st, stack_frames(frames), unroll=u,
+                                            pack_render="f16")
+        for i in range(3):
+            solo, _o, sp16 = fs.fused_step(c.static, c.params, None, pools[i], frames[i], unroll=u, pack_render="f16")
+            assert all(torch.equal(a[i].view(torch.int16), b.view(torch.int16)) for a, b in zip(fp16, sp16))
+            render_cfg.check_record(c.static, c.params, solo, sp16, label=f"fleet slot {i}")
+            pools[i] = solo
+        st = st2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("record", [True, "f16"])
+def test_render_loop_draws_the_plain_pack(cuda, record):
+    """examples/render_loop.py's loop on the card (stress_test at 30000/s,
+    capacity 65536): every drawn frame's rows == the plain pack of its
+    post-step state, frame ids strictly increasing, copies on the reader's
+    copy stream."""
+    from bevy_firework_tpu_torch.models import effects
+
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=pt.EmissionPacing.rate(30_000.0))
+    c = pt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device=cuda)
+    res = render_cfg.render_loop(c, pt.make_frame_input(1 / 60), 65536, 120, record, check=True)
+    assert res["checked"] == len(res["drawn"]) > 5 and res["drawn"] == sorted(set(res["drawn"]))
+    assert len(res["copy_ms"]) == res["published"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "compact"])
+def test_async_reader_submit_on_the_card(cuda, mode):
+    """reader.submit on card pools of three types (the dense or compacting
+    pack on the card, copies on the copy stream): the published rows of
+    each type == pack_instances of the state."""
+    c = pt.compile_spawner(_three_type_spawner(), device=cuda)
+    s = pt.init_pool_for(c, 50000)
+    f = pt.make_frame_input(1 / 60)
+    reader = AsyncRenderReader(50000, c.num_types, mode=mode)
+    try:
+        for fid in range(1, 31):
+            s, _o = fs.fused_step(c.static, c.params, None, s, f)
+            reader.submit(c.params, s, fid)
+        torch.cuda.synchronize()
+        for t in range(c.num_types):
+            buf, count = pt.pack_instances(c.params, s, t)
+            want = buf[: int(count)].cpu().numpy()
+            deadline = time.time() + 20
+            while True:
+                got = reader.acquire(t)
+                if got is not None and got[1] == 30:
+                    break
+                if got is not None:
+                    reader.release(t)
+                assert time.time() < deadline, f"type {t}: frame 30 never arrived"
+                time.sleep(0.01)
+            assert int(count) > 0 and np.array_equal(got[0], want), t
+            reader.release(t)
+    finally:
+        reader.close()

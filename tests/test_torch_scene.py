@@ -477,13 +477,23 @@ def test_step_n_and_spawner_edits():
 
 
 def test_unported_scene_features_raise():
-    """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item; a Scene on the card without one raises too."""
+    """What the port does not run yet (trails, async events) raises
+    NotImplementedError naming its ROADMAP item; the compact extract and the
+    async render, ported since, run; a Scene on the card without one
+    raises."""
     scene = pt.Scene(device="cpu")
-    for call in (lambda: scene.add_spawner(_sparks(pt), trail=object()), scene.enable_async_events,
-                 scene.enable_async_render, scene.render_async, lambda: scene.render_items(method="compact")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call, item in ((lambda: scene.add_spawner(_sparks(pt), trail=object()), "item 5"),
+                       (scene.enable_async_events, "item 4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
             call()
+    scene.add_spawner(_sparks(pt), capacity=2048)
+    scene.enable_async_render()
+    for _ in range(3):
+        scene.step(1 / 60)
+    compact = scene.render_items(method="compact")
+    assert compact[0].count == scene.alive_count() > 0
+    assert all(1 <= it.frame_id <= 3 for it in scene.render_async())
+    scene.disable_async_render()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pt.Scene()
