@@ -15,7 +15,8 @@ friction, the 4-substep bounce, destroy-on-collision with its dead-rank
 slot claim), scene force fields, the destroyed-particle mask and its
 events, the kernel's stats, nested emission (hybrid frames: the nested
 cadence pass, threefry child rows and the in-kernel child merge;
-`fused_step_hybrid`, `nested_cadence_pass`), fleets (S same-archetype
+`fused_step_hybrid`, `nested_cadence_pass`; chains of them fold the next
+frame's cadence counts into the step, `chain_nested_folded`), fleets (S same-archetype
 pools in one launch of the fleet kernel: `fused_step_fleet`,
 `multi_step_fleet`, `Fleet`, the stack helpers of `parallel.sharding`),
 the effect library and effects (textures and fireworks included), and the
@@ -26,8 +27,7 @@ kernel's f32 or f16 render pack, the pack family (`pack_instances`,
 `pack_instances_planar`, `pack_instances_dense_f16`), the native instance
 ring (`native`) and `AsyncRenderReader` with the Scene's async render.
 Every entry point runs on the card unless given `device="cpu"`. Not yet:
-the nested fold, trails, async events, checkpoints, mesh sharding (see
-ROADMAP.md).
+trails, async events, checkpoints, mesh sharding (see ROADMAP.md).
 """
 
 from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition

@@ -7,20 +7,22 @@
 // per launch, for one pool or for a fleet of S pools of one archetype in
 // one launch; and for archetypes with nested emitters, the nested cadence
 // pass, the child rows from threefry draws, and the child merge into the
-// step (one frame per launch).
+// step (one frame per launch), with the next frame's cadence counts folded
+// into the step of a chain's frame.
 //
 // Replaces: bevy_firework_tpu/ops/fused_step.py `_make_kernel` (:913) as run
 // by `_run_fused_kernel` (:1793) with kernel_spawn on, ring or dead-rank
 // claims, colliders, force fields, the dump, kernel stats, the nested merge
 // and the fleet grid (`fused_step_fleet` :2358, grid=(S, tiles) :2031; no
-// shard or fold blocks): its main-path block (:1162-1521),
+// shard blocks): its main-path block (:1162-1521),
 // its render-pack block (:1523-1561, f32 and f16 modes), its collision narrow phase
 // `_collide_tile` (:349) with `_ray_kind` (:309), its dead-rank claim
 // (`_prefix_exclusive` :173 with the SMEM `dead_carry`, :1142-1149,
 // :1323-1333) with the alive plane in and out (:1023-1026, :1563-1564), its
 // force-field block (`force_fields.field_accel`, used :1462-1472), its dump
-// plane (:1567-1576), its kernel-stats block (:1580-1618) and its nested
-// child merge (:1172-1227, fed by `fused_step_hybrid` :2445); and
+// plane (:1567-1576), its kernel-stats block (:1580-1618), its nested
+// child merge (:1172-1227, fed by `fused_step_hybrid` :2445) and its nested
+// fold epilogue (:1620-1701; launch plumbing :1893-1905, :1994-2027); and
 // `_make_nested_cadence_kernel` (:683, `nested_cadence_pass` :805/:866) and
 // the child stage of bevy_firework_tpu/step.py `_nested_spawn` (:411-453,
 // composed XLA there), below the step kernel.
@@ -95,6 +97,19 @@
 //    its two-segment slices were Mosaic constraints and are not carried
 //    over. The windows are consecutive, so this claims the slots the JAX
 //    package's in-place write-back claims on dead-rank archetypes too.
+//  * Nested fold (kernel row 10; ring archetypes, every frame of a folded
+//    chain but its last): the TPU epilogue computed the next frame's whole
+//    cadence pass (anchors, total, parent fetch) on the post-frame tile,
+//    carrying the exact count cumsum across its in-order grid in SMEM. CUDA
+//    blocks run concurrently, so the epilogue does the count kernel's share
+//    alone: per merge record each lane's parent count on the post-frame
+//    state in registers (nested_lane's formula; the gate the emitter's
+//    post-frame enabled bit), a block sum per tile and the next frame's
+//    NS_ANY; the next frame runs the scan and apply kernels on those
+//    counts (bf_nested_cadence, passes NESTED_APPLY) in place of the full
+//    pass. Epilogue plus scan and apply compute the TPU epilogue's outputs:
+//    the apply's anchors, NS_TOTAL and parent fetch. It is a run-time
+//    branch of the merge instantiations (a.n_fold), no new instantiation.
 //  * Fleets (kernel row 7): the slot is blockIdx.y and a block never spans
 //    two slots. Each slot reads its own table (tab_stride apart, or one
 //    shared), scalars, frame row, field records and seeds, and offsets
@@ -221,8 +236,10 @@ __global__ void __launch_bounds__(1024) tile_scan_kernel(const int* __restrict__
 // bevy_firework_tpu/step.py `_nested_spawn` (:411-453, composed XLA there).
 // The TPU carried the count cumsum across its in-order tiles in SMEM; CUDA
 // blocks run concurrently, so the pass is count -> scan -> apply, as the
-// dead-rank claim: nested_count_kernel writes each tile's parent-count sum,
-// tile_scan_kernel scans them, nested_apply_kernel recounts each lane, adds
+// dead-rank claim: nested_count_kernel writes each tile's parent-count sum
+// (in a folded chain the step kernel's fold epilogue writes the next
+// frame's), tile_scan_kernel scans them, nested_apply_kernel recounts each
+// lane, adds
 // a block scan to its tile's offset for the inclusive cum, and writes the
 // advanced anchors. Fetch mode has each parent lane write its own
 // children's parent fields to out[r], r in [cum - count, min(cum, M)): a
@@ -299,10 +316,6 @@ __device__ int block_inclusive_scan(int x, int* s_warp, int* block_total) {
 
 __global__ void __launch_bounds__(TILE) nested_count_kernel(const int* __restrict__ tab, NestedArgs a, int n_tiles) {
   __shared__ int s_warp[TILE / 32];
-  // fetch mode: ranks at or above the total keep 0 (the apply kernel writes
-  // the others)
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n_fetch * a.m; i += gridDim.x * blockDim.x)
-    a.fetch_out[i] = 0.0f;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int g = tile * TILE + threadIdx.x;
     int c = 0;
@@ -326,6 +339,12 @@ __global__ void __launch_bounds__(TILE) nested_apply_kernel(const int* __restric
   const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
   const float off_s = tabf(tab, row + EM_OFF_START), off_e = tabf(tab, row + EM_OFF_END);
   const float between = (off_e - off_s) / tabf(tab, row + EM_COUNT);
+  const int total = a.tile_offsets[n_tiles - 1] + a.tile_counts[n_tiles - 1];
+  // fetch mode: ranks from the total up to M read 0 (the parent lanes write
+  // the ranks below it)
+  const int lo_zero = min(total, a.m), span = a.m - lo_zero;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n_fetch * span; i += gridDim.x * blockDim.x)
+    a.fetch_out[(i / span) * a.m + lo_zero + i % span] = 0.0f;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int g = tile * TILE + threadIdx.x;
     NestedLane l;
@@ -349,7 +368,6 @@ __global__ void __launch_bounds__(TILE) nested_apply_kernel(const int* __restric
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     // the emitter's scalars: total, children this frame, its claim window
-    const int total = a.tile_offsets[n_tiles - 1] + a.tile_counts[n_tiles - 1];
     const int n_sp = min(total, a.m);
     const int start = a.start_in ? *a.start_in : 0;
     a.rec[NS_TOTAL] = total;
@@ -514,6 +532,11 @@ extern "C" {
 // the pre-spawn flag), the nested scalars (NS_* records of n_merge
 // emitters, each naming its emitter) and the child rows
 // [n_merge][child_rows][merge_m]; other launches pass a null any_alive.
+// A ring hybrid frame that folds the next frame's cadence counts (kernel row
+// 10) passes n_fold = n_merge, fold_le (last_emitted [E][n] after this
+// frame's cadence), fold_counts ([n_fold][ceil(n / TILE)] int, every word
+// written) and fold_any (the next frame's NS_ANY word, zeroed by the caller,
+// set to 1 where a lane lives after the frame); other launches pass 0.
 // A fleet launch (kernel row 7) steps n_slots pools of n lanes each, of one
 // archetype: every plane is [n_slots][n], the scalars [n_slots][E] or
 // [n_slots], the tile offsets [n_slots][ceil(n / TILE)], the dump and
@@ -531,7 +554,8 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                   void* const* scal_out, int render_mode, void* const* render_out, const float* frame,
                   const uint32_t* seeds, int unroll, int n, int n_emitters, int n_types, const void* fields,
                   int n_fields, void* dump_out, void* stats_partial, void* stats_ticket, void* stats_out,
-                  const void* any_alive, const void* nested, const void* child, int n_merge, int merge_m, int child_rows, int n_slots,
+                  const void* any_alive, const void* nested, const void* child, int n_merge, int merge_m,
+                  int child_rows, const void* fold_le, void* fold_counts, void* fold_any, int n_fold, int n_slots,
                   int tab_stride, const void* slot_rows, int slot_words, void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
   if (unroll < 1 || unroll > MAX_U || n <= 0 || n_emitters < 1 || n_types < 1 || n_colliders < 0 ||
@@ -544,6 +568,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                 merge_m <= 0))))
     return (int)cudaErrorInvalidValue;
   if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
+    return (int)cudaErrorInvalidValue;
+  if (n_fold < 0 || (n_fold > 0 && (!merge || n_fold != n_merge || alive_in != nullptr || fold_le == nullptr ||
+                                    fold_counts == nullptr || fold_any == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (stats_out != nullptr && (stats_partial == nullptr || stats_ticket == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -599,6 +626,10 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   a.n_merge = merge ? n_merge : 0;
   a.merge_m = merge_m;
   a.child_rows = child_rows;
+  a.fold_le = (const float*)fold_le;
+  a.fold_counts = (int*)fold_counts;
+  a.fold_any = (int*)fold_any;
+  a.n_fold = merge ? n_fold : 0;
 
   const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
   const bool ring = alive_in == nullptr;
@@ -607,7 +638,7 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                              : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, with_fields, stats, merge);
   // the tables' shared memory (the kernel's smem_layout with its flags: a
   // count of 0 stages nothing); past the default, the instantiation opts in
-  const SmemLayout lay = smem_layout(unroll, n_emitters, a.n_merge, stats ? n_types : 0,
+  const SmemLayout lay = smem_layout(unroll, n_emitters, a.n_merge, a.n_fold, stats ? n_types : 0,
                                      a.ff_smem ? n_fields * FF_STRIDE : 0, a.col_smem ? collider_words : 0);
   const size_t smem = (size_t)lay.words * sizeof(int);
   if (smem > (size_t)DEFAULT_SMEM_BYTES) {
@@ -641,23 +672,32 @@ int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, 
   return (int)cudaGetLastError();
 }
 
-// One nested emitter's cadence pass over n lanes (kernel row 8): count,
-// scan and apply launches on `stream`. alive (u8), age, le_in and le_out
-// are [n]; ptype [n] or null (one type); lifetime [n] or null (the table's
-// constant); gate one byte. Cum mode: cum [n] out, n_fetch 0. Fetch mode:
-// cum null, fetch_in a host array of n_fetch device planes [n], fetch_out
-// [n_fetch][m]. scratch holds 2 * ceil(n / TILE) ints. record (NS_STRIDE
-// ints) receives the emitter's scalars, the window starting at *start_in
-// (null: 0); dead-rank archetypes (ring 0) pass the claim's tile counts
-// and offsets for the drop count. any_alive (or null) is set to 1 when a
-// lane is alive. Returns the cudaError_t of the launches.
+// One nested emitter's cadence pass over n lanes (kernel row 8) on
+// `stream`: with NESTED_COUNT in `passes` the count kernel (per-tile parent
+// counts into tile_counts, ceil(n / TILE) ints; any_alive, or null, set to 1
+// when a lane is alive), with NESTED_APPLY the scan and apply kernels on
+// tile_counts (tile_offsets, ceil(n / TILE) ints, receives their scan). A
+// full pass runs both; a folded chain runs the count alone for its seed
+// and, on each frame, the scan and apply on the counts the step kernel's
+// fold epilogue left. alive (u8), age, le_in and le_out are [n]; ptype [n]
+// or null (one type); lifetime [n] or null (the table's constant); gate one
+// byte. Cum mode: cum [n] out, n_fetch 0. Fetch mode: cum null, fetch_in a
+// host array of n_fetch device planes [n], fetch_out [n_fetch][m]. record
+// (NS_STRIDE ints) receives the emitter's scalars, the window starting at
+// *start_in (null: 0); dead-rank archetypes (ring 0) pass the claim's tile
+// counts and offsets for the drop count. Returns the cudaError_t of the
+// launches.
 int bf_nested_cadence(const void* tables, int e, const void* alive, const void* ptype, const void* age,
                       const void* lifetime, const void* le_in, const void* gate, void* le_out, void* cum,
-                      void* const* fetch_in, void* fetch_out, int n_fetch, void* scratch, const void* start_in,
-                      const void* dead_counts, const void* dead_offsets, void* record, void* any_alive, int n,
-                      int m, int ring, void* stream) {
-  if (n <= 0 || m <= 0 || m > n || e < 0 || n_fetch < 0 || n_fetch > MAX_FETCH ||
-      (n_fetch > 0) == (cum != nullptr) || (!ring && (dead_counts == nullptr || dead_offsets == nullptr)))
+                      void* const* fetch_in, void* fetch_out, int n_fetch, void* tile_counts, void* tile_offsets,
+                      const void* start_in, const void* dead_counts, const void* dead_offsets, void* record,
+                      void* any_alive, int n, int m, int ring, int passes, void* stream) {
+  const bool count = (passes & NESTED_COUNT) != 0, apply = (passes & NESTED_APPLY) != 0;
+  if (n <= 0 || m <= 0 || m > n || e < 0 || n_fetch < 0 || n_fetch > MAX_FETCH || tile_counts == nullptr ||
+      (passes & ~(NESTED_COUNT | NESTED_APPLY)) != 0 || !(count || apply))
+    return (int)cudaErrorInvalidValue;
+  if (apply && ((n_fetch > 0) == (cum != nullptr) || (!ring && (dead_counts == nullptr || dead_offsets == nullptr)) ||
+                tile_offsets == nullptr || le_out == nullptr || record == nullptr))
     return (int)cudaErrorInvalidValue;
   NestedArgs a;
   a.alive = (const uint8_t*)alive;
@@ -672,8 +712,8 @@ int bf_nested_cadence(const void* tables, int e, const void* alive, const void* 
   a.fetch_out = (float*)fetch_out;
   a.n_fetch = n_fetch;
   const int n_tiles = (n + TILE - 1) / TILE;
-  a.tile_counts = (int*)scratch;
-  a.tile_offsets = (int*)scratch + n_tiles;
+  a.tile_counts = (int*)tile_counts;
+  a.tile_offsets = (int*)tile_offsets;
   a.start_in = (const int*)start_in;
   a.dead_counts = (const int*)dead_counts;
   a.dead_offsets = (const int*)dead_offsets;
@@ -685,11 +725,13 @@ int bf_nested_cadence(const void* tables, int e, const void* alive, const void* 
   a.ring = ring;
   const int blocks = n_tiles < MAX_BLOCKS ? n_tiles : MAX_BLOCKS;
   const cudaStream_t st = (cudaStream_t)stream;
-  nested_count_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (count) {
+    nested_count_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !apply) return (int)err;
+  }
   tile_scan_kernel<<<1, 1024, 0, st>>>(a.tile_counts, a.tile_offsets, n_tiles);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   nested_apply_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
   return (int)cudaGetLastError();

@@ -12,23 +12,29 @@ go to the card once per table (`kernel_fields`); archetypes with a destroyed
 handler get the dump plane (`StepOutputs.destroyed_mask`).
 
 Archetypes with a nested emitter step hybrid frames (`fused_step_hybrid`,
-the JAX package's hybrid with its in-kernel merge, unfolded): per valid
-nested emitter the cadence pass (`nested_cadence_pass`: count, scan and
-apply kernels, kernel row 8) and the child-rows kernel
-(`nested_child_rows`: threefry draws, the XLA child stage of the JAX
-package), then one step launch whose merge block (row 9) places the
-children before the global claim. The frame's nested scalars (totals,
-children, windows, drops, the pre-spawn alive flag) stay in one device
-buffer (`table_layout` NS_*) that the kernels read and write: no frame
-waits on the card.
+the JAX package's hybrid with its in-kernel merge): per valid nested
+emitter the cadence pass (`nested_cadence_pass`: count, scan and apply
+kernels, kernel row 8) and the child-rows kernel (`nested_child_rows`:
+threefry draws, the XLA child stage of the JAX package), then one step
+launch whose merge block (row 9) places the children before the global
+claim. The frame's nested scalars (totals, children, windows, drops, the
+pre-spawn alive flag) stay in one device buffer (`table_layout` NS_*) that
+the kernels read and write: no frame waits on the card. A chain of n >= 2
+such frames on a ring archetype folds the cadence (`chain_nested_folded`,
+as the JAX package's `multi_step_auto` does; `can_fold_nested`): a seed of
+one count kernel per nested emitter, then every frame's step launch but
+the last also counts the next frame's parents on its post-frame state
+(the fold epilogue, kernel row 10) into a `FoldCarry`, and the next frame
+runs only the scan and apply kernels on those counts. The unfolded chain
+stays callable (`chain_hybrid_unfolded`); both give the same bits.
 
 Dispatch is by the device of the pool's tensors and nothing else:
   * CUDA tensors: the kernels are launched, or the call raises;
   * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
     frames or one `step.hybrid_frame`, `step.nested_cadence`,
-    `step.nested_child_rows`, `render.pack_render_planes`,
-    `tile_dead_offsets`' cumsum), which keep the kernels' op order and
-    random-bit layout.
+    `step.nested_child_rows`, `step.nested_fold_carry`,
+    `render.pack_render_planes`, `tile_dead_offsets`' cumsum), which keep
+    the kernels' op order and random-bit layout.
 The kernel's tables are sized from the spawner and the scene, so the card
 takes every count of emitters, types, knots, colliders and force fields
 that the CPU takes; nothing falls back. From LOOP_MIN_COLLIDERS colliders
@@ -46,6 +52,7 @@ a chain update just the finished latch.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -78,6 +85,7 @@ from ..step import (
     nested_child_field_rows,
     nested_draw_rows,
     nested_emitters,
+    nested_fold_carry,
     nested_m,
     nested_parent_fields,
     nested_parents,
@@ -350,8 +358,10 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     planes in contract column order. hybrid (a hybrid frame's
     merge; see `_hybrid_launches`): the nested scalars `ns`, the child rows
     `child`, the records' `emitters`, the pre-spawn flag `any_alive`, the
-    ring cursor after the nested claims `cursor` and, on dead-rank
-    archetypes, the claim's tile `offsets` of the pre-spawn alive plane.
+    ring cursor after the nested claims `cursor`, on dead-rank
+    archetypes the claim's tile `offsets` of the pre-spawn alive plane,
+    and `fold`: None, or (last_emitted after the frame's cadence, the
+    `FoldCarry` the fold epilogue fills for the next frame).
     fleet (kernel row 7; `state` stacked over S slots, seeds [S][U] flat):
     the `table` ([S, words] or one shared [words]) and the per-slot records
     `slot_rows` [S, slot_words(F)] on the card; the slots launch in chunks
@@ -392,8 +402,11 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         s_in[4] = _checked(hybrid["cursor"], torch.int32, dev, ())
         merge = (hybrid["any_alive"].data_ptr(), hybrid["ns"].data_ptr(), hybrid["child"].data_ptr(),
                  len(hybrid["emitters"]), hybrid["child"].shape[2], hybrid["child"].shape[1])
+        fold = hybrid["fold"]  # (last_emitted [E, N], the next frame's FoldCarry) or None
+        merge += (None, None, None, 0) if fold is None else (
+            fold[0].data_ptr(), fold[1].counts.data_ptr(), fold[1].ns[L.NS_ANY].data_ptr(), fold[1].counts.shape[0])
     else:
-        merge = (None, None, None, 0, 0, 0)
+        merge = (None, None, None, 0, 0, 0, None, None, None, 0)
     s_out = [torch.empty_like(t) for t in s_in]
     render = None
     if mode == L.PACK_F32:
@@ -499,17 +512,29 @@ fused_step.fields_launches = 0  # of which with force fields
 fused_step.dump_launches = 0  # of which writing the dump plane
 fused_step.stats_launches = 0  # of which writing the stats row
 fused_step.merge_launches = 0  # of which hybrid frames with the nested merge block
+fused_step.fold_launches = 0  # of which with the nested fold epilogue (kernel row 10)
+
+
+_FULL_PASS = L.NESTED_COUNT | L.NESTED_APPLY
 
 
 def _cadence_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_in,
-                    le_out, gate, M: int, fetch: tuple, record, start=None, dead_tiles=None, any_alive=None):
-    """Launch one nested cadence pass (count, scan, apply) on the current
-    stream. fetch: parent planes (fetch mode) or () (cum mode). Returns (cum
-    or None, fetched [len(fetch), M] or None); the record receives the
-    emitter's NS_* scalars."""
+                    le_out, gate, M: int, fetch: tuple, record, start=None, dead_tiles=None, any_alive=None,
+                    counts=None, passes: int = _FULL_PASS):
+    """Launch nested emitter e's cadence kernels on the current stream:
+    `passes` the full pass (count, scan, apply), the count kernel alone
+    (L.NESTED_COUNT: a folded chain's seed; le_out, fetch and record
+    unused) or the scan and apply alone (L.NESTED_APPLY: a folded frame).
+    counts: the per-tile counts [ceil(N / TILE)] i32 the count kernel
+    writes or the scan reads (None: scratch). fetch: parent planes (fetch
+    mode) or () (cum mode). Returns (cum or None, fetched [len(fetch), M]
+    or None); the record receives the emitter's NS_* scalars."""
     dev = age.device
     N = age.shape[0]
-    for t, dt_ in ((alive, torch.bool), (age, torch.float32), (le_in, torch.float32), (le_out, torch.float32)):
+    n_tiles = -(-N // L.TILE)
+    apply = bool(passes & L.NESTED_APPLY)
+    for t, dt_ in ((alive, torch.bool), (age, torch.float32), (le_in, torch.float32)) + (
+            ((le_out, torch.float32),) if apply else ()):
         _checked(t, dt_, dev, (N,))
     if not static.single_type:
         _checked(ptype, torch.int32, dev, (N,))
@@ -518,22 +543,30 @@ def _cadence_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, a
     _checked(gate, torch.bool, dev, ())
     for t in fetch:
         _checked(t, torch.float32, dev, (N,))
-    cum = None if fetch else torch.empty(N, dtype=torch.int32, device=dev)
+    cum = torch.empty(N, dtype=torch.int32, device=dev) if (apply and not fetch) else None
     out = torch.empty((len(fetch), M), dtype=torch.float32, device=dev) if fetch else None
-    scratch = torch.empty(2 * -(-N // L.TILE), dtype=torch.int32, device=dev)
+    scratch = torch.empty((apply + (counts is None)) * n_tiles, dtype=torch.int32, device=dev)
+    offsets = scratch[:n_tiles] if apply else None
+    counts = scratch[-n_tiles:] if counts is None else counts
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.bf_nested_cadence(
         kernel_tables(static, params).data_ptr(), e, alive.data_ptr(), None if static.single_type else ptype.data_ptr(),
-        age.data_ptr(), ptr(lifetime), le_in.data_ptr(), gate.data_ptr(), le_out.data_ptr(), ptr(cum),
-        _ptr_array(fetch) if fetch else None, ptr(out), len(fetch), scratch.data_ptr(), ptr(start),
-        None if dead_tiles is None else dead_tiles[0].data_ptr(), None if dead_tiles is None else dead_tiles[1].data_ptr(),
-        record.data_ptr(), ptr(any_alive), N, M, int(static.ring_claim), torch.cuda.current_stream(dev).cuda_stream)
+        age.data_ptr(), ptr(lifetime), le_in.data_ptr(), gate.data_ptr(), ptr(le_out), ptr(cum),
+        _ptr_array(fetch) if fetch else None, ptr(out), len(fetch), counts.data_ptr(),
+        ptr(offsets), ptr(start), None if dead_tiles is None else dead_tiles[0].data_ptr(),
+        None if dead_tiles is None else dead_tiles[1].data_ptr(), ptr(record), ptr(any_alive), N, M,
+        int(static.ring_claim), passes, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nested cadence kernels failed to launch: {lib.bf_error_string(rc).decode()}")
-    nested_cadence_pass.launches += 1
+    if passes == _FULL_PASS:
+        nested_cadence_pass.launches += 1
+    elif passes == L.NESTED_COUNT:
+        nested_cadence_pass.count_launches += 1
+    else:
+        nested_cadence_pass.apply_launches += 1
     return cum, out
 
 
@@ -566,7 +599,9 @@ def nested_cadence_pass(static: SpawnerStatic, params: SpawnerParams, e: int, al
     return nested_cadence(static, params, e, alive, ptype, age, life, le_row, gate, M, parent_fields)
 
 
-nested_cadence_pass.launches = 0  # cadence passes launched (count + scan + apply each; CUDA path only)
+nested_cadence_pass.launches = 0  # full cadence passes launched (count + scan + apply each; CUDA path only)
+nested_cadence_pass.count_launches = 0  # count kernels alone (a folded chain's seed)
+nested_cadence_pass.apply_launches = 0  # scan + apply pairs alone (a folded frame, on the fold epilogue's counts)
 
 
 def _frame_row(frame: FrameInput) -> np.ndarray:
@@ -630,12 +665,74 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
 nested_child_rows.launches = 0  # child-rows kernel launches (CUDA path only)
 
 
+@dataclasses.dataclass(frozen=True)
+class FoldCarry:
+    """A folded chain's carry on the card: what the next frame's cadence
+    passes take in place of their count kernels. counts: [n_fold,
+    ceil(N / TILE)] int32, per valid nested emitter the per-tile parent
+    counts on the state the next frame starts from (the fold epilogue's,
+    or the seed's count kernels); ns: the next frame's nested scalars
+    (zeroed, NS_ANY set where a lane lives). Device tensors only: no frame
+    reads them on the host."""
+
+    counts: torch.Tensor
+    ns: torch.Tensor
+
+
+def can_fold_nested(static: SpawnerStatic, capacity: int) -> bool:
+    """The nested fold applies (the JAX package's `can_fold_nested`): a ring
+    claim, at least one valid nested emitter and a pool larger than the
+    child buffer M (the reference's conditions on meaning; the merge path,
+    which it also asks for, is the port's only hybrid). The reference's
+    layout conditions, a capacity that is a multiple of its 64 x 128-lane
+    tile and an M that is a multiple of 128, are Mosaic's and are dropped:
+    the CUDA epilogue sums any tile of TILE lanes, its last ragged, and the
+    apply kernel fetches any M. A folded chain equals the unfolded one bit
+    for bit, so the predicate decides speed only."""
+    if not has_nested(static) or not static.ring_claim:
+        return False
+    return capacity > nested_m(static, capacity) and bool(nested_emitters(static))
+
+
+def _new_carry(n_fold: int, n_lanes: int, dev) -> FoldCarry:
+    return FoldCarry(torch.empty((n_fold, -(-n_lanes // L.TILE)), dtype=torch.int32, device=dev),
+                     torch.zeros(L.NS_AT + n_fold * L.NS_STRIDE, dtype=torch.int32, device=dev))
+
+
+def _seed_nested_carry(static: SpawnerStatic, params: SpawnerParams, state: PoolState):
+    """The first frame's carry of a folded chain (the JAX package's
+    `_seed_nested_carry`), from the kernel-row-8 pass on the chain's
+    initial state: on the card its count kernel per valid nested emitter
+    (a `FoldCarry`: the frame's scan and apply follow); on the CPU
+    `step.nested_fold_carry` (per emitter (new_le, total, parent values))."""
+    dev = state.device
+    if dev.type == "cpu":
+        return nested_fold_carry(static, params, state)
+    if dev.type != "cuda":
+        raise ValueError(f"no nested fold for device {dev}")
+    from . import _build
+
+    lib = _build.load()
+    N = state.capacity
+    es = nested_emitters(static)
+    carry = _new_carry(len(es), N, dev)
+    lifetime = None if static.const_lifetime is not None else state.lifetime
+    alive = _checked(state.alive, torch.bool, dev, (N,))
+    for j, e in enumerate(es):
+        _cadence_launch(lib, static, params, e, alive, state.ptype, state.age, lifetime, state.last_emitted[e], None,
+                        state.enabled[e], nested_m(static, N), (), None, any_alive=carry.ns[L.NS_ANY],
+                        counts=carry.counts[j], passes=L.NESTED_COUNT)
+    return carry
+
+
 def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-                     pack_render, stats: bool):
+                     pack_render, stats: bool, carry: Optional[FoldCarry] = None, fold_out: bool = False):
     """One hybrid frame on the card: per valid nested emitter a cadence pass
-    (fetch mode on the ring, cum mode on dead-rank archetypes) and the
-    child-rows kernel, then the step launch with the merge block. Returns
-    (new_state, outputs or None, render planes or None)."""
+    (fetch mode on the ring, cum mode on dead-rank archetypes; with a
+    `carry`, its scan and apply on the carried counts) and the child-rows
+    kernel, then the step launch with the merge block (and, with
+    `fold_out`, the fold epilogue). Returns (new_state, outputs or None,
+    render planes or None, the next frame's FoldCarry or None)."""
     from . import _build
 
     lib = _build.load()
@@ -645,7 +742,12 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     es = nested_emitters(static)
     new_key, frame_key = threefry_split(state.rng_key.numpy())
     new_key, kernel_key = threefry_split(new_key)
-    ns = torch.zeros(L.NS_AT + len(es) * L.NS_STRIDE, dtype=torch.int32, device=dev)
+    if carry is None:
+        ns = torch.zeros(L.NS_AT + len(es) * L.NS_STRIDE, dtype=torch.int32, device=dev)
+    else:  # zeroed, NS_ANY set, by the previous frame's launch or the seed
+        ns = _checked(carry.ns, torch.int32, dev, (L.NS_AT + len(es) * L.NS_STRIDE,))
+        _checked(carry.counts, torch.int32, dev, (len(es), -(-N // L.TILE)))
+    nxt = _new_carry(len(es), N, dev) if fold_out else None
     alive = _checked(state.alive, torch.bool, dev, (N,))
     dead_tiles = None if static.ring_claim else _dead_tiles(alive)
     lifetime = None if static.const_lifetime is not None else state.lifetime
@@ -660,7 +762,8 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
         # only lanes the pass counts), active() holds whenever it is set
         cum, fetched = _cadence_launch(lib, static, params, e, alive, state.ptype, state.age, lifetime, le, le,
                                        state.enabled[e], M, planes if static.ring_claim else (), record, start,
-                                       dead_tiles, ns[L.NS_ANY])
+                                       dead_tiles, ns[L.NS_ANY], None if carry is None else carry.counts[j],
+                                       _FULL_PASS if carry is None else L.NESTED_APPLY)
         if static.ring_claim:
             _child_launch(lib, static, params, frame, e, frame_key, M, child[j], parent_vals=fetched, record=record,
                           alive=alive)
@@ -670,12 +773,14 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     any_alive = ns[L.NS_ANY] if es else alive.any().to(torch.int32)
     hybrid = {"ns": ns, "child": child, "emitters": es, "any_alive": any_alive,
               "cursor": start if (static.ring_claim and es) else state.ring_cursor,
-              "offsets": None if dead_tiles is None else dead_tiles[1]}
+              "offsets": None if dead_tiles is None else dead_tiles[1],
+              "fold": None if nxt is None else (last_emitted, nxt)}
     mode = _pack_mode(pack_render)
     fields, scal, planes_out, dump, row, _n = _launch(static, params, colliders, state, frame,
                                                       [int(kernel_key[1])], mode, stats, hybrid)
     fused_step.launches += 1
     fused_step.merge_launches += 1
+    fused_step.fold_launches += nxt is not None
     fused_step.render_launches += mode == L.PACK_F32
     fused_step.render_f16_launches += mode == L.PACK_F16
     fused_step.collide_launches += collision_on(static, colliders)
@@ -691,28 +796,49 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
 
     new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(new_key.astype(np.int64)), stats,
                               dump, None if row is None else stats_from_row(static, row), last_emitted, nested_counts)
-    return new_state, out, planes_out
+    return new_state, out, planes_out, nxt
 
 
 def fused_step_hybrid(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-                      pack_render=False, stats: bool = True):
+                      pack_render=False, stats: bool = True, nested_carry=None, fold_out: bool = False):
     """One hybrid frame of an archetype with a nested emitter (the JAX
-    package's `fused_step_hybrid` with its in-kernel merge, unfolded):
-    returns (state, outputs) or, with pack_render (True or "f16", as in
-    `fused_step`), (state, outputs, planes). On the card the nested kernels
-    and one merge-block step launch run; on the CPU `step.hybrid_frame`."""
+    package's `fused_step_hybrid` with its in-kernel merge): returns
+    (state, outputs), with pack_render (True or "f16", as in `fused_step`)
+    the planes next, and with `fold_out` the next frame's carry last. On
+    the card the nested kernels and one merge-block step launch run; on the
+    CPU `step.hybrid_frame`. nested_carry (a folded chain's frame; the
+    previous frame's carry or `_seed_nested_carry`'s) stands in for the
+    frame's cadence counts: on the card a `FoldCarry` (the count kernels do
+    not run, the scan and apply do), on the CPU the reference's per-emitter
+    (new_le, total, parent values). fold_out asks the step launch for the
+    next frame's carry (kernel row 10's epilogue). Both need an archetype
+    the fold takes (`can_fold_nested`)."""
     check_kernel_scope(static, 1)
     mode = _pack_mode(pack_render)
+    if (nested_carry is not None or fold_out) and not can_fold_nested(static, state.capacity):
+        raise ValueError("a nested carry or fold_out needs a ring archetype with a valid nested emitter and a pool "
+                         "larger than its child buffer (can_fold_nested)")
+    carry = None
     if state.device.type == "cuda":
-        new_state, out, planes = _hybrid_launches(static, params, colliders, state, frame, pack_render, stats)
+        if nested_carry is not None and not isinstance(nested_carry, FoldCarry):
+            raise ValueError(f"a nested carry on the card is a FoldCarry, got {type(nested_carry).__name__}")
+        new_state, out, planes, carry = _hybrid_launches(static, params, colliders, state, frame, pack_render, stats,
+                                                         nested_carry, fold_out)
     elif state.device.type == "cpu":
-        new_state, out = hybrid_frame(static, params, state, frame, stats, colliders)
+        if nested_carry is not None and not isinstance(nested_carry, dict):
+            raise ValueError(f"a nested carry on the CPU is a dict, got {type(nested_carry).__name__}")
+        res = hybrid_frame(static, params, state, frame, stats, colliders, nested_carry, fold_out)
+        new_state, out = res[:2]
+        carry = res[2] if fold_out else None
         planes = pack_render_planes(static, params, new_state, pack_render) if mode else None
     else:
         raise ValueError(f"no step for device {state.device}")
+    res = (new_state, out)
     if mode:
-        return new_state, out, tuple(planes)
-    return new_state, out
+        res += (tuple(planes),)
+    if fold_out:
+        res += (carry,)
+    return res
 
 
 def step_auto(static, params, colliders, state, frame, kernel_stats: bool = False):
@@ -746,14 +872,48 @@ def chain_shape(n_frames: int, unroll: int = MAX_UNROLL) -> list:
     return [unroll] * q + [1] * r
 
 
+def chain_hybrid_unfolded(static, params, colliders, state, frame, n_frames: int):
+    """n hybrid frames of a nested archetype, each with its own cadence
+    passes (no fold); stats on the last frame only. Returns (final state,
+    outputs of the last frame)."""
+    out = None
+    for i in range(n_frames):
+        state, out = fused_step_hybrid(static, params, colliders, state, frame, stats=i == n_frames - 1)
+    return state, out
+
+
+def chain_nested_folded(static, params, colliders, state, frame, n_frames: int):
+    """n >= 1 hybrid frames with the nested fold (the JAX package's
+    `_chain_nested_folded`): the carry is seeded once, every frame but the
+    last leaves the next frame's carry (the fold epilogue), and the last
+    frame consumes its carry without folding. Bit-equal to
+    `chain_hybrid_unfolded`: a carry is a function of the state it was
+    computed on, and the one a chain's end would leave is dropped (the next
+    chain's seed recomputes it). Stats on the last frame only."""
+    if not can_fold_nested(static, state.capacity):
+        raise ValueError("chain_nested_folded takes the archetypes can_fold_nested accepts")
+    carry = _seed_nested_carry(static, params, state)
+    for _ in range(n_frames - 1):
+        state, _o, carry = fused_step_hybrid(static, params, colliders, state, frame, stats=False, nested_carry=carry,
+                                             fold_out=True)
+    return fused_step_hybrid(static, params, colliders, state, frame, nested_carry=carry)
+
+
 def multi_step_auto(static, params, colliders, state, frame, n_frames: int):
     """n frames with the same frame input; returns (final state, outputs of
-    the last frame). Launches follow `chain_shape(n, chain_unroll(...))`.
+    the last frame). Launches follow `chain_shape(n, chain_unroll(...))`;
+    an archetype with a nested emitter steps hybrid frames, folded
+    (`chain_nested_folded`) where `can_fold_nested` and n >= 2, as the JAX
+    package's `_multi_step_impl` dispatches, else `chain_hybrid_unfolded`.
     Stats are computed for the last frame only; invariant fields (elided
     rotation/lifetime, single-type ptype, last_emitted) pass through every
     launch untouched."""
     if n_frames < 1:
         raise ValueError("multi_step_auto needs n_frames >= 1")
+    if has_nested(static):
+        if n_frames >= 2 and can_fold_nested(static, state.capacity):
+            return chain_nested_folded(static, params, colliders, state, frame, n_frames)
+        return chain_hybrid_unfolded(static, params, colliders, state, frame, n_frames)
     shape = chain_shape(n_frames, chain_unroll(static, colliders))
     out = None
     for i, u in enumerate(shape):

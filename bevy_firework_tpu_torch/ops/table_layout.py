@@ -162,7 +162,7 @@ def stats_words(num_types: int) -> int:
 
 # ---- nested scalars (device int32 buffer, zeroed per frame; kernel in- and outputs) ----
 # A header word, then one record per valid nested emitter, in emitter order.
-NS_ANY = 0  # header: 1 when a lane lived before the frame's spawns (the nested count kernels set it)
+NS_ANY = 0  # header: 1 when a lane lived before the frame's spawns (set by the count kernels or the fold epilogue)
 NS_AT = 1  # first record
 NS_STRIDE = 8
 NS_TOTAL = 0  # children the emitter's parents ask for this frame
@@ -172,6 +172,16 @@ NS_NEXT = 3  # the next emitter's start: NS_START + NS_N (mod N on the ring)
 NS_DROPPED = 4  # children whose window slot was not dead (pool capacity overflow)
 NS_EMITTER = 5  # the record's nested emitter (its cadence pass writes it)
 MAX_FETCH = 10  # parent fields a fetch-mode cadence pass reads (nested_parent_fields)
+# The cadence pass's launches (bf_nested_cadence's `passes`): the count
+# kernel (per-tile parent counts and NS_ANY) and the scan and apply kernels
+# (the count cumsum, the anchors, the parent fetch, the NS record). An
+# unfolded frame runs both; a folded chain's seed runs the count alone and
+# each folded frame the scan and apply alone, on the tile counts the step
+# kernel's fold epilogue (kernel row 10) left on the previous frame.
+NESTED_COUNT, NESTED_APPLY = 1, 2
+# The step kernel's shared words per merge record: the window's start, its
+# children, their type, the record's emitter (the fold epilogue's)
+MERGE_WORDS = 4
 
 # ---- fleet launches (kernel row 7): S slots of one archetype per launch ----
 # Per-slot records in one device int32 buffer [S, slot_words(F)]: the

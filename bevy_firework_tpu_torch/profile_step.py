@@ -16,10 +16,11 @@ time; then the host functions that take most of an 8-frame call
 
 With --launch it prints only device times per launch (stats off, as
 chip_smoke.py's `*_kernel_device_ms`): the main path's U = 8 launch at
-both sizes, then one line with the fleet's U = 8 launch (fleet_16x55k) and
+both sizes, then one line with the fleet's U = 8 launch (fleet_16x55k),
 the U = 2 and U = 8 launches of the collision cells (collision_1M and
 hull8_1M: stress_test_collision at 1M live against its two cuboids and
-against bench.py's 8 hulls). With --flows it prints one JSON line of the
+against bench.py's 8 hulls) and the unfolded hybrid step launch of
+nested_60k (bench.py's nested cell after 150 frames). With --flows it prints one JSON line of the
 solo path's end-to-end times: main_100k and main_1M ms/frame and the
 tornado and fireworks flows' ms per Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch
 from DIR instead (run the file, not the module): two trees, such as a
@@ -162,11 +163,13 @@ def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> d
 
 def cells_ms(calls: int = 20, traces: int = 3) -> dict:
     """Device time per launch (stats off) of the fleet's U = 8 launch of
-    fleet_16x55k (stress_test at 55000/s, 16 slots of 65536 lanes) and of
+    fleet_16x55k (stress_test at 55000/s, 16 slots of 65536 lanes), of
     one U = 2 and one U = 8 launch of stress_test_collision at 5e5/s,
     capacity 1310720, against its two cuboids and against bench.py's 8
     hulls (a 6-plane floor and 7 tetrahedra), each after a 140-frame
-    chain."""
+    chain, and of nested_60k's step launch in an unfolded hybrid frame
+    (bench.py's `_measure_nested` spawner, capacity 131072, nested_buffer
+    1024, after 150 frames)."""
     import bevy_firework_tpu_torch as bt
     from bevy_firework_tpu_torch.models import effects
     from bevy_firework_tpu_torch.ops import fused_step as fs
@@ -198,6 +201,20 @@ def cells_ms(calls: int = 20, traces: int = 3) -> dict:
             ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, table, s, f, unroll=u, stats=False),
                                        calls, traces)
             res[label].update({f"u{u}_kernel_device_ms": ms, f"u{u}_traces": per})
+    nested = bt.ParticleSpawner(
+        particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), linear_drag=0.1),
+                           bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), linear_drag=0.3)],
+        emission_settings=[
+            bt.EmissionSettings(particle_index=0, emission_pacing=EmissionPacing.rate(4000.0),
+                                initial_velocity=bt.RandVec3(bt.RandF32(2.0, 6.0), (0, 1, 0), 0.5)),
+            bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
+                                emission_pacing=EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 1.0),
+                                initial_velocity=bt.RandVec3(bt.RandF32(0.2, 1.0), (0, 1, 0), 3.14),
+                                inherit_parent_velocity=True)])
+    cn = bt.compile_spawner(nested, nested_buffer=1024, device="cuda")
+    s, out = fs.multi_step_auto(cn.static, cn.params, None, bt.init_pool_for(cn, 16 * 8192, seed=0), f, 150)
+    ms, per = launch_device_ms(lambda: fs.fused_step(cn.static, cn.params, None, s, f, stats=False), calls, traces)
+    res["nested_60k"] = {"live": int(out.alive_count), "hybrid_step_kernel_device_ms": ms, "traces": per}
     return res
 
 

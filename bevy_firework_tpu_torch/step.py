@@ -33,7 +33,10 @@ plain version of the nested-cadence kernels) and its child stage
 (`nested_child_rows`, threefry draws under `fold_in(frame_key, 1000 + e)`,
 the plain version of the child-rows kernel), all on the pre-spawn alive;
 then `advance` merges the children into their claim windows before the
-global claim, whose ring cursor starts where the nested claims left it.
+global claim, whose ring cursor starts where the nested claims left it. A
+frame of a folded chain takes its cadence results from a carry instead:
+`nested_fold_carry` on the previous frame's post-frame state, the plain
+version of the fold (kernel row 10).
 Nested children therefore match the JAX package's lane for lane; the
 hybrid's global spawns draw Philox like the fused path, seeded by word 1 of
 the hybrid's kernel key. The JAX hybrid writes children back in place
@@ -56,6 +59,7 @@ from .compiled import MODE_NESTED, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerPar
 from .curve import eval_curve_static
 from .emission_shape import sample_shape_comp
 from .force_fields import field_accel
+from .ops.table_layout import TILE
 from .pool import FrameInput, PoolState
 from .prng import frame_seeds, lane_uniforms, threefry_fold_in, threefry_split, threefry_uniform
 from .rand import sample_randf32, sample_randvec3_comp
@@ -510,6 +514,21 @@ def nested_draw_rows(static: SpawnerStatic) -> int:
     return 12 if not static.elide_rotation else (9 if static.const_lifetime is None else 8)
 
 
+def nested_lane_counts(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row,
+                       gate):
+    """Per parent lane of nested emitter e (the count kernel's `nested_lane`):
+    (counts [N] i32: the emission count of a live lane of the target type
+    while `gate` holds, else 0; the full anchor advance; the anchor after
+    the lazy reset of dead lanes to f32::MIN; the parent mask)."""
+    base_le = torch.where(alive, le_row, torch.full_like(le_row, F32_MIN))  # lazy reset
+    pm = alive & gate
+    if not static.single_type:
+        pm = pm & (ptype == static.target_types[e])
+    counts, next_full = compute_emission_count(age, base_le, lifetime, params.off_start[e], params.off_end[e],
+                                               params.count[e])
+    return torch.where(pm, counts, torch.zeros_like(counts)), next_full, base_le, pm
+
+
 def nested_cadence(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row, gate,
                    M: int, parent_fields=None):
     """The plain version of the nested-cadence kernels (kernel row 8; the JAX
@@ -523,12 +542,7 @@ def nested_cadence(static: SpawnerStatic, params: SpawnerParams, e: int, alive, 
     zeros for ranks at or above the total. lifetime: the [N] field or the
     archetype's 0-d constant."""
     off_s, off_e, cnt = params.off_start[e], params.off_end[e], params.count[e]
-    base_le = torch.where(alive, le_row, torch.full_like(le_row, F32_MIN))  # lazy reset
-    pm = alive & gate
-    if not static.single_type:
-        pm = pm & (ptype == static.target_types[e])
-    counts, next_full = compute_emission_count(age, base_le, lifetime, off_s, off_e, cnt)
-    counts = torch.where(pm, counts, torch.zeros_like(counts))
+    counts, next_full, base_le, pm = nested_lane_counts(static, params, e, alive, ptype, age, lifetime, le_row, gate)
     cum = torch.cumsum(counts, 0, dtype=torch.int32)
     total = cum[-1]
     emitted = cum.clamp_max(M) - (cum - counts).clamp_max(M)
@@ -592,7 +606,47 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
     return torch.stack([rows[k] for k in nested_child_field_rows(static)])
 
 
-def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, frame_key):
+def nested_fold_carry(static: SpawnerStatic, params: SpawnerParams, state: PoolState) -> dict:
+    """The plain version of the nested fold (kernel row 10, the JAX
+    package's fold epilogue) and of a folded chain's seed: per valid nested
+    emitter e of a ring archetype, `nested_cadence` in fetch mode on `state`
+    (the post-frame state of the frame that folds), gated by the emitter's
+    enabled bit alone. Returns {e: (new_le [N], total, parent values name ->
+    [M])}, what the next frame's cadence pass would compute: the carry its
+    nested phase consumes in place of the pass. The gate: the pass's is
+    active & enabled[e]; it counts live lanes only, and while one lives an
+    enabled nested emitter makes active true, so the two gates count the
+    same lanes (the JAX package's fused_step.py:2496-2505)."""
+    M = nested_m(static, state.capacity)
+    life = lifetime_of(static, {"lifetime": state.lifetime, "age": state.age})
+    alive = state.age < life
+    parents = {k: getattr(state, k) for k in nested_parent_fields(static)}
+    carry = {}
+    for e in nested_emitters(static):
+        new_le, _cum, total, pv = nested_cadence(static, params, e, alive, state.ptype, state.age, life,
+                                                 state.last_emitted[e], state.enabled[e], M, parents)
+        carry[e] = (new_le, total, pv)
+    return carry
+
+
+def nested_fold_counts(static: SpawnerStatic, params: SpawnerParams, state: PoolState, e: int):
+    """The plain version of the fold epilogue's share on the card: nested
+    emitter e's per-lane parent counts on the post-frame `state`
+    (`nested_lane_counts`, gated by enabled[e] alone) summed per TILE-lane
+    tile, int32 [ceil(N / TILE)], and whether a lane lives (the next
+    frame's NS_ANY), a 0-d bool."""
+    life = lifetime_of(static, {"lifetime": state.lifetime, "age": state.age})
+    alive = state.age < life
+    counts = nested_lane_counts(static, params, e, alive, state.ptype, state.age, life, state.last_emitted[e],
+                                state.enabled[e])[0]
+    n_tiles = -(-counts.shape[0] // TILE)
+    padded = torch.zeros(n_tiles * TILE, dtype=torch.int32, device=counts.device)
+    padded[:counts.shape[0]] = counts
+    return padded.view(n_tiles, TILE).sum(-1, dtype=torch.int32), alive.any()
+
+
+def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, frame_key,
+                 carry=None):
     """The nested half of a hybrid frame (the JAX package's `_spawn_phase`
     with skip_global and kernel_cadence, and `_nested_spawn`'s merge
     payload): per valid nested emitter in order, on the pre-spawn state,
@@ -600,7 +654,9 @@ def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
     each emitter's children. Returns (NestedSpawns, last_emitted [E, N],
     deferred, dropped): ring windows start at the ring cursor and drop the
     children whose slot lives; dead-rank windows start at dead-slot rank 0
-    and drop the children beyond the dead lanes."""
+    and drop the children beyond the dead lanes. carry (a folded chain's
+    frame; `nested_fold_carry` of this state): each emitter's pass results,
+    used in place of the pass."""
     N = state.capacity
     M = nested_m(static, N)
     life = lifetime_of(static, {"lifetime": state.lifetime, "age": state.age})
@@ -616,12 +672,14 @@ def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
     parents = {k: getattr(state, k) for k in nested_parent_fields(static)}
     windows = []
     for e in nested_emitters(static):
-        gate = active & state.enabled[e]
-        # fetch mode on the ring, cum mode on dead-rank archetypes (both
-        # give each rank its parent; the kernels run both)
-        new_le, cum, total, pv = nested_cadence(static, params, e, alive, state.ptype, state.age, life,
-                                                state.last_emitted[e], gate, M,
-                                                parents if static.ring_claim else None)
+        if carry is not None:
+            (new_le, total, pv), cum = carry[e], None
+        else:
+            # fetch mode on the ring, cum mode on dead-rank archetypes (both
+            # give each rank its parent; the kernels run both)
+            new_le, cum, total, pv = nested_cadence(static, params, e, alive, state.ptype, state.age, life,
+                                                    state.last_emitted[e], active & state.enabled[e], M,
+                                                    parents if static.ring_claim else None)
         last_emitted[e] = new_le
         n = total.clamp_max(M)
         deferred = deferred + (total - n)
@@ -642,20 +700,25 @@ def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
 
 
 def hybrid_frame(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput,
-                 stats: bool = True, colliders=None):
+                 stats: bool = True, colliders=None, nested_carry=None, fold_out: bool = False):
     """One hybrid frame (the plain version of `ops.fused_step.
     fused_step_hybrid`): the key chain of the JAX hybrid (new_key,
     frame_key = split(key); new_key, kernel_key = split(new_key); the
     global spawns' Philox seed is word 1 of kernel_key), the nested phase,
     then `advance` with the children merged first. Returns (new_state,
-    StepOutputs or None)."""
+    StepOutputs or None), and with `fold_out` the next frame's carry
+    (`nested_fold_carry` of the new state) third. nested_carry: this
+    frame's carry, consumed in place of its cadence passes."""
     new_key, frame_key = threefry_split(state.rng_key.numpy())
     new_key, kernel_key = threefry_split(new_key)
-    nested, last_emitted, deferred, dropped = nested_phase(static, params, state, frame, frame_key)
+    nested, last_emitted, deferred, dropped = nested_phase(static, params, state, frame, frame_key, nested_carry)
     fields, scal = split_state(static, state)
     fields, scal, dump = advance(static, params, fields, scal, frame, int(kernel_key[1]), colliders, nested)
-    return epilogue(static, params, state, fields, scal, torch.as_tensor(new_key.astype(np.int64)), stats, dump,
-                    last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped))
+    new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(new_key.astype(np.int64)), stats,
+                              dump, last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped))
+    if fold_out:
+        return new_state, out, nested_fold_carry(static, params, new_state)
+    return new_state, out
 
 
 def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, n: int = 1,

@@ -99,14 +99,30 @@ textures flows and the Scene's async render, through the kernels. Phases:
      plain versions, then 30 hybrid frames of a ring, a chained and a
      destroy-on-collision (dead-rank) nested archetype whose children meet
      no sinf/cosf: bit for bit, anchors and nested counts included;
+ 22a. nested_fold_det, N = 131072: nested_det's ring configs (single and
+     chained, with deferral; tests/torch_nested_configs.py): the seed's
+     count kernels and the step launch's fold epilogue (kernel row 10: per-
+     tile parent counts and the next frame's NS_ANY) against
+     step.nested_fold_counts on the state each read, bit for bit, every
+     third frame of 30; a 30-frame folded chain == the unfolded chain ==
+     30 plain frames, bit for bit; four chains with the emitters' enabled
+     bits toggled between them, folded == unfolded;
  23. nested_60k: bench.py's nested cell (4000 rockets/s, 10 children each,
      capacity 131072, nested_buffer 1024, ~60k live): a 150-frame
-     multi_step_auto chain under torch.cuda.set_sync_debug_mode("error")
-     (no frame synchronises) against 150 plain frames (counts, cursor,
-     cadence exact; f32 within 4 ulp), differential ms/frame, and the
-     device time per frame of the cadence kernels, the child-rows kernel
-     and the merge step launch, with the cadence share of the frame;
+     multi_step_auto chain (folded: one count kernel per nested emitter,
+     then per frame a scan and apply pair per emitter, the child rows and
+     the step launch, with the fold epilogue but on the last) under
+     torch.cuda.set_sync_debug_mode("error") (no frame synchronises)
+     against the unfolded chain (bit for bit) and 150 plain frames (counts,
+     cursor, cadence exact; f32 within 4 ulp), differential ms/frame, the
+     device time per frame of 10-frame folded and unfolded chains, and of
+     the cadence kernels (the full pass, and the scan and apply pair), the
+     child-rows kernel and the merge step launch without and with the fold
+     epilogue, with the cadence share of the frame;
  24. nested_chained: the same for bench.py's 3-stage chained cell;
+ 24a. ab_nested_fold: bench.py's A/B (:958-1029) on nested_60k: folded (100
+     and 200 frames) and unfolded (101 and 202) chains interleaved, 7
+     pairs, ms/frame by host clock, the pair with the median ratio;
  25. nested_flows: effects.fireworks() and effects.textures() (with its
      colliders) through Scene on the card for 300 frames each, against the
      plain version replaying the flow on the card: per-type counts every
@@ -364,7 +380,8 @@ def main() -> int:
     max_err = {"fused_step": 0.0, "fused_step.pack_render": 0.0, "fused_step.collide": 0.0,
                "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
                "fused_step.stats": 0.0, "nested_cadence": 0.0, "fused_step.nested_merge": 0.0,
-               "nested_child_rows": 0.0, "fused_step.fleet": 0.0, "fused_step.collide_broad": 0.0}
+               "nested_child_rows": 0.0, "fused_step.fleet": 0.0, "fused_step.collide_broad": 0.0,
+               "fused_step.nested_fold": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
         for k in scalars:
@@ -389,6 +406,8 @@ def main() -> int:
                 "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
                 "dead_rank_claim": (fs.tile_dead_offsets, "launches"), "merge": (fs.fused_step, "merge_launches"),
                 "nested_cadence": (fs.nested_cadence_pass, "launches"),
+                "nested_count": (fs.nested_cadence_pass, "count_launches"),
+                "nested_apply": (fs.nested_cadence_pass, "apply_launches"), "fold": (fs.fused_step, "fold_launches"),
                 "nested_child_rows": (fs.nested_child_rows, "launches"),
                 "fleet": (fs.fused_step_fleet, "launches"), "fleet_render": (fs.fused_step_fleet, "render_launches"),
                 "fleet_collide": (fs.fused_step_fleet, "collide_launches"),
@@ -1222,7 +1241,8 @@ def main() -> int:
                      "ms_per_scene_step_with_handler": on_ms, "ms_per_scene_step_without_handler": off_ms}})
 
     # ------------------------------------------------ 22. nested_det
-    from bevy_firework_tpu_torch.step import nested_cadence, nested_child_rows as plain_child_rows, nested_parents
+    from bevy_firework_tpu_torch.step import hybrid_frame, nested_cadence, nested_fold_carry, nested_parents
+    from bevy_firework_tpu_torch.step import nested_child_rows as plain_child_rows
 
     def det_nested(destroy=False, chained=False):
         """A rocket emitter with constant draws and nested children (box
@@ -1321,46 +1341,58 @@ def main() -> int:
     emit({"phase": "nested_det", "card": card, "n": n_det, "cadence": cad_res, "hybrid": hyb_res,
           "rule": "cadence kernels (cum and fetch mode), child rows and 30 hybrid frames == plain, bit for bit"})
 
-    # ------------------------------------- 23./24. nested_60k, nested_chained
-    def bench_nested(chained):
-        """bench.py's _measure_nested / _measure_nested_chained spawners."""
-        if not chained:
-            return bt.ParticleSpawner(
-                particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), linear_drag=0.1),
-                                   bt.ParticleSettings(lifetime=bt.RandF32.constant(2.0), linear_drag=0.3)],
-                emission_settings=[
-                    bt.EmissionSettings(particle_index=0, emission_pacing=bt.EmissionPacing.rate(4000.0),
-                                        initial_velocity=bt.RandVec3(bt.RandF32(2.0, 6.0), (0, 1, 0), 0.5)),
-                    bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
-                                        emission_pacing=bt.EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 1.0),
-                                        initial_velocity=bt.RandVec3(bt.RandF32(0.2, 1.0), (0, 1, 0), 3.14),
-                                        inherit_parent_velocity=True)])
-        return bt.ParticleSpawner(
-            particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(1.5), linear_drag=0.2),
-                               bt.ParticleSettings(lifetime=bt.RandF32.constant(1.0), linear_drag=0.3),
-                               bt.ParticleSettings(lifetime=bt.RandF32.constant(0.5), linear_drag=0.5)],
-            emission_settings=[
-                bt.EmissionSettings(particle_index=0, emission_pacing=bt.EmissionPacing.rate(2000.0),
-                                    initial_velocity=bt.RandVec3(bt.RandF32(3.0, 8.0), (0, 1, 0), 0.4)),
-                bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
-                                    emission_pacing=bt.EmissionPacing.count_over_duration(8.0, 1.0, 0.0, 1.0),
-                                    inherit_parent_velocity=True),
-                bt.EmissionSettings(particle_index=2, emission_mode=bt.EmissionMode.nested(1),
-                                    emission_pacing=bt.EmissionPacing.count_over_duration(3.0, 1.0, 0.1, 0.9),
-                                    inherit_parent_velocity=True)])
+    # ------------------------------------------------ 22a. nested_fold_det
+    import torch_nested_configs as nested_cfg
 
+    fold_det = {}
+    for name, chained in (("ring", False), ("chained", True)):
+        ch = bt.compile_spawner(det_nested(False, chained), nested_buffer=1024, device=dev)
+        check(fs.can_fold_nested(ch.static, n_det), f"nested_fold_det {name}: the fold does not apply")
+        s = bt.init_pool_for(ch, n_det)
+        totals = []
+        for i in range(10):  # 30 frames: every third one a folded frame whose carry is checked
+            s, _o = fs.multi_step_auto(ch.static, ch.params, None, s, fdet, 2)
+            s, r = nested_cfg.check_fold_epilogue(ch, s, fdet, label=f"nested_fold_det {name} frame {3 * i + 2}")
+            totals.append(r["fold_totals"])
+        check(min(t[0] for t in totals[3:]) > 1024 and totals[-1][-1] > 0, f"nested_fold_det {name}: {totals}")
+        s0 = bt.init_pool_for(ch, n_det)
+        sf, of = nested_cfg.check_folded_equals_unfolded(ch, s0, fdet, 30, label=f"nested_fold_det {name} chain")
+        sp_, op = plain_frames(ch.static, ch.params, s0, fdet, 30)
+        compare(ch, sf, sp_, {}, f"nested_fold_det {name} chain vs plain", kernel="fused_step.nested_fold")
+        for k in ("last_emitted", "ptype"):
+            check(torch.equal(getattr(sf, k), getattr(sp_, k)), f"nested_fold_det {name} chain vs plain: {k}")
+        for k in ("alive_count_per_type", "nested_deferred", "nested_dropped"):
+            check(torch.equal(getattr(of, k), getattr(op, k)), f"nested_fold_det {name} chain vs plain: {k}")
+        toggles = nested_cfg.check_enabled_toggles(ch, sf, fdet, 10)
+        fold_det[name] = {"fold_totals": totals, "per_type": of.alive_count_per_type.tolist(),
+                          "deferred_last_frame": int(of.nested_deferred), "toggle_chains_per_type": toggles}
+    torch.cuda.synchronize()
+    emit({"phase": "nested_fold_det", "card": card, "n": n_det, "cases": fold_det,
+          "rule": "the seed's count kernels and the fold epilogue (per-tile counts, next NS_ANY) == "
+                  "step.nested_fold_counts on the state each read, bit for bit, every third frame of 30; a 30-frame "
+                  "folded chain == the unfolded chain (every field, every output) == 30 plain frames; four chains "
+                  "with the emitters' enabled bits toggled between them, folded == unfolded"})
+
+    # ------------------------------------- 23./24. nested_60k, nested_chained
+    bench_nested = nested_cfg.bench_nested
     cadence_names = ("nested_count_kernel", "tile_scan_kernel", "nested_apply_kernel")
+    apply_names = ("tile_scan_kernel", "nested_apply_kernel")
 
     def nested_path(label, chained, warm=150, n_frames=100):
         """bench.py's nested cell: a `warm`-frame multi_step_auto chain from an
-        empty pool (launches counted; no frame may synchronise) against as
-        many plain frames, differential ms/frame, and device times per frame
-        of the cadence kernels, the child-rows kernel and the step launch."""
+        empty pool (folded: launches counted; no frame may synchronise)
+        against the unfolded chain (bit for bit) and as many plain frames,
+        differential ms/frame, device time per frame of a 10-frame folded
+        and unfolded chain, and device times of the cadence kernels (the
+        full pass, and the scan and apply pair of a folded frame), the
+        child-rows kernel and the step launch without and with the fold
+        epilogue."""
         cm = bt.compile_spawner(bench_nested(chained), nested_buffer=1024, device=dev)
         capacity = 16 * 8192
         frame = bt.make_frame_input(1 / 60)
         state0 = bt.init_pool_for(cm, capacity, seed=0)
         n_em = len(cm.static.mode_kinds) - 1
+        check(fs.can_fold_nested(cm.static, capacity), f"{label}: the fold does not apply")
         fs.kernel_tables(cm.static, cm.params)  # set-up: the table's one host-to-device copy
 
         def chain():
@@ -1372,9 +1404,15 @@ def main() -> int:
 
         (state, out), counts = counted(chain)
         torch.cuda.synchronize()
-        check(counts["fused_step"] == counts["merge"] == warm and counts["nested_cadence"] == n_em * warm
-              and counts["nested_child_rows"] == n_em * warm and counts["stats"] == 1,
-              f"{label}: the chain's launches {counts}")
+        # the folded chain: a seed of one count kernel per nested emitter, a
+        # scan and apply pair per emitter and frame, the fold epilogue in
+        # every step launch but the last, no full pass
+        check(counts["fused_step"] == counts["merge"] == warm and counts["fold"] == warm - 1
+              and counts["nested_count"] == n_em and counts["nested_apply"] == n_em * warm
+              and counts["nested_cadence"] == 0 and counts["nested_child_rows"] == n_em * warm
+              and counts["stats"] == 1, f"{label}: the chain's launches {counts}")
+        unf, unf_out = fs.chain_hybrid_unfolded(cm.static, cm.params, None, state0, frame, warm)
+        nested_cfg.assert_chains_equal(state, out, unf, unf_out, f"{label} folded vs unfolded")
         ref, ref_out = plain_frames(cm.static, cm.params, state0, frame, warm)
         for k in ("alive_count", "alive_count_per_type", "nested_deferred", "nested_dropped"):
             check(torch.equal(getattr(out, k), getattr(ref_out, k)), f"{label}: {k} differs from plain")
@@ -1407,46 +1445,124 @@ def main() -> int:
 
         ms = differential(run, n_frames, 5)
         plain_ms = differential(lambda n: plain_frames(cm.static, cm.params, state, frame, n, stats=False), 5, 3)
-        # device time per frame of each kernel group, one hybrid frame per call
+
+        # device time per frame of each kernel group: an unfolded hybrid
+        # frame per call, or a folded frame from a copy of one carry
         def frame_call():
             return fs.fused_step(cm.static, cm.params, None, state, frame, stats=False)
+
+        carry = fs._seed_nested_carry(cm.static, cm.params, state)
+
+        def fold_call():
+            return fs.fused_step_hybrid(cm.static, cm.params, None, state, frame, stats=False, fold_out=True,
+                                        nested_carry=fs.FoldCarry(carry.counts.clone(), carry.ns.clone()))
+
+        plain_carry = nested_fold_carry(cm.static, cm.params, state)
+
+        def plain_fold_call():
+            return hybrid_frame(cm.static, cm.params, state, frame, False, None, plain_carry, True)
 
         n_active = len(active_f32_fields(cm.static))
         M = 1024
         n_par = len(fs.nested_parent_fields(cm.static))
         n_rows = len(fs.nested_child_field_rows(cm.static))
+        n_tiles = -(-capacity // L.TILE)
         cad_bound = bound(capacity * (1 + 4 + 4 + 4) + 2 * n_par * 4 * M, 20 * capacity)
         child_bound = bound((n_par + n_rows) * 4 * M, M * (60 + 12 * 100))
         children = int(out.alive_count_per_type[1:].sum())
-        step_bound = bound(2 * 4 * n_active * capacity + 8 * capacity + n_em * n_rows * 4 * M,
-                           INTEGRATE_OPS * alive)
+        step_bytes = 2 * 4 * n_active * capacity + 8 * capacity + n_em * n_rows * 4 * M
+        step_bound = bound(step_bytes, INTEGRATE_OPS * alive)
+        # the epilogue adds per nested emitter one read of the anchor row and
+        # the tile counts written, and a cadence count (~20 ops) per live lane
+        fold_bound = bound(step_bytes + n_em * (4 * capacity + 4 * n_tiles), INTEGRATE_OPS * alive + n_em * 20 * alive)
         cad_ms = device_ms(f"{label} cadence", frame_call, 10, True, cad_bound["bound_ms"], cadence_names)
         child_ms = device_ms(f"{label} child rows", frame_call, 10, True, child_bound["bound_ms"],
                              ("nested_child_rows_kernel",))
         step_ms = device_ms(f"{label} step", frame_call, 10, True, step_bound["bound_ms"])
+        fold_step_ms = device_ms(f"{label} fold step", fold_call, 10, True, fold_bound["bound_ms"])
+        apply_ms = device_ms(f"{label} scan and apply", fold_call, 10, True, cad_bound["bound_ms"], apply_names)
         frame_dev_ms = device_ms(f"{label} frame", frame_call, 10, False,
                                  n_em * (cad_bound["bound_ms"] + child_bound["bound_ms"]) + step_bound["bound_ms"])
+        chain_least = 10 * (n_em * (cad_bound["bound_ms"] + child_bound["bound_ms"]) + step_bound["bound_ms"])
+        folded_chain_ms = device_ms(f"{label} folded chain", lambda: fs.chain_nested_folded(
+            cm.static, cm.params, None, state, frame, 10), 3, False, chain_least)
+        unfolded_chain_ms = device_ms(f"{label} unfolded chain", lambda: fs.chain_hybrid_unfolded(
+            cm.static, cm.params, None, state, frame, 10), 3, False, chain_least)
         plain_frame_ms = device_ms(f"{label} plain frame", lambda: plain_frames(cm.static, cm.params, state, frame, 1,
                                                                                  stats=False), 3, False,
                                    step_bound["bound_ms"])
+        plain_fold_ms = device_ms(f"{label} plain folded frame", plain_fold_call, 3, False, fold_bound["bound_ms"])
+        launches_folded = (counts["fused_step"] + counts["nested_count"] + 2 * counts["nested_apply"]
+                           + counts["nested_child_rows"]) / warm
         res = {"phase": label, "card": card, "capacity": capacity, "live": alive,
                "per_type": out.alive_count_per_type.tolist(), "children_live": children, "chain_frames": warm,
-               "launches": counts, "max_ulp": worst, "rule": "counts, cursor, cadence exact; f32 <= 4 ulp; "
-               "no frame synchronises (sync debug mode error)", "ms_per_frame": ms,
-               "particle_steps_per_s": alive / (ms * 1e-3), "plain_ms_per_frame": plain_ms,
+               "launches": counts, "max_ulp": worst, "rule": "folded chain == unfolded chain bit for bit; counts, "
+               "cursor, cadence exact against plain; f32 <= 4 ulp; no frame synchronises (sync debug mode error)",
+               "ms_per_frame": ms, "particle_steps_per_s": alive / (ms * 1e-3), "plain_ms_per_frame": plain_ms,
                "cadence_ms_per_pass": cad_ms, "cadence_ms_per_frame": n_em * cad_ms,
-               "child_rows_ms_per_launch": child_ms, "child_rows_ms_per_frame": n_em * child_ms,
-               "step_ms_per_launch": step_ms, "device_ms_per_frame": frame_dev_ms,
-               "plain_frame_device_ms": plain_frame_ms,
+               "scan_apply_ms_per_pair": apply_ms, "child_rows_ms_per_launch": child_ms,
+               "child_rows_ms_per_frame": n_em * child_ms, "step_ms_per_launch": step_ms,
+               "fold_step_ms_per_launch": fold_step_ms, "device_ms_per_frame": frame_dev_ms,
+               "folded_device_ms_per_frame": folded_chain_ms / 10,
+               "unfolded_device_ms_per_frame": unfolded_chain_ms / 10,
+               "kernel_launches_per_frame": {"folded": launches_folded, "unfolded": 1 + 4 * n_em},
+               "plain_frame_device_ms": plain_frame_ms, "plain_folded_frame_device_ms": plain_fold_ms,
                "cadence_share_of_device_frame": n_em * cad_ms / frame_dev_ms,
                "cadence_share_of_frame": n_em * cad_ms / ms, "nested_emitters": n_em,
-               "bounds": {"cadence": cad_bound, "child_rows": child_bound, "step": step_bound},
+               "bounds": {"cadence": cad_bound, "child_rows": child_bound, "step": step_bound, "fold_step": fold_bound},
                "frame_wall_ms": event_ms(frame_call, 20)}
         emit(res)
         return res, counts
 
     n60k, n60k_counts = nested_path("nested_60k", False)
     nch, nch_counts = nested_path("nested_chained", True)
+
+    # ------------------------------------------------ 24a. ab_nested_fold
+    def ab_nested_fold():
+        """bench.py's ab_nested_fold (:958-1029): nested_60k after 150 frames,
+        ms/frame (host clock, (t(2n) - t(n)) / n, each run ending in a
+        synchronize) of the folded chain (n = 100) and the unfolded chain
+        (n = 101), 7 interleaved pairs; the pair with the median
+        unfolded / folded ratio."""
+        cm = bt.compile_spawner(bench_nested(False), nested_buffer=1024, device=dev)
+        frame = bt.make_frame_input(1 / 60)
+        st, _o = fs.multi_step_auto(cm.static, cm.params, None, bt.init_pool_for(cm, 16 * 8192, seed=0), frame, 150)
+        torch.cuda.synchronize()
+
+        def run(fold_on, n):
+            fn = fs.multi_step_auto if fold_on else fs.chain_hybrid_unfolded
+            s_, _o = fn(cm.static, cm.params, None, st, frame, n)
+            torch.cuda.synchronize()
+
+        n_on, n_off = 100, 101
+        for on, n in ((True, n_on), (False, n_off)):
+            run(on, n)
+            run(on, 2 * n)
+        pairs = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            run(True, n_on)
+            t1 = time.perf_counter()
+            run(True, 2 * n_on)
+            t2 = time.perf_counter()
+            run(False, n_off)
+            t3 = time.perf_counter()
+            run(False, 2 * n_off)
+            t4 = time.perf_counter()
+            on_ms = ((t2 - t1) - (t1 - t0)) / n_on * 1e3
+            off_ms = ((t4 - t3) - (t3 - t2)) / n_off * 1e3
+            pairs.append((on_ms, off_ms, off_ms / on_ms if on_ms > 0 else None))
+        ok = sorted((p for p in pairs if p[2] is not None), key=lambda p: p[2])
+        med = ok[len(ok) // 2] if ok else (None, None, None)
+        return {"fold_on_ms": med[0], "fold_off_ms": med[1], "off_over_on": med[2], "n_pairs": len(ok),
+                "pairs": pairs, "live": int(st.alive.sum())}
+
+    t_cell = time.perf_counter()
+    ab_fold = ab_nested_fold()
+    check(ab_fold["n_pairs"] >= 4, f"ab_nested_fold: {ab_fold}")
+    emit({"phase": "ab_nested_fold", "card": card, **ab_fold, "seconds": time.perf_counter() - t_cell,
+          "rule": "bench.py's A/B: folded (100 / 200 frames) and unfolded (101 / 202) interleaved, 7 pairs; the "
+                  "median pair by off/on"})
 
     # ------------------------------------------------ 25. nested_flows
     from bevy_firework_tpu_torch.render import compact_dense
@@ -2090,10 +2206,24 @@ def main() -> int:
               n60k["cadence_ms_per_pass"], plain_cad_ms, n60k["bounds"]["cadence"], source="fused_step.cu",
               also_replaces="bevy_firework_tpu/ops/fused_step.py:866", kernels=list(cadence_names),
               chained_ms=nch["cadence_ms_per_pass"], share_of_frame_60k=n60k["cadence_share_of_frame"],
-              share_of_frame_chained=nch["cadence_share_of_frame"]),
+              share_of_frame_chained=nch["cadence_share_of_frame"], seed_count_launches=total("nested_count"),
+              fold_scan_apply_launches=total("nested_apply")),
         entry("fused_step.nested_merge", "bevy_firework_tpu/ops/fused_step.py:1172", "merge",
               n60k["step_ms_per_launch"], n60k["plain_frame_device_ms"], n60k["bounds"]["step"],
               chained_ms=nch["step_ms_per_launch"], chained_plain_ms=nch["plain_frame_device_ms"]),
+        entry("fused_step.nested_fold", "bevy_firework_tpu/ops/fused_step.py:1620", "fold",
+              n60k["fold_step_ms_per_launch"], n60k["plain_folded_frame_device_ms"], n60k["bounds"]["fold_step"],
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:1620-1701 (plumbing :1893-1905, :1994-2027, "
+                            ":2075-2080), with the next frame's scan and apply (fused_step.cu)",
+              kernels=["fused_step_kernel fold epilogue", "tile_scan_kernel", "nested_apply_kernel"],
+              step_without_epilogue_ms=n60k["step_ms_per_launch"], scan_apply_ms=n60k["scan_apply_ms_per_pair"],
+              full_pass_ms=n60k["cadence_ms_per_pass"], folded_frame_ms=n60k["folded_device_ms_per_frame"],
+              unfolded_frame_ms=n60k["unfolded_device_ms_per_frame"], chained_ms=nch["fold_step_ms_per_launch"],
+              chained_step_without_epilogue_ms=nch["step_ms_per_launch"],
+              chained_scan_apply_ms=nch["scan_apply_ms_per_pair"],
+              chained_folded_frame_ms=nch["folded_device_ms_per_frame"],
+              chained_unfolded_frame_ms=nch["unfolded_device_ms_per_frame"],
+              ab_fold_on_ms=ab_fold["fold_on_ms"], ab_fold_off_ms=ab_fold["fold_off_ms"]),
         entry("nested_child_rows", "bevy_firework_tpu/step.py:411-453", "nested_child_rows",
               n60k["child_rows_ms_per_launch"], plain_child_ms, n60k["bounds"]["child_rows"], source="fused_step.cu",
               chained_ms=nch["child_rows_ms_per_launch"], reference_route="composed XLA, not Pallas"),
@@ -2103,6 +2233,8 @@ def main() -> int:
               solo16_ms=res16["u8_solo16_kernels_device_ms"], launch_wall_ms=res16["u8_fleet_launch_wall_ms"],
               solo16_wall_ms=res16["u8_solo16_launches_wall_ms"]),
     ]
+    check(all(k["launches"] > 0 for k in kernels), f"a kernel of the main path never launched: "
+          f"{[k['name'] for k in kernels if k['launches'] == 0]}")
     emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live; u*_1M_ms: "
                           "the main_1M state, 1310720 lanes); pack_render_f16: the main_1M state (1310720 lanes, 12 "
                           "planes); collide: 1310720 lanes "
@@ -2110,7 +2242,8 @@ def main() -> int:
                           "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
                           "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
-                          "nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: nested_chained); fleet: "
+                          "nested_fold, nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: "
+                          "nested_chained); fleet: "
                           "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s)",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, "
                   "pack_render_f16 U=1 with the f16 record (u8_ms U=8; *_no_pack_ms the same launches without a "
@@ -2118,10 +2251,13 @@ def main() -> int:
                   "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
                   "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "
-                  "scan + apply), nested_merge the hybrid step launch, nested_child_rows one launch, fleet one U=8 "
+                  "scan + apply), nested_merge the hybrid step launch, nested_fold the hybrid step launch with the "
+                  "fold epilogue (scan_apply_ms: the next frame's scan and apply pair; *_frame_ms: device time per frame "
+                  "of a 10-frame folded / unfolded chain), nested_child_rows one launch, fleet one U=8 "
                   "launch of all 16 slots (solo16_ms: the 16 slots' solo U=8 launches); plain_ms: "
                   "device time of the plain version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1 / "
-                  "a hybrid frame for nested_merge, 16 x 8 for fleet), of the plain dead_rank cumsum, of "
+                  "a hybrid frame for nested_merge, a hybrid frame with step.nested_fold_carry for nested_fold, 16 x 8 "
+                  "for fleet), of the plain dead_rank cumsum, of "
                   "step.nested_cadence (fetch "
                   "mode) or step.nested_child_rows; plain_reductions_ms: the plain reductions "
                   "(step.stat_reductions, the CPU's stats); "

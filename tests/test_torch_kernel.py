@@ -487,6 +487,56 @@ def test_hybrid_frames_match_plain(cuda, case):
         assert torch.equal(getattr(sc, k), getattr(ref, k)), k
 
 
+import torch_nested_configs as nested_cfg  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 100003])
+@pytest.mark.parametrize("chained", [False, True])
+def test_fold_epilogue_matches_plain(cuda, chained, n):
+    """Kernel row 10: the seed's count kernels and the merge launch's fold
+    epilogue against `step.nested_fold_counts` on the state each read (the
+    launch's own post-frame state), per tile and the next frame's NS_ANY,
+    bit for bit, every 4th frame of a 32-frame chain; 100003 lanes end in a
+    ragged tile. Children first emit near frame 9, grandchildren near 17."""
+    c = pt.compile_spawner(_nested_spawner(chained=chained), nested_buffer=1024, device=cuda)
+    f = pt.make_frame_input(1 / 60)
+    s = pt.init_pool_for(c, n)
+    totals = []
+    for i in range(8):
+        s, _o = fs.multi_step_auto(c.static, c.params, None, s, f, 3)
+        s, r = nested_cfg.check_fold_epilogue(c, s, f, label=f"frame {4 * i + 3}")
+        totals.append(r["fold_totals"])
+    assert min(t[0] for t in totals[3:]) > 0 and min(t[-1] for t in totals[5:]) > 0  # every stage's parents emit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chained", [False, True])
+def test_folded_chain_equals_unfolded_on_the_card(cuda, chained):
+    """bench.py's nested cells' spawners at their width (131072 lanes,
+    nested_buffer 1024): two 30-frame folded chains == the unfolded chain,
+    every pool field, every output and the nested counts bit for bit; then
+    chains with the emitters' enabled bits toggled between them; the folded
+    chain launches one count kernel per nested emitter (the seed), a scan
+    and apply pair per emitter and frame, and the fold epilogue on every
+    frame but the last."""
+    c = pt.compile_spawner(nested_cfg.bench_nested(chained), nested_buffer=1024, device=cuda)
+    f = pt.make_frame_input(1 / 60)
+    s = pt.init_pool_for(c, 131072)
+    n_em = len(fs.nested_emitters(c.static))
+    for i in range(2):
+        fs.nested_cadence_pass.count_launches = fs.nested_cadence_pass.apply_launches = 0
+        fs.nested_cadence_pass.launches = fs.fused_step.fold_launches = 0
+        a, oa = fs.multi_step_auto(c.static, c.params, None, s, f, 30)
+        assert (fs.nested_cadence_pass.count_launches, fs.nested_cadence_pass.apply_launches,
+                fs.nested_cadence_pass.launches, fs.fused_step.fold_launches) == (n_em, 30 * n_em, 0, 29)
+        b, ob = fs.chain_hybrid_unfolded(c.static, c.params, None, s, f, 30)
+        nested_cfg.assert_chains_equal(a, oa, b, ob, f"chain {i}")
+        s = a
+    assert min(oa.alive_count_per_type.tolist()) > 0
+    nested_cfg.check_enabled_toggles(c, s, f, 10)
+
+
 # ---------------------------------------------------------------------------
 # fleets (kernel row 7): S pools of one archetype in one launch
 # ---------------------------------------------------------------------------
