@@ -25,9 +25,13 @@ colliders and force fields with slot reuse, `particles_destroyed` and
 `on_finished` events, AABBs, render items), and the render extract: the
 kernel's f32 or f16 render pack, the pack family (`pack_instances`,
 `pack_instances_planar`, `pack_instances_dense_f16`), the native instance
-ring (`native`) and `AsyncRenderReader` with the Scene's async render.
+ring (`native`) and `AsyncRenderReader` with the Scene's async render,
+and scale-out on torch.distributed (`parallel.sharding`: a pool split over
+the particle axis with the step kernel's shard arguments, fleets split
+over ranks, and both on a hosts x chips layout).
 Every entry point runs on the card unless given `device="cpu"`. Not yet:
-trails, async events, checkpoints, mesh sharding (see ROADMAP.md).
+trails, async events, checkpoints, nested archetypes under sharding (see
+ROADMAP.md).
 """
 
 from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition

@@ -13,8 +13,9 @@
 // Replaces: bevy_firework_tpu/ops/fused_step.py `_make_kernel` (:913) as run
 // by `_run_fused_kernel` (:1793) with kernel_spawn on, ring or dead-rank
 // claims, colliders, force fields, the dump, kernel stats, the nested merge
-// and the fleet grid (`fused_step_fleet` :2358, grid=(S, tiles) :2031; no
-// shard blocks): its main-path block (:1162-1521),
+// the fleet grid (`fused_step_fleet` :2358, grid=(S, tiles) :2031) and the
+// sharded claims (`fused_step` :2152-2198; kernel :1127-1149, :1234-1238,
+// :1301-1307): its main-path block (:1162-1521),
 // its render-pack block (:1523-1561, f32 and f16 modes), its collision narrow phase
 // `_collide_tile` (:349) with `_ray_kind` (:309), its dead-rank claim
 // (`_prefix_exclusive` :173 with the SMEM `dead_carry`, :1142-1149,
@@ -64,7 +65,7 @@
 //    (kind, rotation) grouping of the colliders was a Mosaic measure and is
 //    not carried over: a warp's lanes test one collider at a time, so the
 //    kind switch is warp-uniform.
-//  * Randomness: Philox-4x32-10, key (seed_u, 0), counter (g, block, 0, 0),
+//  * Randomness: Philox-4x32-10, key (seed_u, 0), counter (global lane, block, 0, 0),
 //    uniforms from the top 24 bits, draw order shape 0-2, velocity 3-5,
 //    radial 6, scale 7, then lifetime, then angular velocity. The torch
 //    version in bevy_firework_tpu_torch/prng.py gives the same bits.
@@ -110,6 +111,19 @@
 //    pass. Epilogue plus scan and apply compute the TPU epilogue's outputs:
 //    the apply's anchors, NS_TOTAL and parent fetch. It is a run-time
 //    branch of the merge instantiations (a.n_fold), no new instantiation.
+//  * Shards (kernel row 11; solo ring and dead-rank launches): a pool split
+//    over the particle axis runs one launch per shard with three launch
+//    arguments, its lane base, the global capacity and its dead offset
+//    (0, n, 0 unsharded). The global lane lane_base + g is the ring rank's
+//    base ((lane_base + g - cursor), plus global_n when negative) and the
+//    Philox counter; thread 0's cursor wraps at global_n; the dead rank
+//    starts from dead_offset. So each shard claims and draws what the
+//    unsharded pool does on its lanes, random draws included. The TPU made
+//    the global capacity a compile-time constant because its per-lane ring
+//    modulo was a division; here the rank needs no division (one compare
+//    and add), and thread 0's cursor update divides once per sub-frame, so
+//    the three are run-time values of every solo instantiation. Fleet and
+//    merge launches stay unsharded (the JAX package's :1828-1829).
 //  * Fleets (kernel row 7): the slot is blockIdx.y and a block never spans
 //    two slots. Each slot reads its own table (tab_stride apart, or one
 //    shared), scalars, frame row, field records and seeds, and offsets
@@ -546,8 +560,12 @@ extern "C" {
 // (0: one for all), seeds [n_slots][unroll] host words, and slot_rows
 // (device, [n_slots][slot_words]) each slot's frame row and n_fields field
 // records in place of frame and fields (which it ignores). A solo launch
-// passes n_slots 1 and a null slot_rows. Returns the cudaError_t of the
-// launch (0 = success).
+// passes n_slots 1 and a null slot_rows. A shard of a pool split over the
+// particle axis (kernel row 11; solo launches without a merge) passes its
+// lane_base (the global index of its lane 0), global_n (the global pool's
+// capacity: lane_base + n <= global_n, and the ring cursor below it) and
+// dead_offset (the dead lanes of the shards before it); every other launch
+// passes 0, n, 0. Returns the cudaError_t of the launch (0 = success).
 int bf_fused_step(const void* tables, const void* colliders, int n_colliders, int collider_words,
                   void* const* field_in, void* const* field_out, const void* ptype_in, void* ptype_out,
                   const void* alive_in, void* alive_out, const void* tile_dead_offset, void* const* scal_in,
@@ -556,8 +574,12 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                   int n_fields, void* dump_out, void* stats_partial, void* stats_ticket, void* stats_out,
                   const void* any_alive, const void* nested, const void* child, int n_merge, int merge_m,
                   int child_rows, const void* fold_le, void* fold_counts, void* fold_any, int n_fold, int n_slots,
-                  int tab_stride, const void* slot_rows, int slot_words, void* stream) {
+                  int tab_stride, const void* slot_rows, int slot_words, int lane_base, int global_n,
+                  int dead_offset, void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
+  if (lane_base < 0 || dead_offset < 0 || global_n < n || (long long)lane_base + n > global_n ||
+      ((merge || fleet) && (lane_base != 0 || global_n != n || dead_offset != 0)))
+    return (int)cudaErrorInvalidValue;
   if (unroll < 1 || unroll > MAX_U || n <= 0 || n_emitters < 1 || n_types < 1 || n_colliders < 0 ||
       collider_words < n_colliders * CO_STRIDE || (n_colliders > 0 && colliders == nullptr) || n_fields < 0 ||
       (n_fields > 0 && !fleet && fields == nullptr) || n_slots < 1 || n_slots * unroll > SEED_WORDS ||
@@ -618,6 +640,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   for (int i = 0; i < SEED_WORDS; ++i) a.seeds[i] = i < n_slots * unroll ? seeds[i] : 0u;
   a.unroll = unroll;
   a.n = n;
+  a.lane_base = lane_base;
+  a.global_n = global_n;
+  a.dead_offset = dead_offset;
   a.E = n_emitters;
   a.T = n_types;
   a.any_alive = (const int*)any_alive;

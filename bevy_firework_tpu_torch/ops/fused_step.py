@@ -28,6 +28,13 @@ the last also counts the next frame's parents on its post-frame state
 runs only the scan and apply kernels on those counts. The unfolded chain
 stays callable (`chain_hybrid_unfolded`); both give the same bits.
 
+A pool split over the particle axis steps shard by shard (`fused_step(...,
+shard=...)`, kernel row 11, the JAX package's sharded claims): each shard's
+launch takes its lane base, the global capacity and its dead offset, so it
+claims, ranks and draws as the unsharded pool's lanes do;
+`parallel.sharding.make_sharded_step` adds the process group whose epilogue
+collective makes the outputs the whole pool's.
+
 Dispatch is by the device of the pool's tensors and nothing else:
   * CUDA tensors: the kernels are launched, or the call raises;
   * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
@@ -75,6 +82,8 @@ from ..prng import frame_seeds, frame_seeds_stacked, threefry_fold_in, threefry_
 from ..render import pack_render_planes
 from ..utils.device import upload
 from ..step import (
+    NESTED_SHARD_MESSAGE,
+    Shard,
     active_f32_fields,
     collision_on,
     epilogue,
@@ -349,7 +358,8 @@ def _pack_mode(pack_render) -> int:
 
 
 def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-            seeds: list, mode: int, stats: bool, hybrid: Optional[dict] = None, fleet: Optional[dict] = None):
+            seeds: list, mode: int, stats: bool, hybrid: Optional[dict] = None, fleet: Optional[dict] = None,
+            shard: Optional[Shard] = None):
     """One step launch on the current stream (after the dead-rank claim's
     count and scan, for archetypes without ring claims). Returns (fields,
     scal, render planes or None, dump plane or None, stats row or None):
@@ -365,7 +375,10 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     fleet (kernel row 7; `state` stacked over S slots, seeds [S][U] flat):
     the `table` ([S, words] or one shared [words]) and the per-slot records
     `slot_rows` [S, slot_words(F)] on the card; the slots launch in chunks
-    of SEED_WORDS // U. Returns the number of launches last."""
+    of SEED_WORDS // U. shard (kernel row 11; a solo launch of a shard of
+    a pool split over the particle axis): its lane base, the global
+    capacity and its dead offset, launch arguments. Returns the number of
+    launches last."""
     from . import _build
 
     lib = _build.load()
@@ -435,6 +448,7 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    shard = Shard(0, N) if shard is None else shard
     per_launch = L.SEED_WORDS // unroll
     launches = 0
     for c0 in range(0, S, per_launch):  # one chunk for a solo launch
@@ -448,7 +462,8 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
             _ptr_array(c_ins), _ptr_array(c_outs), ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in),
             _ptr_array(c_s_out), mode, None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
             seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(part), ptr(tick), ptr(row), *merge,
-            c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], stream,
+            c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], shard.lane_base,
+            shard.global_n, shard.dead_offset, stream,
         )
         if rc != 0:
             raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
@@ -459,8 +474,20 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     return fields, scal, render, dump, stats_row, launches
 
 
+def as_shard(shard, capacity: int) -> Optional[Shard]:
+    """A `shard` argument ((lane_base, global_n, dead_offset) or a Shard)
+    as a Shard checked against the shard's capacity, or None."""
+    if shard is None:
+        return None
+    shard = shard if isinstance(shard, Shard) else Shard(*(int(v) for v in shard))
+    if shard.lane_base + capacity > shard.global_n:
+        raise ValueError(f"{shard} does not hold a shard of {capacity} lanes")
+    return shard
+
+
 def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-               pack_render=False, unroll: int = 1, stats: bool = True, kernel_stats: bool = False):
+               pack_render=False, unroll: int = 1, stats: bool = True, kernel_stats: bool = False, shard=None,
+               group=None):
     """Advance `unroll` frames (bit-equal to that many single frames).
     Returns (state, outputs) or, with pack_render, (state, outputs, planes):
     the render-pack planes of the last frame, for pack_render True the 9
@@ -471,19 +498,36 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
     `stats` is False (chain frames nobody reads; the finished latch is
     still updated); otherwise, on the card, the kernel's stats block
     computes their AABB and counts. kernel_stats is accepted for parity
-    with the JAX package's signature and changes nothing."""
+    with the JAX package's signature and changes nothing.
+
+    shard (kernel row 11; the JAX package's `_shard_override`): `state` is
+    one shard of a pool split over the particle axis, (lane_base, global_n,
+    dead_offset) or a `step.Shard`; its lanes claim, rank and draw as the
+    global lanes lane_base + [0, capacity) of the global_n-lane pool, its
+    dead ranks start at dead_offset, and the outputs are this shard's alone.
+    group (with shard; the JAX package's `shard_axis`): a torch.distributed
+    group whose ranks hold the pool's shards: the epilogue makes the AABB,
+    the counts and the finished latch the whole pool's (`step.group_reduce`).
+    `parallel.sharding.make_sharded_step` passes both."""
     check_kernel_scope(static, unroll)
+    shard = as_shard(shard, state.capacity)
+    if group is not None and shard is None:
+        raise ValueError("a group reduces the shards of one pool: pass the shard too")
     mode = _pack_mode(pack_render)
     if collision_on(static, colliders) and colliders.device != state.device:
         raise ValueError(f"colliders on {colliders.device}, pool on {state.device}")
     if fields_on(frame) and frame.force_fields.device != state.device:
         raise ValueError(f"force fields on {frame.force_fields.device}, pool on {state.device}")
     if has_nested(static):
+        if shard is not None:
+            raise NotImplementedError(NESTED_SHARD_MESSAGE)
         return fused_step_hybrid(static, params, colliders, state, frame, pack_render, stats)
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
-        fields, scal, planes, dump, row, _n = _launch(static, params, colliders, state, frame, seeds, mode, stats)
+        fields, scal, planes, dump, row, _n = _launch(static, params, colliders, state, frame, seeds, mode, stats,
+                                                      shard=shard)
         fused_step.launches += 1
+        fused_step.shard_launches += shard is not None
         fused_step.render_launches += mode == L.PACK_F32
         fused_step.render_f16_launches += mode == L.PACK_F16
         fused_step.collide_launches += collision_on(static, colliders)
@@ -492,9 +536,9 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         fused_step.dump_launches += dump is not None
         fused_step.stats_launches += stats
         new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats,
-                                  dump, None if row is None else stats_from_row(static, row))
+                                  dump, None if row is None else stats_from_row(static, row), group=group)
     elif state.device.type == "cpu":
-        new_state, out = plain_frames(static, params, state, frame, unroll, stats, colliders)
+        new_state, out = plain_frames(static, params, state, frame, unroll, stats, colliders, shard, group)
         planes = pack_render_planes(static, params, new_state, pack_render) if mode else None
     else:
         raise ValueError(f"no step for device {state.device}")
@@ -513,6 +557,7 @@ fused_step.dump_launches = 0  # of which writing the dump plane
 fused_step.stats_launches = 0  # of which writing the stats row
 fused_step.merge_launches = 0  # of which hybrid frames with the nested merge block
 fused_step.fold_launches = 0  # of which with the nested fold epilogue (kernel row 10)
+fused_step.shard_launches = 0  # of which a shard of a pool split over the particle axis (kernel row 11)
 
 
 _FULL_PASS = L.NESTED_COUNT | L.NESTED_APPLY

@@ -1,10 +1,33 @@
-"""Stacked fleets: S spawners of one archetype on a leading slot axis.
+"""Stacked fleets, and scale-out over torch.distributed process groups.
 
-The port of `bevy_firework_tpu.parallel.sharding`'s stack helpers
-(`stack_pools`, `stack_params`, `stack_frames`). A fleet's step
-(`ops.fused_step.fused_step_fleet`) advances every slot in one launch. The
-mesh functions of the JAX module (`make_mesh`, the particle-axis and
-fleet-axis shardings) wait for ROADMAP queue 1 item 14.
+The port of `bevy_firework_tpu.parallel.sharding`. Its stack helpers
+(`stack_pools`, `stack_params`, `stack_frames`) put S spawners of one
+archetype on a leading slot axis; a fleet's step
+(`ops.fused_step.fused_step_fleet`) advances every slot in one launch.
+
+Scale-out (the JAX module's mesh functions, on process groups; one rank per
+card, or, as the tests do, ranks on the CPU under `gloo`):
+  * sp, the particle axis: `shard_pool` gives each rank of a group the
+    contiguous lanes [r N / W, (r + 1) N / W) of one pool, and
+    `make_sharded_step` steps them with the fused step's shard arguments
+    (kernel row 11: global lane indices, the global capacity, a dead
+    offset), so the slots each emitter claims and the draws of every lane
+    are the unsharded pool's. The traffic is the epilogue's one small
+    collective per launch (AABB, counts and the finished latch of the whole
+    pool, `step.group_reduce`) and, for dead-rank archetypes, one int per
+    rank per frame before the launch (the dead counts, whose exclusive
+    prefix is the shard's dead offset). Ring archetypes need nothing before
+    the launch. Archetypes with a nested emitter do not shard.
+  * dp, the fleet axis: `shard_fleet` gives each rank its contiguous slots
+    [r S / W, (r + 1) S / W) and `make_fleet_step` steps them through the
+    fleet kernel (kernel row 7), with no collective at all.
+  * 2D: `make_groups_2d` lays the ranks out as hosts x chips (the JAX
+    module's `make_mesh_2d`): slots over hosts, each slot's pool sharded
+    over its host's chips (`shard_fleet_2d`, `make_fleet_step_2d`);
+    collectives run on the particle group only.
+Every entry point runs on the card unless the pool is on the CPU; the
+collectives' few words live where the group's backend wants them (the card
+under nccl, the host under gloo; `step.collective_device`).
 
 Layouts:
   * a stacked `PoolState` holds [S, N] planes, [S, E] emitter scalars, [S]
@@ -23,9 +46,9 @@ import dataclasses
 
 import torch
 
-from ..compiled import _PARAM_FIELDS, SpawnerParams
+from ..compiled import _PARAM_FIELDS, SpawnerParams, SpawnerStatic
 from ..pool import POOL_FIELDS, FrameInput, PoolState
-from ..step import StepOutputs
+from ..step import NESTED_SHARD_MESSAGE, Shard, StepOutputs, group_gather, has_nested
 from ..utils.device import upload
 
 _OUTPUT_FIELDS = tuple(f.name for f in dataclasses.fields(StepOutputs))
@@ -136,3 +159,204 @@ def take_insert(states: PoolState, keep, pos, rows) -> PoolState:
     base = PoolState(**{k: getattr(states, k).index_select(0, keep_host if k == "rng_key" else keep_dev)
                         for k in POOL_FIELDS})
     return base if not pos else replace_slots(base, pos, rows)
+
+
+# --------------------------------------------------------------------------
+# scale-out on torch.distributed
+# --------------------------------------------------------------------------
+
+# the pool's leaves every shard holds whole (the JAX module's replicated
+# specs); the others are per lane (last axis)
+REPLICATED = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "finished_notified", "ring_cursor",
+              "rng_key")
+
+
+def init_distributed(backend: str = "gloo", init_method: str = None, world_size: int = None, rank: int = None):
+    """Join the process group (the JAX module's `init_distributed`): wraps
+    `torch.distributed.init_process_group`; nothing announces a cluster, so
+    pass the address (`tcp://host:port`), the world size and this rank."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend=backend, init_method=init_method, world_size=world_size, rank=rank)
+
+
+def _rank_world(group):
+    import torch.distributed as dist
+
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def split_range(n: int, rank: int, world: int) -> tuple:
+    """The contiguous share [rank n / world, (rank + 1) n / world) of n items."""
+    return rank * n // world, (rank + 1) * n // world
+
+
+def slice_pool(states: PoolState, slots=None, lanes=None) -> PoolState:
+    """A pool's slots [a, b) (a stacked pool's leading axis) and lanes [a, b)
+    (the last axis of the per-lane leaves), as copies of their own."""
+    kw = {}
+    for k in POOL_FIELDS:
+        v = getattr(states, k)
+        if slots is not None:
+            v = v[slots[0]:slots[1]]
+        if lanes is not None and k not in REPLICATED:
+            v = v[..., lanes[0]:lanes[1]]
+        kw[k] = v.clone()
+    return PoolState(**kw)
+
+
+def _slice_params(params: SpawnerParams, a: int, b: int) -> SpawnerParams:
+    """Slots [a, b) of stacked params; shared params as they are."""
+    if not is_stacked_params(params):
+        return params
+    out = SpawnerParams(**{k: getattr(params, k)[a:b] for k in _PARAM_FIELDS})
+    if "_members" in params.__dict__:
+        out.__dict__["_members"] = params.__dict__["_members"][a:b]
+    return out
+
+
+def _slice_frames(frames: FrameInput, a: int, b: int) -> FrameInput:
+    """Slots [a, b) of a stacked FrameInput."""
+    ff = None if frames.force_fields is None else frames.force_fields[a:b]
+    return FrameInput(**{k: getattr(frames, k)[a:b] for k in _FRAME_LEAVES}, force_fields=ff)
+
+
+def shard_pool(state: PoolState, group=None) -> PoolState:
+    """This rank's shard of a pool every rank of `group` holds whole: the
+    per-lane leaves' contiguous lanes [r N / W, (r + 1) N / W), the scalar
+    state replicated. Any capacity: shards differ by at most a lane."""
+    r, w = _rank_world(group)
+    return slice_pool(state, lanes=split_range(state.capacity, r, w))
+
+
+def make_sharded_step(static: SpawnerStatic, group=None):
+    """The sp step (the JAX module's `make_sharded_step`): returns
+    step(params, colliders, state, frame, n_frames=1) -> (state, outputs)
+    over this rank's shard (`shard_pool`) of one pool split over the ranks
+    of `group` (None: the default group), params, colliders and frame
+    replicated. Each launch is `fused_step` with this shard's arguments
+    (kernel row 11) and the group: the shard claims, draws and ranks as the
+    unsharded pool's lanes do, and the outputs (AABB, counts, the finished
+    latch) are the whole pool's on every rank. n_frames > 1 is a chain:
+    launches of `chain_unroll` frames (8 on ring archetypes without
+    colliders), stats on the last, the finished latch global on every one.
+    The shard layout (lane base, global capacity) comes from one gather of
+    the shards' capacities, once per capacity; dead-rank archetypes gather
+    the shards' dead counts before every launch (the dead offset: the
+    exclusive prefix); ring archetypes gather nothing before a launch.
+    Archetypes with a nested emitter raise NotImplementedError."""
+    import torch.distributed as dist
+
+    from ..ops.fused_step import chain_shape, chain_unroll, fused_step
+
+    if has_nested(static):
+        raise NotImplementedError(NESTED_SHARD_MESSAGE)
+    group = dist.group.WORLD if group is None else group  # fused_step reads None as "not sharded"
+    rank = dist.get_rank(group)
+    layouts = {}
+
+    def shard_of(state: PoolState) -> Shard:
+        n = state.capacity
+        if n not in layouts:
+            sizes = group_gather(group, torch.tensor([n], dtype=torch.int64)).view(-1).tolist()
+            layouts[n] = (sum(sizes[:rank]), sum(sizes))
+        lane_base, global_n = layouts[n]
+        dead_offset = 0
+        if not static.ring_claim:
+            dead = group_gather(group, (~state.alive).sum(dtype=torch.int64).reshape(1)).view(-1).tolist()
+            dead_offset = sum(dead[:rank])
+        return Shard(lane_base, global_n, dead_offset)
+
+    def step(params, colliders, state, frame, n_frames: int = 1):
+        if n_frames < 1:
+            raise ValueError("the sharded step needs n_frames >= 1")
+        shape = chain_shape(n_frames, chain_unroll(static, colliders))
+        out = None
+        for i, u in enumerate(shape):
+            state, out = fused_step(static, params, colliders, state, frame, unroll=u, stats=i == len(shape) - 1,
+                                    shard=shard_of(state), group=group)
+        return state, out
+
+    return step
+
+
+def shard_fleet(states: PoolState, params: SpawnerParams, frames: FrameInput, group=None) -> tuple:
+    """This rank's slots of a fleet every rank of `group` holds whole: the
+    contiguous slots [r S / W, (r + 1) S / W) of the stacked pool, params
+    (stacked, or shared as they are) and frames."""
+    r, w = _rank_world(group)
+    a, b = split_range(num_slots(states), r, w)
+    return slice_pool(states, slots=(a, b)), _slice_params(params, a, b), _slice_frames(frames, a, b)
+
+
+def make_fleet_step(static: SpawnerStatic, group=None):
+    """The dp step (the JAX module's `make_fleet_step`): returns
+    step(params, states, frames, n_frames=1) -> (states, outputs) over this
+    rank's slots (`shard_fleet` with the same group): a
+    `multi_step_fleet_stacked` chain of n_frames (kernel row 7; one frame
+    is `step_auto_fleet`'s launch). Slots are independent, so the step runs
+    no collective: the group only says which slots are this rank's, in
+    `shard_fleet` (the parameter keeps the JAX signature's place of the
+    mesh)."""
+    from ..ops.fused_step import multi_step_fleet_stacked
+
+    def step(params, states, frames, n_frames: int = 1):
+        return multi_step_fleet_stacked(static, params, None, states, frames, n_frames)
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups2D:
+    """A rank's place on a hosts x chips layout (`make_groups_2d`): rank =
+    host * chips_per_host + chip. fleet: the ranks of this chip index on
+    every host (the JAX mesh's "host" axis); particle: this host's ranks
+    (its "d" axis), over which each of the host's slots is sharded."""
+
+    fleet: object
+    particle: object
+    host: int
+    chip: int
+    n_hosts: int
+    chips_per_host: int
+
+
+def make_groups_2d(n_hosts: int, chips_per_host: int) -> Groups2D:
+    """This rank's fleet and particle groups on a hosts x chips layout of
+    the default group's ranks (the JAX module's `make_mesh_2d`). Every rank
+    must call it: each group is made by all ranks (`dist.new_group`)."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_hosts * chips_per_host != world:
+        raise ValueError(f"{n_hosts} hosts x {chips_per_host} chips != {world} ranks")
+    rows = [dist.new_group([h * chips_per_host + c for c in range(chips_per_host)]) for h in range(n_hosts)]
+    cols = [dist.new_group([h * chips_per_host + c for h in range(n_hosts)]) for c in range(chips_per_host)]
+    host, chip = divmod(rank, chips_per_host)
+    return Groups2D(cols[chip], rows[host], host, chip, n_hosts, chips_per_host)
+
+
+def shard_fleet_2d(states: PoolState, params: SpawnerParams, frames: FrameInput, groups: Groups2D) -> tuple:
+    """This rank's share of a fleet every rank holds whole: its host's
+    contiguous slots [h S / H, (h + 1) S / H), and of each slot's pool its
+    chip's lanes [c N / C, (c + 1) N / C)."""
+    a, b = split_range(num_slots(states), groups.host, groups.n_hosts)
+    lanes = split_range(states.capacity, groups.chip, groups.chips_per_host)
+    return slice_pool(states, slots=(a, b), lanes=lanes), _slice_params(params, a, b), _slice_frames(frames, a, b)
+
+
+def make_fleet_step_2d(static: SpawnerStatic, groups: Groups2D):
+    """The 2D step (the JAX module's `make_fleet_step_2d`): returns
+    step(params, states, frames, n_frames=1) -> (states, outputs) over this
+    rank's share (`shard_fleet_2d`): each of its host's slots is a sharded
+    pool stepped by `make_sharded_step` over the particle group (one
+    sharded solo launch per slot and launch); nothing crosses the fleet
+    group."""
+    sharded = make_sharded_step(static, groups.particle)
+
+    def step(params, states, frames, n_frames: int = 1):
+        res = [sharded(params_slot(params, i), None, state_slot(states, i), frame_slot(frames, i), n_frames)
+               for i in range(num_slots(states))]
+        return stack_pools([st for st, _o in res]), stack_outputs([o for _s, o in res])
+
+    return step

@@ -50,6 +50,8 @@ package's tests/test_nested.py canonicalises it the same way).
 from __future__ import annotations
 
 import dataclasses
+import time
+
 import numpy as np
 import torch
 
@@ -67,6 +69,27 @@ from .utils.f32 import F32_MIN, rem_euclid
 from .utils.quat import quat_from_scaled_axis_comp, quat_mul_comp, quat_rotate_comp
 
 ROTATION_FIELDS = ("qx", "qy", "qz", "qw", "wx", "wy", "wz")
+
+# Raised on both devices for a nested archetype under sharding.
+NESTED_SHARD_MESSAGE = ("archetypes with a nested emitter do not shard in the port (ROADMAP queue 1 item 11; the JAX "
+                        "package steps them with its GSPMD XLA step)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A pool split over the particle axis, this shard of it (kernel row 11,
+    the JAX package's `_shard_override`): the shard's lanes are the global
+    lanes [lane_base, lane_base + its capacity) of a pool of global_n lanes,
+    and dead_offset dead lanes of that pool lie in the shards before it.
+    Unsharded: (0, capacity, 0)."""
+
+    lane_base: int
+    global_n: int
+    dead_offset: int = 0
+
+    def __post_init__(self):
+        if self.lane_base < 0 or self.dead_offset < 0 or self.global_n <= self.lane_base:
+            raise ValueError(f"not a shard of a pool: {self}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +247,7 @@ def cadence(static: SpawnerStatic, params: SpawnerParams, scal: dict, dt, any_al
             new_tic.append(torch.where(gate, t, tic[e]))
             new_last.append(torch.where(gate, next_last, last[e]))
         bounds.append(bounds[-1] + n_sp)
-    n = scal["capacity"]
+    n = scal["capacity"]  # the ring: the global pool's capacity when sharded
     cursor = scal["ring_cursor"]
     if static.ring_claim:  # the dead-rank claim leaves the cursor alone
         cursor = torch.remainder(cursor + bounds[-1], n).to(torch.int32)
@@ -248,14 +271,18 @@ class NestedSpawns:
 
 
 def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: dict, frame: FrameInput, seed: int,
-            colliders=None, nested: NestedSpawns = None):
+            colliders=None, nested: NestedSpawns = None, shard: Shard = None):
     """One sub-frame on the active fields (+ ptype, + alive on dead-rank
     archetypes) and the scalar state. Returns the new (fields, scal, dump):
     dump is the sub-frame's destroyed mask (lanes alive after the spawn and
     not surviving it, of a type with a destroyed handler), None when no type
     has one. nested: the frame's nested children, merged first: the child
     of rank r of emitter e takes the dead lane whose claim rank (ring
-    distance from the window start, or dead-slot rank minus it) is r < n."""
+    distance from the window start, or dead-slot rank minus it) is r < n.
+    shard (kernel row 11's plain version; `scal` from `split_state` with the
+    same shard): these lanes are the global lanes lane_base + [0, N) of a
+    pool of scal["capacity"] lanes, so they rank in its ring and draw as its
+    lanes do, and their dead ranks start at dead_offset."""
     T = static.num_types
     dt = frame.dt
     f = dict(fields)
@@ -263,7 +290,8 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     ptype = f["ptype"]
     life = lifetime_of(static, f)
     alive0 = f["age"] < life if static.ring_claim else f["alive"]
-    lanes = torch.arange(N, dtype=torch.int64, device=f["age"].device)
+    lane_base, dead_offset = (0, 0) if shard is None else (shard.lane_base, shard.dead_offset)
+    lanes = lane_base + torch.arange(N, dtype=torch.int64, device=f["age"].device)
     dead_pre = ~alive0
     rank_base = 0
     if nested is not None:
@@ -285,9 +313,13 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     dead = ~alive0
 
     cursor0 = scal["ring_cursor"]
+    ring_n = scal["capacity"]
     bounds, scal = cadence(static, params, scal, dt, None if nested is None else nested.any_alive)
     total = bounds[-1]
-    rank = torch.remainder(lanes - cursor0, N) if static.ring_claim else dead_rank(dead_pre) - rank_base
+    if static.ring_claim:
+        rank = torch.remainder(lanes - cursor0, ring_n)
+    else:
+        rank = dead_rank(dead_pre) + dead_offset - rank_base
     spawned = dead & (rank >= 0) & (rank < total)
 
     # ---- spawn init (kernel spawn block; draws in prng's lane layout) ----
@@ -402,15 +434,16 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     return f, scal, dump
 
 
-def split_state(static: SpawnerStatic, state: PoolState):
-    """(fields, scal): the step's working set of a pool."""
+def split_state(static: SpawnerStatic, state: PoolState, shard: Shard = None):
+    """(fields, scal): the step's working set of a pool; with a shard,
+    scal["capacity"] is the global pool's (the ring's) capacity."""
     fields = {k: getattr(state, k) for k in active_f32_fields(static)}
     fields["ptype"] = state.ptype
     if not static.ring_claim:
         fields["alive"] = state.alive
     scal = {k: getattr(state, k) for k in ("time_in_cycle", "last_emission", "enabled", "manual_queued",
                                            "ring_cursor")}
-    scal["capacity"] = state.capacity
+    scal["capacity"] = state.capacity if shard is None else shard.global_n
     return fields, scal
 
 
@@ -426,7 +459,7 @@ def finished_latch(static: SpawnerStatic, state: PoolState, enabled, alive_any):
 
 def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fields: dict, scal: dict,
              new_key: torch.Tensor, stats: bool = True, dump=None, stats_row=None, last_emitted=None,
-             nested_counts=None):
+             nested_counts=None, group=None):
     """Assemble the post-frame PoolState, and with `stats` the StepOutputs
     (AABB over pos ± scale, alive and per-type counts, finished latch, the
     destroyed mask `dump` of the last sub-frame). The stats are torch
@@ -438,18 +471,26 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     the frame's (deferred, dropped) children, called only for the outputs.
     A fleet launch (global-only archetypes) passes its stacked pool with
     the kernel's per-slot stats rows: every op then runs over the leading
-    [S] axis, one op for all slots, and the outputs are [S]-stacked."""
+    [S] axis, one op for all slots, and the outputs are [S]-stacked. group
+    (a torch.distributed process group whose ranks hold the shards of one
+    pool): the AABB, the counts and the any-alive flag (so the finished
+    latch) are the whole pool's, from one collective (`group_reduce`), on
+    every launch."""
     kw = {k: getattr(state, k) for k in ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw",
                                          "wx", "wy", "wz", "initial_scale", "age", "lifetime")}
     kw.update({k: v for k, v in fields.items() if k not in ("ptype", "alive")})
     ptype = fields["ptype"]
     life = lifetime_of(static, kw)
     alive = kw["age"] < life if static.ring_claim else fields["alive"]
-    if stats_row is not None:
-        aabb_min, aabb_max, alive_count, per_type = stats_row
-        alive_any = alive_count > 0
+    local = stats_row
+    if local is None and stats and group is not None:
+        local = stat_reductions(static, params, kw, ptype, alive)
+    if group is not None:
+        local, alive_any = group_reduce(group, local, alive.any(-1) if local is None else None)
     else:
-        alive_any = alive.any(-1)
+        alive_any = alive.any(-1) if local is None else local[2] > 0
+    if local is not None:
+        aabb_min, aabb_max, alive_count, per_type = local
     finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     new_state = PoolState(
         **kw, ptype=ptype, alive=alive, last_emitted=state.last_emitted if last_emitted is None else last_emitted,
@@ -459,7 +500,7 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     )
     if not stats:
         return new_state, None
-    if stats_row is None:
+    if local is None:
         aabb_min, aabb_max, alive_count, per_type = stat_reductions(static, params, kw, ptype, alive)
     if nested_counts is None:
         deferred = dropped = torch.zeros(alive.shape[:-1], dtype=torch.int32, device=alive.device)
@@ -472,6 +513,63 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
         nested_dropped=dropped,
     )
     return new_state, out
+
+
+def collective_device(group, device: torch.device) -> torch.device:
+    """Where a collective's tensors live: the card under `nccl`, the CPU
+    under `gloo` (read from the group's backend; a pool on the card then
+    copies its few words to the host)."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl":
+        return device if device.type == "cuda" else torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def group_gather(group, value: torch.Tensor) -> torch.Tensor:
+    """One all-gather of a small tensor over `group`, on the device its
+    backend wants (`collective_device`): the ranks' values stacked [W, ...]
+    on `value`'s device. Counts its calls and their host seconds
+    (`group_gather.calls`, `.seconds`)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    sent = value.to(collective_device(group, value.device))
+    parts = [torch.empty_like(sent) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, sent, group=group)
+    out = torch.stack(parts).to(value.device)
+    group_gather.calls += 1
+    group_gather.seconds += time.perf_counter() - t0
+    return out
+
+
+group_gather.calls = 0
+group_gather.seconds = 0.0
+
+
+def group_reduce(group, stats=None, alive_any=None):
+    """A sharded pool's epilogue collective (the JAX package's pmin / pmax /
+    psum, `_fused_epilogue` :2300-2304): this rank's (aabb_min, aabb_max,
+    alive count, per-type counts) over its shard, or without stats its
+    any-alive flag, become the whole pool's on every rank of `group`. One
+    all-gather of a few float64 words per launch, reduced here: MIN, MAX and
+    SUM are three reductions, and float64 holds every f32 bound and every
+    count exactly, so the result equals the unsharded reductions. Returns
+    (global stats or None, global any-alive 0-d bool), on the shard's
+    device."""
+    if stats is None:
+        row = alive_any.reshape(1).to(torch.float64)
+    else:
+        mn, mx, count, per_type = stats
+        row = torch.cat([mn.to(torch.float64), mx.to(torch.float64), count.reshape(1).to(torch.float64),
+                         per_type.to(torch.float64)])
+    rows = group_gather(group, row)
+    if stats is None:
+        return None, rows[:, 0].amax() > 0
+    count = rows[:, 6].sum().to(torch.int32)
+    out = (rows[:, 0:3].amin(0).to(torch.float32), rows[:, 3:6].amax(0).to(torch.float32), count,
+           rows[:, 7:].sum(0).to(torch.int32))
+    return out, count > 0
 
 
 def stat_reductions(static: SpawnerStatic, params: SpawnerParams, kw: dict, ptype, alive):
@@ -722,22 +820,27 @@ def hybrid_frame(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
 
 
 def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput, n: int = 1,
-                 stats: bool = True, colliders=None):
+                 stats: bool = True, colliders=None, shard: Shard = None, group=None):
     """n frames of the plain version from `state`, on its device: the frame
     keys split in order, `advance` n times, one `epilogue`; archetypes with
     a nested emitter run n hybrid frames. Returns (new_state, StepOutputs,
-    or None without `stats`)."""
+    or None without `stats`). shard: `state` is that shard of a pool (see
+    `advance`); group: the process group over whose shards the epilogue
+    reduces (see `epilogue`)."""
     if has_nested(static):
+        if shard is not None or group is not None:
+            raise NotImplementedError(NESTED_SHARD_MESSAGE)
         out = None
         for i in range(n):
             state, out = hybrid_frame(static, params, state, frame, stats and i == n - 1, colliders)
         return state, out
     key, seeds = frame_seeds(state.rng_key.numpy(), n)
-    fields, scal = split_state(static, state)
+    fields, scal = split_state(static, state, shard)
     dump = None
     for seed in seeds:
-        fields, scal, dump = advance(static, params, fields, scal, frame, seed, colliders)
-    return epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats, dump)
+        fields, scal, dump = advance(static, params, fields, scal, frame, seed, colliders, shard=shard)
+    return epilogue(static, params, state, fields, scal, torch.as_tensor(key.astype(np.int64)), stats, dump,
+                    group=group)
 
 
 def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):

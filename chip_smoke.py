@@ -181,13 +181,38 @@ textures flows and the Scene's async render, through the kernels. Phases:
      sparks spawners in one archetype group, a two-type spawner), 120
      steps: each render_async item == render_items of the frame its
      frame_id names; compact == dense; ms per Scene.step with async render
-     on and off.
+     on and off;
+ 35. shard_det, N = 131072 (kernel row 11: a pool split over the particle
+     axis, each shard a launch with its lane base, the global capacity and
+     its dead offset): phase 2's deterministic config, stress_test at 1e5/s
+     (random draws) and destroy_claim's emitter on a halfspace (dead-rank
+     claim), S = 2, 4, 8 shards in one process, 30 frames at U = 1 and,
+     on the ring, U = 8: the stitched shards == the unsharded kernel bit
+     for bit (every leaf; the stats rows reduced across shards), each shard
+     == the plain version with the same shard arguments (phase 2's and 3's
+     rules: rotation 2 ulp, stress_test 4 ulp; destroy bit for bit);
+ 36. sharded_1M: main_1M's cell split S = 2, 4, 8 in one process: a
+     140-frame chain stitched == the unsharded chain bit for bit, each
+     shard's U = 8 launch (device time) beside its bytes bound, the device
+     time per frame summed over the shards beside the unsharded U = 8
+     launch; destroy_claim's emitter at 1310720 lanes and 5e5/s, S = 4, 30
+     frames, bit for bit;
+ 37. dist_gloo: tests/torch_distributed_worker.py in 4 processes sharing
+     the card over gloo, spawned once: sp (main_1M's cell, 140 frames,
+     parallel.sharding.make_sharded_step), dp (fleet_16x55k, 4 slots per
+     rank, make_fleet_step) and 2d (2 x 2, 2 slots of main_100k's config,
+     make_fleet_step_2d), each rank's share == its unsharded counterpart
+     bit for bit, outputs included; ms/frame and the host time of the
+     collectives per launch. A rank that fails or times out fails the
+     phase. (NCCL refuses two ranks on one card: a multi-card run is not
+     verified here.)
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
 chains, the collision flow, the collider-scaling chains, the fields chain, the Scene flows, the two
 nested chains, the nested flows, the fleet chain, the Fleet flow, the
-scene groups, the two render loops and the async Scene)
+scene groups, the two render loops, the async Scene and sharded_1M's three
+sharded chains)
 and read just after it; the kernels' summary reports those counts only. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
@@ -381,7 +406,7 @@ def main() -> int:
                "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
                "fused_step.stats": 0.0, "nested_cadence": 0.0, "fused_step.nested_merge": 0.0,
                "nested_child_rows": 0.0, "fused_step.fleet": 0.0, "fused_step.collide_broad": 0.0,
-               "fused_step.nested_fold": 0.0}
+               "fused_step.nested_fold": 0.0, "fused_step.sharded_claim": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
         for k in scalars:
@@ -416,7 +441,8 @@ def main() -> int:
                 "fleet_stats": (fs.fused_step_fleet, "stats_launches"),
                 "broad": (fs.fused_step, "broad_launches"), "fleet_broad": (fs.fused_step_fleet, "broad_launches"),
                 "render_f16": (fs.fused_step, "render_f16_launches"),
-                "fleet_render_f16": (fs.fused_step_fleet, "render_f16_launches")}
+                "fleet_render_f16": (fs.fused_step_fleet, "render_f16_launches"),
+                "shard": (fs.fused_step, "shard_launches")}
 
     def counted(fn):
         """fn() with the kernels' launch counters set to 0 just before it and
@@ -2124,11 +2150,179 @@ def main() -> int:
           "rule": "each render_async item == render_items of the frame its frame_id names (rows exact), ids "
                   "strictly increasing, every item reaches frame 120; render_items(method='compact') == 'dense'"})
 
+    # ------------------------------------------------ 35. shard_det
+    import torch_shard_configs as shard_cfg
+
+    shard_ulps = {"det": {k: 2 for k in ("qx", "qy", "qz", "qw")}, "stress": None, "destroy": {}}
+
+    def shard_det():
+        """Per config and U: the unsharded kernel's launches over 30 frames,
+        then S = 2, 4, 8 shards of the same pool: stitched == unsharded bit
+        for bit (every leaf; the stats rows reduced), and each shard == the
+        plain version with the same shard arguments on the same input."""
+        out = {}
+        for name in ("det", "stress", "destroy"):
+            c, table, frame = shard_cfg.config(name, dev)
+            ulps = shard_ulps[name] if shard_ulps[name] is not None else {k: 4 for k in active_f32_fields(c.static)}
+            for u in ((1, 8) if fs.can_unroll(c.static) else (1,)):
+                whole0 = bt.init_pool_for(c, 131072)
+                if c.static.ring_claim:  # start near the ring's end: the claims wrap
+                    whole0 = dataclasses.replace(whole0, ring_cursor=torch.tensor(131072 - 700, dtype=torch.int32,
+                                                                                 device=dev))
+                shape = fs.chain_shape(30, u) if u > 1 else [1] * 30
+                wholes, w = [], whole0
+                for uu in shape:
+                    w, o = fs.fused_step(c.static, c.params, table, w, frame, unroll=uu)
+                    wholes.append((w, o))
+                for n_shards in (2, 4, 8):
+                    shards = shard_cfg.split(whole0, n_shards)
+                    for i, uu in enumerate(shape):
+                        args = shard_cfg.shard_args(c.static, shards)
+                        plain = [plain_frames(c.static, c.params, sh_, frame, uu, colliders=table, shard=a)[0]
+                                 for sh_, a in zip(shards, args)]
+                        shards, outs, _p = shard_cfg.step_shards(c, table, shards, frame, unroll=uu)
+                        lbl = f"shard_det {name} U={u} S={n_shards} launch {i}"
+                        bad = shard_cfg.pool_mismatch(shard_cfg.stitch(shards), wholes[i][0])
+                        check(bad == [], f"{lbl}: {bad} != the unsharded kernel")
+                        bad = shard_cfg.outputs_mismatch(wholes[i][1], shard_cfg.reduce_outputs(outs))
+                        check(bad == [], f"{lbl}: reduced stats {bad} != the unsharded kernel's")
+                        for sh_, pl in zip(shards, plain):
+                            compare(c, sh_, pl, ulps, lbl, kernel="fused_step.sharded_claim")
+                    out[f"{name}_u{u}_s{n_shards}"] = int(wholes[-1][1].alive_count)
+        return out
+
+    t_cell = time.perf_counter()
+    shard_det_res = shard_det()
+    emit({"phase": "shard_det", "card": card, "n": 131072, "live": shard_det_res,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "30 frames, S = 2, 4, 8 shards (kernel row 11: lane base, global capacity, dead offset): stitched "
+                  "== the unsharded kernel bit for bit, every leaf, the stats rows reduced across shards; each shard "
+                  "== the plain version with the same shard arguments (det: rotation <= 2 ulp, sinf/cosf; stress: "
+                  "f32 <= 4 ulp; destroy: bit for bit; scalars exact)"})
+
+    # ------------------------------------------------ 36. sharded_1M
+    def sharded_1m():
+        """main_1M's cell split S = 2, 4, 8 in one process: a 140-frame chain
+        stitched == the unsharded chain bit for bit; the device time per
+        frame summed over the shards beside the unsharded U = 8 launch, each
+        shard's U = 8 launch beside its bytes bound; destroy_claim's emitter
+        at 1310720 lanes and 5e5/s, S = 4, 30 frames, bit for bit."""
+        c, _t, frame = shard_cfg.config("stress", dev, rate=1e6)
+        cap = 160 * 8192
+        whole0 = bt.init_pool_for(c, cap, seed=0)
+        whole, wout = fs.multi_step_auto(c.static, c.params, None, whole0, frame, 140)
+        shape = fs.chain_shape(140, fs.chain_unroll(c.static))
+        n_active = len(active_f32_fields(c.static))
+        live = int(wout.alive_count)
+        res, counts_all = {"live": live, "chain_frames": 140, "by_shards": {}}, {}
+
+        def chain(shards):
+            out = None
+            for i, u in enumerate(shape):
+                shards, out, _p = shard_cfg.step_shards(c, None, shards, frame, unroll=u, stats=i == len(shape) - 1)
+            return shards, out
+
+        def u8_whole():
+            return fs.fused_step(c.static, c.params, None, whole, frame, unroll=8, stats=False)
+
+        whole_u8_ms = device_ms("sharded_1M unsharded U=8", u8_whole, 20, True,
+                                bound(2 * 4 * n_active * cap, 8 * INTEGRATE_OPS * live)["bound_ms"])
+        res["unsharded_u8_ms"] = whole_u8_ms
+        for n_shards in (2, 4, 8):
+            (shards, outs), counts = counted(lambda: chain(shard_cfg.split(whole0, n_shards)))
+            torch.cuda.synchronize()
+            check(counts["shard"] == n_shards * len(shape), f"sharded_1M S={n_shards}: launches {counts}")
+            counts_all[n_shards] = counts
+            bad = shard_cfg.pool_mismatch(shard_cfg.stitch(shards), whole)
+            check(bad == [], f"sharded_1M S={n_shards}: {bad} != the unsharded chain")
+            bad = shard_cfg.outputs_mismatch(wout, shard_cfg.reduce_outputs(outs))
+            check(bad == [], f"sharded_1M S={n_shards}: reduced stats {bad}")
+            args = shard_cfg.shard_args(c.static, shards)
+            bounds_ = [bound(2 * 4 * n_active * sh_.capacity, 8 * INTEGRATE_OPS * int(sh_.alive.sum()))
+                       for sh_ in shards]
+            per = [device_ms(f"sharded_1M S={n_shards} shard {r} U=8", lambda sh_=sh_, a=a: fs.fused_step(
+                c.static, c.params, None, sh_, frame, unroll=8, stats=False, shard=a), 20, True, b["bound_ms"])
+                for r, (sh_, a, b) in enumerate(zip(shards, args, bounds_))]
+            res["by_shards"][n_shards] = {
+                "launch_ms": per, "bound_ms": [b["bound_ms"] for b in bounds_], "bound": bounds_[0],
+                "lanes": [sh_.capacity for sh_ in shards], "chain_launches": counts["shard"],
+                "device_us_per_frame_summed": sum(per) * 1e3 / 8,
+                "unsharded_device_us_per_frame": whole_u8_ms * 1e3 / 8}
+        # the row's plain version: 8 plain frames of S = 4's first shard
+        sh4 = shard_cfg.split(whole, 4)
+        a4 = shard_cfg.shard_args(c.static, sh4)[0]
+        res["plain_8_frames_shard_ms"] = device_ms("sharded_1M plain shard", lambda: plain_frames(
+            c.static, c.params, sh4[0], frame, 8, stats=False, shard=a4), 1, False,
+            res["by_shards"][4]["bound_ms"][0])
+        # destroy_claim's emitter on the dead-rank claim at 1310720 lanes
+        cd_, tab_, fr_ = shard_cfg.config("destroy", dev, rate=5e5)
+        w = bt.init_pool_for(cd_, cap)
+        shards = shard_cfg.split(w, 4)
+        for i in range(30):
+            w, o = fs.fused_step(cd_.static, cd_.params, tab_, w, fr_)
+            shards, outs, _p = shard_cfg.step_shards(cd_, tab_, shards, fr_)
+            bad = shard_cfg.pool_mismatch(shard_cfg.stitch(shards), w)
+            check(bad == [], f"sharded_1M destroy frame {i}: {bad}")
+            check(shard_cfg.outputs_mismatch(o, shard_cfg.reduce_outputs(outs)) == [], f"sharded_1M destroy {i}")
+        res["destroy_live"] = int(o.alive_count)
+        res["destroy_dead_lanes"] = int((~w.alive).sum())
+        check(0 < res["destroy_live"] < cap, f"sharded_1M destroy: {res['destroy_live']} live")
+        return res, counts_all
+
+    t_cell = time.perf_counter()
+    s1m, s1m_counts_all = sharded_1m()
+    emit({"phase": "sharded_1M", "card": card, "capacity": 160 * 8192, "rate": 1e6, **s1m,
+          "launches": {str(k): v["shard"] for k, v in s1m_counts_all.items()}, "seconds": time.perf_counter() - t_cell,
+          "rule": "the 140-frame chain's shards (U = 8 launches) stitched == the unsharded chain bit for bit, the "
+                  "stats reduced == its stats; launch_ms: device time of each shard's U = 8 launch (torch.profiler, "
+                  "20 launches), each held to its bytes bound; destroy: 30 frames, S = 4, bit for bit"})
+
+    # ------------------------------------------------ 37. dist_gloo
+    def dist_gloo():
+        """tests/torch_distributed_worker.py on 4 processes sharing the card,
+        gloo, spawned once: sp (main_1M's cell, 140 frames), dp
+        (fleet_16x55k, 4 slots per rank) and 2d (2 x 2, 2 slots of
+        main_100k's config), each == its unsharded counterpart bit for bit."""
+        import socket
+
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            port = so.getsockname()[1]
+        worker = Path(__file__).resolve().parent / "tests" / "torch_distributed_worker.py"
+        procs = [subprocess.Popen([sys.executable, str(worker), "--rank", str(r), "--world", "4", "--init",
+                                   f"tcp://127.0.0.1:{port}", "--device", "cuda", "--size", "card", "--cases",
+                                   "sp,dp,2d"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(4)]
+        outs, deadline = [], time.time() + 420
+        try:
+            for r, p in enumerate(procs):
+                try:
+                    o, e = p.communicate(timeout=max(1.0, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    raise CheckFailed(f"dist_gloo: rank {r} timed out")
+                check(p.returncode == 0, f"dist_gloo: rank {r} exited {p.returncode}: {e[-3000:]}")
+                outs.append(json.loads(o.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return outs
+
+    t_cell = time.perf_counter()
+    gloo = dist_gloo()
+    emit({"phase": "dist_gloo", "card": card, "ranks": gloo, "seconds": time.perf_counter() - t_cell,
+          "rule": "4 ranks on the one card (NCCL refuses two ranks on one card; a multi-card run is not verified), "
+                  "each rank's share == the same lanes / slots of the unsharded chain run in its process, bit for "
+                  "bit, outputs included; ms_per_frame: a second chain by host clock; collective_us_per_launch: "
+                  "host time in the chain's gathers (the epilogue's reduction) per launch, the wait for the other "
+                  "ranks included"})
+
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
             scene_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
-            loop1m_counts, async_counts)
+            loop1m_counts, async_counts, *s1m_counts_all.values())
 
     def total(keys):
         keys = (keys,) if isinstance(keys, str) else keys
@@ -2233,6 +2427,17 @@ def main() -> int:
               solo16_ms=res16["u8_solo16_kernels_device_ms"], launch_wall_ms=res16["u8_fleet_launch_wall_ms"],
               solo16_wall_ms=res16["u8_solo16_launches_wall_ms"]),
     ]
+    b4 = s1m["by_shards"][4]
+    kernels.append(entry(
+        "fused_step.sharded_claim", "bevy_firework_tpu/ops/fused_step.py:2152-2198", "shard",
+        b4["launch_ms"][0], s1m["plain_8_frames_shard_ms"], b4["bound"],
+        also_replaces="bevy_firework_tpu/ops/fused_step.py:1127-1149, :1234-1238, :1301-1307 (lane base, dead "
+                      "offset, global RNG tile, global ring modulo)",
+        shard_launch_ms={str(k): v["launch_ms"] for k, v in s1m["by_shards"].items()},
+        shard_bound_ms={str(k): v["bound_ms"] for k, v in s1m["by_shards"].items()},
+        device_us_per_frame_summed={str(k): v["device_us_per_frame_summed"] for k, v in s1m["by_shards"].items()},
+        unsharded_u8_ms=s1m["unsharded_u8_ms"],
+        dist_gloo_launches=sum(r["shard_launches"] for r in gloo)))
     check(all(k["launches"] > 0 for k in kernels), f"a kernel of the main path never launched: "
           f"{[k['name'] for k in kernels if k['launches'] == 0]}")
     emit({"kernels": kernels, "card": card, "at": "fused_step and pack_render: 131072 lanes (100k live; u*_1M_ms: "
@@ -2244,7 +2449,8 @@ def main() -> int:
                           "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
                           "nested_fold, nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: "
                           "nested_chained); fleet: "
-                          "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s)",
+                          "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s); sharded_claim: sharded_1M "
+                          "(main_1M's state, S = 4 shards of 327680 lanes; shard_*: S = 2, 4, 8)",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, "
                   "pack_render_f16 U=1 with the f16 record (u8_ms U=8; *_no_pack_ms the same launches without a "
                   "pack; plain: a plain frame and render.pack_render_planes(..., 'f16')), collide "
@@ -2254,10 +2460,12 @@ def main() -> int:
                   "scan + apply), nested_merge the hybrid step launch, nested_fold the hybrid step launch with the "
                   "fold epilogue (scan_apply_ms: the next frame's scan and apply pair; *_frame_ms: device time per frame "
                   "of a 10-frame folded / unfolded chain), nested_child_rows one launch, fleet one U=8 "
-                  "launch of all 16 slots (solo16_ms: the 16 slots' solo U=8 launches); plain_ms: "
+                  "launch of all 16 slots (solo16_ms: the 16 slots' solo U=8 launches), sharded_claim the first "
+                  "shard's U=8 launch at S = 4 (shard_launch_ms: every shard's; "
+                  "device_us_per_frame_summed: the shards' U=8 launches summed per frame); plain_ms: "
                   "device time of the plain version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1 / "
                   "a hybrid frame for nested_merge, a hybrid frame with step.nested_fold_carry for nested_fold, 16 x 8 "
-                  "for fleet), of the plain dead_rank cumsum, of "
+                  "for fleet, 8 with the shard's arguments for sharded_claim), of the plain dead_rank cumsum, of "
                   "step.nested_cadence (fetch "
                   "mode) or step.nested_child_rows; plain_reductions_ms: the plain reductions "
                   "(step.stat_reductions, the CPU's stats); "

@@ -820,3 +820,63 @@ def test_async_reader_submit_on_the_card(cuda, mode):
             reader.release(t)
     finally:
         reader.close()
+
+
+# ---------------------------------------------------------------------------
+# sharded claims (kernel row 11): a pool split over the particle axis
+# ---------------------------------------------------------------------------
+
+import torch_shard_configs as shard_cfg  # noqa: E402
+from bevy_firework_tpu_torch.step import NESTED_SHARD_MESSAGE  # noqa: E402
+
+# kernel against plain, per config: the unsharded launch's own rule (libm
+# sinf/cosf: the live rotation 2 ulp, stress_test's draws 4 ulp)
+SHARD_ULPS = {"det": 2, "stress": 4, "destroy": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 5])
+@pytest.mark.parametrize("name,unroll", [("det", 1), ("det", 8), ("stress", 8), ("destroy", 1)])
+def test_sharded_kernel_equals_unsharded(cuda, name, unroll, n_shards):
+    """The stitched shards of 12 launches (lane base, global capacity and
+    dead offset as launch arguments) == the unsharded launches bit for bit,
+    every leaf, random draws included; the shards' stats reduced == the
+    pool's; each shard == the plain version with the same shard arguments
+    within the unsharded kernel's own rule. 70001 lanes: ragged shards; the
+    ring starts 300 lanes before its end, so its claims wrap."""
+    c, table, frame = shard_cfg.config(name, cuda, rate=3e4 if name == "stress" else None)
+    whole = pt.init_pool_for(c, 70001)
+    whole = dataclasses.replace(whole, ring_cursor=torch.tensor(70001 - 300, dtype=torch.int32, device=cuda))
+    shards = shard_cfg.split(whole, n_shards)
+    before = fs.fused_step.shard_launches
+    for i in range(12):
+        args = shard_cfg.shard_args(c.static, shards)
+        plain = [plain_frames(c.static, c.params, s, frame, unroll, colliders=table, shard=a)[0]
+                 for s, a in zip(shards, args)]
+        whole, out = fs.fused_step(c.static, c.params, table, whole, frame, unroll=unroll)
+        shards, outs, _p = shard_cfg.step_shards(c, table, shards, frame, unroll=unroll)
+        assert shard_cfg.pool_mismatch(shard_cfg.stitch(shards), whole) == [], i
+        assert shard_cfg.outputs_mismatch(out, shard_cfg.reduce_outputs(outs)) == [], i
+        for s, p in zip(shards, plain):
+            for k in SCALARS:
+                assert torch.equal(getattr(s, k), getattr(p, k)), (i, k)
+            for k in active_f32_fields(c.static):
+                assert _ulps(getattr(s, k), getattr(p, k)) <= SHARD_ULPS[name], (i, k)
+    assert fs.fused_step.shard_launches - before == 12 * n_shards
+    assert 0 < int(out.alive_count) < whole.capacity
+
+
+@pytest.mark.cuda
+def test_sharded_kernel_refuses_what_does_not_shard(cuda):
+    """A nested archetype raises the CPU's NotImplementedError on the card;
+    a shard past the global pool raises before any launch."""
+    from bevy_firework_tpu_torch.models import effects
+
+    c = pt.compile_spawner(effects.fireworks()[0], device=cuda)
+    s = pt.init_pool_for(c, 1024)
+    with pytest.raises(NotImplementedError) as e:
+        fs.fused_step(c.static, c.params, None, s, pt.make_frame_input(1 / 60), shard=(0, 2048, 0))
+    assert str(e.value) == NESTED_SHARD_MESSAGE
+    c, _t, f = shard_cfg.config("det", cuda)
+    with pytest.raises(ValueError):
+        fs.fused_step(c.static, c.params, None, pt.init_pool_for(c, 100), f, shard=(50, 120, 0))

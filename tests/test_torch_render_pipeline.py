@@ -360,7 +360,9 @@ def test_async_render_matches_sync_pack():
 def test_async_render_one_frame_stale_contract():
     """frame_id never exceeds the steps taken, frame ids strictly increase
     (each frame delivered once), and a waiting consumer reaches the last
-    frame; in both Scenes."""
+    frame, in the loop or in the drain after it (a frame delivered in the
+    loop is not delivered again, so the drain may find nothing newer); in
+    both Scenes."""
     for scene in _scenes():
         scene.enable_async_render()
         scene.add_spawner(_sparks(jx if isinstance(scene, jx.Scene) else pt), capacity=2048)
@@ -370,9 +372,11 @@ def test_async_render_one_frame_stale_contract():
             for it in scene.render_async():
                 assert 1 <= it.frame_id <= f
                 seen.append(it.frame_id)
-        assert seen == sorted(set(seen))
-        items = _drain_until(scene, 30)
-        assert items and items[0].frame_id == 30
+        drained = [] if seen and seen[-1] == 30 else [it.frame_id for it in _drain_until(scene, 30)]
+        assert all(1 <= fid <= 30 for fid in drained)
+        ids = seen + drained
+        assert ids == sorted(set(ids))
+        assert ids and ids[-1] == 30
         scene.disable_async_render()
 
 

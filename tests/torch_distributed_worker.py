@@ -1,0 +1,218 @@
+"""One rank of the port's scale-out checks over a torch.distributed group.
+
+    python tests/torch_distributed_worker.py --rank R --world W --init tcp://127.0.0.1:PORT \\
+        --device cpu|cuda --size small|card --cases sp,dp,2d
+
+Imports torch and the port only. Every rank builds the same pools from the
+same seeds, steps its share through `parallel.sharding` (sp:
+`make_sharded_step` over `shard_pool`; dp: `make_fleet_step` over
+`shard_fleet`; 2d: `make_fleet_step_2d` over `shard_fleet_2d` on 2 hosts x
+W / 2 chips) and holds it bit for bit against the same lanes and slots of
+the unsharded step run in the same process: every leaf of its share, the
+outputs (AABB, counts, finished latch) on every launch a case checks. The
+collectives are `gloo`'s (CPU tensors) or `nccl`'s (the backend flag).
+size small: small pools for the CPU tests (tests/test_torch_distributed.py);
+size card: chip_smoke.py's dist_gloo (main_1M's cell for sp over 140 frames,
+fleet_16x55k's 16 slots for dp, 2 slots of main_100k's config for 2d), with
+ms/frame and the host time of the collectives per launch. Prints one JSON
+line; a mismatch raises (exit code 1)."""
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+import bevy_firework_tpu_torch as pt  # noqa: E402
+import torch_shard_configs as sc  # noqa: E402
+from bevy_firework_tpu_torch.models import effects  # noqa: E402
+from bevy_firework_tpu_torch.ops import fused_step as fs  # noqa: E402
+from bevy_firework_tpu_torch.parallel import sharding as psh  # noqa: E402
+from bevy_firework_tpu_torch.step import group_gather  # noqa: E402
+
+OUTPUTS = ("aabb_min", "aabb_max", "alive_count", "alive_count_per_type", "finished_event", "aabb_valid")
+
+
+def burst():
+    """A one-shot burst of 60 (lifetime 0.1 s, constant velocity): it lands
+    in the first lanes, so in one shard, and its finished event must fire
+    on every rank on the frame the unsharded pool fires it."""
+    return pt.ParticleSpawner(
+        particle_settings=[pt.ParticleSettings(lifetime=pt.RandF32.constant(0.1),
+                                               initial_scale=pt.RandF32.constant(0.1))],
+        emission_settings=[pt.EmissionSettings(emission_pacing=pt.EmissionPacing.one_shot(60),
+                                               initial_velocity=pt.RandVec3.constant((0.0, 1.0, 0.0)))])
+
+
+def same(label, a, b):
+    if not torch.equal(sc.bits(a), sc.bits(b)):
+        raise AssertionError(f"{label} differs from the unsharded step")
+
+
+def check_share(label, share, whole, lanes=None, slots=None):
+    """share == the same slots and lanes of the unsharded pool, every leaf."""
+    want = psh.slice_pool(whole, slots=slots, lanes=lanes)
+    bad = sc.pool_mismatch(share, want)
+    if bad:
+        raise AssertionError(f"{label}: {bad} differ from the unsharded step")
+
+
+def check_outputs(label, out, want, slots=None):
+    for k in OUTPUTS:
+        w = getattr(want, k)
+        same(f"{label}: {k}", getattr(out, k), w if slots is None else w[slots[0]:slots[1]])
+
+
+def timed(fn):
+    """fn() ending in a synchronize; (result, seconds, collective calls, their seconds)."""
+    dev_sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    dev_sync()
+    c0, s0, t0 = group_gather.calls, group_gather.seconds, time.perf_counter()
+    res = fn()
+    dev_sync()
+    return res, time.perf_counter() - t0, group_gather.calls - c0, group_gather.seconds - s0
+
+
+def case_sp(dev, size, rank, world):
+    """Particle axis: a ring chain, a burst's finished latch frame by frame
+    and a dead-rank archetype frame by frame (size small); main_1M's
+    140-frame chain (size card)."""
+    res = {}
+    if size == "card":
+        runs = [("main_1M", sc.config("stress", dev, rate=1e6), 160 * 8192, 140, True)]
+    else:
+        runs = [("ring_chain", sc.config("stress", dev, rate=4e3), 3001, 30, True),
+                ("burst_latch", (pt.compile_spawner(burst(), device=dev), None, pt.make_frame_input(1 / 60)), 1000,
+                 20, False),
+                ("destroy", sc.config("destroy", dev, rate=2e4), 2000, 12, False)]
+    for name, (c, table, frame), cap, n, chain in runs:
+        whole = pt.init_pool_for(c, cap, device=dev)
+        if name == "ring_chain":
+            whole = dataclasses.replace(whole, ring_cursor=torch.tensor(cap - 500, dtype=torch.int32, device=dev))
+        share = psh.shard_pool(whole, None)
+        lanes = psh.split_range(cap, rank, world)
+        step = psh.make_sharded_step(c.static)
+        fired = 0
+        if chain:
+            (share, out), secs, calls, csecs = timed(lambda: step(c.params, table, share, frame, n))
+            whole, want = fs.multi_step_auto(c.static, c.params, table, whole, frame, n)
+            check_share(f"sp {name}", share, whole, lanes=lanes)
+            check_outputs(f"sp {name}", out, want)
+            res[name] = {"frames": n, "launches": len(fs.chain_shape(n, fs.chain_unroll(c.static, table))),
+                         "live": int(out.alive_count), "first_chain_s": secs}
+            if size == "card":  # the timed chain, from the checked state
+                (_s, _o), secs, calls, csecs = timed(lambda: step(c.params, table, share, frame, n))
+                res[name].update(ms_per_frame=secs * 1e3 / n, collective_calls=calls,
+                                 collective_us_per_launch=csecs * 1e6 / res[name]["launches"])
+        else:
+            for i in range(n):
+                share, out = step(c.params, table, share, frame)
+                whole, want = fs.fused_step(c.static, c.params, table, whole, frame)
+                check_share(f"sp {name} frame {i}", share, whole, lanes=lanes)
+                check_outputs(f"sp {name} frame {i}", out, want)
+                fired += int(out.finished_event)
+            res[name] = {"frames": n, "live": int(out.alive_count), "finished_events": fired}
+            if name == "burst_latch" and fired != 1:
+                raise AssertionError(f"sp burst_latch: {fired} finished events, want 1")
+    return res
+
+
+def fleet_setup(dev, size, n_slots):
+    """(compiled, stacked pools, stacked frames, capacity) of a fleet: the
+    burst (size small) or stress_test at 55000/s in 65536 lanes per slot
+    (fleet_16x55k) / at 1e5/s in 131072 (main_100k's config)."""
+    if size == "card":
+        rate, cap = (55_000.0, 65536) if n_slots == 16 else (1e5, 1 << 17)
+        c = pt.compile_spawner(sc.rated(effects.stress_test()[0], rate), device=dev)
+    else:
+        c, cap = pt.compile_spawner(burst(), device=dev), 500
+    pools = [pt.init_pool_for(c, cap, seed=i, device=dev) for i in range(n_slots)]
+    frames = [pt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(n_slots)]
+    return c, psh.stack_pools(pools), psh.stack_frames(frames), cap
+
+
+def case_fleet(dev, size, rank, world, two_d):
+    """dp (two_d False): each rank's S / W slots; 2d: 2 hosts x W / 2
+    chips, each host's slots sharded over its chips. Against the unsharded
+    fleet chain (size card: 140 frames; size small: 20 single frames, the
+    burst's finished latch checked on each)."""
+    n_slots = (16 if not two_d else 2) if size == "card" else (4 if not two_d else 2)
+    c, states, frames, cap = fleet_setup(dev, size, n_slots)
+    if two_d:
+        groups = psh.make_groups_2d(2, world // 2)
+        slots = psh.split_range(n_slots, groups.host, 2)
+        lanes = psh.split_range(cap, groups.chip, world // 2)
+        share, params, fr = psh.shard_fleet_2d(states, c.params, frames, groups)
+        step = psh.make_fleet_step_2d(c.static, groups)
+    else:
+        slots, lanes = psh.split_range(n_slots, rank, world), None
+        share, params, fr = psh.shard_fleet(states, c.params, frames)
+        step = psh.make_fleet_step(c.static)
+    label = "2d" if two_d else "dp"
+    if size == "card":
+        n = 140
+        (share, out), secs, _calls, _cs = timed(lambda: step(params, share, fr, n))
+        states, want = fs.multi_step_fleet(c.static, c.params, None, states, frames, n)
+        check_share(label, share, states, lanes=lanes, slots=slots)
+        check_outputs(label, out, want, slots)
+        (_s, _o), secs, calls, csecs = timed(lambda: step(params, share, fr, n))
+        launches = len(fs.chain_shape(n, fs.chain_unroll(c.static))) * (slots[1] - slots[0] if two_d else 1)
+        return {"slots": n_slots, "local_slots": slots[1] - slots[0], "capacity": cap, "frames": n,
+                "live": int(out.alive_count.sum()), "ms_per_frame": secs * 1e3 / n, "collective_calls": calls,
+                "collective_us_per_launch": csecs * 1e6 / launches}
+    fired = 0
+    for i in range(20):
+        share, out = step(params, share, fr)
+        states, want = fs.step_auto_fleet(c.static, c.params, None, states, frames)
+        check_share(f"{label} frame {i}", share, states, lanes=lanes, slots=slots)
+        check_outputs(f"{label} frame {i}", out, want, slots)
+        fired += int(out.finished_event.sum())
+    if fired != slots[1] - slots[0]:
+        raise AssertionError(f"{label}: {fired} finished events on {slots[1] - slots[0]} slots")
+    return {"slots": n_slots, "local_slots": slots[1] - slots[0], "finished_events": fired}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--init", required=True, help="tcp://127.0.0.1:PORT")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
+    ap.add_argument("--size", choices=("small", "card"), default="small")
+    ap.add_argument("--cases", default="sp,dp,2d")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)  # every rank on the one card
+        dev = torch.device("cuda", 0)
+    psh.init_distributed(args.backend, args.init, args.world, args.rank)
+    out = {"rank": args.rank, "world": args.world, "device": str(dev), "backend": args.backend, "size": args.size}
+    try:
+        for case in args.cases.split(","):
+            t0 = time.perf_counter()
+            if case == "sp":
+                out[case] = case_sp(dev, args.size, args.rank, args.world)
+            elif case in ("dp", "2d"):
+                out[case] = case_fleet(dev, args.size, args.rank, args.world, case == "2d")
+            else:
+                raise ValueError(f"no case {case}")
+            out[case]["seconds"] = time.perf_counter() - t0
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out["shard_launches"] = fs.fused_step.shard_launches
+    out["ok"] = True
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
