@@ -29,9 +29,10 @@ spawn, not dead by age, of a collision type) as the only lanes with a travel
 budget. Every expression is one IEEE operation per step in a fixed order, so
 on the card the kernel and this module agree bit for bit.
 
-From LOOP_MIN_COLLIDERS colliders the kernel skips, per warp and substep,
-the colliders that no active lane of the warp can reach (the JAX kernel's
-looped narrow phase, `_collide_tile` :452-563). `broad_phase_keep` is that
+The kernel skips, per warp and substep, the colliders that no active lane
+of the warp can reach (the JAX kernel's looped narrow phase, `_collide_tile`
+:452-563, which the JAX package takes from LOOP_MIN_COLLIDERS colliders;
+the card's narrow phase takes it at every count). `broad_phase_keep` is that
 test's plain version; the plain narrow phase here tests every collider, so
 it stays the yardstick the skipping kernel must equal.
 """

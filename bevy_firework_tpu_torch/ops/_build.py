@@ -89,7 +89,7 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
     lib.bf_fused_step.argtypes = [p, p, i, i, p, p, p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, p, i, p, p, p,
-                                  p, p, p, p, i, i, i, p, p, p, i, i, i, p, i, i, i, i, p]
+                                  p, p, p, i, i, i, p, p, p, i, i, i, p, i, i, i, i, p]
     lib.bf_fused_step.restype = ctypes.c_int
     lib.bf_dead_rank_offsets.argtypes = [p, p, p, i, i, p]
     lib.bf_dead_rank_offsets.restype = ctypes.c_int
@@ -97,6 +97,8 @@ def load() -> ctypes.CDLL:
     lib.bf_nested_cadence.restype = ctypes.c_int
     lib.bf_nested_child_rows.argtypes = [p, i, p, u, u, p, p, p, i, p, p, p, i, i, i, p]
     lib.bf_nested_child_rows.restype = ctypes.c_int
+    lib.bf_step_occupancy.argtypes = [i, i, i, i, i, i, i]
+    lib.bf_step_occupancy.restype = ctypes.c_int
     lib.bf_error_string.argtypes = [ctypes.c_int]
     lib.bf_error_string.restype = ctypes.c_char_p
     return lib

@@ -54,17 +54,20 @@
 //    path and the TPU kernel's (dist, index) tie-break); the collider rows
 //    and each hull's own plane rows sit in shared memory, loaded once per
 //    block, or past SMEM_COLLIDER_WORDS are read in place (warp-uniform
-//    addresses); unrotated colliders skip the quaternion rotations. Below
-//    LOOP_MIN_COLLIDERS colliders a lane leaves the substep loop as soon as
-//    it has no travel budget (the TPU's per-tile substep gating gives the
-//    same per-lane result). From LOOP_MIN_COLLIDERS on, the TPU's looped
-//    narrow phase with its broad phase (`_collide_tile` :452-563) becomes a
-//    per-warp broad phase: the substep loop is warp-uniform, the warp's
-//    active lanes fold a box and a reach by shuffles, and a collider no
-//    lane can reach is skipped by the whole warp (collide_broad). Its
-//    (kind, rotation) grouping of the colliders was a Mosaic measure and is
-//    not carried over: a warp's lanes test one collider at a time, so the
-//    kind switch is warp-uniform.
+//    addresses); unrotated colliders skip the quaternion rotations, and
+//    unrotated cuboids share the substep's reciprocals of the ray
+//    direction. The TPU's looped narrow phase with its broad phase
+//    (`_collide_tile` :452-563) becomes a per-warp broad phase at every
+//    collider count (the TPU unrolls its tests below LOOP_MIN_COLLIDERS,
+//    :440-451; on this card that per-lane form was no faster at 1-4
+//    colliders): the substep loop is warp-uniform, the warp's active lanes
+//    fold a box and a reach by shuffles, and a collider no lane can reach
+//    is skipped by the whole warp (collide). Its (kind, rotation) grouping
+//    of the colliders was a Mosaic measure and is not carried over: a
+//    warp's lanes test one collider at a time, so the kind switch is
+//    warp-uniform. The substep's ray, position and velocity wait in shared
+//    memory through the collider loop, so the ray tests' IEEE chains run
+//    at 3 blocks per SM without spilling.
 //  * Randomness: Philox-4x32-10, key (seed_u, 0), counter (global lane, block, 0, 0),
 //    uniforms from the top 24 bits, draw order shape 0-2, velocity 3-5,
 //    radial 6, scale 7, then lifetime, then angular velocity. The torch
@@ -80,12 +83,26 @@
 //    it (dump archetypes step one frame per launch).
 //  * Stats: the TPU carried its SMEM stat rows across its in-order grid;
 //    CUDA blocks run concurrently, so each thread folds its lanes (min, max
-//    and the alive count over the last sub-frame's survivors), each warp
-//    counts its survivors per type (a ballot per type), each block reduces
-//    these into one partial row, and the last block to finish (an atomic
-//    ticket after __threadfence) reduces the partial rows into the output
-//    row. Min, max and integer sums are exact in any order, so the row
-//    equals the plain reductions.
+//    and the alive count over the last sub-frame's survivors) into its row
+//    of shared memory, each warp counts its survivors per type (a ballot per
+//    type), and each block reduces these by shuffles into one row that it
+//    commits by atomics into the slot's accumulator: sums for the counts,
+//    an integer max on an order-preserving key of each AABB word (NaN past
+//    both ends, so it wins as the plain min/max keep it). The last block to
+//    commit (an atomic ticket after __threadfence) decodes the 7 + T words
+//    into the output row and zeroes them and the ticket, so the accumulator
+//    is persistent scratch (one per stream in the wrapper) and a launch
+//    allocates and fills nothing for it. Integer max and sums are exact in
+//    any order, so the row equals the plain reductions.
+//  * Occupancy: a solo launch's grid is one resident wave of its
+//    instantiation (the SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+//    asked once per instantiation), its blocks striding the fixed tiles;
+//    registers are capped per instantiation (step_max_registers) so the
+//    main path and the ring stats run 4 blocks per SM and the narrow
+//    phase and the other stats 3 (1-2 before). Through the narrow phase
+//    and the field block only their inputs stay live: position and
+//    velocity ride their in/out registers and the lane's other ten fields
+//    wait in shared memory.
 //  * Nested merge (hybrid frames, U = 1): the nested stage's kernels leave
 //    each valid nested emitter's children by rank in a child-row buffer and
 //    its claim window (start, n) in a device record. Before the global
@@ -179,11 +196,14 @@
 // on the dead-rank claim, plus 1 B for the dump plane. Arithmetic per
 // lane-frame is a few dozen flops outside spawn lanes; spawn lanes add three
 // Philox blocks and the samplers' sinf/cosf; colliding lanes add up to 4
-// substeps x C ray tests (from LOOP_MIN_COLLIDERS, the tests of the
-// colliders their warp's box keeps), which at C = 8 hulls makes the step
+// substeps x C ray tests (the tests of the colliders their warp's box
+// keeps), which at C = 8 hulls makes the step
 // arithmetic-bound; a turbulence field adds 9 cosf and ~80 flops per lane
-// and sub-frame, the other kinds ~25 flops each. The stats add one row per
-// block and a final pass over at most MAX_BLOCKS rows.
+// and sub-frame, the other kinds ~25 flops each. The stats add the scale
+// curve per survivor, a block reduction and 7 + T atomics per block.
+
+#include <mutex>
+#include <vector>
 
 #include "fused_step_kernel.cuh"
 
@@ -515,6 +535,40 @@ __global__ void __launch_bounds__(TILE) nested_child_rows_kernel(const int* __re
   }
 }
 
+// Blocks of `kernel` that fill the current device once at `smem` bytes of
+// dynamic shared memory: its SMs times the blocks of TILE threads resident
+// on one (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once per
+// (device, kernel, smem) and cached; ctypes calls run without the GIL, so a
+// mutex guards the cache.
+cudaError_t resident_wave(const void* kernel, size_t smem, int* wave) {
+  struct Entry {
+    int device;
+    const void* kernel;
+    size_t smem;
+    int wave;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache)
+    if (e.device == device && e.kernel == kernel && e.smem == smem) {
+      *wave = e.wave;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  cache.push_back(Entry{device, kernel, smem, sms * per_sm});
+  *wave = sms * per_sm;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // The step kernel's instantiations, one source file each (step_*.cu):
@@ -540,8 +594,9 @@ extern "C" {
 // nulls. frame is FRAME_WORDS host floats, seeds `unroll` host words, fields
 // n_fields FF_STRIDE records in device memory (n_fields 0: no force
 // fields). dump_out is the u8 dump plane or null. stats_out (ST_TYPES +
-// n_types words) or null; with it, stats_partial holds one such row per
-// block (at most MAX_BLOCKS) and stats_ticket one word that is 0 at launch.
+// n_types words) or null; with it, stats_scratch holds ST_TYPES + n_types
+// + 1 words that are 0 at launch (the launch leaves them 0: launches that
+// share them must run in order, as on one stream).
 // A hybrid frame of a nested archetype (U = 1) passes any_alive (one int,
 // the pre-spawn flag), the nested scalars (NS_* records of n_merge
 // emitters, each naming its emitter) and the child rows
@@ -555,8 +610,7 @@ extern "C" {
 // archetype: every plane is [n_slots][n], the scalars [n_slots][E] or
 // [n_slots], the tile offsets [n_slots][ceil(n / TILE)], the dump and
 // render planes [n_slots][n], the stats row [n_slots][ST_TYPES + n_types]
-// with stats_partial [n_slots][min(ceil(n / TILE), MAX_BLOCKS)] rows and
-// n_slots tickets; tables holds one table per slot tab_stride words apart
+// with stats_scratch [n_slots][ST_TYPES + n_types + 1]; tables holds one table per slot tab_stride words apart
 // (0: one for all), seeds [n_slots][unroll] host words, and slot_rows
 // (device, [n_slots][slot_words]) each slot's frame row and n_fields field
 // records in place of frame and fields (which it ignores). A solo launch
@@ -571,7 +625,7 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                   const void* alive_in, void* alive_out, const void* tile_dead_offset, void* const* scal_in,
                   void* const* scal_out, int render_mode, void* const* render_out, const float* frame,
                   const uint32_t* seeds, int unroll, int n, int n_emitters, int n_types, const void* fields,
-                  int n_fields, void* dump_out, void* stats_partial, void* stats_ticket, void* stats_out,
+                  int n_fields, void* dump_out, void* stats_scratch, void* stats_out,
                   const void* any_alive, const void* nested, const void* child, int n_merge, int merge_m,
                   int child_rows, const void* fold_le, void* fold_counts, void* fold_any, int n_fold, int n_slots,
                   int tab_stride, const void* slot_rows, int slot_words, int lane_base, int global_n,
@@ -594,8 +648,7 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   if (n_fold < 0 || (n_fold > 0 && (!merge || n_fold != n_merge || alive_in != nullptr || fold_le == nullptr ||
                                     fold_counts == nullptr || fold_any == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (stats_out != nullptr && (stats_partial == nullptr || stats_ticket == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (stats_out != nullptr && stats_scratch == nullptr) return (int)cudaErrorInvalidValue;
   if ((render_mode != 0 && render_mode != PACK_F32 && render_mode != PACK_F16) ||
       (render_mode != 0) != (render_out != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -627,8 +680,7 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   const int n_render = render_mode == PACK_F16 ? N_RECORD : render_mode == PACK_F32 ? N_RENDER : 0;
   for (int i = 0; i < N_RECORD; ++i) a.render[i] = i < n_render ? render_out[i] : nullptr;
   a.dump = (uint8_t*)dump_out;
-  a.stats_partial = (int*)stats_partial;
-  a.stats_ticket = (unsigned*)stats_ticket;
+  a.stats_acc = (unsigned*)stats_scratch;
   a.stats_out = (int*)stats_out;
   for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = fleet ? 0.0f : frame[i];
   a.fields = fleet ? nullptr : (const int*)fields;
@@ -670,8 +722,15 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  // a solo launch: one resident wave of the instantiation, tile-striding
+  // beyond it; a fleet launch: at most MAX_BLOCKS per slot
   long long blocks = ((long long)n + TILE - 1) / TILE;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;  // tile-stride beyond that
+  int wave = MAX_BLOCKS;
+  if (!fleet) {
+    cudaError_t err = resident_wave(kernel, smem, &wave);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (blocks > wave) blocks = wave;
   const int* tab = (const int*)tables;
   void* params[] = {(void*)&tab, (void*)&a};
   cudaError_t err = cudaLaunchKernel(kernel, dim3((unsigned)blocks, (unsigned)n_slots), dim3(TILE), params, smem,
@@ -794,6 +853,25 @@ int bf_nested_child_rows(const void* tables, int e, const float* frame, uint32_t
   a.n_draws = n_draws;
   nested_child_rows_kernel<<<(m + TILE - 1) / TILE, TILE, 0, (cudaStream_t)stream>>>((const int*)tables, a);
   return (int)cudaGetLastError();
+}
+
+// Blocks of TILE threads of the step kernel's instantiation <ring, collide,
+// fields, stats, merge, fleet> resident on one SM of the current device at
+// smem_bytes of dynamic shared memory (registers, static and dynamic shared
+// memory; cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
+// cudaError_t of the query.
+int bf_step_occupancy(int ring, int collide, int fields, int stats, int merge, int fleet, int smem_bytes) {
+  if (smem_bytes < 0 || (merge && fleet)) return -(int)cudaErrorInvalidValue;
+  const void* kernel = fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(
+                                   collide, fields, stats, 0)
+                             : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, fields, stats, merge);
+  if ((size_t)smem_bytes > (size_t)DEFAULT_SMEM_BYTES) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return -(int)err;
+  }
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, (size_t)smem_bytes);
+  return err == cudaSuccess ? per_sm : -(int)err;
 }
 
 const char* bf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

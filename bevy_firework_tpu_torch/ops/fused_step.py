@@ -44,9 +44,10 @@ Dispatch is by the device of the pool's tensors and nothing else:
     the kernels' op order and random-bit layout.
 The kernel's tables are sized from the spawner and the scene, so the card
 takes every count of emitters, types, knots, colliders and force fields
-that the CPU takes; nothing falls back. From LOOP_MIN_COLLIDERS colliders
-the narrow phase skips, per warp and substep, the colliders no active lane
-can reach (`broad_phase_on`; its plain version `collision.broad_phase_keep`).
+that the CPU takes; nothing falls back. The card's narrow phase skips, per
+warp and substep, the colliders no active lane can reach (the JAX package's
+looped form, which it takes from LOOP_MIN_COLLIDERS colliders; the skip's
+plain version is `collision.broad_phase_keep`).
 
 The stats of a frame (AABB, alive and per-type counts): on the card the
 kernel's stats block writes them in one row whenever they are asked for, and
@@ -123,10 +124,29 @@ def can_unroll(static: SpawnerStatic) -> bool:
     return can_fuse(static) and static.derived_alive
 
 
-def broad_phase_on(static: SpawnerStatic, colliders) -> bool:
-    """The narrow phase runs with its per-warp broad phase: LOOP_MIN_COLLIDERS
-    colliders or more (the JAX package's looped form engages there)."""
+def looped_form(static: SpawnerStatic, colliders) -> bool:
+    """The JAX package's narrow phase takes its looped form with the broad
+    phase (LOOP_MIN_COLLIDERS colliders or more; below, its unrolled form).
+    The card's narrow phase runs its per-warp broad phase at every count;
+    the launch counters split its launches by the reference's two forms."""
     return collision_on(static, colliders) and colliders.count >= LOOP_MIN_COLLIDERS
+
+
+_STATS_SCRATCH: dict = {}
+
+
+def stats_scratch(device, stream: int, words: int) -> torch.Tensor:
+    """The stats block's accumulators and tickets for launches on `stream`
+    (its handle) of `device`: `words` int32 words that are 0 between
+    launches (the last block of a launch decodes its slot's words into the
+    stats row and zeroes them and the ticket). Made once per (device,
+    stream) and grown, zeroed, when a launch needs more words; launches on
+    one stream run in order, so they share it, and two streams get two."""
+    key = (torch.device(device), int(stream))
+    buf = _STATS_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _STATS_SCRATCH[key] = torch.zeros(words, dtype=torch.int32, device=device)
+    return buf[:words]
 
 
 def check_kernel_scope(static: SpawnerStatic, unroll: int = 1) -> None:
@@ -428,11 +448,12 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         render = [None if static.elide_rotation and 4 <= i < 8 else torch.empty(lead + (N,), dtype=torch.float16,
                                                                                  device=dev) for i in range(L.N_RECORD)]
     dump = torch.empty(lead + (N,), dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
-    stats_row = partial = ticket = None
-    if stats:  # the rows, one partial row per block, and one last-block ticket per slot (zeroed)
-        stats_row = torch.empty(lead + (L.stats_words(T),), dtype=torch.int32, device=dev)
-        partial = torch.empty((S, L.launch_blocks(N) * L.stats_words(T)), dtype=torch.int32, device=dev)
-        ticket = torch.zeros(S, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    stats_row = acc = None
+    if stats:  # the rows, and per slot the accumulator and its ticket (the stream's scratch, 0 between launches)
+        sw = L.stats_words(T)
+        stats_row = torch.empty(lead + (sw,), dtype=torch.int32, device=dev)
+        acc = stats_scratch(dev, stream, S * (sw + 1)).view(S, sw + 1)
     if fleet is None:
         table, tab_stride, slot_rows = kernel_tables(static, params), 0, None
         records, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
@@ -443,7 +464,6 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         tab_stride = table.shape[1] if table.dim() == 2 else 0
         records, n_fields, frame_row = None, fleet["n_fields"], None
     col = kernel_colliders(colliders) if n_col else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -454,14 +474,14 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     for c0 in range(0, S, per_launch):  # one chunk for a solo launch
         c1 = min(S, c0 + per_launch)
         c_ins, c_outs, c_s_in, c_s_out = (_from_slot(ts, c0) for ts in (ins, outs, s_in, s_out))
-        pi, po, ai, ao, off, dmp, part, tick, row, srows = _from_slot(
-            [ptype_in, ptype_out, alive_in, alive_out, offsets, dump, partial, ticket, stats_row, slot_rows], c0)
+        pi, po, ai, ao, off, dmp, c_acc, row, srows = _from_slot(
+            [ptype_in, ptype_out, alive_in, alive_out, offsets, dump, acc, stats_row, slot_rows], c0)
         seed_row = (ctypes.c_uint32 * ((c1 - c0) * unroll))(*seeds[c0 * unroll:c1 * unroll])
         rc = lib.bf_fused_step(
             ptr(table[c0:] if c0 and tab_stride else table), ptr(col), n_col, 0 if col is None else col.numel(),
             _ptr_array(c_ins), _ptr_array(c_outs), ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in),
             _ptr_array(c_s_out), mode, None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
-            seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(part), ptr(tick), ptr(row), *merge,
+            seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(c_acc), ptr(row), *merge,
             c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], shard.lane_base,
             shard.global_n, shard.dead_offset, stream,
         )
@@ -531,7 +551,7 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         fused_step.render_launches += mode == L.PACK_F32
         fused_step.render_f16_launches += mode == L.PACK_F16
         fused_step.collide_launches += collision_on(static, colliders)
-        fused_step.broad_launches += broad_phase_on(static, colliders)
+        fused_step.broad_launches += looped_form(static, colliders)
         fused_step.fields_launches += fields_on(frame)
         fused_step.dump_launches += dump is not None
         fused_step.stats_launches += stats
@@ -551,7 +571,7 @@ fused_step.launches = 0  # kernel launches (CUDA path only)
 fused_step.render_launches = 0  # of which with the f32 render pack
 fused_step.render_f16_launches = 0  # of which with the f16 record
 fused_step.collide_launches = 0  # of which with the narrow phase
-fused_step.broad_launches = 0  # of which with its per-warp broad phase (LOOP_MIN_COLLIDERS colliders or more)
+fused_step.broad_launches = 0  # of which with LOOP_MIN_COLLIDERS colliders or more (the JAX package's looped form)
 fused_step.fields_launches = 0  # of which with force fields
 fused_step.dump_launches = 0  # of which writing the dump plane
 fused_step.stats_launches = 0  # of which writing the stats row
@@ -829,7 +849,7 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     fused_step.render_launches += mode == L.PACK_F32
     fused_step.render_f16_launches += mode == L.PACK_F16
     fused_step.collide_launches += collision_on(static, colliders)
-    fused_step.broad_launches += broad_phase_on(static, colliders)
+    fused_step.broad_launches += looped_form(static, colliders)
     fused_step.fields_launches += fields_on(frame)
     fused_step.dump_launches += dump is not None
     fused_step.stats_launches += stats
@@ -1056,7 +1076,7 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
         fused_step_fleet.render_launches += n * (mode == L.PACK_F32)
         fused_step_fleet.render_f16_launches += n * (mode == L.PACK_F16)
         fused_step_fleet.collide_launches += n * collision_on(static, colliders)
-        fused_step_fleet.broad_launches += n * broad_phase_on(static, colliders)
+        fused_step_fleet.broad_launches += n * looped_form(static, colliders)
         fused_step_fleet.fields_launches += n * (n_fields > 0)
         fused_step_fleet.dump_launches += n * (dump is not None)
         fused_step_fleet.stats_launches += n * stats
@@ -1083,7 +1103,7 @@ fused_step_fleet.launches = 0  # fleet kernel launches (CUDA path only)
 fused_step_fleet.render_launches = 0  # of which with the f32 render pack
 fused_step_fleet.render_f16_launches = 0  # of which with the f16 record
 fused_step_fleet.collide_launches = 0  # of which with the narrow phase
-fused_step_fleet.broad_launches = 0  # of which with its broad phase
+fused_step_fleet.broad_launches = 0  # of which with LOOP_MIN_COLLIDERS colliders or more
 fused_step_fleet.fields_launches = 0  # of which with force fields
 fused_step_fleet.dump_launches = 0  # of which writing the dump plane
 fused_step_fleet.stats_launches = 0  # of which writing the stats rows

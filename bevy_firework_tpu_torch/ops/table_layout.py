@@ -125,10 +125,6 @@ CO_PLANES = 14  # a hull's first plane word (from the table's start; 0 for other
 CO_RADIUS = 15  # f32: the broad phase's bounding radius about the position (collision.bounding_radius)
 HULL_MAX_PLANES = colliders.HULL_MAX_PLANES
 SUBSTEPS = collision.SUBSTEPS
-# The narrow phase runs its per-warp broad phase from this many colliders
-# (the JAX package's LOOP_MIN_COLLIDERS, bevy_firework_tpu/ops/fused_step.py:96;
-# collision.LOOP_MIN_COLLIDERS)
-LOOP_MIN_COLLIDERS = collision.LOOP_MIN_COLLIDERS
 # A collider table of at most this many words is staged in each block's
 # shared memory; a larger one is read from global memory (warp-uniform
 # addresses: one broadcast load per row word). 48 KB: four blocks' tables
@@ -148,7 +144,8 @@ FF_ACTIVE = 11  # 1.0 live, 0.0 disabled
 # are read from global memory
 SMEM_FIELD_WORDS = 256 * FF_STRIDE
 
-# ---- stats row (kernel output, int32 words; one per block as partials) ----
+# ---- stats row (kernel output, int32 words; per slot the same words, then a
+# ticket, accumulate it in the stream's scratch) ----
 ST_MIN = 0  # 3 f32: min(pos - scale) over survivors
 ST_MAX = 3  # 3 f32: max(pos + scale)
 ST_ALIVE = 6  # i32: survivors
@@ -201,18 +198,15 @@ def slot_words(num_fields: int) -> int:
 SEED_WORDS = 128
 
 # ---- launch geometry ----
-MAX_BLOCKS = 132 * 8  # the step tile-strides beyond 8 blocks per SM per slot (stats partials)
+# blocks per slot of a fleet launch and of the claim's and nested passes'
+# kernels, which tile-stride beyond it (a solo step launch takes one
+# resident wave of its instantiation, asked of the card)
+MAX_BLOCKS = 132 * 8
 DEFAULT_SMEM_BYTES = 48 * 1024  # dynamic shared memory a launch takes without the opt-in attribute
 
 assert NS_EMITTER < NS_STRIDE and EM_TARGET < EM_STRIDE and TY_DUMP < TY_STRIDE and H_CV_AT < HEADER_WORDS
 assert CO_RADIUS < CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
 assert SL_FRAME + FRAME_WORDS <= SL_FIELDS and SEED_WORDS >= MAX_U
-
-
-def launch_blocks(n: int) -> int:
-    """Blocks per slot of a step launch over n lanes (the C launcher's
-    grid.x): one per TILE-lane tile, at most MAX_BLOCKS."""
-    return min(-(-n // TILE), MAX_BLOCKS)
 
 
 def constants() -> dict:

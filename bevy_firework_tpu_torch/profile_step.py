@@ -1,7 +1,7 @@
 """Where a main-path frame's time goes on the card.
 
     python -m bevy_firework_tpu_torch.profile_step [--out FILE]
-    python3 bevy_firework_tpu_torch/profile_step.py --launch [--root DIR]
+    python3 bevy_firework_tpu_torch/profile_step.py --launch [--only GROUPS] [--root DIR]
     python3 bevy_firework_tpu_torch/profile_step.py --flows [--root DIR]
 
 Runs stress_test through `multi_step_auto` at 100k and 1M live (as
@@ -15,17 +15,26 @@ time; then the host functions that take most of an 8-frame call
 (cProfile). Needs a CUDA device.
 
 With --launch it prints only device times per launch (stats off, as
-chip_smoke.py's `*_kernel_device_ms`): the main path's U = 8 launch at
-both sizes, then one line with the fleet's U = 8 launch (fleet_16x55k),
-the U = 2 and U = 8 launches of the collision cells (collision_1M and
-hull8_1M: stress_test_collision at 1M live against its two cuboids and
-against bench.py's 8 hulls) and the unfolded hybrid step launch of
-nested_60k (bench.py's nested cell after 150 frames). With --flows it prints one JSON line of the
-solo path's end-to-end times: main_100k and main_1M ms/frame and the
-tornado and fireworks flows' ms per Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch
-from DIR instead (run the file, not the module): two trees, such as a
-parent commit unpacked beside this checkout, are then timed by the same
-code on one card; alternate the trees' runs to spread drift.
+chip_smoke.py's `*_kernel_device_ms`, unless named), one JSON line per
+group that --only names (all by default): `kernels`, ptxas's registers
+and spills per kernel and each step-kernel instantiation's resident blocks
+per SM; `main`, the main path's U = 8 launch at both sizes; `stats`, kernel
+row 6: the U = 1 launch with and without the stats block at main_1M's
+state and at the sparks pool (2048 lanes); `cells`, the fleet's U = 8
+launch (fleet_16x55k), the fleet's U = 2 collision launch (16 slots of
+stress_test_collision), the U = 2 and U = 8 launches of the collision cells
+(collision_1M and hull8_1M: stress_test_collision at 1M live against its
+two cuboids and against bench.py's 8 hulls) and the unfolded hybrid step
+launch of nested_60k (bench.py's nested cell after 150 frames); `scaling`,
+kernel row 3 below LOOP_MIN_COLLIDERS: the U = 2 launch against
+tools/collider_scaling_tpu.py's scenes at C = 1, 2, 4 and collision_1M.
+With --flows it prints one JSON line of the solo path's end-to-end times:
+main_100k and main_1M ms/frame and the tornado and fireworks flows' ms per
+Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch from
+DIR instead of this file's checkout (run the file, not the module): two
+trees, such as a parent commit unpacked beside this checkout, are then
+timed by the same code on one card; alternate the trees' runs (parent,
+this, this, parent) to spread drift.
 """
 
 from __future__ import annotations
@@ -119,10 +128,11 @@ def profile_size(rate: float, capacity: int, calls: int = 30):
     return res
 
 
-def launch_device_ms(launch, calls: int, traces: int = 3):
+def launch_device_ms(launch, calls: int, traces: int = 3, all_kernels: bool = False):
     """(median, per trace) over `traces` torch.profiler traces of `calls`
     calls of `launch` of the step kernel's device time per launch, averaged
-    over the launches each trace holds."""
+    over the launches each trace holds; with all_kernels, also the median
+    device time of every kernel per call (a launch's fills and copies)."""
     import statistics
 
     import torch
@@ -130,16 +140,135 @@ def launch_device_ms(launch, calls: int, traces: int = 3):
 
     launch()
     torch.cuda.synchronize()
-    per = []
+    per, per_call = [], []
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 launch()
             torch.cuda.synchronize()
-        kern, _total, count = device_times(prof, "fused_step_kernel")
+        kern, total, count = device_times(prof, "fused_step_kernel")
         if count:
             per.append(kern / count / 1e3)
-    return (statistics.median(per) if per else None), per
+            per_call.append(total / calls / 1e3)
+    ms = statistics.median(per) if per else None
+    if all_kernels:
+        return ms, per, (statistics.median(per_call) if per_call else None)
+    return ms, per
+
+
+def stats_ms(calls: int = 50, traces: int = 3) -> dict:
+    """Kernel row 6: device time of a U = 1 launch with the stats block and
+    of the same launch without it, at main_1M's state (stress_test at 1e6/s,
+    1310720 lanes, after 140 frames) and at the sparks pool (the README's
+    sparks spawner, 2048 lanes, after 120 frames: 750 live, the Scene's
+    size): the step kernel's time per launch and every kernel's per call."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    f = bt.make_frame_input(1 / 60)
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(1_000_000.0))
+    c1m = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    s1m, _o = fs.multi_step_auto(c1m.static, c1m.params, None, bt.init_pool_for(c1m, 160 * 8192, seed=0), f, 140)
+    sparks = bt.compile_spawner(bt.ParticleSpawner(
+        particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75))],
+        emission_settings=[bt.EmissionSettings(emission_pacing=EmissionPacing.rate(1000.0))]), device="cuda")
+    s_sp, _o = fs.multi_step_auto(sparks.static, sparks.params, None, bt.init_pool_for(sparks, 2048), f, 120)
+    res = {}
+    for label, c, s in (("stats_1M", c1m, s1m), ("stats_sparks", sparks, s_sp)):
+        res[label] = {"capacity": s.capacity, "live": int(s.alive.sum())}
+        for key, on in (("u1_stats", True), ("u1_no_stats", False)):
+            ms, per, call_ms = launch_device_ms(lambda: fs.fused_step(c.static, c.params, None, s, f, stats=on),
+                                                calls, traces, all_kernels=True)
+            res[label].update({f"{key}_kernel_device_ms": ms, f"{key}_traces": per,
+                               f"{key}_all_kernels_ms_per_call": call_ms})
+    return res
+
+
+def scaling_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Kernel row 3 below LOOP_MIN_COLLIDERS colliders (where the JAX
+    package unrolls its narrow phase per lane), at 1310720 lanes of
+    stress_test_collision at 5e5/s after 140 frames: the U = 2 launch's
+    device time against tools/collider_scaling_tpu.py's scenes at C = 1, 2
+    and 4 (tests/torch_table_configs.py) and against collision_1M's two
+    cuboids."""
+    import sys
+    from pathlib import Path
+
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
+    import torch_table_configs as table_cfg
+
+    f = bt.make_frame_input(1 / 60)
+    sp, _tf, cuboids = effects.stress_test_collision()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(500_000.0))
+    c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    scenes = {f"scaling_C{n}": table_cfg.scaling_colliders(n) for n in (1, 2, 4)}
+    scenes["collision_1M"] = cuboids
+    res = {}
+    for label, cols in scenes.items():
+        table = bt.compile_colliders(cols, device="cuda")
+        s, out = fs.multi_step_auto(c.static, c.params, table, bt.init_pool_for(c, 160 * 8192, seed=0), f, 140)
+        ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, table, s, f, unroll=2, stats=False),
+                                   calls, traces)
+        res[label] = {"colliders": len(cols), "live": int(out.alive_count), "u2_kernel_device_ms": ms,
+                      "u2_traces": per}
+    return res
+
+
+def ptxas_summary(report: str) -> list:
+    """Per kernel of ptxas's report: its name (the step kernel's template
+    arguments ring, collide, fields, stats, merge, fleet spelled out, and
+    `args` those six as ints), registers, stack, spill bytes and shared
+    memory."""
+    import re
+
+    out = []
+    for block in report.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+)'", block).group(1)
+        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        row = {}
+        if t:
+            name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
+            row["args"] = [int(v) for v in t.groups()]
+        else:
+            name = re.search(r"([a-z_]+_kernel)E", name).group(1)
+        row = {"kernel": name, **row, "registers": int(re.search(r"Used (\d+) registers", block).group(1))}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"(\d+) bytes smem", block)
+        row["smem"] = int(m.group(1)) if m else 0
+        out.append(row)
+    return out
+
+
+def kernel_report() -> list:
+    """`ptxas_summary` of the imported tree's kernel library (built if
+    missing), with each step-kernel instantiation's resident blocks of 256
+    threads per SM at no dynamic shared memory: asked of the card
+    (`bf_step_occupancy`, `blocks_per_sm_from` "card") where the library
+    exports it, else from its registers and static shared memory alone
+    ("registers")."""
+    from bevy_firework_tpu_torch.ops import _build
+
+    rows = ptxas_summary(_build.ptxas_report())
+    occupancy = getattr(_build.load(), "bf_step_occupancy", None)
+    for row in rows:
+        if "args" not in row:
+            continue
+        if occupancy is not None:
+            row["blocks_per_sm"], row["blocks_per_sm_from"] = int(occupancy(*row["args"], 0)), "card"
+        else:  # 64K registers and 228 KB of shared memory per SM, 8 warps of 256-register granules per block
+            regs = -(-row["registers"] * 32 // 256) * 256 * 8
+            row["blocks_per_sm"] = min(8, 65536 // regs, 233472 // max(row["smem"] + 1024, 1))
+            row["blocks_per_sm_from"] = "registers"
+    return rows
 
 
 def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> dict:
@@ -163,7 +292,9 @@ def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> d
 
 def cells_ms(calls: int = 20, traces: int = 3) -> dict:
     """Device time per launch (stats off) of the fleet's U = 8 launch of
-    fleet_16x55k (stress_test at 55000/s, 16 slots of 65536 lanes), of
+    fleet_16x55k (stress_test at 55000/s, 16 slots of 65536 lanes), of the
+    fleet's U = 2 launch of stress_test_collision at 31250/s in 16 slots of
+    65536 lanes against its two cuboids (the fleet's narrow phase), of
     one U = 2 and one U = 8 launch of stress_test_collision at 5e5/s,
     capacity 1310720, against its two cuboids and against bench.py's 8
     hulls (a 6-plane floor and 7 tetrahedra), each after a 140-frame
@@ -187,6 +318,14 @@ def cells_ms(calls: int = 20, traces: int = 3) -> dict:
                                                            stats=False), calls, traces)
     res = {"fleet_16x55k": {"u8_fleet_kernel_device_ms": ms, "u8_traces": per}}
     sp, _tf, cuboids = effects.stress_test_collision()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(31250.0))
+    cf = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    table = bt.compile_colliders(cuboids, device="cuda")
+    st = stack_pools([bt.init_pool_for(cf, 65536, seed=i) for i in range(16)])
+    st, _o = fs.multi_step_fleet(cf.static, cf.params, table, st, fr, 140)
+    ms, per = launch_device_ms(lambda: fs.fused_step_fleet(cf.static, cf.params, table, st, fr, unroll=2,
+                                                           stats=False), calls, traces)
+    res["fleet_collision_16x65k"] = {"u2_fleet_kernel_device_ms": ms, "u2_traces": per}
     hulls = [bt.Collider.hull([(1, 0, 0, 60.0), (-1, 0, 0, 60.0), (0, 1, 0, 1.0), (0, -1, 0, 1.0), (0, 0, 1, 60.0),
                                (0, 0, -1, 60.0)], position=(0.0, -1.5, 0.0))]
     hulls += [bt.Collider.hull_from_points([(0, 0, 0), (2.0, 0, 0), (0, 2.5, 0), (0, 0, 2.0)],
@@ -304,40 +443,56 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
     ap.add_argument("--launch", action="store_true",
-                    help="time the main path's U = 8 launch per size, the fleet's and the collision cells' launches, "
-                         "nothing else")
+                    help="time launches only: the groups --only names (all by default)")
+    ap.add_argument("--only", default=",".join(LAUNCH_GROUPS),
+                    help=f"with --launch, a comma list of {', '.join(LAUNCH_GROUPS)}")
     ap.add_argument("--flows", action="store_true",
                     help="time the solo path end to end (main_100k, main_1M, tornado, fireworks), nothing else")
     ap.add_argument("--root", help="import bevy_firework_tpu_torch from this directory")
     args = ap.parse_args()
-    if args.root:
-        import sys
-        from pathlib import Path
+    import sys
+    from pathlib import Path
 
-        sys.path[0] = str(Path(args.root).resolve())  # in place of this file's own directory
+    # the tree to import, in place of this file's own directory: --root, or
+    # the checkout this file is in
+    sys.path[0] = str(Path(args.root or Path(__file__).resolve().parent.parent).resolve())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     lines = []
-    if args.flows:
-        r = {"flows": flows_ms(), "root": args.root or ".", "card": card}
-        print(json.dumps(r), flush=True)
-        if args.out:
-            with open(args.out, "a") as fh:
-                fh.write(json.dumps(r) + "\n")
-        return
-    for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
-        r = launch_ms(rate, cap) if args.launch else profile_size(rate, cap)
-        if args.root:
-            r["root"] = args.root
-        r["card"] = card
+
+    def put(r):
+        r.update(root=args.root or ".", card=card)
         lines.append(json.dumps(r))
         print(lines[-1], flush=True)
-    if args.launch:
-        lines.append(json.dumps({"cells": cells_ms(), "root": args.root or ".", "card": card}))
-        print(lines[-1], flush=True)
+
+    if args.flows:
+        put({"flows": flows_ms()})
+    elif args.launch:
+        groups = args.only.split(",")
+        unknown = set(groups) - set(LAUNCH_GROUPS)
+        if unknown:
+            ap.error(f"unknown --only groups {sorted(unknown)}")
+        if "kernels" in groups:
+            put({"kernels": kernel_report()})
+        if "main" in groups:
+            for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
+                put(launch_ms(rate, cap))
+        if "stats" in groups:
+            put({"stats": stats_ms()})
+        if "cells" in groups:
+            put({"cells": cells_ms()})
+        if "scaling" in groups:
+            put({"scaling": scaling_ms()})
+    else:
+        for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
+            put(profile_size(rate, cap))
     if args.out:
-        with open(args.out, "w") as fh:
+        with open(args.out, "a") as fh:
             fh.write("\n".join(lines) + "\n")
+
+
+# --launch's groups, in the order they run
+LAUNCH_GROUPS = ("kernels", "main", "stats", "cells", "scaling")
 
 
 if __name__ == "__main__":

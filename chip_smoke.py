@@ -14,7 +14,9 @@ group_churn_12 cells; render_extract_1M and examples/render_loop.py's
 render loop) plus the interactive sparks, collision, fireworks and
 textures flows and the Scene's async render, through the kernels. Phases:
 
-  1. card: name and power limit (nvidia-smi), kernel build time;
+  1. card: name and power limit (nvidia-smi), kernel build time, and per
+     kernel ptxas's registers and spills and the blocks resident per SM
+     (the main path at 63 registers, no kernel spilling);
   2. deterministic config (constant draws, live rotation), N = 131072:
      kernel == plain bit for bit, 1-frame and 8-frame launches;
   3. stress_test, N = 131072: alive count, cursor and cadence scalars exact,
@@ -47,7 +49,7 @@ textures flows and the Scene's async render, through the kernels. Phases:
      kernel's device time per U = 2 and per U = 8 launch beside the plain
      version's 2 and 8 frames;
  12. hull8_1M: the same against bench.py's 8 hulls, 120 frames (8
-     colliders: the narrow phase's per-warp broad phase runs); for both,
+     colliders; the JAX package's looped form); for both,
      the skip share and the narrow phase's operations counted from a
      recorded plain frame (the U = 2 launch's bound);
  13. collision_flow: effects.collision() with its cuboid through
@@ -57,7 +59,7 @@ textures flows and the Scene's async render, through the kernels. Phases:
      test's 6-collider mix, 33 and 64 mixed colliders (a quarter hulls,
      some disabled, two overlapping where lanes start inside both) and 200
      (three in four 16-plane hulls: a table past SMEM_COLLIDER_WORDS, read
-     from global memory): the broad phase == the plain version (no skip)
+     from global memory): the kernel == the plain version (no skip)
      bit for bit over 10 U=1 and 4 U=2 launches; the share of (warp,
      collider, substep) tests collision.broad_phase_keep skips;
  15. caps_det, N = 131072: past the old table caps, 17- and 40-knot
@@ -69,8 +71,10 @@ textures flows and the Scene's async render, through the kernels. Phases:
      stress_test_collision at 5e5/s, capacity 1310720, 140 warm-up frames,
      C in {1, ..., 128} mixed colliders and {8, 16, 32, 64} with a quarter
      hulls: differential ms/frame, the U = 2 launch's device time (== 2
-     plain frames within 4 ulp) beside its bound, the skip share; at C = 32
-     the plain version's time;
+     plain frames within 4 ulp) beside its bound, the skip share (the
+     narrow phase runs its per-warp broad phase at every count; at C = 1-4
+     the JAX package unrolls its tests instead); at C = 32 the plain
+     version's time;
  17. fields_det, N = 131072: the box emitter under one force field of each
      kind (and a disabled one), and under all four: kernel == plain bit for
      bit on point, vortex and axial, turbulence within 8 ulp (cosf against
@@ -82,6 +86,10 @@ textures flows and the Scene's async render, through the kernels. Phases:
  19. stats_det, N = 1310720: the kernel's stats row (AABB, alive and
      per-type counts) against the plain reductions over the state the same
      launch wrote, for a ring, a dead-rank and a 3-type archetype, by value;
+     at the sparks flow's pool (2048 lanes, the Scene's size), timed beside
+     the launch without the block; and at the float edges
+     (tests/torch_stats_configs.py: a NaN position makes its axis's bounds
+     NaN, lanes at -0, +0 and +-inf reduce as the plain reductions do);
  20. fields_1M: library.dust at 3e5/s (lifetime 4 s) under the tornado
      example's three fields, capacity 1310720: a 300-frame multi_step_auto
      chain (U = 8) against 300 plain frames, ms/frame and the kernel's
@@ -293,29 +301,6 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_summary(report: str) -> list:
-    """Per kernel of ptxas's report: its name (the step kernel's template
-    arguments ring, collide, fields, stats, merge, fleet spelled out),
-    registers, stack, spill bytes and shared memory."""
-    import re
-
-    out = []
-    for block in report.split("Compiling entry function")[1:]:
-        name = re.search(r"'(\S+)'", block).group(1)
-        t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
-        if t:
-            name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
-        else:
-            name = re.search(r"([a-z_]+_kernel)E", name).group(1)
-        row = {"kernel": name, "registers": int(re.search(r"Used (\d+) registers", block).group(1))}
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", block)
-        row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
-        m = re.search(r"(\d+) bytes smem", block)
-        row["smem"] = int(m.group(1)) if m else 0
-        out.append(row)
-    return out
-
-
 def main() -> int:
     import torch
 
@@ -329,7 +314,7 @@ def main() -> int:
     from bevy_firework_tpu_torch.ops import _build
     from bevy_firework_tpu_torch.ops import fused_step as fs
     from bevy_firework_tpu_torch.ops import table_layout as L
-    from bevy_firework_tpu_torch.profile_step import device_times
+    from bevy_firework_tpu_torch.profile_step import device_times, kernel_report
     from bevy_firework_tpu_torch.render import pack_render_planes
     from bevy_firework_tpu_torch.settings import EmissionPacing
     from bevy_firework_tpu_torch.settings import ParticleCollisionSettings
@@ -345,7 +330,8 @@ def main() -> int:
         """The narrow phase's work in one recorded plain frame
         (`collision.record_substeps`), as the kernel does it: per substep
         the active lanes' tests of the colliders their warp's broad phase
-        keeps (every enabled collider below LOOP_MIN_COLLIDERS colliders).
+        keeps (the card's narrow phase runs its broad phase at every
+        collider count).
         Returns its f32 operations (the ops model above), the tests kept
         and the tests the warps with an active lane would run without a
         skip, and the skip share."""
@@ -354,24 +340,18 @@ def main() -> int:
             HULL_OPS + HULL_PLANE_OPS * table.hull_counts[c] if kinds[c] == COLLIDER_HULL else RAY_OPS[kinds[c]])
             for c in range(table.count)], dtype=torch.float64, device=table.device)
         broad_ops = sum(BROAD_OPS[2 if k != COLLIDER_HALFSPACE else 0 if ident[c] else 1] for c, k in enumerate(kinds))
-        broad = table.count >= L.LOOP_MIN_COLLIDERS
-        enabled = masked_layers(table) != 0
         ops = kept = tests = 0.0
         for rec in log:
             act = rec["active"]
             groups = -(-act.shape[0] // 32)
             lanes = torch.cat([act, act.new_zeros(groups * 32 - act.shape[0])]).view(groups, 32)
             per_group, any_g = lanes.sum(1).double(), lanes.any(1)
-            keep = pcol.broad_phase_keep(table, rec["px"], rec["py"], rec["pz"], rec["max_dist"], act) if broad \
-                else any_g[:, None] & enabled[None, :]
-            kf = keep.double()
+            kf = pcol.broad_phase_keep(table, rec["px"], rec["py"], rec["pz"], rec["max_dist"], act).double()
             ops += float(per_group.sum()) * SUBSTEP_OPS + float(per_group @ (kf @ test_ops))
-            if broad:
-                ops += float(any_g.sum()) * (BOX_OPS + broad_ops)
+            ops += float(any_g.sum()) * (BOX_OPS + broad_ops)
             kept += float(kf.sum())
             tests += float(any_g.sum()) * table.count
-        return {"ops": ops, "tests_kept": kept, "tests": tests, "skip_share": 1.0 - kept / tests if tests else 0.0,
-                "broad_phase": broad}
+        return {"ops": ops, "tests_kept": kept, "tests": tests, "skip_share": 1.0 - kept / tests if tests else 0.0}
 
     def recorded_frame(cm, table, state, frame) -> dict:
         """narrow_work of one plain frame from `state` on the card."""
@@ -389,8 +369,18 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     _build.load()
+    ptxas = kernel_report()
+    step_rows = [r for r in ptxas if "args" in r]
+    main_row = [r for r in step_rows if r["args"] == [1, 0, 0, 0, 0, 0]]
+    check(len(step_rows) == 36 and len(main_row) == 1 and main_row[0]["registers"] == 63,
+          f"the step kernel's instantiations: {[(r['kernel'], r['registers']) for r in step_rows]}")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ptxas),
+          f"ptxas spills: {[r for r in ptxas if r['spill_stores'] or r['spill_loads']]}")
     emit({"phase": "card", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s, "ptxas": ptxas_summary(_build.ptxas_report())})
+          "kernel_build_s": build_s, "ptxas": ptxas,
+          "rule": "ptxas's registers and spills per kernel; blocks_per_sm: resident blocks of 256 threads per SM "
+                  "at no dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the main path at 63 "
+                  "registers; no kernel spills"})
 
     def ulp_diff(a, b) -> int:
         """Largest distance in units in the last place between two f32 tensors."""
@@ -628,7 +618,7 @@ def main() -> int:
             work = recorded_frame(cm, table, state, frame)
             frame_ops += work["ops"]
             res.update(narrow_ops_per_frame=work["ops"], skip_share=work["skip_share"],
-                       broad_phase=work["broad_phase"], broad_launches=counts["broad"])
+                       broad_launches=counts["broad"])
         plane_bytes = 2 * 4 * len(active_f32_fields(cm.static)) * capacity
         bounds = {f"u{u}": bound(plane_bytes, u * frame_ops) for u in unrolls}
         bounds["render"] = bound(plane_bytes + 4 * L.N_RENDER * capacity, frame_ops)
@@ -880,7 +870,7 @@ def main() -> int:
                         "lanes_deflected": bent, "skip_share": shares}
     torch.cuda.synchronize()
     emit({"phase": "many_collider_det", "card": card, "n": 131072, "scenes": mc_res,
-          "rule": "the broad phase (every scene >= LOOP_MIN_COLLIDERS colliders) == the plain version without a skip, "
+          "rule": "the narrow phase with its broad phase == the plain version without a skip, "
                   "bit for bit over 10 U=1 and 4 U=2 launches; skip_share: the share of (warp, collider, substep) "
                   "tests collision.broad_phase_keep skips in a plain frame from the first frame's and the tenth's state"})
 
@@ -983,7 +973,7 @@ def main() -> int:
             sk, _o = fs.fused_step(csc.static, csc.params, table, st, fsc, unroll=2, stats=False)
             sp_, _o = plain_frames(csc.static, csc.params, st, fsc, 2, stats=False, colliders=table)
             compare(csc, sk, sp_, {k: 4 for k in active_f32_fields(csc.static)}, label,
-                    kernel="fused_step.collide_broad" if C >= L.LOOP_MIN_COLLIDERS else "fused_step.collide")
+                    kernel="fused_step.collide_broad" if C >= pcol.LOOP_MIN_COLLIDERS else "fused_step.collide")
             work = recorded_frame(csc, table, st, fsc)
             b2 = bound(plane_bytes_sc, 2 * (INTEGRATE_OPS * live + work["ops"]))
 
@@ -992,8 +982,7 @@ def main() -> int:
 
             row = {"colliders": C, "hulls": hulls, "live": live, "ms_per_frame": sc_differential(table, st, 100, 5),
                    "u2_kernel_device_ms": device_ms(f"{label} U=2", u2, 20, True, b2["bound_ms"]), "bound": b2,
-                   "skip_share": work["skip_share"], "broad_phase": work["broad_phase"],
-                   "tests_kept": work["tests_kept"], "tests": work["tests"], "launches": cnt}
+                   "skip_share": work["skip_share"], "tests_kept": work["tests_kept"], "tests": work["tests"], "launches": cnt}
             if C == 32 and not hulls:
                 row["plain_2_frames_device_ms"] = device_ms(f"{label} plain 2", lambda: plain_frames(
                     csc.static, csc.params, st, fsc, 2, stats=False, colliders=table), 1, False, b2["bound_ms"])
@@ -1132,8 +1121,42 @@ def main() -> int:
                "plain_reductions_ms": device_ms("stats plain reductions", lambda: stat_reductions(
                    cs_.static, cs_.params, kw, s.ptype, s.alive), 20, False, least_red),
                "live": stats_live, "n": n1m}
-    emit({"phase": "stats_det", "card": card, "n": n1m, "cases": stats_res, **stats_t,
-          "rule": "kernel stats row == the plain reductions of the launch's state by value; state bit-equal"})
+    # the Scene's size: the sparks flow's pool (2048 lanes, 750 live), the
+    # launch with the stats block beside the same launch without it
+    sk, ok = fs.fused_step(cs.static, cs.params, None, ss, fsp)
+    want = stat_reductions(cs.static, cs.params, {k: getattr(sk, k) for k in stats_keys}, sk.ptype, sk.alive)
+    for got, w in zip((ok.aabb_min, ok.aabb_max, ok.alive_count, ok.alive_count_per_type), want):
+        check(torch.equal(got, w), "stats_det sparks pool: stats row != the plain reductions")
+    sp_live, sp_planes = int(ss.alive.sum()), 2 * 4 * len(active_f32_fields(cs.static)) * ss.capacity
+    stats_t["sparks"] = {
+        "n": ss.capacity, "live": sp_live,
+        "ms": device_ms("stats sparks", lambda: fs.fused_step(cs.static, cs.params, None, ss, fsp), 20, True,
+                        bound(sp_planes, (INTEGRATE_OPS + STATS_OPS) * sp_live)["bound_ms"]),
+        "ms_without": device_ms("stats sparks without the block", lambda: fs.fused_step(
+            cs.static, cs.params, None, ss, fsp, stats=False), 20, True,
+            bound(sp_planes, INTEGRATE_OPS * sp_live)["bound_ms"])}
+    # float edges: a NaN position makes its axis's bounds NaN; -0, +0 and
+    # +-inf reduce as the plain reductions do (by value, NaN where NaN)
+    import torch_stats_configs as stats_cfg
+
+    edge_res = {}
+    for case in stats_cfg.EDGE_CASES:
+        ce, se, fe = stats_cfg.edge_pool(case, dev)
+        sk, ok = fs.fused_step(ce.static, ce.params, None, se, fe)
+        _sp, op = plain_frames(ce.static, ce.params, se, fe, 1)
+        want = dict(zip(("aabb_min", "aabb_max", "alive_count", "alive_count_per_type"), stat_reductions(
+            ce.static, ce.params, {k: getattr(sk, k) for k in stats_keys}, sk.ptype, sk.alive)))
+        for k, v in want.items():
+            check(stats_cfg.rows_equal(getattr(ok, k), v) and stats_cfg.rows_equal(getattr(ok, k), getattr(op, k)),
+                  f"stats_det edge {case}: {k} {getattr(ok, k).tolist()} != plain {v.tolist()}")
+        check((bool(torch.isnan(ok.aabb_min[0])) and bool(torch.isnan(ok.aabb_max[0]))) if case == "nan" else
+              (float(ok.aabb_max[1]) == math.inf and float(ok.aabb_min[2]) == -math.inf),
+              f"stats_det edge {case}: {ok.aabb_min.tolist()} {ok.aabb_max.tolist()}")
+        edge_res[case] = {"aabb_min": [str(v) for v in ok.aabb_min.tolist()],
+                          "aabb_max": [str(v) for v in ok.aabb_max.tolist()], "live": int(ok.alive_count)}
+    emit({"phase": "stats_det", "card": card, "n": n1m, "cases": stats_res, "edges": edge_res, **stats_t,
+          "rule": "kernel stats row == the plain reductions of the launch's state by value (edges: NaN where NaN, "
+                  "-0 == +0); state bit-equal; sparks: the Scene's pool size, with and without the block"})
 
     # ------------------------------------------------ 20. fields_1M
     from bevy_firework_tpu_torch.models import library
@@ -2330,6 +2353,14 @@ def main() -> int:
 
     csrc = "bevy_firework_tpu_torch/ops/csrc/"
 
+    def occupancy(pick):
+        """Registers and blocks per SM of the step kernel's instantiations
+        whose template arguments (ring, collide, fields, stats, merge,
+        fleet) `pick` takes, from the card line's report."""
+        return {r["kernel"][len("fused_step_kernel"):]: {"registers": r["registers"],
+                                                          "blocks_per_sm": r["blocks_per_sm"]}
+                for r in step_rows if pick(*r["args"])}
+
     def entry(name, replaces, key, ms, plain_ms, b, source="fused_step_kernel.cuh", **extra):
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces, "launches": total(key),
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, **extra}
@@ -2372,7 +2403,8 @@ def main() -> int:
               c1m["u2_kernel_device_ms"],
               c1m["plain_2_frames_device_ms"], c1m["bounds"]["u2"],
               u8_ms=c1m["u8_kernel_device_ms"], plain_u8_ms=c1m["plain_8_frames_device_ms"],
-              hull8_ms=h8["u2_kernel_device_ms"], hull8_plain_ms=h8["plain_2_frames_device_ms"]),
+              hull8_ms=h8["u2_kernel_device_ms"], hull8_plain_ms=h8["plain_2_frames_device_ms"],
+              occupancy=occupancy(lambda ring, collide, fields, stats, merge, fleet: collide)),
         entry("fused_step.collide_broad", "bevy_firework_tpu/ops/fused_step.py:452", ("broad", "fleet_broad"),
               h8["u2_kernel_device_ms"], h8["plain_2_frames_device_ms"], h8["bounds"]["u2"],
               also_replaces="bevy_firework_tpu/ops/fused_step.py:452-563 (the looped narrow phase and its broad "
@@ -2393,7 +2425,9 @@ def main() -> int:
               main_1M_ms=r1m["u8_kernel_device_ms"], also_replaces="bevy_firework_tpu/force_fields.py:197"),
         entry("fused_step.stats", "bevy_firework_tpu/ops/fused_step.py:1580", ("stats", "fleet_stats"), stats_t["ms"],
               stats_t["plain_ms"], stats_bound,
-              ms_without=stats_t["ms_without"], plain_reductions_ms=stats_t["plain_reductions_ms"]),
+              ms_without=stats_t["ms_without"], plain_reductions_ms=stats_t["plain_reductions_ms"],
+              sparks_ms=stats_t["sparks"]["ms"], sparks_ms_without=stats_t["sparks"]["ms_without"],
+              occupancy=occupancy(lambda ring, collide, fields, stats, merge, fleet: stats)),
         entry("fused_step.dump", "bevy_firework_tpu/ops/fused_step.py:1567", ("dump", "fleet_dump"), dump_t["ms"],
               dump_t["plain_ms"], dump_bound, ms_without=dump_t["ms_without"]),
         entry("nested_cadence", "bevy_firework_tpu/ops/fused_step.py:683", "nested_cadence",
@@ -2445,7 +2479,7 @@ def main() -> int:
                           "planes); collide: 1310720 lanes "
                           "stress_test_collision (collide_broad: hull8_1M, 8 hulls; scaling_*: "
                           "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
-                          "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test; dump: "
+                          "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test (sparks_*: 2048 lanes, 750 live); dump: "
                           "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
                           "nested_fold, nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: "
                           "nested_chained); fleet: "
@@ -2455,7 +2489,8 @@ def main() -> int:
                   "pack_render_f16 U=1 with the f16 record (u8_ms U=8; *_no_pack_ms the same launches without a "
                   "pack; plain: a plain frame and render.pack_render_planes(..., 'f16')), collide "
                   "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
-                  "stats U=1 with the stats block (ms_without: the same launch without it), dump U=1 with the dump "
+                  "stats U=1 with the stats block (ms_without: the same launch without it; sparks_*: at the "
+                  "sparks flow's 2048-lane pool), dump U=1 with the dump "
                   "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "
                   "scan + apply), nested_merge the hybrid step launch, nested_fold the hybrid step launch with the "
                   "fold epilogue (scan_apply_ms: the next frame's scan and apply pair; *_frame_ms: device time per frame "
@@ -2471,8 +2506,9 @@ def main() -> int:
                   "(step.stat_reductions, the CPU's stats); "
                   "*_wall_ms: CUDA-event wall time per call; bound_ms: the larger of bound_bytes over 3.35 TB/s "
                   "and bound_ops (f32, lower-bound counts; the narrow phase's from a recorded plain frame of the "
-                  "same state, its broad phase's skips included) over 67 TFLOP/s; the broad phase is a run-time "
-                  "branch of the collide instantiations (no new instantiation); library_ms: no single PyTorch call "
+                  "same state, its broad phase's skips included) over 67 TFLOP/s; collide and collide_broad are "
+                  "one function, counted by the JAX package's form (fewer than LOOP_MIN_COLLIDERS colliders, or "
+                  "more); library_ms: no single PyTorch call "
                   "computes these functions; every device time was held to its bound, a trace below it traced "
                   "again (trace_faults)",
         "trace_faults": trace_faults,

@@ -19,6 +19,7 @@ from bevy_firework_tpu_torch.ops import fused_step as fs
 from bevy_firework_tpu_torch.ops import table_layout as L
 from bevy_firework_tpu_torch.render import pack_render_planes
 from bevy_firework_tpu_torch.settings import ParticleCollisionSettings, ParticleEventHandlers
+from bevy_firework_tpu_torch.collision import LOOP_MIN_COLLIDERS
 from bevy_firework_tpu_torch.step import active_f32_fields, plain_frames, stat_reductions
 
 SCALARS = ("ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued", "alive", "ptype")
@@ -619,9 +620,10 @@ import torch_table_configs as table_cfg  # noqa: E402
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene", sorted(table_cfg.det_scenes()))
 def test_broad_phase_kernel_matches_plain(cuda, scene):
-    """From LOOP_MIN_COLLIDERS colliders the narrow phase skips, per warp and
-    substep, the colliders no active lane can reach: the kernel still
-    equals the plain version (every collider, no skip) bit for bit, single
+    """The narrow phase skips, per warp and substep, the colliders no active
+    lane can reach (at every count; the JAX package from
+    LOOP_MIN_COLLIDERS): the kernel still equals the plain version (every
+    collider, no skip) bit for bit, single
     and U = 2 launches, on the six-collider mix, on 33 and 64 mixed
     colliders (a quarter hulls, some disabled, lanes starting inside two)
     and on 200 read from global memory."""
@@ -880,3 +882,164 @@ def test_sharded_kernel_refuses_what_does_not_shard(cuda):
     c, _t, f = shard_cfg.config("det", cuda)
     with pytest.raises(ValueError):
         fs.fused_step(c.static, c.params, None, pt.init_pool_for(c, 100), f, shard=(50, 120, 0))
+
+
+# ---------------------------------------------------------------------------
+# kernel row 6's stats block (atomic commit into per-stream scratch) and
+# kernel row 3's two narrow-phase forms
+# ---------------------------------------------------------------------------
+
+import torch_stats_configs as stats_cfg  # noqa: E402
+
+STATS_KEYS = ("px", "py", "pz", "initial_scale", "age", "lifetime")
+
+
+def _stats_want(c, s):
+    """The plain reductions over a state: aabb_min, aabb_max, alive count,
+    per-type counts."""
+    return dict(zip(("aabb_min", "aabb_max", "alive_count", "alive_count_per_type"), stat_reductions(
+        c.static, c.params, {k: getattr(s, k) for k in STATS_KEYS}, s.ptype, s.alive)))
+
+
+def _stats_case(case, device):
+    """(compiled, pool, frames, launches) of a stats case: one tile, a ragged
+    tile count with three types, 1310720 lanes, nine types, or a 3-slot
+    fleet (stacked pools and frames)."""
+    f = pt.make_frame_input(1 / 60)
+    if case == "one_tile":
+        c = pt.compile_spawner(_box_spawner(rate=2e3), device=device)
+        return c, pt.init_pool_for(c, 256), f
+    if case == "ragged_three_types":
+        c = pt.compile_spawner(_three_type_spawner(), device=device)
+        return c, pt.init_pool_for(c, 100003), f
+    if case == "lanes_1310720":
+        c = pt.compile_spawner(_box_spawner(rate=3e6), device=device)
+        return c, pt.init_pool_for(c, 1310720), f
+    if case == "nine_types":
+        c = pt.compile_spawner(table_cfg.caps_spawner("types9"), device=device)
+        return c, pt.init_pool_for(c, 131072), f
+    from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools
+
+    c = pt.compile_spawner(_three_type_spawner(), device=device)
+    pools = [pt.init_pool_for(c, 65536, seed=i) for i in range(3)]
+    frames = [pt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(3)]
+    return c, stack_pools(pools), stack_frames(frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_tile", "ragged_three_types", "lanes_1310720", "nine_types", "fleet3"])
+def test_stats_row_matches_plain_reductions(cuda, case):
+    """The stats row (every block commits its row by atomics into the
+    stream's scratch; the last block decodes it and zeroes the scratch)
+    equals the plain reductions over the state the same launch wrote, for
+    every slot of a fleet, over launches in a row (each starts from the
+    scratch the last one left), U = 1 and U = 8."""
+    from bevy_firework_tpu_torch.parallel.sharding import state_slot
+
+    c, s, f = _stats_case(case, cuda)
+    fleet = case == "fleet3"
+    for u in [1] * 4 + [8, 1]:
+        if fleet:
+            s, ok = fs.fused_step_fleet(c.static, c.params, None, s, f, unroll=u)
+            rows = [(state_slot(s, i), {k: getattr(ok, k)[i] for k in (
+                "aabb_min", "aabb_max", "alive_count", "alive_count_per_type")}) for i in range(3)]
+        else:
+            s, ok = fs.fused_step(c.static, c.params, None, s, f, unroll=u)
+            rows = [(s, {k: getattr(ok, k) for k in ("aabb_min", "aabb_max", "alive_count", "alive_count_per_type")})]
+        for si, got in rows:
+            for k, v in _stats_want(c, si).items():
+                assert torch.equal(got[k], v), (u, k)
+    assert all(int(got["alive_count"]) > 0 for _s, got in rows)
+    assert int((ok.alive_count_per_type > 0).sum()) == (3 * c.num_types if fleet else c.num_types)
+
+
+@pytest.mark.cuda
+def test_stats_scratch_is_left_zero_between_launches(cuda):
+    """Two stats launches in a row on one stream from the same state give the
+    same row, and each leaves the stream's accumulator and ticket at 0."""
+    c = pt.compile_spawner(_three_type_spawner(), device=cuda)
+    s, _o = fs.multi_step_auto(c.static, c.params, None, pt.init_pool_for(c, 100003), pt.make_frame_input(1 / 60), 20)
+    f = pt.make_frame_input(1 / 60)
+    words = L.stats_words(c.num_types) + 1
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    rows = []
+    for _ in range(2):
+        _s, ok = fs.fused_step(c.static, c.params, None, s, f)
+        torch.cuda.synchronize()
+        assert not fs.stats_scratch(cuda, stream, words).any()
+        rows.append((ok.aabb_min, ok.aabb_max, ok.alive_count, ok.alive_count_per_type))
+    for a, b in zip(*rows):
+        assert torch.equal(a, b)
+    assert int(rows[0][2]) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", stats_cfg.EDGE_CASES)
+def test_stats_row_at_float_edges(cuda, case):
+    """A lane with a NaN position makes its axis's bounds NaN, as in the
+    plain reductions; lanes at -0 and +0 and at +-inf reduce to the plain
+    reductions' values (by value: -0 == +0)."""
+    c, s, f = stats_cfg.edge_pool(case, cuda)
+    sk, ok = fs.fused_step(c.static, c.params, None, s, f)
+    _sp, op = plain_frames(c.static, c.params, s, f, 1)
+    for k, v in _stats_want(c, sk).items():
+        assert stats_cfg.rows_equal(getattr(ok, k), v), k
+        assert stats_cfg.rows_equal(getattr(ok, k), getattr(op, k)), k
+    assert int(ok.alive_count) == 1500
+    if case == "nan":
+        assert bool(torch.isnan(ok.aabb_min[0])) and bool(torch.isnan(ok.aabb_max[0]))
+    else:
+        assert float(ok.aabb_max[1]) == math.inf and float(ok.aabb_min[2]) == -math.inf
+        assert float(ok.aabb_min[0]) == 0.0 == float(ok.aabb_max[0])
+
+
+def _eight_colliders():
+    """Every collider kind (SCENES["c7"]) and a second cuboid: C = 1..8 take the first C."""
+    return SCENES["c7"]() + [pt.Collider.cuboid((0.3, 0.3, 0.3), position=(0.0, 1.4, 0.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_colliders", range(1, 9))
+def test_narrow_phase_matches_plain_at_every_count(cuda, n_colliders):
+    """The narrow phase (its per-warp broad phase at every collider count;
+    the JAX package unrolls its tests below LOOP_MIN_COLLIDERS) equals the
+    plain version bit for bit at C = 1-8 colliders of all seven kinds,
+    single and U = 2 launches; the launches count by the reference's form."""
+    c = pt.compile_spawner(_box_spawner(), device=cuda)
+    table = pt.compile_colliders(_eight_colliders()[:n_colliders], device=cuda)
+    s = pt.init_pool_for(c, 131072)
+    before = (fs.fused_step.collide_launches, fs.fused_step.broad_launches)
+    s = _assert_kernel_equals_plain(c, table, s, pt.make_frame_input(1 / 60), [1] * 6 + [2] * 3)
+    looped = n_colliders >= LOOP_MIN_COLLIDERS
+    assert (fs.fused_step.collide_launches - before[0], fs.fused_step.broad_launches - before[1]) == (9, 9 * looped)
+    assert int(s.alive.sum()) > 40000
+
+
+def test_stats_scratch_is_kept_per_device_and_stream():
+    """The stats block's scratch: one zeroed buffer per (device, stream),
+    the same storage for later launches on that stream, another for another
+    stream, and a larger zeroed one when a launch needs more words."""
+    cpu = torch.device("cpu")
+    a = fs.stats_scratch(cpu, 11, 10)
+    assert a.shape == (10,) and a.dtype == torch.int32 and not a.any()
+    assert fs.stats_scratch(cpu, 11, 8).data_ptr() == a.data_ptr()
+    assert fs.stats_scratch("cpu", 11, 10).data_ptr() == a.data_ptr()
+    b = fs.stats_scratch(cpu, 12, 10)
+    assert b.data_ptr() != a.data_ptr()
+    a[3] = 5  # a launch left words set: the cache hands out what it holds
+    assert int(fs.stats_scratch(cpu, 11, 10)[3]) == 5
+    grown = fs.stats_scratch(cpu, 11, 40)
+    assert grown.shape == (40,) and not grown.any() and grown.data_ptr() != a.data_ptr()
+    assert fs.stats_scratch(cpu, 11, 10).data_ptr() == grown.data_ptr()
+
+
+def test_launch_counters_split_by_the_reference_form():
+    """The card's narrow phase has one form; its launches count as the JAX
+    package's looped form (`looped_form`) from LOOP_MIN_COLLIDERS colliders,
+    and none without colliders or colliding types."""
+    c = pt.compile_spawner(_box_spawner(), device="cpu")
+    tables = {n: pt.compile_colliders(_eight_colliders()[:n], device="cpu") for n in range(1, 9)}
+    assert [fs.looped_form(c.static, t) for t in tables.values()] == [n >= LOOP_MIN_COLLIDERS for n in tables]
+    assert not fs.looped_form(c.static, None)
+    free = pt.compile_spawner(_det_spawner(), device="cpu")
+    assert not fs.looped_form(free.static, tables[8])
