@@ -37,7 +37,10 @@
 //  * Blocks run concurrently, so nothing carries across them inside the
 //    kernel. The per-emitter cadence is scalar math whose values are the same
 //    for every block: thread 0 of each block recomputes it for all U
-//    sub-frames into shared memory (as every TPU tile recomputes it in SMEM).
+//    sub-frames into shared memory (as every TPU tile recomputes it in SMEM),
+//    from inputs that warp 0 stages first, one word per lane (the slot's
+//    frame row and seeds, each emitter's carry and its row's cadence words),
+//    so their load latencies overlap instead of chaining in thread 0.
 //    Scalar state is read from the *_in buffers and written once, by block 0
 //    thread 0, to distinct *_out buffers, so no block can read a value
 //    already advanced.
@@ -78,6 +81,18 @@
 //    them at its post-move position and adds them, weighted by its type's
 //    opt-in, to the type's acceleration before drag (the plain version's op
 //    order). A lane on a field's singular locus gets 0 from it by a select.
+//    The TPU unrolled its field loop on the static tuple of kinds; here the
+//    kinds are a run-time loop with a warp-uniform switch, and the block is
+//    bound by its instructions (IEEE sqrt and division, nine cosf per
+//    turbulence field, each record word a load): the values every lane
+//    computed alike (strength * active, 1 / radius) come packed in the
+//    record, whose rows are read by one 128-bit load each; a turbulence
+//    field computes an octave's three cosine arguments first and their
+//    cosines on a straight line (cos_fast: cosf's own fast path, written
+//    out with adds in place of its two conversions, for arguments below its
+//    slow path's bound), so the three chains overlap. The field
+//    instantiations keep the lane's fields in registers, at a cap of
+//    FIELD_MAX_REGISTERS.
 //  * Dump plane: u8, the last sub-frame's `alive after spawn && !survivor`
 //    gated by the type's destroyed handler; written when the launch passes
 //    it (dump archetypes step one frame per launch).
@@ -94,15 +109,16 @@
 //    is persistent scratch (one per stream in the wrapper) and a launch
 //    allocates and fills nothing for it. Integer max and sums are exact in
 //    any order, so the row equals the plain reductions.
-//  * Occupancy: a solo launch's grid is one resident wave of its
-//    instantiation (the SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-//    asked once per instantiation), its blocks striding the fixed tiles;
-//    registers are capped per instantiation (step_max_registers) so the
-//    main path and the ring stats run 4 blocks per SM and the narrow
-//    phase and the other stats 3 (1-2 before). Through the narrow phase
-//    and the field block only their inputs stay live: position and
-//    velocity ride their in/out registers and the lane's other ten fields
-//    wait in shared memory.
+//  * Occupancy: a launch's grid is one resident wave of its instantiation
+//    (the SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor, asked
+//    once per instantiation), its blocks striding the fixed tiles: a solo
+//    launch takes the wave, a fleet launch an equal share per slot.
+//    Registers are capped per instantiation (__maxnreg__ on the kernel) so
+//    the main path and the ring stats run 4 blocks per SM, and the field
+//    block, the narrow phase and the other stats 3. Through the narrow
+//    phase (and the field block beside the stats) only their inputs stay
+//    live: position and velocity ride their in/out registers and the lane's
+//    other ten fields wait in shared memory.
 //  * Nested merge (hybrid frames, U = 1): the nested stage's kernels leave
 //    each valid nested emitter's children by rank in a child-row buffer and
 //    its claim window (start, n) in a device record. Before the global
@@ -142,8 +158,11 @@
 //    the three are run-time values of every solo instantiation. Fleet and
 //    merge launches stay unsharded (the JAX package's :1828-1829).
 //  * Fleets (kernel row 7): the slot is blockIdx.y and a block never spans
-//    two slots. Each slot reads its own table (tab_stride apart, or one
-//    shared), scalars, frame row, field records and seeds, and offsets
+//    two slots. The TPU's grid (S, tiles) ran one tile per grid step; here
+//    the slots share one resident wave (wave / S blocks each, striding the
+//    slot's tiles), so a block runs the prologue once for several tiles.
+//    Each slot reads its own table (tab_stride apart, or one shared),
+//    scalars, frame row, field records and seeds, and offsets
 //    every plane by slot * n; Philox counts the lane within the slot and
 //    uses the slot's seed, the dead-rank offsets restart at each slot, and
 //    each slot's stats rows have their own ticket and output row. So slot
@@ -535,6 +554,16 @@ __global__ void __launch_bounds__(TILE) nested_child_rows_kernel(const int* __re
   }
 }
 
+// The field block's cos_fast against CUDA's cosf on every float whose bits
+// lie in [lo, lo + n) and whose magnitude is below COS_FAST_BOUND: each
+// mismatch adds one to *bad.
+__global__ void __launch_bounds__(TILE) cos_fast_sweep_kernel(uint32_t lo, uint32_t n, unsigned long long* bad) {
+  for (uint32_t k = blockIdx.x * blockDim.x + threadIdx.x; k < n; k += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(lo + k);
+    if (fabsf(x) < COS_FAST_BOUND && __float_as_uint(cos_fast(x)) != __float_as_uint(cosf(x))) atomicAdd(bad, 1ull);
+  }
+}
+
 // Blocks of `kernel` that fill the current device once at `smem` bytes of
 // dynamic shared memory: its SMs times the blocks of TILE threads resident
 // on one (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once per
@@ -722,14 +751,16 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  // a solo launch: one resident wave of the instantiation, tile-striding
-  // beyond it; a fleet launch: at most MAX_BLOCKS per slot
+  // one resident wave of the instantiation, its blocks striding the tiles:
+  // a solo launch takes the whole wave, a fleet launch an equal share per
+  // slot (at least one block; a launch holds at most SEED_WORDS slots)
   long long blocks = ((long long)n + TILE - 1) / TILE;
-  int wave = MAX_BLOCKS;
-  if (!fleet) {
+  int wave = 0;
+  {
     cudaError_t err = resident_wave(kernel, smem, &wave);
     if (err != cudaSuccess) return (int)err;
   }
+  if (fleet) wave = wave / n_slots > 1 ? wave / n_slots : 1;
   if (blocks > wave) blocks = wave;
   const int* tab = (const int*)tables;
   void* params[] = {(void*)&tab, (void*)&a};
@@ -872,6 +903,14 @@ int bf_step_occupancy(int ring, int collide, int fields, int stats, int merge, i
   int per_sm = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, (size_t)smem_bytes);
   return err == cudaSuccess ? per_sm : -(int)err;
+}
+
+// cos_fast_sweep_kernel over the float bits [lo, lo + n) on `stream`,
+// adding its mismatches to *bad (one u64 on the device). Returns the
+// cudaError_t of the launch.
+int bf_cos_fast_mismatches(uint32_t lo, uint32_t n, void* bad, void* stream) {
+  cos_fast_sweep_kernel<<<MAX_BLOCKS, TILE, 0, (cudaStream_t)stream>>>(lo, n, (unsigned long long*)bad);
+  return (int)cudaGetLastError();
 }
 
 const char* bf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -278,7 +278,9 @@ def kernel_colliders(colliders: ColliderTable) -> torch.Tensor:
 def pack_fields(table) -> np.ndarray:
     """The kernel's force-field records (int32 words, f32 values stored
     bitwise): one FF_STRIDE record per field at the slots `table_layout`
-    names, from the table's host rows."""
+    names, from the table's host rows, with the lane-invariant factors of
+    `force_fields.field_accel` (strength * active, 1 / radius) rounded in
+    f32 as the plain version rounds them."""
     words = np.zeros(table.count * L.FF_STRIDE, np.int32)
     fl = words.view(np.float32)
     rows = table.rows
@@ -289,6 +291,8 @@ def pack_fields(table) -> np.ndarray:
         fl[at + L.FF_AXIS:at + L.FF_AXIS + 3] = rows["axis"][i]
         fl[at + L.FF_PARAMS:at + L.FF_PARAMS + 4] = rows["params"][i]
         fl[at + L.FF_ACTIVE] = rows["active"][i]
+        fl[at + L.FF_STRENGTH] = rows["params"][i, 0] * rows["active"][i]
+        fl[at + L.FF_INV_RADIUS] = np.float32(1.0) / rows["params"][i, 1]
     return words
 
 
@@ -299,6 +303,32 @@ def kernel_fields(table) -> torch.Tensor:
     if "_kernel_fields" not in table.__dict__:
         table.__dict__["_kernel_fields"] = upload(torch.from_numpy(pack_fields(table)), table.device)
     return table.__dict__["_kernel_fields"]
+
+
+# the floats of magnitude below the field block's cos_fast bound: the bit
+# patterns [0, COS_FAST_BITS) on either sign
+COS_FAST_BITS = int(np.float32(L.COS_FAST_BOUND).view(np.uint32))
+
+
+def cos_fast_mismatches(device="cuda") -> int:
+    """How many floats below the field block's cos_fast bound (both signs,
+    2 * COS_FAST_BITS of them) its cos_fast maps to other bits than CUDA's
+    cosf (`bf_cos_fast_mismatches` on the card): 0 when the turbulence's
+    straight-line cosines are cosf's own. Needs a CUDA device; the field
+    block's plain version has no such split."""
+    from . import _build
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("cos_fast_mismatches compares two CUDA device functions: it needs a CUDA device")
+    lib = _build.load()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for lo in (0, 0x80000000):
+        rc = lib.bf_cos_fast_mismatches(lo, COS_FAST_BITS, bad.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"cos_fast sweep failed to launch: {lib.bf_error_string(rc).decode()}")
+    return int(bad.item())
 
 
 def stats_from_row(static: SpawnerStatic, row: torch.Tensor):

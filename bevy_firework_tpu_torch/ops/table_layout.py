@@ -19,6 +19,8 @@ and states no value.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .. import colliders, collision, compiled, curve, emission_shape, force_fields
 
 MAX_U = 8  # sub-frames per launch
@@ -134,12 +136,19 @@ SUBSTEPS = collision.SUBSTEPS
 SMEM_COLLIDER_WORDS = 12 * 1024
 
 # ---- force-field records (device buffer; int32 words, f32 bitwise): one per field ----
-FF_STRIDE = 12  # words per field
+# Four rows of 4 words (16 bytes, aligned): the kernel reads a row with one
+# 128-bit load, a field's kind-specific words in one row each
+FF_STRIDE = 16  # words per field
 FF_KIND = 0  # FIELD_* kind (int)
-FF_POS = 1  # 3 words
-FF_AXIS = 4  # 3 words, unit
-FF_PARAMS = 7  # 4 words: strength, radius, frequency, phase
-FF_ACTIVE = 11  # 1.0 live, 0.0 disabled
+# the values every lane of a field computed alike, computed once by the
+# packer in f32 (numpy's f32 product and quotient round as the card's IEEE
+# ops do, so the kernel reads the bits it would compute)
+FF_STRENGTH = 1  # strength * active
+FF_INV_RADIUS = 2  # 1 / radius
+FF_ACTIVE = 3  # 1.0 live, 0.0 disabled
+FF_POS = 4  # 3 words
+FF_AXIS = 8  # 3 words, unit
+FF_PARAMS = 12  # 4 words: strength, radius, frequency, phase
 # records staged in shared memory up to this many words (256 fields); more
 # are read from global memory
 SMEM_FIELD_WORDS = 256 * FF_STRIDE
@@ -197,15 +206,31 @@ def slot_words(num_fields: int) -> int:
 # SEED_WORDS // U slots, and a larger fleet launches in chunks of that many.
 SEED_WORDS = 128
 
+# ---- the step's prologue: each emitter's cadence words (EMC_* of
+# EMC_WORDS), staged in shared memory by warp 0 for thread 0's cadence ----
+EMC_MODE, EMC_PACING, EMC_COUNT, EMC_DURATION, EMC_OFF_START, EMC_OFF_END = range(6)
+EMC_WORDS = 6
+
 # ---- launch geometry ----
-# blocks per slot of a fleet launch and of the claim's and nested passes'
-# kernels, which tile-stride beyond it (a solo step launch takes one
-# resident wave of its instantiation, asked of the card)
+# blocks per slot of the claim's and nested passes' kernels, which
+# tile-stride beyond it (a step launch takes one resident wave of its
+# instantiation, asked of the card: a solo launch the whole wave, a fleet
+# launch an equal share per slot)
 MAX_BLOCKS = 132 * 8
 DEFAULT_SMEM_BYTES = 48 * 1024  # dynamic shared memory a launch takes without the opt-in attribute
+# the field block's instantiations (without the narrow phase): their
+# register cap (three blocks of TILE threads per SM)
+FIELD_MAX_REGISTERS = 80
+
+# CUDA's cosf leaves its fast path from this magnitude on (its SASS: a
+# branch to a Payne-Hanek reduction); the field block's straight-line
+# cosine (cos_fast) takes the arguments below it
+COS_FAST_BOUND = 105615.0
 
 assert NS_EMITTER < NS_STRIDE and EM_TARGET < EM_STRIDE and TY_DUMP < TY_STRIDE and H_CV_AT < HEADER_WORDS
-assert CO_RADIUS < CO_STRIDE and TILE % 32 == 0 and FF_ACTIVE < FF_STRIDE
+assert CO_RADIUS < CO_STRIDE and TILE % 32 == 0 and FF_PARAMS + 4 == FF_STRIDE
+assert FF_KIND % 4 == 0 and FF_STRENGTH == FF_KIND + 1 and FF_INV_RADIUS == FF_KIND + 2
+assert FF_POS % 4 == 0 and FF_AXIS % 4 == 0 and FF_PARAMS % 4 == 0 and SL_FIELDS % 4 == 0
 assert SL_FRAME + FRAME_WORDS <= SL_FIELDS and SEED_WORDS >= MAX_U
 
 
@@ -225,18 +250,23 @@ def float_constants() -> dict:
     """The f32 constants shared with the plain versions: the narrow phase's
     miss distance and division guard and the broad phase's reach factor and
     margin (`collision`), the force fields' singular-locus guard
-    (`force_fields`)."""
+    (`force_fields`); and the field block's cos_fast bound."""
     return {"COLLISION_BIG": collision.BIG, "COLLISION_EPS": collision.EPS, "REACH_SCALE": collision.REACH_SCALE,
-            "REACH_MARGIN": collision.REACH_MARGIN, "FIELD_EPS": force_fields.EPS}
+            "REACH_MARGIN": collision.REACH_MARGIN, "FIELD_EPS": force_fields.EPS, "COS_FAST_BOUND": COS_FAST_BOUND}
 
 
 def array_constants() -> dict:
     """f32 tables shared with the plain versions, flattened in C order: the
     turbulence basis (`force_fields`: [octave][component][axis] directions,
-    [octave][component] phases, [octave] amplitudes)."""
+    [octave][component] phases) and its directions scaled by their octave's
+    amplitude. The amplitudes are powers of two, so each scaled direction
+    is exact, and the kernel's cos * (amp * dir) rounds as the plain
+    version's (amp * cos) * dir."""
+    amp = force_fields.TURB_AMP
+    assert all(float(a) == 2.0 ** round(np.log2(float(a))) for a in amp), "turbulence amplitudes: powers of two"
     return {"TURB_DIRS": [float(v) for v in force_fields.TURB_DIRS.reshape(-1)],
             "TURB_PHASE": [float(v) for v in force_fields.TURB_PHASE.reshape(-1)],
-            "TURB_AMP": [float(v) for v in force_fields.TURB_AMP.reshape(-1)]}
+            "TURB_AMP_DIRS": [float(v) for v in (amp[:, None, None] * force_fields.TURB_DIRS).reshape(-1)]}
 
 
 def header() -> str:

@@ -16,17 +16,25 @@ time; then the host functions that take most of an 8-frame call
 
 With --launch it prints only device times per launch (stats off, as
 chip_smoke.py's `*_kernel_device_ms`, unless named), one JSON line per
-group that --only names (all by default): `kernels`, ptxas's registers
-and spills per kernel and each step-kernel instantiation's resident blocks
-per SM; `main`, the main path's U = 8 launch at both sizes; `stats`, kernel
-row 6: the U = 1 launch with and without the stats block at main_1M's
-state and at the sparks pool (2048 lanes); `cells`, the fleet's U = 8
-launch (fleet_16x55k), the fleet's U = 2 collision launch (16 slots of
-stress_test_collision), the U = 2 and U = 8 launches of the collision cells
-(collision_1M and hull8_1M: stress_test_collision at 1M live against its
-two cuboids and against bench.py's 8 hulls) and the unfolded hybrid step
-launch of nested_60k (bench.py's nested cell after 150 frames); `scaling`,
-kernel row 3 below LOOP_MIN_COLLIDERS: the U = 2 launch against
+group that --only names (all by default): `kernels`, ptxas's registers,
+stack frame and spills per kernel, each step-kernel instantiation's
+resident blocks per SM and its SASS instruction count (cuobjdump), and
+the field and fleet instantiations' rows at a glance (`fields_fleet`);
+`main`, the main path's U = 8 launch at both sizes; `stats`, kernel row 6:
+the U = 1 launch with and without the stats block at main_1M's state and
+at the sparks pool (2048 lanes); `fleet`, kernel row 7: fleet_16x55k's U =
+8 launch and its U = 1 launch with stats, the fleet's U = 2 collision
+launch (16 slots of stress_test_collision), a field fleet's U = 8 launch
+(16 slots of dust under the tornado's fields) and a dead-rank fleet's U =
+1 launch (3 slots of 1310720 lanes, stats and the dump plane); `fields`,
+kernel row 5: fields_1M's U = 8 launch at its state under the tornado's
+three fields, under each alone and under none, and the share of warps a
+per-warp cull of each field could skip; `cells`, the U = 2 and U = 8
+launches of the collision cells (collision_1M and hull8_1M:
+stress_test_collision at 1M live against its two cuboids and against
+bench.py's 8 hulls) and the unfolded hybrid step launch of nested_60k
+(bench.py's nested cell after 150 frames); `scaling`, kernel row 3 below
+LOOP_MIN_COLLIDERS: the U = 2 launch against
 tools/collider_scaling_tpu.py's scenes at C = 1, 2, 4 and collision_1M.
 With --flows it prints one JSON line of the solo path's end-to-end times:
 main_100k and main_1M ms/frame and the tornado and fireworks flows' ms per
@@ -225,15 +233,15 @@ def scaling_ms(calls: int = 20, traces: int = 3) -> dict:
 def ptxas_summary(report: str) -> list:
     """Per kernel of ptxas's report: its name (the step kernel's template
     arguments ring, collide, fields, stats, merge, fleet spelled out, and
-    `args` those six as ints), registers, stack, spill bytes and shared
-    memory."""
+    `args` those six as ints), its mangled `symbol`, registers, stack,
+    spill bytes and shared memory."""
     import re
 
     out = []
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"'(\S+)'", block).group(1)
         t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
-        row = {}
+        row = {"symbol": name}
         if t:
             name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
             row["args"] = [int(v) for v in t.groups()]
@@ -248,16 +256,50 @@ def ptxas_summary(report: str) -> list:
     return out
 
 
-def kernel_report() -> list:
+# opcodes whose counts `sass_counts` reports beside each kernel's total
+SASS_OPCODES = ("MUFU", "BRA", "CALL", "LDS", "LDG", "FFMA", "FMUL", "FADD")
+
+
+def sass_counts(library) -> dict:
+    """Per kernel symbol of the built library's SASS (`cuobjdump -sass`,
+    from nvcc's directory): its instructions (NOPs left out) and the counts
+    of SASS_OPCODES among them."""
+    import re
+    from pathlib import Path
+
+    from bevy_firework_tpu_torch.ops import _build
+
+    dump = subprocess.run([str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=600, check=True).stdout
+    out, row = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            row = out.setdefault(m.group(1), {"instructions": 0, **{k: 0 for k in SASS_OPCODES}})
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and row is not None and m.group(1) != "NOP":
+            row["instructions"] += 1
+            if m.group(1) in row:
+                row[m.group(1)] += 1
+    return out
+
+
+def kernel_report(sass: bool = False) -> list:
     """`ptxas_summary` of the imported tree's kernel library (built if
     missing), with each step-kernel instantiation's resident blocks of 256
     threads per SM at no dynamic shared memory: asked of the card
     (`bf_step_occupancy`, `blocks_per_sm_from` "card") where the library
     exports it, else from its registers and static shared memory alone
-    ("registers")."""
+    ("registers"); with `sass`, each kernel's `sass_counts`."""
     from bevy_firework_tpu_torch.ops import _build
 
     rows = ptxas_summary(_build.ptxas_report())
+    counts = sass_counts(_build.build()) if sass else {}
+    for row in rows:
+        symbol = row.pop("symbol")
+        if sass:
+            row["sass"] = counts.get(symbol)
     occupancy = getattr(_build.load(), "bf_step_occupancy", None)
     for row in rows:
         if "args" not in row:
@@ -290,33 +332,33 @@ def launch_ms(rate: float, capacity: int, calls: int = 50, traces: int = 3) -> d
     return {"rate": rate, "capacity": capacity, "live": int(out.alive_count), "u8_kernel_device_ms": ms, "traces": per}
 
 
-def cells_ms(calls: int = 20, traces: int = 3) -> dict:
-    """Device time per launch (stats off) of the fleet's U = 8 launch of
-    fleet_16x55k (stress_test at 55000/s, 16 slots of 65536 lanes), of the
-    fleet's U = 2 launch of stress_test_collision at 31250/s in 16 slots of
-    65536 lanes against its two cuboids (the fleet's narrow phase), of
-    one U = 2 and one U = 8 launch of stress_test_collision at 5e5/s,
-    capacity 1310720, against its two cuboids and against bench.py's 8
-    hulls (a 6-plane floor and 7 tetrahedra), each after a 140-frame
-    chain, and of nested_60k's step launch in an unfolded hybrid frame
-    (bench.py's `_measure_nested` spawner, capacity 131072, nested_buffer
-    1024, after 150 frames)."""
+def fleet_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Kernel row 7: device time per launch (stats off unless named) of the
+    fleet's launches: fleet_16x55k (stress_test at 55000/s, 16 slots of
+    65536 lanes, after a 140-frame multi_step_fleet chain) at U = 8 and at
+    U = 1 with the stats block; the fleet's U = 2 launch of
+    stress_test_collision at 31250/s in 16 slots of 65536 lanes against its
+    two cuboids (the fleet's narrow phase); a field fleet (library.dust at
+    30000/s in 16 slots of 65536 lanes, each under the tornado's three
+    fields about its own centre, after 140 frames) at U = 8; and the
+    dead-rank fleet (tests/torch_fleet_configs.py's destroy_dump case at
+    3 slots of 1310720 lanes, after 12 frames) at U = 1 with the stats
+    block and the dump plane, its claim's count and scan kernels not
+    counted."""
+    import sys
+    from pathlib import Path
+
     import bevy_firework_tpu_torch as bt
-    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.models import effects, library
     from bevy_firework_tpu_torch.ops import fused_step as fs
     from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools
     from bevy_firework_tpu_torch.settings import EmissionPacing
 
-    f = bt.make_frame_input(1 / 60)
-    sp, _tf = effects.stress_test()
-    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(55000.0))
-    c16 = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
-    st = stack_pools([bt.init_pool_for(c16, 65536, seed=i) for i in range(16)])
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
+    import torch_fleet_configs as fleet_cfg
+
+    res = fleet16_ms(calls, traces)
     fr = stack_frames([bt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(16)])
-    st, _o = fs.multi_step_fleet(c16.static, c16.params, None, st, fr, 140)
-    ms, per = launch_device_ms(lambda: fs.fused_step_fleet(c16.static, c16.params, None, st, fr, unroll=8,
-                                                           stats=False), calls, traces)
-    res = {"fleet_16x55k": {"u8_fleet_kernel_device_ms": ms, "u8_traces": per}}
     sp, _tf, cuboids = effects.stress_test_collision()
     es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(31250.0))
     cf = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
@@ -326,6 +368,138 @@ def cells_ms(calls: int = 20, traces: int = 3) -> dict:
     ms, per = launch_device_ms(lambda: fs.fused_step_fleet(cf.static, cf.params, table, st, fr, unroll=2,
                                                            stats=False), calls, traces)
     res["fleet_collision_16x65k"] = {"u2_fleet_kernel_device_ms": ms, "u2_traces": per}
+    cd = bt.compile_spawner(library.dust(rate=30000.0, lifetime=4.0, updraft=2.5, drag=2.0, emit_radius=1.2),
+                            device="cuda")
+    frd = stack_frames([bt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0), force_fields=bt.compile_force_fields(
+        tornado_fields(float(i), 0.0), device="cuda")) for i in range(16)])
+    st = stack_pools([bt.init_pool_for(cd, 65536, seed=i) for i in range(16)])
+    st, out = fs.multi_step_fleet(cd.static, cd.params, None, st, frd, 140)
+    ms, per = launch_device_ms(lambda: fs.fused_step_fleet(cd.static, cd.params, None, st, frd, unroll=8,
+                                                           stats=False), calls, traces)
+    res["fleet_fields_16x65k"] = {"live": int(out.alive_count.sum()), "u8_fleet_kernel_device_ms": ms,
+                                  "u8_traces": per}
+    static, params, col, pools, frames, _u, _p = fleet_cfg.build("destroy_dump", "cuda", 1310720)
+    st, frs = fleet_cfg.stacked(pools, frames)
+    for _ in range(12):
+        st, out = fs.fused_step_fleet(static, params, col, st, frs)
+    ms, per = launch_device_ms(lambda: fs.fused_step_fleet(static, params, col, st, frs), calls, traces)
+    res["fleet_dead_rank_3x1M"] = {"live": out.alive_count.tolist(), "u1_stats_fleet_kernel_device_ms": ms,
+                                   "u1_traces": per}
+    return res
+
+
+def fleet16_ms(calls: int = 20, traces: int = 3) -> dict:
+    """fleet_16x55k's U = 8 launch (stats off) and U = 1 launch with the
+    stats block: `fleet_ms`'s first cell, alone so that it can time a tree
+    older than the rest of that group."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(55000.0))
+    c16 = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    st = stack_pools([bt.init_pool_for(c16, 65536, seed=i) for i in range(16)])
+    fr = stack_frames([bt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(16)])
+    st, _o = fs.multi_step_fleet(c16.static, c16.params, None, st, fr, 140)
+    ms, per = launch_device_ms(lambda: fs.fused_step_fleet(c16.static, c16.params, None, st, fr, unroll=8,
+                                                           stats=False), calls, traces)
+    ms1, per1 = launch_device_ms(lambda: fs.fused_step_fleet(c16.static, c16.params, None, st, fr), calls, traces)
+    return {"fleet_16x55k": {"u8_fleet_kernel_device_ms": ms, "u8_traces": per,
+                             "u1_stats_fleet_kernel_device_ms": ms1, "u1_stats_traces": per1}}
+
+
+def tornado_fields(x: float = 0.0, z: float = 0.0) -> list:
+    """examples/force_fields.py's funnel: a vortex and an axial field about
+    the vertical line through (x, 0, z), and turbulence about (0, 2, 0)."""
+    import bevy_firework_tpu_torch as bt
+
+    return [bt.ForceField.vortex((x, 0.0, z), (0.0, 1.0, 0.0), strength=12.0, radius=6.0),
+            bt.ForceField.axial((x, 0.0, z), (0.0, 1.0, 0.0), strength=25.0, radius=7.0),
+            bt.ForceField.turbulence((0.0, 2.0, 0.0), strength=1.8, radius=8.0, frequency=2.2)]
+
+
+def field_zero_warps(fields: list, state) -> dict:
+    """Per field of `fields`, the share of warps (32 consecutive lanes) with
+    a live lane in which every live lane of `state` gets 0 from it: w == 0
+    at a finite distance (the f32 ops of `force_fields.field_accel`), so
+    its term is +-0 and a per-warp cull could skip it. `state` is a frame's
+    output: its live lanes are the frame's survivors at their post-move
+    positions, where the field block evaluated them."""
+    import torch
+
+    live = state.alive
+    groups = -(-live.shape[0] // 32)
+    pad = groups * 32 - live.shape[0]
+    live_g = torch.cat([live, live.new_zeros(pad)]).view(groups, 32)
+    any_live = live_g.any(1)
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=live.device)
+
+    out = {}
+    for i, fld in enumerate(fields):
+        rx, ry, rz = state.px - f32(fld.position[0]), state.py - f32(fld.position[1]), state.pz - f32(fld.position[2])
+        if fld.kind in (1, 2):  # FIELD_VORTEX, FIELD_AXIAL: distance to the axis line
+            ux, uy, uz = (f32(v) for v in fld.axis)
+            tx, ty, tz = uy * rz - uz * ry, uz * rx - ux * rz, ux * ry - uy * rx
+            d = torch.sqrt(tx * tx + ty * ty + tz * tz)
+        else:
+            d = torch.sqrt(rx * rx + ry * ry + rz * rz)
+        w = torch.clamp_min(1.0 - d * (f32(1.0) / f32(fld.radius)), 0.0)
+        zero = (w == 0) & torch.isfinite(d)
+        zero_g = torch.cat([zero | ~live, zero.new_ones(pad)]).view(groups, 32).all(1) & any_live
+        out[f"{i}:{('point', 'vortex', 'axial', 'turbulence')[fld.kind]}"] = float(zero_g.sum()) / max(
+            int(any_live.sum()), 1)
+    return out
+
+
+def fields_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Kernel row 5: device time per launch (stats off) of fields_1M's U = 8
+    launch (chip_smoke.py's phase 20: library.dust at 3e5/s, lifetime 4 s,
+    capacity 1310720, after a 300-frame multi_step_auto chain under
+    examples/force_fields.py's three fields) at that state: under the three
+    fields, under each alone, and under none (the main-path instantiation);
+    and `field_zero_warps` of one plain frame from that state."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import library
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.step import plain_frames
+
+    c = bt.compile_spawner(library.dust(rate=3e5, lifetime=4.0, updraft=2.5, drag=2.0, emit_radius=1.2),
+                           device="cuda")
+    tornado = tornado_fields(0.0, 0.0)
+    f3 = bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(tornado, device="cuda"))
+    s, out = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, 160 * 8192, seed=0), f3, 300)
+    res = {"capacity": 160 * 8192, "live": int(out.alive_count)}
+    sets = {"three": tornado, "vortex": tornado[:1], "axial": tornado[1:2], "turbulence": tornado[2:], "none": None}
+    for label, fields in sets.items():
+        fr = bt.make_frame_input(1 / 60, force_fields=None if fields is None else bt.compile_force_fields(
+            fields, device="cuda"))
+        ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, None, s, fr, unroll=8, stats=False),
+                                   calls, traces)
+        res[label] = {"u8_kernel_device_ms": ms, "u8_traces": per}
+    s1, _o = plain_frames(c.static, c.params, s, f3, 1, stats=False)
+    res["zero_warp_share"] = field_zero_warps(tornado, s1)
+    return res
+
+
+def cells_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Device time per launch (stats off) of one U = 2 and one U = 8 launch
+    of stress_test_collision at 5e5/s, capacity 1310720, against its two
+    cuboids and against bench.py's 8 hulls (a 6-plane floor and 7
+    tetrahedra), each after a 140-frame chain, and of nested_60k's step
+    launch in an unfolded hybrid frame (bench.py's `_measure_nested`
+    spawner, capacity 131072, nested_buffer 1024, after 150 frames)."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    f = bt.make_frame_input(1 / 60)
+    sp, _tf, cuboids = effects.stress_test_collision()
+    res = {}
     hulls = [bt.Collider.hull([(1, 0, 0, 60.0), (-1, 0, 0, 60.0), (0, 1, 0, 1.0), (0, -1, 0, 1.0), (0, 0, 1, 60.0),
                                (0, 0, -1, 60.0)], position=(0.0, -1.5, 0.0))]
     hulls += [bt.Collider.hull_from_points([(0, 0, 0), (2.0, 0, 0), (0, 2.5, 0), (0, 0, 2.0)],
@@ -418,12 +592,7 @@ def flows_ms(windows: int = 3) -> dict:
         return {"live": sc.alive_count(), "ms_per_scene_step": statistics.median(per), "min": min(per),
                 "windows": per}
 
-    def fields(x, z):
-        return [bt.ForceField.vortex((x, 0.0, z), (0.0, 1.0, 0.0), strength=12.0, radius=6.0),
-                bt.ForceField.axial((x, 0.0, z), (0.0, 1.0, 0.0), strength=25.0, radius=7.0),
-                bt.ForceField.turbulence((0.0, 2.0, 0.0), strength=1.8, radius=8.0, frequency=2.2)]
-
-    tornado = bt.Scene(force_fields=fields(0.0, 0.0), device="cuda")
+    tornado = bt.Scene(force_fields=tornado_fields(0.0, 0.0), device="cuda")
     tornado.add_spawner(library.dust(updraft=2.5, drag=2.0, emit_radius=1.2), capacity=8192)
 
     def wander(f):
@@ -473,12 +642,22 @@ def main():
         if unknown:
             ap.error(f"unknown --only groups {sorted(unknown)}")
         if "kernels" in groups:
-            put({"kernels": kernel_report()})
+            rows = kernel_report(sass=True)
+            # the field and fleet instantiations at a glance: registers,
+            # stack frame, spills, blocks per SM and SASS instructions
+            put({"kernels": rows, "fields_fleet": [
+                {k: r[k] for k in ("kernel", "registers", "stack", "spill_stores", "spill_loads", "blocks_per_sm")}
+                | {"sass_instructions": (r["sass"] or {}).get("instructions")}
+                for r in rows if "args" in r and (r["args"][2] or r["args"][5])]})
         if "main" in groups:
             for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
                 put(launch_ms(rate, cap))
         if "stats" in groups:
             put({"stats": stats_ms()})
+        if "fleet" in groups:
+            put({"fleet": fleet_ms()})
+        if "fields" in groups:
+            put({"fields": fields_ms()})
         if "cells" in groups:
             put({"cells": cells_ms()})
         if "scaling" in groups:
@@ -492,7 +671,7 @@ def main():
 
 
 # --launch's groups, in the order they run
-LAUNCH_GROUPS = ("kernels", "main", "stats", "cells", "scaling")
+LAUNCH_GROUPS = ("kernels", "main", "stats", "fleet", "fields", "cells", "scaling")
 
 
 if __name__ == "__main__":

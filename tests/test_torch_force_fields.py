@@ -91,6 +91,53 @@ def test_field_accel_matches_jax(kind):
     assert np.abs(want).max() > 0.5  # the fields act on these lanes
 
 
+def _tornado(pkg, x=0.0, z=0.0):
+    """examples/force_fields.py's funnel (chip_smoke.py's fields_1M cell)."""
+    F = pkg.ForceField
+    return [F.vortex((x, 0.0, z), (0.0, 1.0, 0.0), strength=12.0, radius=6.0),
+            F.axial((x, 0.0, z), (0.0, 1.0, 0.0), strength=25.0, radius=7.0),
+            F.turbulence((0.0, 2.0, 0.0), strength=1.8, radius=8.0, frequency=2.2)]
+
+
+@pytest.mark.parametrize("centre", [(0.0, 0.0), (0.8, -0.55)])
+def test_field_accel_matches_jax_on_the_tornado(centre):
+    """The tornado's three fields (centred, and moved as examples/
+    force_fields.py moves them) on 8192 positions where its dust lives, a
+    cylinder about the axis reaching past the fields' radii (numpy seed):
+    the port's plain field_accel against the JAX package's, within 1e-5 of
+    the acceleration's scale (the turbulence's cos arguments and XLA's
+    contracted products part by a few ulp)."""
+    rng = np.random.default_rng(11)
+    r, a = rng.uniform(0.0, 9.0, 8192), rng.uniform(0.0, 2.0 * np.pi, 8192)
+    p = np.stack([r * np.cos(a), rng.uniform(-1.0, 11.0, 8192), r * np.sin(a)], 1).astype(np.float32)
+    jt, table = _tables(lambda pkg: _tornado(pkg, *centre))
+    want, got = _jax_accel(jt, p), _port_accel(table, p)
+    np.testing.assert_allclose(got, want, atol=1e-5 * float(np.abs(want).max()), rtol=1e-6)
+    assert np.abs(want).max() > 5.0 and (np.abs(want).sum(1) == 0).any()  # inside and past the radii
+
+
+def test_packed_lane_invariants_are_the_plain_f32_values():
+    """pack_fields' FF_STRENGTH and FF_INV_RADIUS words hold the f32 bits of
+    strength * active and of 1 / radius, the values field_accel computes for
+    every lane (the kernel reads them in place of computing them), for
+    live and disabled fields of every kind and radii that do not divide
+    evenly."""
+    fields = _fields(pt) + _tornado(pt, 0.3, -0.1)
+    table = pt.compile_force_fields(fields, device="cpu", active=[True, False, True, True, True, False, True])
+    fl = pfs.pack_fields(table).view(np.float32).reshape(len(fields), L.FF_STRIDE)
+    params, active = table.rows["params"], table.rows["active"]
+    want_s = np.float32([params[i, 0] * active[i] for i in range(len(fields))])
+    want_inv = np.float32([np.float32(1) / np.float32(params[i, 1]) for i in range(len(fields))])
+    np.testing.assert_array_equal(fl[:, L.FF_STRENGTH].view(np.int32), want_s.view(np.int32))
+    np.testing.assert_array_equal(fl[:, L.FF_INV_RADIUS].view(np.int32), want_inv.view(np.int32))
+    # the plain version's own products and quotients, as tensors
+    got_s = (table.params[:, 0] * table.active).numpy()
+    got_inv = torch.stack([1.0 / table.params[i, 1] for i in range(len(fields))]).numpy()
+    np.testing.assert_array_equal(got_s.view(np.int32), want_s.view(np.int32))
+    np.testing.assert_array_equal(got_inv.view(np.int32), want_inv.view(np.int32))
+    assert (want_s == 0).sum() == 2 and len(set(want_inv.tolist())) == len(set(params[:, 1].tolist()))
+
+
 def test_singular_locus_gives_zero():
     """Lanes at a point field's centre and on a vortex's or an axial field's
     axis get exactly 0 from that field in both packages, with no NaN."""

@@ -269,6 +269,14 @@ def test_force_field_kernel_matches_plain(cuda, kind, unroll):
 
 
 @pytest.mark.cuda
+def test_cos_fast_is_cosf_below_its_bound(cuda):
+    """The turbulence's straight-line cosine (cos_fast, CUDA's cosf fast
+    path written out) maps every float below its bound, both signs, to
+    cosf's bits: 0 mismatches over all 2 * 0x47ce4780 of them."""
+    assert fs.cos_fast_mismatches(cuda) == 0
+
+
+@pytest.mark.cuda
 def test_force_fields_on_the_singular_locus(cuda):
     """Lanes that stay at a point field's centre and on a vortex's axis get 0
     from those fields in both versions (a select, no NaN)."""
@@ -544,6 +552,9 @@ def test_folded_chain_equals_unfolded_on_the_card(cuda, chained):
 
 import torch_fleet_configs as fleet_cfg  # noqa: E402
 from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools, state_slot  # noqa: E402
+from bevy_firework_tpu_torch.models import effects  # noqa: E402
+from bevy_firework_tpu_torch.pool import POOL_FIELDS  # noqa: E402
+from bevy_firework_tpu_torch.profile_step import tornado_fields  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -559,6 +570,74 @@ def test_fleet_kernel_equals_solo_launches(cuda, case):
     assert len(set(res["live"])) == fleet_cfg.S and min(res["live"]) > 1000, res
     if case == "destroy_dump":
         assert res["destroyed"] > 1000, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fleet16_u8", "dead_rank_3x1M_u1"])
+def test_fleet_with_more_tiles_than_blocks_equals_solo_launches(cuda, case):
+    """A fleet launch shares one resident wave among its slots, so each
+    block strides several of its slot's tiles: fleet_16x55k's shape (16
+    slots of 65536 lanes, 256 tiles each, at U = 8) and 3 slots of 1310720
+    lanes (5120 tiles each) at U = 1 with the stats block, the dump plane
+    and the dead-rank claim: every slot equals its solo launch bit for bit
+    (pool, keys, outputs), launch after launch."""
+    if case == "dead_rank_3x1M_u1":
+        res = fleet_cfg.check_fleet_equals_solo("destroy_dump", cuda, 1310720)
+        assert min(res["live"]) > 100000 and res["destroyed"] > 10000, res
+        return
+    sp = effects.stress_test()[0]
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=pt.EmissionPacing.rate(55000.0))
+    c = pt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device=cuda)
+    pools = [pt.init_pool_for(c, 65536, seed=i) for i in range(16)]
+    frames = [pt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(16)]
+    st, fr = stack_pools(pools), stack_frames(frames)
+    for _ in range(4):
+        st, out = fs.fused_step_fleet(c.static, c.params, None, st, fr, unroll=8)
+        for i in range(16):
+            pools[i], oi = fs.fused_step(c.static, c.params, None, pools[i], frames[i], unroll=8)
+            for k in POOL_FIELDS:
+                assert torch.equal(getattr(state_slot(st, i), k), getattr(pools[i], k)), (i, k)
+            for k, v in vars(oi).items():
+                assert torch.equal(getattr(out, k)[i], v), (i, k)
+    assert int(out.alive_count.min()) > 25000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(FIELDS) + ["tornado"])
+def test_field_fleet_matches_solo_and_plain(cuda, kind):
+    """The field block's fleet instantiations (register-capped as the solo
+    ones): 3 slots of 65536 lanes whose fields differ per slot, at U = 1
+    and U = 8; each slot equals its solo launch bit for bit, and the solo
+    launch the plain frames under fields_det's rule (point, vortex and
+    axial bit for bit; with turbulence within 8 ulp: cosf against
+    PyTorch's CUDA cos)."""
+    c = pt.compile_spawner(_box_spawner(), device=cuda)
+
+    def fields(i):
+        if kind == "tornado":
+            return tornado_fields(0.2 * i, 0.1)
+        return [dataclasses.replace(FIELDS[kind](), position=(0.3 * i, 0.8, -0.2))]
+
+    frames = [pt.make_frame_input(1 / 60, force_fields=pt.compile_force_fields(fields(i), device=cuda))
+              for i in range(3)]
+    pools = [pt.init_pool_for(c, 65536, seed=i) for i in range(3)]
+    st, fr = stack_pools(pools), stack_frames(frames)
+    ulps = 8 if kind in ("turbulence", "tornado") else 0
+    before = fs.fused_step_fleet.fields_launches
+    for u in (1, 8, 8, 1):
+        st, _o = fs.fused_step_fleet(c.static, c.params, None, st, fr, unroll=u)
+        for i in range(3):
+            solo, _o = fs.fused_step(c.static, c.params, None, pools[i], frames[i], unroll=u)
+            plain, _o = plain_frames(c.static, c.params, pools[i], frames[i], u)
+            for k in POOL_FIELDS:
+                assert torch.equal(getattr(state_slot(st, i), k), getattr(solo, k)), (u, i, k)
+            for k in SCALARS:
+                assert torch.equal(getattr(solo, k), getattr(plain, k)), (u, i, k)
+            for k in active_f32_fields(c.static):
+                assert _ulps(getattr(solo, k), getattr(plain, k)) <= ulps, (u, i, k)
+            pools[i] = solo
+    assert fs.fused_step_fleet.fields_launches - before == 4
+    assert int(st.alive.sum()) > 30000
 
 
 @pytest.mark.cuda
