@@ -99,6 +99,8 @@ def load() -> ctypes.CDLL:
     lib.bf_nested_child_rows.restype = ctypes.c_int
     lib.bf_step_occupancy.argtypes = [i, i, i, i, i, i, i]
     lib.bf_step_occupancy.restype = ctypes.c_int
+    lib.bf_step_warp_occupancy.argtypes = [i, i]
+    lib.bf_step_warp_occupancy.restype = ctypes.c_int
     lib.bf_cos_fast_mismatches.argtypes = [u, u, p, p]
     lib.bf_cos_fast_mismatches.restype = ctypes.c_int
     lib.bf_error_string.argtypes = [ctypes.c_int]

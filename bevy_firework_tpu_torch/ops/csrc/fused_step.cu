@@ -40,10 +40,16 @@
 //    sub-frames into shared memory (as every TPU tile recomputes it in SMEM),
 //    from inputs that warp 0 stages first, one word per lane (the slot's
 //    frame row and seeds, each emitter's carry and its row's cadence words),
-//    so their load latencies overlap instead of chaining in thread 0.
-//    Scalar state is read from the *_in buffers and written once, by block 0
-//    thread 0, to distinct *_out buffers, so no block can read a value
-//    already advanced.
+//    so their load latencies overlap instead of chaining in thread 0. The
+//    carry's chain of IEEE divisions, U sub-frames long, is the launch's
+//    fixed cost (5.1 us of main_100k's 13 at U = 8 on an H100: PERF.md §6),
+//    so a U > 1 launch of the solo main path (or its stats twin) of up to
+//    32 emitters runs an instantiation of its own (fused_step_kernel_warp)
+//    that computes it on warp 0's lanes (warp_cadence): each lane's carry
+//    in registers, a sub-frame's active flag and on-demand queue by warp
+//    votes, its cumulative spawn windows by a warp scan. Scalar state is
+//    read from the *_in buffers and written once, by block 0, to distinct
+//    *_out buffers, so no block can read a value already advanced.
 //  * Claims: lane g is claimed in sub-frame u when dead and its rank is below
 //    the sub-frame's total spawn count; the emitter is the one whose
 //    cumulative window holds the rank. Ring archetypes (deaths only by age)
@@ -598,6 +604,18 @@ cudaError_t resident_wave(const void* kernel, size_t smem, int* wave) {
   return cudaSuccess;
 }
 
+// Blocks of TILE threads of `kernel` resident on one SM of the current
+// device at smem_bytes of dynamic shared memory, or minus the cudaError_t.
+int blocks_per_sm(const void* kernel, int smem_bytes) {
+  if ((size_t)smem_bytes > (size_t)DEFAULT_SMEM_BYTES) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return -(int)err;
+  }
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, (size_t)smem_bytes);
+  return err == cudaSuccess ? per_sm : -(int)err;
+}
+
 }  // namespace
 
 // The step kernel's instantiations, one source file each (step_*.cu):
@@ -606,6 +624,7 @@ extern "C" const void* bf_step_kernel_ring(int collide, int fields, int stats, i
 extern "C" const void* bf_step_kernel_dead_rank(int collide, int fields, int stats, int merge);
 extern "C" const void* bf_step_kernel_fleet_ring(int collide, int fields, int stats, int merge);
 extern "C" const void* bf_step_kernel_fleet_dead_rank(int collide, int fields, int stats, int merge);
+extern "C" const void* bf_step_kernel_ring_warp(int stats);
 
 extern "C" {
 
@@ -739,9 +758,12 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
 
   const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
   const bool ring = alive_in == nullptr;
-  const void* kernel = fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(
-                                   collide, with_fields, stats, 0)
-                             : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, with_fields, stats, merge);
+  // the solo main path at U > 1 with up to 32 emitters: the warp's cadence
+  const bool warp = ring && !fleet && !collide && !with_fields && !merge && unroll > 1 && n_emitters <= 32;
+  const void* kernel =
+      warp    ? bf_step_kernel_ring_warp(stats)
+      : fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(collide, with_fields, stats, 0)
+              : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, with_fields, stats, merge);
   // the tables' shared memory (the kernel's smem_layout with its flags: a
   // count of 0 stages nothing); past the default, the instantiation opts in
   const SmemLayout lay = smem_layout(unroll, n_emitters, a.n_merge, a.n_fold, stats ? n_types : 0,
@@ -896,13 +918,13 @@ int bf_step_occupancy(int ring, int collide, int fields, int stats, int merge, i
   const void* kernel = fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(
                                    collide, fields, stats, 0)
                              : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, fields, stats, merge);
-  if ((size_t)smem_bytes > (size_t)DEFAULT_SMEM_BYTES) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return -(int)err;
-  }
-  int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TILE, (size_t)smem_bytes);
-  return err == cudaSuccess ? per_sm : -(int)err;
+  return blocks_per_sm(kernel, smem_bytes);
+}
+
+// bf_step_occupancy of fused_step_kernel_warp<stats>.
+int bf_step_warp_occupancy(int stats, int smem_bytes) {
+  if (smem_bytes < 0) return -(int)cudaErrorInvalidValue;
+  return blocks_per_sm(bf_step_kernel_ring_warp(stats), smem_bytes);
 }
 
 // cos_fast_sweep_kernel over the float bits [lo, lo + n) on `stream`,

@@ -7,3 +7,9 @@
 extern "C" const void* bf_step_kernel_ring(int collide, int fields, int stats, int merge) {
   return select_step_kernel<true, false>(collide != 0, fields != 0, stats != 0, merge != 0);
 }
+
+// The solo main path (stats 0) or its stats twin with the cadence on warp
+// 0's lanes (fused_step_kernel_warp: U > 1, up to 32 emitters).
+extern "C" const void* bf_step_kernel_ring_warp(int stats) {
+  return stats ? (const void*)fused_step_kernel_warp<true> : (const void*)fused_step_kernel_warp<false>;
+}

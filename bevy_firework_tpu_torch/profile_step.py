@@ -20,7 +20,11 @@ group that --only names (all by default): `kernels`, ptxas's registers,
 stack frame and spills per kernel, each step-kernel instantiation's
 resident blocks per SM and its SASS instruction count (cuobjdump), and
 the field and fleet instantiations' rows at a glance (`fields_fleet`);
-`main`, the main path's U = 8 launch at both sizes; `stats`, kernel row 6:
+`main`, the main path's U = 8 launch at both sizes and its U = 1 launch at
+the sparks pool (2048 lanes); `render`, kernel rows 1 and 2 at their own
+shapes: the U = 1 and U = 8 launches with no pack, the f32 pack and the
+f16 record at the sparks pool, main_100k's state (131072 lanes) and
+main_1M's (1310720); `stats`, kernel row 6:
 the U = 1 launch with and without the stats block at main_1M's state and
 at the sparks pool (2048 lanes); `fleet`, kernel row 7: fleet_16x55k's U =
 8 launch and its U = 1 launch with stats, the fleet's U = 2 collision
@@ -180,10 +184,7 @@ def stats_ms(calls: int = 50, traces: int = 3) -> dict:
     es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(1_000_000.0))
     c1m = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
     s1m, _o = fs.multi_step_auto(c1m.static, c1m.params, None, bt.init_pool_for(c1m, 160 * 8192, seed=0), f, 140)
-    sparks = bt.compile_spawner(bt.ParticleSpawner(
-        particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75))],
-        emission_settings=[bt.EmissionSettings(emission_pacing=EmissionPacing.rate(1000.0))]), device="cuda")
-    s_sp, _o = fs.multi_step_auto(sparks.static, sparks.params, None, bt.init_pool_for(sparks, 2048), f, 120)
+    sparks, s_sp = sparks_pool()
     res = {}
     for label, c, s in (("stats_1M", c1m, s1m), ("stats_sparks", sparks, s_sp)):
         res[label] = {"capacity": s.capacity, "live": int(s.alive.sum())}
@@ -192,6 +193,64 @@ def stats_ms(calls: int = 50, traces: int = 3) -> dict:
                                                 calls, traces, all_kernels=True)
             res[label].update({f"{key}_kernel_device_ms": ms, f"{key}_traces": per,
                                f"{key}_all_kernels_ms_per_call": call_ms})
+    return res
+
+
+def sparks_pool():
+    """The README's sparks spawner on the card and its 2048-lane pool after
+    120 frames (750 live, the Scene's size): (compiled, state)."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    c = bt.compile_spawner(bt.ParticleSpawner(
+        particle_settings=[bt.ParticleSettings(lifetime=bt.RandF32.constant(0.75))],
+        emission_settings=[bt.EmissionSettings(emission_pacing=EmissionPacing.rate(1000.0))]), device="cuda")
+    s, _o = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, 2048), bt.make_frame_input(1 / 60), 120)
+    return c, s
+
+
+def sparks_launch_ms(calls: int = 50, traces: int = 3) -> dict:
+    """The main path's U = 1 launch (stats off) at the sparks pool
+    (`sparks_pool`): the interactive path's step."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+
+    c, s = sparks_pool()
+    f = bt.make_frame_input(1 / 60)
+    ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, None, s, f, stats=False), calls, traces)
+    return {"sparks": {"capacity": s.capacity, "live": int(s.alive.sum()), "u1_kernel_device_ms": ms,
+                       "traces": per}}
+
+
+def render_ms(calls: int = 30, traces: int = 3) -> dict:
+    """Kernel rows 1 and 2 at their own shapes: device time per launch
+    (stats off) of the U = 1 and U = 8 launches with no pack, the f32 pack
+    and the f16 record, at the sparks pool (`sparks_pool`: 2048 lanes),
+    main_100k's state (stress_test at 1e5/s, 131072 lanes) and main_1M's
+    (1e6/s, 1310720), each after 140 frames."""
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    f = bt.make_frame_input(1 / 60)
+    pools = {"sparks_2048": sparks_pool()}
+    sp, _tf = effects.stress_test()
+    for label, rate, cap in (("main_100k", 1e5, 1 << 17), ("main_1M", 1e6, 160 * 8192)):
+        es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(rate))
+        c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+        s, _o = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, cap, seed=0), f, 140)
+        pools[label] = (c, s)
+    res = {}
+    for label, (c, s) in pools.items():
+        res[label] = {"capacity": s.capacity, "live": int(s.alive.sum())}
+        for u in (1, 8):
+            for name, pack in (("none", False), ("f32", True), ("f16", "f16")):
+                ms, per = launch_device_ms(lambda: fs.fused_step(c.static, c.params, None, s, f, unroll=u,
+                                                                 pack_render=pack, stats=False), calls, traces)
+                res[label][f"u{u}_{name}_kernel_device_ms"] = ms
+                res[label][f"u{u}_{name}_traces"] = per
     return res
 
 
@@ -233,18 +292,23 @@ def scaling_ms(calls: int = 20, traces: int = 3) -> dict:
 def ptxas_summary(report: str) -> list:
     """Per kernel of ptxas's report: its name (the step kernel's template
     arguments ring, collide, fields, stats, merge, fleet spelled out, and
-    `args` those six as ints), its mangled `symbol`, registers, stack,
-    spill bytes and shared memory."""
+    `args` those six as ints; the warp-cadence kernel's stats flag, and
+    `warp_stats` that flag as an int), its mangled `symbol`, registers,
+    stack, spill bytes and shared memory."""
     import re
 
     out = []
     for block in report.split("Compiling entry function")[1:]:
         name = re.search(r"'(\S+)'", block).group(1)
         t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        w = re.search(r"fused_step_kernel_warpILb(\d)E", name)
         row = {"symbol": name}
         if t:
             name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
             row["args"] = [int(v) for v in t.groups()]
+        elif w:
+            name = f"fused_step_kernel_warp<stats={w.group(1)}>"
+            row["warp_stats"] = int(w.group(1))
         else:
             name = re.search(r"([a-z_]+_kernel)E", name).group(1)
         row = {"kernel": name, **row, "registers": int(re.search(r"Used (\d+) registers", block).group(1))}
@@ -300,11 +364,15 @@ def kernel_report(sass: bool = False) -> list:
         symbol = row.pop("symbol")
         if sass:
             row["sass"] = counts.get(symbol)
-    occupancy = getattr(_build.load(), "bf_step_occupancy", None)
+    lib = _build.load()
+    occupancy = getattr(lib, "bf_step_occupancy", None)
+    warp_occupancy = getattr(lib, "bf_step_warp_occupancy", None)
     for row in rows:
-        if "args" not in row:
+        if "args" not in row and "warp_stats" not in row:
             continue
-        if occupancy is not None:
+        if "warp_stats" in row and warp_occupancy is not None:
+            row["blocks_per_sm"], row["blocks_per_sm_from"] = int(warp_occupancy(row["warp_stats"], 0)), "card"
+        elif "args" in row and occupancy is not None:
             row["blocks_per_sm"], row["blocks_per_sm_from"] = int(occupancy(*row["args"], 0)), "card"
         else:  # 64K registers and 228 KB of shared memory per SM, 8 warps of 256-register granules per block
             regs = -(-row["registers"] * 32 // 256) * 256 * 8
@@ -652,6 +720,9 @@ def main():
         if "main" in groups:
             for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
                 put(launch_ms(rate, cap))
+            put(sparks_launch_ms())
+        if "render" in groups:
+            put({"render": render_ms()})
         if "stats" in groups:
             put({"stats": stats_ms()})
         if "fleet" in groups:
@@ -671,7 +742,7 @@ def main():
 
 
 # --launch's groups, in the order they run
-LAUNCH_GROUPS = ("kernels", "main", "stats", "fleet", "fields", "cells", "scaling")
+LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling")
 
 
 if __name__ == "__main__":

@@ -16,10 +16,13 @@ textures flows and the Scene's async render, through the kernels. Phases:
 
   1. card: name and power limit (nvidia-smi), kernel build time, and per
      kernel ptxas's registers and spills and the blocks resident per SM
-     (the main path within its cap of 63 registers at 4 blocks per SM, no
-     kernel spilling);
+     (the main path and its warp-cadence instantiations within their cap of
+     63 registers at 4 blocks per SM, no kernel spilling);
   2. deterministic config (constant draws, live rotation), N = 131072:
-     kernel == plain bit for bit, 1-frame and 8-frame launches;
+     kernel == plain bit for bit, 1-frame and 8-frame launches; then a
+     pool with a partial last tile (130995 lanes) of two types of uneven
+     curves, at U = 1 and 8 with no pack, the f32 pack and the f16 record:
+     bit for bit;
   3. stress_test, N = 131072: alive count, cursor and cadence scalars exact,
      f32 fields within 4 ulp (libm sinf/cosf may differ between the kernel
      and PyTorch's CUDA ops), KS test of fresh initial_scale vs U(0.02, 0.08);
@@ -64,8 +67,11 @@ textures flows and the Scene's async render, through the kernels. Phases:
      bit for bit over 10 U=1 and 4 U=2 launches; the share of (warp,
      collider, substep) tests collision.broad_phase_keep skips;
  15. caps_det, N = 131072: past the old table caps, 17- and 40-knot
-     curves, 9 emitters, 9 types (render planes and the stats row) and 9
-     force fields, solo and in a 3-slot fleet: kernel == plain, bit for bit;
+     curves, 9 emitters, 9 types (render planes and the stats row), 9
+     types of 40-knot curves (a 4948-word spawner table), 34 emitters of
+     mixed pacing (past the 32 the warp's cadence takes), 7 of mixed pacing
+     with a queue at U = 1, 2 and 8 (the warp's cadence) and 9 force
+     fields, solo and in a 3-slot fleet: kernel == plain, bit for bit;
      a Scene (200 colliders, 9 fields, 9 emitters and types) and a Fleet
      (200 colliders) on the card == their plain replay;
  16. collider_scaling_1M: tools/collider_scaling_tpu.py's scenes with
@@ -145,7 +151,8 @@ textures flows and the Scene's async render, through the kernels. Phases:
      dump), 3 types with stats, force fields, the render pack and U = 8,
      slots differing in params, seeds, frames and fields: every slot of
      each fleet launch == a solo launch of its pool == the plain frames,
-     bit for bit (rotation <= 2 ulp);
+     bit for bit (rotation <= 2 ulp); the ring and render cases again at
+     131073 lanes per slot (slot bases not 16-byte aligned);
  27. fleet_16x55k: bench.py's fleet cell (stress_test at 55000/s, 16 slots
      x 65536 lanes): a 140-frame multi_step_fleet chain under sync debug
      mode "error" == 16 solo multi_step_auto chains bit for bit and == the
@@ -377,16 +384,17 @@ def main() -> int:
     ptxas = kernel_report()
     step_rows = [r for r in ptxas if "args" in r]
     main_row = [r for r in step_rows if r["args"] == [1, 0, 0, 0, 0, 0]]
-    check(len(step_rows) == 36 and len(main_row) == 1 and main_row[0]["registers"] <= 63
-          and main_row[0]["blocks_per_sm"] == 4,
-          f"the step kernel's instantiations: {[(r['kernel'], r['registers']) for r in step_rows]}")
+    warp_rows = [r for r in ptxas if "warp_stats" in r]  # the main path and its stats twin at U > 1
+    check(len(step_rows) == 36 and len(main_row) == 1 and len(warp_rows) == 2
+          and all(r["registers"] <= 63 and r["blocks_per_sm"] == 4 for r in main_row + warp_rows),
+          f"the step kernel's instantiations: {[(r['kernel'], r['registers']) for r in step_rows + warp_rows]}")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ptxas),
           f"ptxas spills: {[r for r in ptxas if r['spill_stores'] or r['spill_loads']]}")
     emit({"phase": "card", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s, "ptxas": ptxas,
           "rule": "ptxas's registers and spills per kernel; blocks_per_sm: resident blocks of 256 threads per SM "
-                  "at no dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the main path within its "
-                  "cap of 63 registers, 4 blocks per SM; no kernel spills"})
+                  "at no dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the main path and its "
+                  "warp-cadence instantiations within their cap of 63 registers, 4 blocks per SM; no kernel spills"})
 
     def ulp_diff(a, b) -> int:
         """Largest distance in units in the last place between two f32 tensors."""
@@ -474,9 +482,34 @@ def main() -> int:
         w = compare(c, sk, sp_, rot_ulps, f"deterministic U={u}")
         worst_det = {k: max(worst_det.get(k, 0), v) for k, v in w.items()}
         s = sk
+    # a partial last tile and every pack mode of curved types (kernel rows
+    # 1 and 2): a pool of 130995 lanes of tests/torch_table_configs.py's
+    # two-type spawner (uneven scale curves and gradients), U = 1 and 8, no
+    # pack, the f32 pack and the f16 record: state, ptype, planes and
+    # record == plain bit for bit
+    import torch_render_configs as render_cfg
+    import torch_table_configs as table_cfg
+
+    ck = bt.compile_spawner(table_cfg.two_type_curves_spawner(rate=2e5), device=dev)
+    sk0 = bt.init_pool_for(ck, 131072 - 77, seed=5)
+    fk = bt.make_frame_input(1 / 60)
+    for u, pack in ((1, False), (1, True), (1, "f16"), (8, True), (8, "f16"), (8, False)):
+        res = fs.fused_step(ck.static, ck.params, None, sk0, fk, unroll=u, pack_render=pack)
+        sp_, _op = plain_frames(ck.static, ck.params, sk0, fk, u)
+        compare(ck, res[0], sp_, {}, f"two_types U={u} pack={pack}")
+        check(torch.equal(res[0].ptype, sp_.ptype), f"two_types U={u} pack={pack}: ptype differs")
+        if pack == "f16":
+            render_cfg.check_record(ck.static, ck.params, res[0], res[2], None, f"two_types U={u}")
+        elif pack:
+            compare_planes(ck, res[0], res[2], f"two_types U={u}")
+        sk0 = res[0]
+    check(int(sk0.alive.sum()) > 10000 and bool((sk0.ptype[sk0.alive] == 1).any()), "two_types: too few lanes")
     torch.cuda.synchronize()
     emit({"phase": "deterministic", "card": card, "n": 131072, "live": int(s.alive.sum()),
-          "max_ulp": worst_det, "rule": "bit-equal; rotation <= 2 ulp (sinf/cosf)"})
+          "max_ulp": worst_det, "rule": "bit-equal; rotation <= 2 ulp (sinf/cosf)",
+          "two_types": {"n": 131072 - 77, "live": int(sk0.alive.sum()),
+                        "rule": "a partial last tile, two types of uneven curves, U = 1 and 8, no pack, f32 pack, "
+                                "f16 record: bit for bit"}})
 
     # --------------------------------------------------- 3. random config
     sp0, tf = effects.stress_test()
@@ -900,6 +933,23 @@ def main() -> int:
         caps_res[case] = {"emitters": cc.num_emitters, "types": cc.num_types, "knots": int(cc.params.scale_ts.shape[1]),
                           "table_words": fs.kernel_tables(cc.static, cc.params).numel(),
                           "per_type": ok.alive_count_per_type.tolist()}
+    # the warp's cadence (U > 1, up to 32 emitters) through its vote and
+    # ballot branches: 7 emitters of mixed pacing with a queue, the last one
+    # disabled at the U = 2 launches, with and without the stats row
+    cm7 = bt.compile_spawner(table_cfg.mixed_pacing_spawner(7), device=dev)
+    s = bt.init_pool_for(cm7, 131072, seed=2)
+    en7 = s.enabled.clone()
+    en7[6] = False
+    for u, stats in ((2, True), (1, True), (8, True), (8, False), (2, False)):
+        s = dataclasses.replace(s, manual_queued=torch.tensor(300 + 7 * u, dtype=torch.int32, device=dev),
+                                enabled=en7 if u == 2 else s.enabled)
+        sk, _ok = fs.fused_step(cm7.static, cm7.params, None, s, fdet, unroll=u, stats=stats)
+        sp_, _op = plain_frames(cm7.static, cm7.params, s, fdet, u)
+        compare(cm7, sk, sp_, {}, f"caps_det mixed7 U={u} stats={stats}")
+        check(int(sk.manual_queued) == 0, f"caps_det mixed7 U={u}: the queue was not taken")
+        s = sk
+    check(int(s.alive.sum()) > 5000, f"caps_det mixed7: {int(s.alive.sum())} live")
+    caps_res["mixed7"] = {"emitters": 7, "live": int(s.alive.sum())}
     cb9 = bt.compile_spawner(box_spawner(), device=dev)
     f9 = bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(table_cfg.nine_fields(), device=dev))
     s = bt.init_pool_for(cb9, 131072)
@@ -945,7 +995,9 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "caps_det", "card": card, "n": 131072, "cases": caps_res,
           "rule": "past the old caps (16 knots, 8 emitters, 8 types, 8 fields): kernel == plain bit for bit (state, "
-                  "render planes), stats row == the plain reductions; 9 fields solo and in a 3-slot fleet (each slot "
+                  "render planes), stats row == the plain reductions; mixed7: 7 emitters of mixed pacing with a queue "
+                  "at U = 1, 2, 8 (the warp's cadence), state and cadence scalars bit for bit; 9 fields solo and in "
+                  "a 3-slot fleet (each slot "
                   "== its solo launch == plain); a Scene and a Fleet past every cap == their plain replay"})
 
     # ------------------------------------------------ 16. collider_scaling_1M
@@ -1704,11 +1756,18 @@ def main() -> int:
         check(case != "destroy_dump" or r["destroyed"] > 10000, f"fleet_det {case}: {r}")
         max_err["fused_step.fleet"] = max(max_err["fused_step.fleet"], r["max_abs_err_plain"])
         fleet_det[case] = r
+    # lanes per slot not a multiple of 4: slot bases not 16-byte aligned
+    for case in ("ring", "render_u8"):
+        r = fleet_cfg.check_fleet_equals_solo(case, dev, 131073, plain=True)
+        check(min(r["live"]) > 5000, f"fleet_det {case} unaligned: {r}")
+        max_err["fused_step.fleet"] = max(max_err["fused_step.fleet"], r["max_abs_err_plain"])
+        fleet_det[f"{case}_131073"] = r
     torch.cuda.synchronize()
     emit({"phase": "fleet_det", "card": card, "n": 131072, "slots": fleet_cfg.S, "cases": fleet_det,
           "rule": "each slot of every fleet launch == a solo launch of its pool, bit for bit (pool, key, outputs, "
                   "render planes), and == the plain frames (rotation <= 2 ulp); slots differ in params, seeds, "
-                  "frames, fields; dead-rank claim, dump, stats, fields, render pack, U = 8"})
+                  "frames, fields; dead-rank claim, dump, stats, fields, render pack, U = 8; *_131073: 131073 lanes "
+                  "per slot, slot bases not 16-byte aligned"})
 
     # ------------------------------------------------ 27. fleet_16x55k
     S16, cap16 = 16, 8 * 8192
@@ -2381,14 +2440,15 @@ def main() -> int:
 
     csrc = "bevy_firework_tpu_torch/ops/csrc/"
 
-    def occupancy(pick):
+    def occupancy(pick, warp=False):
         """Registers, stack frame, spill stores and blocks per SM of the
         step kernel's instantiations whose template arguments (ring,
-        collide, fields, stats, merge, fleet) `pick` takes, from the card
-        line's report."""
+        collide, fields, stats, merge, fleet) `pick` takes, and with `warp`
+        the warp-cadence ones, from the card line's report."""
+        rows = [r for r in step_rows if pick(*r["args"])] + (warp_rows if warp else [])
         return {r["kernel"][len("fused_step_kernel"):]: {k: r[k] for k in ("registers", "stack", "spill_stores",
                                                                             "blocks_per_sm")}
-                for r in step_rows if pick(*r["args"])}
+                for r in rows}
 
     def entry(name, replaces, key, ms, plain_ms, b, source="fused_step_kernel.cuh", **extra):
         return {"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces, "launches": total(key),
@@ -2412,14 +2472,23 @@ def main() -> int:
         n60k["bounds"]["child_rows"]["bound_ms"])
 
     # every device time below was held to its bound where it was measured
+    # the instantiations that run rows 1 and 2 (no narrow phase, field
+    # block or merge)
+    def main_path(ring, collide, fields, stats, merge, fleet):
+        return not (collide or fields or merge)
+
     kernels = [
         entry("fused_step", "bevy_firework_tpu/ops/fused_step.py:913", "fused_step", r100k["u8_kernel_device_ms"],
               r100k["plain_8_frames_device_ms"], r100k["bounds"]["u8"],
-              launch_wall_ms=r100k["u8_launch_wall_ms"], plain_wall_ms=r100k["plain_8_frames_wall_ms"]),
+              launch_wall_ms=r100k["u8_launch_wall_ms"], plain_wall_ms=r100k["plain_8_frames_wall_ms"],
+              status="redesigned", occupancy=occupancy(main_path, warp=True)),
         entry("fused_step.pack_render", "bevy_firework_tpu/ops/fused_step.py:1523", ("render", "fleet_render"),
               r100k["render_kernel_device_ms"], r100k["plain_render_frame_device_ms"], r100k["bounds"]["render"],
               launch_wall_ms=r100k["render_launch_wall_ms"], plain_wall_ms=r100k["plain_render_frame_wall_ms"],
-              u1_1M_ms=ext["u1_f32"]["ms"], u8_1M_ms=ext["u8_f32"]["ms"]),
+              u1_1M_ms=ext["u1_f32"]["ms"], u8_1M_ms=ext["u8_f32"]["ms"],
+              status="redesign measured, not kept; block unchanged (a staged table, shared curve searches and a "
+                     "ring of tiles measured slower: PERF.md §6); its U > 1 launches take row 1's warp cadence",
+              occupancy=occupancy(main_path, warp=True)),
         entry("fused_step.pack_render_f16", "bevy_firework_tpu/ops/fused_step.py:1541",
               ("render_f16", "fleet_render_f16"), ext["u1_f16"]["ms"], ext["plain_u1_f16_ms"], {k: ext["u1_f16"][k] for k in ("bound_ms", "bound_by",
                                                                                            "bound_bytes", "bound_ops")},

@@ -1122,3 +1122,135 @@ def test_launch_counters_split_by_the_reference_form():
     assert not fs.looped_form(c.static, None)
     free = pt.compile_spawner(_det_spawner(), device="cpu")
     assert not fs.looped_form(free.static, tables[8])
+
+
+# ---- kernel rows 1 and 2 on the card: the warp's cadence (U > 1, up to 32
+# emitters) and lane 0's, tiles past three waves, unaligned slot and shard
+# bases, partial tiles, every pack mode, a large table ----
+
+def _check_launches(c, s, f, unrolls, pack):
+    """Each launch (with the render pack `pack`) against as many plain frames
+    from the same state and the plain pack of the state it wrote: every
+    pool leaf and plane bit for bit. Returns the last state."""
+    for u in unrolls:
+        res = fs.fused_step(c.static, c.params, None, s, f, unroll=u, pack_render=pack)
+        sp, _op = plain_frames(c.static, c.params, s, f, u)
+        for k in active_f32_fields(c.static) + SCALARS:
+            assert torch.equal(getattr(res[0], k), getattr(sp, k)), (u, k)
+        if pack == "f16":
+            render_cfg.check_record(c.static, c.params, res[0], res[2], None, f"U={u}")
+        elif pack:
+            for a, b in zip(res[2], pack_render_planes(c.static, c.params, sp)):
+                assert torch.equal(a, b), u
+        s = res[0]
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072 - 77, 1310720])
+def test_partial_and_many_tiles_match_plain(cuda, n):
+    """A pool whose last tile is partial and a pool of 5120 tiles, ~10 per
+    block of one resident wave (more than three waves' tiles), at U = 1
+    and 8, bit for bit against the plain frames."""
+    c = pt.compile_spawner(_box_spawner(rate=n * 0.4), device=cuda)
+    s = pt.init_pool_for(c, n, seed=3)
+    f = pt.make_frame_input(1 / 60)
+    s = _check_launches(c, s, f, [1] * 3 + [8] * 2, False)
+    assert 0 < int(s.alive.sum()) < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 8])
+@pytest.mark.parametrize("pack", [False, True, "f16"])
+def test_pack_modes_of_two_curved_types_match_plain(cuda, pack, unroll):
+    """Every render-pack mode at U = 1 and 8 on a two-type pool whose
+    types' curves are all uneven and whose last tile is partial: bit for
+    bit against the plain frames and the plain pack."""
+    c = pt.compile_spawner(table_cfg.two_type_curves_spawner(rate=2e5), device=cuda)
+    s = pt.init_pool_for(c, 200003, seed=5)
+    f = pt.make_frame_input(1 / 60)
+    s = _check_launches(c, s, f, [unroll] * 4, pack)
+    assert int(s.alive.sum()) > 10000 and bool((s.ptype[s.alive] == 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131073, 65538])
+def test_fleet_slots_at_unaligned_bases(cuda, n):
+    """A fleet whose lanes per slot are not a multiple of 4: slot bases at
+    slot * n are not 16-byte aligned; every slot == its solo launch == the
+    plain frames, bit for bit (rotation within 2 ulp)."""
+    for case in ("ring", "three_types_stats", "render_u8"):
+        res = fleet_cfg.check_fleet_equals_solo(case, cuda, n, plain=True)
+        assert min(res["live"]) > 1000, (case, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [3, 4])
+def test_sharded_pool_of_many_tiles(cuda, n_shards):
+    """A pool of 1310720 lanes split into shards (4: views at 16-byte
+    aligned bases; 3: unaligned views and ragged last tiles), stepped at
+    U = 8: the stitched shards == the unsharded launches bit for bit, and
+    each shard == the plain frames with its shard arguments."""
+    c = pt.compile_spawner(_box_spawner(rate=5e5), device=cuda)
+    whole = pt.init_pool_for(c, 1310720, seed=9)
+    f = pt.make_frame_input(1 / 60)
+    shards = shard_cfg.split(whole, n_shards)
+    for i in range(4):
+        args = shard_cfg.shard_args(c.static, shards)
+        plain = [plain_frames(c.static, c.params, s, f, 8, shard=a)[0] for s, a in zip(shards, args)]
+        whole, out = fs.fused_step(c.static, c.params, None, whole, f, unroll=8)
+        shards, outs, _p = shard_cfg.step_shards(c, None, shards, f, unroll=8)
+        assert shard_cfg.pool_mismatch(shard_cfg.stitch(shards), whole) == [], i
+        for s, p in zip(shards, plain):
+            for k in active_f32_fields(c.static) + SCALARS:
+                assert torch.equal(getattr(s, k), getattr(p, k)), (i, k)
+    assert int(out.alive_count) > 100000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_emitters", [7, 34])
+def test_cadence_of_mixed_pacings_matches_plain(cuda, n_emitters):
+    """Rate, one-shot, on-demand (two or more: the first gated one takes
+    the queue) and offset count-over-duration emitters, the last one
+    disabled at the U = 2 launches: 7 run on the warp's lanes at U > 1
+    (votes and a scan), 34 in lane 0; U = 1, 2 and 8 launches with a queue
+    == the plain frames bit for bit, the cadence scalars included."""
+    c = pt.compile_spawner(table_cfg.mixed_pacing_spawner(n_emitters), device=cuda)
+    s = pt.init_pool_for(c, 131072, seed=2)
+    enabled = s.enabled.clone()
+    enabled[n_emitters - 1] = False
+    f = pt.make_frame_input(1 / 60)
+    for u in (2, 1, 8, 8, 1, 2):
+        s = dataclasses.replace(s, manual_queued=torch.tensor(300 + 7 * u, dtype=torch.int32, device=cuda),
+                                enabled=enabled if u == 2 else s.enabled)
+        sk, _ok = fs.fused_step(c.static, c.params, None, s, f, unroll=u)
+        sp, _op = plain_frames(c.static, c.params, s, f, u)
+        for k in active_f32_fields(c.static) + SCALARS:
+            assert torch.equal(getattr(sk, k), getattr(sp, k)), (u, k)
+        assert int(sk.manual_queued) == 0, u
+        s = sk
+    assert int(s.alive.sum()) > 5000
+
+
+@pytest.mark.cuda
+def test_table_of_nine_40_knot_types(cuda):
+    """A 4948-word spawner table (9 types of 40-knot curves): U = 1 and 8
+    launches with the f32 pack and the stats row == the plain version bit
+    for bit."""
+    c = pt.compile_spawner(table_cfg.caps_spawner("types9_knots40"), device=cuda)
+    assert fs.pack_tables(c.static, c.params).size == 4948
+    s = pt.init_pool_for(c, 131072 + 5)
+    f = pt.make_frame_input(1 / 60)
+    for u in [1] * 3 + [8] * 2:
+        sk, ok, planes = fs.fused_step(c.static, c.params, None, s, f, unroll=u, pack_render=True)
+        sp, _op = plain_frames(c.static, c.params, s, f, u)
+        for k in active_f32_fields(c.static) + SCALARS:
+            assert torch.equal(getattr(sk, k), getattr(sp, k)), (u, k)
+        for a, b in zip(planes, pack_render_planes(c.static, c.params, sp)):
+            assert torch.equal(a, b), u
+        kw = {k: getattr(sk, k) for k in ("px", "py", "pz", "initial_scale", "age", "lifetime")}
+        want = stat_reductions(c.static, c.params, kw, sk.ptype, sk.alive)
+        for got, w in zip((ok.aabb_min, ok.aabb_max, ok.alive_count, ok.alive_count_per_type), want):
+            assert torch.equal(got, w), u
+        s = sk
+    assert int((ok.alive_count_per_type > 0).sum()) == c.num_types

@@ -136,13 +136,27 @@ def box_type(t=0, curve=None, base=None, emissive=None):
         collision_settings=pt.ParticleCollisionSettings(restitution=0.7, friction=0.3), **kw)
 
 
-CAPS = ("knots17", "knots40", "emitters9", "types9")
+CAPS = ("knots17", "knots40", "emitters9", "types9", "types9_knots40", "emitters34")
 
 
 def caps_spawner(case):
     """knots17 / knots40: a scale curve (even), a base gradient (uneven) and
     an emissive gradient (even) of that many knots; emitters9: nine box
-    emitters of one type; types9: nine emitters, one per particle type."""
+    emitters of one type; types9: nine emitters, one per particle type;
+    types9_knots40: types9 with 40-knot curves (a table of 4948 words);
+    emitters34: `mixed_pacing_spawner(34)` (past the 32 emitters that the
+    step kernel's warp runs on its lanes)."""
+    if case == "emitters34":
+        return mixed_pacing_spawner(34)
+    if case == "types9_knots40":
+        emitters = [box_emitter(1e4 + 2e3 * e, (0.5 + 0.1 * e, 0.3, 1.5 - 0.1 * e), e) for e in range(9)]
+        types = []
+        for t in range(9):
+            vals = [0.5 + 0.4 * math.sin(0.7 * i + t) for i in range(40)]
+            grad = [(i / 39, (0.1 * ((i + t) % 10), 0.5, 1.0 - 0.02 * i, 1.0)) for i in range(40)]
+            types.append(box_type(t, curve=pt.FireworkCurve.even_samples(vals), base=pt.gradient_uneven_samples(grad),
+                                  emissive=pt.gradient_even_samples([c for _t, c in grad])))
+        return pt.ParticleSpawner(particle_settings=types, emission_settings=emitters)
     if case.startswith("knots"):
         k = int(case[5:])
         vals = [0.5 + 0.4 * math.sin(0.7 * i) for i in range(k)]
@@ -226,3 +240,34 @@ def fleet_plain_replay(fleet, slot, frames=6):
     for _ in range(frames):
         state, _o = plain_frames(c.static, c.params, state, frame, 1, colliders=fleet.colliders)
     return state
+
+
+def two_type_curves_spawner(rate=3e5):
+    """Two box emitters, one per particle type, each type with an uneven
+    scale curve and uneven base and emissive gradients (type 0's three on
+    one knot row, type 1's gradients on another): the render pack's curve
+    evaluations, per type."""
+    ts = (0.0, 0.2, 0.45, 0.7, 1.0)
+    scale0 = pt.FireworkCurve.uneven_samples([(t, 1.0 + 0.5 * math.sin(3 * t)) for t in ts])
+    base0 = pt.gradient_uneven_samples([(t, (1.0 - t, 0.5 * t, 0.2, 1.0 - 0.5 * t)) for t in ts])
+    emis0 = pt.gradient_uneven_samples([(t, (0.3 * t, 0.1, 1.0 - t, 1.0)) for t in ts])
+    ts1 = (0.0, 0.35, 0.6, 1.0)
+    scale1 = pt.FireworkCurve.uneven_samples([(0.0, 0.5), (0.5, 1.5), (1.0, 0.25)])
+    base1 = pt.gradient_uneven_samples([(t, (t, 1.0 - t, 0.5, 1.0)) for t in ts1])
+    emis1 = pt.gradient_uneven_samples([(t, (0.2, t, 0.3 * t, 0.5)) for t in ts1])
+    return pt.ParticleSpawner(particle_settings=[box_type(0, scale0, base0, emis0), box_type(1, scale1, base1, emis1)],
+                              emission_settings=[box_emitter(rate), box_emitter(0.5 * rate, (0.8, 0.4, 0.8), 1)])
+
+
+def mixed_pacing_spawner(n_emitters, rate=1e4):
+    """`n_emitters` box emitters of one type, their pacing by index mod 4:
+    a rate, a one-shot burst, on demand (the first gated one takes the
+    queue), and a count over a duration with offsets; the step kernel's
+    warp runs up to 32 emitters' cadence on its lanes, more in lane 0."""
+    def pacing(e):
+        return (pt.EmissionPacing.rate(rate + 500.0 * e), pt.EmissionPacing.one_shot(200 + 10 * e),
+                pt.EmissionPacing.on_demand(), pt.EmissionPacing.count_over_duration(40.0 + e, 0.5, 0.1, 0.9))[e % 4]
+
+    emitters = [dataclasses.replace(box_emitter(1.0, (0.5 + 0.02 * e, 0.3, 1.0)), emission_pacing=pacing(e))
+                for e in range(n_emitters)]
+    return pt.ParticleSpawner(particle_settings=[box_type(0)], emission_settings=emitters)
