@@ -93,16 +93,19 @@ def load() -> ctypes.CDLL:
     lib.bf_fused_step.restype = ctypes.c_int
     lib.bf_dead_rank_offsets.argtypes = [p, p, p, i, i, p]
     lib.bf_dead_rank_offsets.restype = ctypes.c_int
-    lib.bf_nested_cadence.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.bf_nested_cadence.restype = ctypes.c_int
-    lib.bf_nested_child_rows.argtypes = [p, i, p, u, u, p, p, p, i, p, p, p, i, i, i, p]
-    lib.bf_nested_child_rows.restype = ctypes.c_int
+    lib.bf_nested_counts.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p]
+    lib.bf_nested_counts.restype = ctypes.c_int
+    lib.bf_nested_stage.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, p, p, u, u, i,
+                                    p, i, i, i, i, i, p]
+    lib.bf_nested_stage.restype = ctypes.c_int
     lib.bf_step_occupancy.argtypes = [i, i, i, i, i, i, i]
     lib.bf_step_occupancy.restype = ctypes.c_int
     lib.bf_step_warp_occupancy.argtypes = [i, i]
     lib.bf_step_warp_occupancy.restype = ctypes.c_int
     lib.bf_cos_fast_mismatches.argtypes = [u, u, p, p]
     lib.bf_cos_fast_mismatches.restype = ctypes.c_int
+    lib.bf_empty_launches.argtypes = [i, p]
+    lib.bf_empty_launches.restype = ctypes.c_int
     lib.bf_error_string.argtypes = [ctypes.c_int]
     lib.bf_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,10 +5,11 @@
 // angular drag, and optionally the destroyed-particle dump plane, the f32
 // or f16 render pack and the frame's stats (AABB and counts), for U <= 8 frames
 // per launch, for one pool or for a fleet of S pools of one archetype in
-// one launch; and for archetypes with nested emitters, the nested cadence
-// pass, the child rows from threefry draws, and the child merge into the
-// step (one frame per launch), with the next frame's cadence counts folded
-// into the step of a chain's frame.
+// one launch; and for archetypes with nested emitters, the nested stage
+// (the cadence pass and the child rows from threefry draws, one launch per
+// nested emitter) and the child merge into the step (one frame per
+// launch), with the next frame's cadence counts folded into the step of a
+// chain's frame.
 //
 // Replaces: bevy_firework_tpu/ops/fused_step.py `_make_kernel` (:913) as run
 // by `_run_fused_kernel` (:1793) with kernel_spawn on, ring or dead-rank
@@ -145,10 +146,10 @@
 //    alone: per merge record each lane's parent count on the post-frame
 //    state in registers (nested_lane's formula; the gate the emitter's
 //    post-frame enabled bit), a block sum per tile and the next frame's
-//    NS_ANY; the next frame runs the scan and apply kernels on those
-//    counts (bf_nested_cadence, passes NESTED_APPLY) in place of the full
-//    pass. Epilogue plus scan and apply compute the TPU epilogue's outputs:
-//    the apply's anchors, NS_TOTAL and parent fetch. It is a run-time
+//    NS_ANY; the next frame's nested stage reduces those counts in place
+//    of counting and waiting at its grid barrier (bf_nested_stage's
+//    carry). Epilogue plus stage compute the TPU epilogue's outputs: the
+//    anchors, NS_TOTAL and the parents of the child rows. It is a run-time
 //    branch of the merge instantiations (a.n_fold), no new instantiation.
 //  * Shards (kernel row 11; solo ring and dead-rank launches): a pool split
 //    over the particle axis runs one launch per shard with three launch
@@ -204,7 +205,7 @@
 // step_fleet_ring.cu and step_fleet_dead_rank.cu each instantiate one share
 // of it (solo or fleet launches, ring or dead-rank claim), so the build
 // compiles the shares in parallel; this file holds the claim's count and
-// scan kernels, the nested kernels and every launcher.
+// scan kernels, the nested stage and every launcher.
 //
 // FMA policy: built with -fmad=false and without fast math, so every
 // multiply and add rounds on its own, divisions and sqrtf are IEEE, and the
@@ -289,24 +290,45 @@ __global__ void __launch_bounds__(1024) tile_scan_kernel(const int* __restrict__
   }
 }
 
-// ---- nested emission: the cadence pass (kernel row 8) and the child rows ----
+// ---- nested emission: the nested stage (kernel rows 8 and 9b) ----
 // Replaces bevy_firework_tpu/ops/fused_step.py `_make_nested_cadence_kernel`
 // (:683, called by `nested_cadence_pass` :805/:866) and the child stage of
-// bevy_firework_tpu/step.py `_nested_spawn` (:411-453, composed XLA there).
+// bevy_firework_tpu/step.py `_nested_spawn` (:411-453, composed XLA there):
+// one launch per nested emitter and hybrid frame (nested_stage_kernel).
 // The TPU carried the count cumsum across its in-order tiles in SMEM; CUDA
-// blocks run concurrently, so the pass is count -> scan -> apply, as the
-// dead-rank claim: nested_count_kernel writes each tile's parent-count sum
-// (in a folded chain the step kernel's fold epilogue writes the next
-// frame's), tile_scan_kernel scans them, nested_apply_kernel recounts each
-// lane, adds
-// a block scan to its tile's offset for the inclusive cum, and writes the
-// advanced anchors. Fetch mode has each parent lane write its own
-// children's parent fields to out[r], r in [cum - count, min(cum, M)): a
-// direct store replaces the TPU's exact MXU row fetch (`_exact_row_fetch`,
-// :663) and its chunked one-hot search (:771-800), both Mosaic workarounds.
-// Bound on this card: the launches. At 131072 lanes the pass moves ~3 MB
-// (alive, ptype, age and the anchor in, the anchor and cum out), ~1 us at
-// 3.35 TB/s, against a few microseconds per launch.
+// blocks run concurrently, so an unfolded launch is cooperative (its
+// blocks resident together, at most one wave) and each block takes a
+// contiguous range of tiles: it counts its tiles' parents and publishes
+// their sum, draws the parent-free parts of its share of the M child ranks
+// (threefry uniforms and the samplers; each rank's row as past the total
+// goes out at once), meets the others at one grid barrier, reduces the
+// sums before its range (its exclusive prefix) and all of them (the
+// total), and walks its tiles in order: a block scan per tile, the anchors
+// (and the cum where asked), and the rows of the tile's rank window [c0,
+// min(c0 + tile count, M)), spread over the threads (a rank's parent by a
+// search over the block's inclusive scan in shared memory, its fields read
+// in place, its parts read back). A folded frame's tile counts come from
+// the previous step launch's fold epilogue (kernel row 10): its launch
+// reduces those, with no count, no barrier and the draws in line, as its
+// own instantiation, on up to two waves of blocks. Ranks from the total
+// to M take the ring's parent
+// values 0, or on dead-rank archetypes lane n - 1 (the search of
+// step.nested_parents clamps there); block 0 writes the NS record. The
+// barrier's arrival count and generation live in per-stream scratch that
+// it leaves ready for the next launch; nothing is filled per launch and
+// nothing syncs with the host. A single-pass scan with decoupled look-back
+// (one tile per block, tiles by an atomic ticket) measured slower at 512
+// and 5120 tiles (PERF.md §6): its per-block chain of ticket, spins
+// and fences did not hide. The TPU's exact MXU row fetch
+// (`_exact_row_fetch`, :663) and chunked one-hot search (:771-800) were
+// Mosaic workarounds: a direct indexed load replaces them.
+// Bound on this card: the launch, its barrier and the chains of one tile
+// after another in a block (an unfolded launch at 5120 tiles walks ~10
+// per block, 32% slower than the count, scan and apply chain it
+// replaced; launch bounds of 6 and 8 blocks per SM spilled and measured
+// slower, PERF.md §6). At 131072 lanes the stage moves ~3 MB (alive,
+// ptype, age and the anchor in, the anchor out, the parents and child rows
+// of M ranks), ~1 us at 3.35 TB/s.
 
 struct NestedArgs {
   const uint8_t* alive;            // pre-spawn alive plane
@@ -315,19 +337,28 @@ struct NestedArgs {
   const float* lifetime;           // null: the table's constant
   const float* le_in;              // this emitter's last_emitted row
   const uint8_t* gate;             // the emitter's gate (one byte)
-  float* le_out;
-  int* cum;                        // cum mode: the inclusive count cumsum; null in fetch mode
-  const float* fetch_in[MAX_FETCH];  // fetch mode: parent planes
-  float* fetch_out;                // fetch mode: [n_fetch][m] parent values by child rank
-  int n_fetch;
-  int* tile_counts;
-  int* tile_offsets;
+  float* le_out;                   // the advanced anchors (may be le_in)
+  int* cum;                        // the inclusive count cumsum [n], or null
+  const int* carry;                // a folded frame's per-tile counts, or null: counted here
+  int* tile_counts;                // the count kernel's per-tile counts (a folded chain's seed)
+  int* any_alive;                  // NS_ANY, set to 1 where a lane lives (null: not written)
+  const float* planes[MAX_FETCH];  // parent planes [n] (nested_parent_fields order)
+  int n_parent;
+  float* fetch_out;                // the parent values by rank [n_parent][m] (0 from the total on), or null
+  float* child;                    // the child rows [child_rows][m], or null
+  float* parts;                    // an unfolded launch's child parts [CHILD_PARTS][m], drawn before its barrier
+  const float* parent_vals;        // a child-rows launch alone: the parents by rank [n_parent][m] ...
+  const int* cum_in;               // ... or the cum [n] whose search gives them
   const int* start_in;             // the window start (null: 0)
   const int* dead_counts;          // dead-rank archetypes: the claim's tile counts and offsets
   const int* dead_offsets;
-  int* rec;                        // this emitter's NS record
-  int* any_alive;                  // NS_ANY (null: not written)
-  int e, n, m, ring;
+  int* rec;                        // this emitter's NS record, or null
+  float frame[FRAME_WORDS];
+  uint32_t k0, k1;                 // fold_in(frame_key, 1000 + e)
+  int n_draws;
+  unsigned* barrier;               // [2]: the grid barrier's arrivals (0 between launches) and generation
+  int* block_sums;                 // [gridDim.x] each block's parent count
+  int e, n, m, n_tiles, tiles_per_block, ring;
 };
 
 // One lane's parent count (0 off the parent mask), its reset anchor, the
@@ -373,6 +404,8 @@ __device__ int block_inclusive_scan(int x, int* s_warp, int* block_total) {
   return before + x;
 }
 
+// The seed of a folded chain (kernel row 10's first frame): each tile's
+// parent count into tile_counts, NS_ANY where a lane lives.
 __global__ void __launch_bounds__(TILE) nested_count_kernel(const int* __restrict__ tab, NestedArgs a, int n_tiles) {
   __shared__ int s_warp[TILE / 32];
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -393,55 +426,24 @@ __global__ void __launch_bounds__(TILE) nested_count_kernel(const int* __restric
   }
 }
 
-__global__ void __launch_bounds__(TILE) nested_apply_kernel(const int* __restrict__ tab, NestedArgs a, int n_tiles) {
-  __shared__ int s_warp[TILE / 32];
-  const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
-  const float off_s = tabf(tab, row + EM_OFF_START), off_e = tabf(tab, row + EM_OFF_END);
-  const float between = (off_e - off_s) / tabf(tab, row + EM_COUNT);
-  const int total = a.tile_offsets[n_tiles - 1] + a.tile_counts[n_tiles - 1];
-  // fetch mode: ranks from the total up to M read 0 (the parent lanes write
-  // the ranks below it)
-  const int lo_zero = min(total, a.m), span = a.m - lo_zero;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n_fetch * span; i += gridDim.x * blockDim.x)
-    a.fetch_out[(i / span) * a.m + lo_zero + i % span] = 0.0f;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int g = tile * TILE + threadIdx.x;
-    NestedLane l;
-    l.count = 0;
-    if (g < a.n) l = nested_lane(tab, a, g);
-    int unused;
-    const int cum = a.tile_offsets[tile] + block_inclusive_scan(l.count, s_warp, &unused);
-    if (g >= a.n) continue;
-    // deferral: only ranks below M materialise; a cut parent advances its
-    // anchor by what was emitted (cadence.emission_next_last's op order)
-    const int lo = cum - l.count;
-    const int emitted = min(cum, a.m) - min(lo, a.m);
-    const float last_pct = l.base_le / l.life;
-    const float clamped = pmax(last_pct, off_s);
-    const float trunc = (clamped + (float)emitted * between) * l.life;
-    const float nl = emitted < l.count ? trunc : l.next_full;
-    a.le_out[g] = l.pm ? nl : l.base_le;
-    if (a.cum) a.cum[g] = cum;
-    for (int r = lo; r < min(cum, a.m); ++r)
-      for (int k = 0; k < a.n_fetch; ++k) a.fetch_out[k * a.m + r] = a.fetch_in[k][g];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    // the emitter's scalars: total, children this frame, its claim window
-    const int n_sp = min(total, a.m);
-    const int start = a.start_in ? *a.start_in : 0;
-    a.rec[NS_TOTAL] = total;
-    a.rec[NS_N] = n_sp;
-    a.rec[NS_EMITTER] = a.e;
-    a.rec[NS_START] = start;
-    if (a.ring) {
-      a.rec[NS_NEXT] = (int)(((long long)start + n_sp) % a.n);
-    } else {  // dead-rank: children beyond the pool's dead lanes drop
-      const int n_tail = (a.n + TILE - 1) / TILE - 1;
-      const int dead = a.dead_offsets[n_tail] + a.dead_counts[n_tail];
-      a.rec[NS_NEXT] = start + n_sp;
-      a.rec[NS_DROPPED] = n_sp - min(n_sp, max(dead - start, 0));
+// The grid barrier of a cooperative launch (every block resident): thread
+// 0 of each block arrives on bar[0] after its writes; the last to arrive
+// zeroes it and bumps the generation bar[1], on which the others wait.
+__device__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned gen = *(volatile unsigned*)(bar + 1);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*(volatile unsigned*)(bar + 1) == gen) __nanosleep(32);
     }
+    __threadfence();
   }
+  __syncthreads();
 }
 
 // threefry-2x32, 20 rounds (prng.threefry2x32)
@@ -466,97 +468,291 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t 
   *o1 = x1;
 }
 
-struct ChildArgs {
-  const float* parent_vals;        // fetch mode: [n_parent][m] by rank; null in cum mode
-  const int* cum;                  // cum mode: the inclusive count cumsum [n]
-  const float* planes[MAX_FETCH];  // cum mode: parent planes (nested_parent_fields order)
-  int n_parent;
-  int* rec;                        // ring hybrid frames: this emitter's record (drops counted); else null
-  const uint8_t* alive;            // ... and the pre-spawn alive plane
-  float* out;                      // [child_rows][m]
-  float frame[FRAME_WORDS];
-  uint32_t k0, k1;                 // fold_in(frame_key, 1000 + e)
-  int e, n, m, n_draws;
-};
-
-// One thread per child rank r: the uniforms uniform(fold_in(frame_key,
-// 1000 + e), (n_draws, M)) at flat index i * M + r (threefry-2x32 of
-// (hi, lo) of the index, the xor of its words, the top 23 bits as a float
-// in [1, 2) minus 1), then the child's init (step.nested_child_rows' op
-// order). Bound: the launch (M ranks, 12 threefry evaluations each).
-__global__ void __launch_bounds__(TILE) nested_child_rows_kernel(const int* __restrict__ tab, ChildArgs a) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  bool drop = false;
-  if (r < a.m) {
-    const bool elide_rot = tabi(tab, H_ELIDE_ROT) != 0;
-    const bool const_life = tabi(tab, H_CONST_LIFE) != 0;
-    float p[MAX_FETCH];
-    if (a.parent_vals) {
-      for (int k = 0; k < a.n_parent; ++k) p[k] = a.parent_vals[k * a.m + r];
-    } else {  // the first lane whose cum exceeds r, clamped into the pool
-      int lo = 0, hi = a.n;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (a.cum[mid] <= r) lo = mid + 1;
-        else hi = mid;
-      }
-      const int par = lo < a.n ? lo : a.n - 1;
-      for (int k = 0; k < a.n_parent; ++k) p[k] = a.planes[k][par];
-    }
-    float u[12];
-    for (int i = 0; i < a.n_draws; ++i) {
+// Child rank r's parent-free parts c (CHILD_PARTS words): the uniforms
+// uniform(fold_in(frame_key, 1000 + e), (n_draws, M)) at flat index i * M
+// + r (threefry-2x32 of (hi, lo) of the index, the xor of its words, the
+// top 23 bits as a float in [1, 2) minus 1), then the samplers of the
+// child's init (step.nested_child_rows' op order).
+__device__ __forceinline__ void child_parts(const int* tab, const NestedArgs& a, int r, float* c) {
+  float u[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    u[i] = 0.0f;
+    if (i < a.n_draws) {
       uint32_t b0, b1;
       threefry2x32(a.k0, a.k1, 0u, (uint32_t)(i * a.m + r), &b0, &b1);
       u[i] = __int_as_float((int)(((b0 ^ b1) >> 9) | 0x3f800000u)) - 1.0f;
     }
+  }
+  const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
+  const int trow = TY_AT + tabi(tab, row + EM_PINDEX) * TY_STRIDE;
+  float offx, offy, offz, ivx, ivy, ivz;
+  shape_point(tab, row + EM_SHAPE, u[0], u[1], u[2], &offx, &offy, &offz);
+  randvec3(tab, row + EM_IVEL, u[3], u[4], u[5], &ivx, &ivy, &ivz);
+  const float rlo = tabf(tab, row + EM_RADIAL_LO), rhi = tabf(tab, row + EM_RADIAL_HI);
+  const float radial = rlo + (rhi - rlo) * u[6];
+  const float l2 = offx * offx + offy * offy + offz * offz;
+  const float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
+  c[0] = offx;
+  c[1] = offy;
+  c[2] = offz;
+  c[3] = ivx;
+  c[4] = ivy;
+  c[5] = ivz;
+  c[6] = offx * inv * radial;
+  c[7] = offy * inv * radial;
+  c[8] = offz * inv * radial;
+  float avx = 0.0f, avy = 0.0f, avz = 0.0f;
+  if (tabi(tab, H_ELIDE_ROT) == 0) randvec3(tab, row + EM_IANG, u[9], u[10], u[11], &avx, &avy, &avz);
+  c[9] = avx;
+  c[10] = avy;
+  c[11] = avz;
+  const float slo = tabf(tab, trow + TY_ISCALE_LO), shi = tabf(tab, trow + TY_ISCALE_HI);
+  c[12] = (slo + (shi - slo) * u[7]) * a.frame[FR_MOD_SCALE];
+  const float llo = tabf(tab, trow + TY_LIFE_LO), lhi = tabf(tab, trow + TY_LIFE_HI);
+  c[13] = llo + (lhi - llo) * u[8];
+}
+
+// The child's row v (CHILD_SLOTS words) from its parts c and its parent's
+// fields p (nested_parent_fields order).
+__device__ __forceinline__ void child_finish(const int* tab, const NestedArgs& a, const float* c, const float* p,
+                                             float* v) {
+  const bool elide_rot = tabi(tab, H_ELIDE_ROT) != 0;
+  const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
+  float wvx = c[3], wvy = c[4], wvz = c[5];
+  const int pv = a.n_parent - 3;  // parent velocity follows position [and rotation]
+  if (!elide_rot) quat_rotate(p[3], p[4], p[5], p[6], c[3], c[4], c[5], &wvx, &wvy, &wvz);
+  const float spd = a.frame[FR_MOD_SPEED], inh = tabf(tab, row + EM_INHERIT);
+  v[0] = p[0] + c[0];
+  v[1] = p[1] + c[1];
+  v[2] = p[2] + c[2];
+  v[3] = spd * (wvx + c[6]) + inh * p[pv];
+  v[4] = spd * (wvy + c[7]) + inh * p[pv + 1];
+  v[5] = spd * (wvz + c[8]) + inh * p[pv + 2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[6 + q] = elide_rot ? 0.0f : tabf(tab, row + EM_INIT_ROT + q);
+  v[10] = c[9];
+  v[11] = c[10];
+  v[12] = c[11];
+  v[13] = c[12];
+  v[14] = 0.0f;
+  v[15] = c[13];
+}
+
+// Child rank r's row v from its parent's fields p.
+__device__ __forceinline__ void child_row(const int* tab, const NestedArgs& a, int r, const float* p, float* v) {
+  float c[CHILD_PARTS];
+  child_parts(tab, a, r, c);
+  child_finish(tab, a, c, p, v);
+}
+
+// rank r's row into the child buffer, the archetype's rows in order
+__device__ __forceinline__ void store_child(const int* tab, const NestedArgs& a, int r, const float* v) {
+  const bool elide_rot = tabi(tab, H_ELIDE_ROT) != 0, const_life = tabi(tab, H_CONST_LIFE) != 0;
+  float* o = a.child + r;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < CHILD_SLOTS; ++i)
+    if ((i < 6 || i > 12 || !elide_rot) && (i < 15 || !const_life)) o[(k++) * a.m] = v[i];
+}
+
+// Tile `tile` from its exclusive prefix c0: the lanes' cadence, the
+// anchors (and the cum), and the child rows (or the parent values) of its
+// ranks, their parts drawn before the barrier where kBarrier. Returns the
+// tile's parent count (all threads call it).
+template <bool kBarrier>
+__device__ __forceinline__ int stage_tile(const int* tab, const NestedArgs& a, int tile, int c0, int* s_incl,
+                                           int* s_warp) {
+  const int g = tile * TILE + threadIdx.x;
+  NestedLane l;
+  l.count = 0;
+  if (g < a.n) l = nested_lane(tab, a, g);
+  int tile_total;
+  const int incl = block_inclusive_scan(l.count, s_warp, &tile_total);
+  s_incl[threadIdx.x] = incl;
+  __syncthreads();
+  if (g < a.n) {
+    // deferral: only ranks below M materialise; a cut parent advances its
+    // anchor by what was emitted (cadence.emission_next_last's op order)
     const int row = tabi(tab, H_EM_AT) + a.e * EM_STRIDE;
-    const int ti = tabi(tab, row + EM_PINDEX);
-    const int trow = TY_AT + ti * TY_STRIDE;
-    float offx, offy, offz, ivx, ivy, ivz;
-    shape_point(tab, row + EM_SHAPE, u[0], u[1], u[2], &offx, &offy, &offz);
-    randvec3(tab, row + EM_IVEL, u[3], u[4], u[5], &ivx, &ivy, &ivz);
-    const float rlo = tabf(tab, row + EM_RADIAL_LO), rhi = tabf(tab, row + EM_RADIAL_HI);
-    const float radial = rlo + (rhi - rlo) * u[6];
-    const float l2 = offx * offx + offy * offy + offz * offz;
-    const float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
-    float wvx = ivx, wvy = ivy, wvz = ivz;
-    const int pv = a.n_parent - 3;  // parent velocity follows position [and rotation]
-    if (!elide_rot) quat_rotate(p[3], p[4], p[5], p[6], ivx, ivy, ivz, &wvx, &wvy, &wvz);
-    const float spd = a.frame[FR_MOD_SPEED], inh = tabf(tab, row + EM_INHERIT);
-    float* o = a.out + r;
-    const int m = a.m;
-    int k = 0;
-    o[(k++) * m] = p[0] + offx;
-    o[(k++) * m] = p[1] + offy;
-    o[(k++) * m] = p[2] + offz;
-    o[(k++) * m] = spd * (wvx + offx * inv * radial) + inh * p[pv];
-    o[(k++) * m] = spd * (wvy + offy * inv * radial) + inh * p[pv + 1];
-    o[(k++) * m] = spd * (wvz + offz * inv * radial) + inh * p[pv + 2];
-    if (!elide_rot) {
-      for (int q = 0; q < 4; ++q) o[(k++) * m] = tabf(tab, row + EM_INIT_ROT + q);
-      float avx, avy, avz;
-      randvec3(tab, row + EM_IANG, u[9], u[10], u[11], &avx, &avy, &avz);
-      o[(k++) * m] = avx;
-      o[(k++) * m] = avy;
-      o[(k++) * m] = avz;
+    const float off_s = tabf(tab, row + EM_OFF_START), off_e = tabf(tab, row + EM_OFF_END);
+    const float between = (off_e - off_s) / tabf(tab, row + EM_COUNT);
+    const int cum = c0 + incl;
+    const int emitted = min(cum, a.m) - min(cum - l.count, a.m);
+    const float clamped = pmax(l.base_le / l.life, off_s);
+    const float trunc = (clamped + (float)emitted * between) * l.life;
+    if (a.le_out) a.le_out[g] = l.pm ? (emitted < l.count ? trunc : l.next_full) : l.base_le;
+    if (a.cum) a.cum[g] = cum;
+  }
+  // ranks [c0, min(c0 + tile_total, M)), where their parents or rows are
+  // written: a rank's parent is the first lane of the tile whose inclusive
+  // count exceeds its rank in the tile
+  const int r_end = (a.fetch_out || a.child) ? min(c0 + tile_total, a.m) : c0;
+  const bool drops = a.ring && a.rec != nullptr && a.child != nullptr;
+  int dropped = 0;
+  const int start = drops && c0 < r_end ? (a.start_in ? *a.start_in : 0) : 0;
+  for (int r = c0 + (int)threadIdx.x; r < r_end; r += TILE) {
+    int lo = 0, hi = TILE - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_incl[mid] <= r - c0) lo = mid + 1;
+      else hi = mid;
     }
-    const float slo = tabf(tab, trow + TY_ISCALE_LO), shi = tabf(tab, trow + TY_ISCALE_HI);
-    o[(k++) * m] = (slo + (shi - slo) * u[7]) * a.frame[FR_MOD_SCALE];
-    o[(k++) * m] = 0.0f;
-    if (!const_life) {
-      const float llo = tabf(tab, trow + TY_LIFE_LO), lhi = tabf(tab, trow + TY_LIFE_HI);
-      o[k * m] = llo + (lhi - llo) * u[8];
+    const int par = tile * TILE + lo;
+    float p[MAX_FETCH];
+#pragma unroll
+    for (int k = 0; k < MAX_FETCH; ++k) p[k] = k < a.n_parent ? a.planes[k][par] : 0.0f;
+    if (a.fetch_out) {
+      for (int k = 0; k < a.n_parent; ++k) a.fetch_out[k * a.m + r] = p[k];
+    }
+    if (a.child) {
+      float v[CHILD_SLOTS];
+      if (kBarrier && a.parts) {  // drawn before the barrier, by another block
+        float c[CHILD_PARTS];
+#pragma unroll
+        for (int k = 0; k < CHILD_PARTS; ++k) c[k] = __ldcg(a.parts + k * a.m + r);
+        child_finish(tab, a, c, p, v);
+      } else {
+        child_row(tab, a, r, p, v);
+      }
+      store_child(tab, a, r, v);
     }
     // ring hybrid frames: a child whose window slot lives is dropped
-    if (a.rec) {
-      const int n_sp = a.rec[NS_N];
-      const int slot = (int)(((long long)a.rec[NS_START] + r) % a.n);
-      drop = r < n_sp && a.alive[slot] != 0;
+    if (drops) dropped += a.alive[(int)(((long long)start + r) % a.n)] != 0;
+  }
+  if (drops) {
+    dropped = __reduce_add_sync(0xffffffffu, dropped);
+    if ((threadIdx.x & 31) == 0 && dropped) atomicAdd(a.rec + NS_DROPPED, dropped);
+  }
+  __syncthreads();  // s_incl is the next tile's
+  return tile_total;
+}
+
+// The parent fields p of child rank r at or above the total (every rank of
+// a child-rows launch alone, whose total is 0): ring, values 0;
+// dead-rank, lane n - 1 (the search past the total, clamped into the
+// pool); a child-rows launch alone, its given values or the search of its
+// cum.
+__device__ __forceinline__ void past_total_parent(const NestedArgs& a, int r, float* p) {
+  int par = a.n - 1;
+  if (a.cum_in) {  // the first lane whose cum exceeds r, clamped into the pool
+    int lo = 0, hi = a.n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (a.cum_in[mid] <= r) lo = mid + 1;
+      else hi = mid;
+    }
+    par = lo < a.n ? lo : a.n - 1;
+  }
+#pragma unroll
+  for (int k = 0; k < MAX_FETCH; ++k) {
+    p[k] = 0.0f;
+    if (k < a.n_parent) {
+      if (a.parent_vals) p[k] = a.parent_vals[k * a.m + r];
+      else if (!a.ring || a.cum_in) p[k] = a.planes[k][par];
     }
   }
-  if (a.rec) {
-    const unsigned b = __ballot_sync(0xffffffffu, drop);
-    if ((threadIdx.x & 31) == 0 && b) atomicAdd(a.rec + NS_DROPPED, __popc(b));
+}
+
+// Rank r at or above the total: its child row, or its parent values 0.
+__device__ __forceinline__ void stage_past_total(const int* tab, const NestedArgs& a, int r) {
+  if (a.fetch_out) {
+    for (int k = 0; k < a.n_parent; ++k) a.fetch_out[k * a.m + r] = 0.0f;
+    return;
+  }
+  float p[MAX_FETCH], v[CHILD_SLOTS];
+  past_total_parent(a, r, p);
+  child_row(tab, a, r, p, v);
+  store_child(tab, a, r, v);
+}
+
+// One nested emitter's stage. Block b takes tiles [b * tiles_per_block,
+// ...) of the n_tiles (none in a child-rows launch alone). kBarrier, an
+// unfolded launch: it counts them, draws the ranks' parts and waits at the
+// grid barrier for every block's sum; else a folded launch reduces the
+// carried counts. Two instantiations: where one kernel held both, the
+// parts' code cost the folded path 1.4 us at 131072 lanes (PERF.md §6).
+template <bool kBarrier>
+__global__ void __launch_bounds__(TILE) nested_stage_kernel(const int* __restrict__ tab, NestedArgs a) {
+  __shared__ int s_incl[TILE];
+  __shared__ int s_warp[TILE / 32];
+  const int t0 = blockIdx.x * a.tiles_per_block;
+  const int t1 = min(t0 + a.tiles_per_block, a.n_tiles);
+  int before = 0, total = 0;
+  if (a.n_tiles > 0) {
+    int x_before = 0, x_all = 0;
+    if (!kBarrier) {  // a folded frame: the carried counts before the range, and all
+      for (int i = threadIdx.x; i < a.n_tiles; i += TILE) {
+        const int v = __ldg(a.carry + i);
+        x_all += v;
+        if (i < t0) x_before += v;
+      }
+    } else {
+      int sum = 0;
+      bool alive = false;
+#pragma unroll 4
+      for (int tile = t0; tile < t1; ++tile) {
+        const int g = tile * TILE + threadIdx.x;
+        if (g < a.n) {
+          sum += nested_lane(tab, a, g).count;
+          alive = alive || a.alive[g] != 0;
+        }
+      }
+      int block_sum;
+      block_inclusive_scan(sum, s_warp, &block_sum);
+      if (a.any_alive && __syncthreads_or(alive) && threadIdx.x == 0) *a.any_alive = 1;
+      if (threadIdx.x == 0) a.block_sums[blockIdx.x] = block_sum;
+      if (a.parts) {
+        // the ranks' parent-free parts, spread over the blocks while the
+        // counts gather; each rank's row as past the total (its parent
+        // known) goes out now, and its window's block rewrites it after
+        // the barrier
+        const int per = (a.m + (int)gridDim.x - 1) / (int)gridDim.x;
+        for (int i = threadIdx.x; i < per; i += TILE) {
+          const int r = (int)blockIdx.x * per + i;
+          if (r >= a.m) break;
+          float c[CHILD_PARTS], p[MAX_FETCH], v[CHILD_SLOTS];
+          child_parts(tab, a, r, c);
+#pragma unroll
+          for (int k = 0; k < CHILD_PARTS; ++k) a.parts[k * a.m + r] = c[k];
+          past_total_parent(a, r, p);
+          child_finish(tab, a, c, p, v);
+          store_child(tab, a, r, v);
+        }
+      }
+      grid_barrier(a.barrier);
+      for (int i = threadIdx.x; i < (int)gridDim.x; i += TILE) {
+        const int v = __ldcg(a.block_sums + i);
+        x_all += v;
+        if (i < (int)blockIdx.x) x_before += v;
+      }
+    }
+    block_inclusive_scan(x_before, s_warp, &before);
+    block_inclusive_scan(x_all, s_warp, &total);
+  }
+  int c0 = before;
+  for (int tile = t0; tile < t1; ++tile) c0 += stage_tile<kBarrier>(tab, a, tile, c0, s_incl, s_warp);
+  // the ranks from the total to M, TILE per block in turn (written before
+  // the barrier where their parts were drawn)
+  if ((a.child || a.fetch_out) && !(kBarrier && a.parts))
+    for (int r = total + (int)(blockIdx.x * TILE + threadIdx.x); r < a.m; r += (int)(gridDim.x * TILE))
+      stage_past_total(tab, a, r);
+  if (blockIdx.x == 0 && threadIdx.x == 0 && a.rec) {
+    // the emitter's scalars: total, children this frame, its claim window
+    const int n_sp = min(total, a.m);
+    const int start = a.start_in ? *a.start_in : 0;
+    a.rec[NS_TOTAL] = total;
+    a.rec[NS_N] = n_sp;
+    a.rec[NS_EMITTER] = a.e;
+    a.rec[NS_START] = start;
+    if (a.ring) {
+      a.rec[NS_NEXT] = (int)(((long long)start + n_sp) % a.n);
+    } else {  // dead-rank: children beyond the pool's dead lanes drop
+      const int n_tail = (a.n + TILE - 1) / TILE - 1;
+      const int dead = a.dead_offsets[n_tail] + a.dead_counts[n_tail];
+      a.rec[NS_NEXT] = start + n_sp;
+      a.rec[NS_DROPPED] = n_sp - min(n_sp, max(dead - start, 0));
+    }
   }
 }
 
@@ -569,6 +765,9 @@ __global__ void __launch_bounds__(TILE) cos_fast_sweep_kernel(uint32_t lo, uint3
     if (fabsf(x) < COS_FAST_BOUND && __float_as_uint(cos_fast(x)) != __float_as_uint(cosf(x))) atomicAdd(bad, 1ull);
   }
 }
+
+// No work: profile_step.py's launch floor (a launch's own device time).
+__global__ void __launch_bounds__(TILE) empty_kernel() {}
 
 // Blocks of `kernel` that fill the current device once at `smem` bytes of
 // dynamic shared memory: its SMs times the blocks of TILE threads resident
@@ -809,34 +1008,81 @@ int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, 
   return (int)cudaGetLastError();
 }
 
-// One nested emitter's cadence pass over n lanes (kernel row 8) on
-// `stream`: with NESTED_COUNT in `passes` the count kernel (per-tile parent
-// counts into tile_counts, ceil(n / TILE) ints; any_alive, or null, set to 1
-// when a lane is alive), with NESTED_APPLY the scan and apply kernels on
-// tile_counts (tile_offsets, ceil(n / TILE) ints, receives their scan). A
-// full pass runs both; a folded chain runs the count alone for its seed
-// and, on each frame, the scan and apply on the counts the step kernel's
-// fold epilogue left. alive (u8), age, le_in and le_out are [n]; ptype [n]
-// or null (one type); lifetime [n] or null (the table's constant); gate one
-// byte. Cum mode: cum [n] out, n_fetch 0. Fetch mode: cum null, fetch_in a
-// host array of n_fetch device planes [n], fetch_out [n_fetch][m]. record
-// (NS_STRIDE ints) receives the emitter's scalars, the window starting at
-// *start_in (null: 0); dead-rank archetypes (ring 0) pass the claim's tile
-// counts and offsets for the drop count. Returns the cudaError_t of the
-// launches.
-int bf_nested_cadence(const void* tables, int e, const void* alive, const void* ptype, const void* age,
-                      const void* lifetime, const void* le_in, const void* gate, void* le_out, void* cum,
-                      void* const* fetch_in, void* fetch_out, int n_fetch, void* tile_counts, void* tile_offsets,
-                      const void* start_in, const void* dead_counts, const void* dead_offsets, void* record,
-                      void* any_alive, int n, int m, int ring, int passes, void* stream) {
-  const bool count = (passes & NESTED_COUNT) != 0, apply = (passes & NESTED_APPLY) != 0;
-  if (n <= 0 || m <= 0 || m > n || e < 0 || n_fetch < 0 || n_fetch > MAX_FETCH || tile_counts == nullptr ||
-      (passes & ~(NESTED_COUNT | NESTED_APPLY)) != 0 || !(count || apply))
+// The count share of nested emitter e's cadence over n lanes on `stream`
+// (a folded chain's seed, kernel row 10's first frame): each TILE-lane
+// tile's parent count into tile_counts (ceil(n / TILE) ints), any_alive (or
+// null) set to 1 where a lane is alive. alive (u8), age and le_in are [n];
+// ptype [n] or null (one type); lifetime [n] or null (the table's
+// constant); gate one byte. Returns the cudaError_t of the launch.
+int bf_nested_counts(const void* tables, int e, const void* alive, const void* ptype, const void* age,
+                     const void* lifetime, const void* le_in, const void* gate, void* tile_counts, void* any_alive,
+                     int n, void* stream) {
+  if (n <= 0 || e < 0 || tile_counts == nullptr) return (int)cudaErrorInvalidValue;
+  NestedArgs a = {};
+  a.alive = (const uint8_t*)alive;
+  a.ptype = (const int*)ptype;
+  a.age = (const float*)age;
+  a.lifetime = (const float*)lifetime;
+  a.le_in = (const float*)le_in;
+  a.gate = (const uint8_t*)gate;
+  a.tile_counts = (int*)tile_counts;
+  a.any_alive = (int*)any_alive;
+  a.e = e;
+  a.n = n;
+  const int n_tiles = (n + TILE - 1) / TILE;
+  nested_count_kernel<<<n_tiles < MAX_BLOCKS ? n_tiles : MAX_BLOCKS, TILE, 0, (cudaStream_t)stream>>>(
+      (const int*)tables, a, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// One launch of nested_stage_kernel for nested emitter e on `stream`.
+// With tiles (n_tiles = ceil(n / TILE)), the cadence pass over n lanes
+// (kernel row 8): alive (u8), age, le_in are [n]; ptype [n] or null (one
+// type); lifetime [n] or null (the table's constant); gate one byte; le_out
+// [n] (may be le_in) or null; cum [n] or null; carry a folded frame's
+// per-tile counts (ceil(n / TILE) ints, the fold epilogue's) or null
+// (counted here); any_alive (NS_ANY) or null; planes a host array of
+// n_parent device planes [n] (nested_parent_fields order); record
+// (NS_STRIDE ints, zero, or null) receives the emitter's scalars, the
+// window starting at *start_in (null: 0); dead-rank archetypes (ring 0)
+// pass the claim's tile counts and offsets for the drop count. Then either
+// fetch_out ([n_parent][m], the parent values by rank, 0 from the total
+// on), or child ([child_rows][m], the child rows of the m ranks: frame
+// FRAME_WORDS host floats, (k0, k1) = fold_in(frame_key, 1000 + e),
+// n_draws uniform rows; a ring record counts the children whose window
+// slot lives in NS_DROPPED; an unfolded launch passes parts,
+// [CHILD_PARTS][m] floats, for the ranks' draws before its barrier), or
+// neither. Without tiles (n_tiles 0), the
+// child rows alone from parent_vals ([n_parent][m] by rank) or from cum_in
+// ([n], the first lane whose cum exceeds the rank, clamped into the pool,
+// with planes). scratch: scratch_words ints (2 + the blocks of a wave: the
+// grid barrier's words, 0 at first use, and the blocks' sums; launches
+// that share them run in order, as on one stream). An unfolded launch with
+// tiles is cooperative (its blocks resident together); the grid is at most
+// one wave of the kernel, and scratch_words - 2 blocks; a folded one at
+// most two waves. Returns the cudaError_t of the launch.
+int bf_nested_stage(const void* tables, int e, const void* alive, const void* ptype, const void* age,
+                    const void* lifetime, const void* le_in, const void* gate, void* le_out, void* cum,
+                    const void* carry, void* any_alive, void* const* planes, int n_parent, void* fetch_out,
+                    void* child, void* parts, const void* parent_vals, const void* cum_in, const void* start_in,
+                    const void* dead_counts, const void* dead_offsets, void* record, const float* frame, uint32_t k0,
+                    uint32_t k1, int n_draws, void* scratch, int scratch_words, int n, int m, int n_tiles, int ring,
+                    void* stream) {
+  const bool tiles = n_tiles > 0;
+  if (n <= 0 || m <= 0 || e < 0 || n_parent < 0 || n_parent > MAX_FETCH || scratch == nullptr || scratch_words < 3 ||
+      (tiles && n_tiles != (n + TILE - 1) / TILE) || n_tiles < 0 || (child != nullptr && fetch_out != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (apply && ((n_fetch > 0) == (cum != nullptr) || (!ring && (dead_counts == nullptr || dead_offsets == nullptr)) ||
-                tile_offsets == nullptr || le_out == nullptr || record == nullptr))
+  if (child != nullptr && ((n_parent != 6 && n_parent != 10) || n_draws < 8 || n_draws > 12 || frame == nullptr))
     return (int)cudaErrorInvalidValue;
-  NestedArgs a;
+  if (parts != nullptr && (!tiles || child == nullptr || carry != nullptr)) return (int)cudaErrorInvalidValue;
+  if (tiles && (m > n || alive == nullptr || age == nullptr || le_in == nullptr || gate == nullptr ||
+                parent_vals != nullptr || cum_in != nullptr || ((child || fetch_out) && planes == nullptr) ||
+                (record != nullptr && !ring && (dead_counts == nullptr || dead_offsets == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  if (!tiles && (child == nullptr || (parent_vals == nullptr) == (cum_in == nullptr) ||
+                 (cum_in != nullptr && planes == nullptr) || le_out || cum || record || any_alive))
+    return (int)cudaErrorInvalidValue;
+  NestedArgs a = {};
   a.alive = (const uint8_t*)alive;
   a.ptype = (const int*)ptype;
   a.age = (const float*)age;
@@ -845,66 +1091,56 @@ int bf_nested_cadence(const void* tables, int e, const void* alive, const void* 
   a.gate = (const uint8_t*)gate;
   a.le_out = (float*)le_out;
   a.cum = (int*)cum;
-  for (int k = 0; k < MAX_FETCH; ++k) a.fetch_in[k] = k < n_fetch ? (const float*)fetch_in[k] : nullptr;
+  a.carry = (const int*)carry;
+  a.any_alive = (int*)any_alive;
+  for (int k = 0; k < MAX_FETCH; ++k)
+    a.planes[k] = (planes != nullptr && k < n_parent) ? (const float*)planes[k] : nullptr;
+  a.n_parent = n_parent;
   a.fetch_out = (float*)fetch_out;
-  a.n_fetch = n_fetch;
-  const int n_tiles = (n + TILE - 1) / TILE;
-  a.tile_counts = (int*)tile_counts;
-  a.tile_offsets = (int*)tile_offsets;
+  a.child = (float*)child;
+  a.parts = (float*)parts;
+  a.parent_vals = (const float*)parent_vals;
+  a.cum_in = (const int*)cum_in;
   a.start_in = (const int*)start_in;
   a.dead_counts = (const int*)dead_counts;
   a.dead_offsets = (const int*)dead_offsets;
   a.rec = (int*)record;
-  a.any_alive = (int*)any_alive;
-  a.e = e;
-  a.n = n;
-  a.m = m;
-  a.ring = ring;
-  const int blocks = n_tiles < MAX_BLOCKS ? n_tiles : MAX_BLOCKS;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (count) {
-    nested_count_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || !apply) return (int)err;
-  }
-  tile_scan_kernel<<<1, 1024, 0, st>>>(a.tile_counts, a.tile_offsets, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nested_apply_kernel<<<blocks, TILE, 0, st>>>((const int*)tables, a, n_tiles);
-  return (int)cudaGetLastError();
-}
-
-// The child rows of nested emitter e for its m ranks, on `stream`: out is
-// [child_rows][m] (the active fields' order); frame FRAME_WORDS host floats;
-// (k0, k1) = fold_in(frame_key, 1000 + e); n_draws uniform rows. Parents:
-// fetch mode parent_vals [n_parent][m] by rank; cum mode cum [n] and
-// parent_planes, a host array of n_parent device planes [n]. record and
-// alive (a ring hybrid frame; else null): the emitter's NS record, whose
-// NS_DROPPED counts the children whose window slot is alive. Returns the
-// cudaError_t of the launch.
-int bf_nested_child_rows(const void* tables, int e, const float* frame, uint32_t k0, uint32_t k1,
-                         const void* parent_vals, const void* cum, void* const* parent_planes, int n_parent,
-                         void* record, const void* alive, void* out, int n_draws, int n, int m, void* stream) {
-  if (n <= 0 || m <= 0 || e < 0 || (n_parent != 6 && n_parent != 10) || n_draws < 8 ||
-      n_draws > 12 || (parent_vals == nullptr) == (cum == nullptr) || (record != nullptr && alive == nullptr))
-    return (int)cudaErrorInvalidValue;
-  ChildArgs a;
-  a.parent_vals = (const float*)parent_vals;
-  a.cum = (const int*)cum;
-  for (int k = 0; k < MAX_FETCH; ++k)
-    a.planes[k] = (cum != nullptr && k < n_parent) ? (const float*)parent_planes[k] : nullptr;
-  a.n_parent = n_parent;
-  a.rec = (int*)record;
-  a.alive = (const uint8_t*)alive;
-  a.out = (float*)out;
-  for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = frame[i];
+  for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = frame ? frame[i] : 0.0f;
   a.k0 = k0;
   a.k1 = k1;
+  a.n_draws = n_draws;
+  a.barrier = (unsigned*)scratch;
+  a.block_sums = (int*)scratch + 2;
   a.e = e;
   a.n = n;
   a.m = m;
-  a.n_draws = n_draws;
-  nested_child_rows_kernel<<<(m + TILE - 1) / TILE, TILE, 0, (cudaStream_t)stream>>>((const int*)tables, a);
+  a.n_tiles = n_tiles;
+  a.ring = ring;
+  // each block a contiguous range of tiles: a cooperative launch at most
+  // one wave of blocks (the barrier's condition) and one block sum per
+  // scratch word; a folded launch at most two waves (every block reduces
+  // all the carried counts: at 5120 tiles one wave, four and one tile per
+  // block measured slower, PERF.md §6); a child-rows launch alone, one
+  // block per TILE ranks
+  const bool barrier = tiles && carry == nullptr;
+  const void* kernel = barrier ? (const void*)nested_stage_kernel<true> : (const void*)nested_stage_kernel<false>;
+  int blocks = (m + TILE - 1) / TILE;
+  if (tiles) {
+    int wave = 0;
+    cudaError_t err = resident_wave(kernel, 0, &wave);
+    if (err != cudaSuccess) return (int)err;
+    const int cap = barrier ? wave : 2 * wave;
+    blocks = n_tiles < cap ? n_tiles : cap;
+    if (barrier && blocks > scratch_words - 2) blocks = scratch_words - 2;
+    a.tiles_per_block = (n_tiles + blocks - 1) / blocks;
+    blocks = (n_tiles + a.tiles_per_block - 1) / a.tiles_per_block;
+  }
+  const int* tab = (const int*)tables;
+  void* params[] = {(void*)&tab, (void*)&a};
+  cudaError_t err = barrier
+                        ? cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(TILE), params, 0, (cudaStream_t)stream)
+                        : cudaLaunchKernel(kernel, dim3(blocks), dim3(TILE), params, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -932,6 +1168,13 @@ int bf_step_warp_occupancy(int stats, int smem_bytes) {
 // cudaError_t of the launch.
 int bf_cos_fast_mismatches(uint32_t lo, uint32_t n, void* bad, void* stream) {
   cos_fast_sweep_kernel<<<MAX_BLOCKS, TILE, 0, (cudaStream_t)stream>>>(lo, n, (unsigned long long*)bad);
+  return (int)cudaGetLastError();
+}
+
+// `count` launches of empty_kernel (one block) on `stream`. Returns the
+// cudaError_t of the last launch.
+int bf_empty_launches(int count, void* stream) {
+  for (int i = 0; i < count; ++i) empty_kernel<<<1, TILE, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

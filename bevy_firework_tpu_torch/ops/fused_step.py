@@ -13,20 +13,22 @@ handler get the dump plane (`StepOutputs.destroyed_mask`).
 
 Archetypes with a nested emitter step hybrid frames (`fused_step_hybrid`,
 the JAX package's hybrid with its in-kernel merge): per valid nested
-emitter the cadence pass (`nested_cadence_pass`: count, scan and apply
-kernels, kernel row 8) and the child-rows kernel (`nested_child_rows`:
-threefry draws, the XLA child stage of the JAX package), then one step
-launch whose merge block (row 9) places the children before the global
-claim. The frame's nested scalars (totals, children, windows, drops, the
+emitter one launch of the nested-stage kernel (`nested_stage`: the cadence
+pass of kernel row 8 and the child rows of row 9b, threefry draws, the XLA
+child stage of the JAX package), then one step launch whose merge block
+(row 9) places the children before the global claim; `nested_cadence_pass`
+and `nested_child_rows` run the same kernel's pass or child rows alone.
+The frame's nested scalars (totals, children, windows, drops, the
 pre-spawn alive flag) stay in one device buffer (`table_layout` NS_*) that
 the kernels read and write: no frame waits on the card. A chain of n >= 2
 such frames on a ring archetype folds the cadence (`chain_nested_folded`,
 as the JAX package's `multi_step_auto` does; `can_fold_nested`): a seed of
 one count kernel per nested emitter, then every frame's step launch but
 the last also counts the next frame's parents on its post-frame state
-(the fold epilogue, kernel row 10) into a `FoldCarry`, and the next frame
-runs only the scan and apply kernels on those counts. The unfolded chain
-stays callable (`chain_hybrid_unfolded`); both give the same bits.
+(the fold epilogue, kernel row 10) into a `FoldCarry`, whose tile counts
+the next frame's nested stage reduces in place of counting its lanes and
+waiting at its grid barrier. The unfolded chain stays callable
+(`chain_hybrid_unfolded`); both give the same bits.
 
 A pool split over the particle axis steps shard by shard (`fused_step(...,
 shard=...)`, kernel row 11, the JAX package's sharded claims): each shard's
@@ -38,8 +40,8 @@ collective makes the outputs the whole pool's.
 Dispatch is by the device of the pool's tensors and nothing else:
   * CUDA tensors: the kernels are launched, or the call raises;
   * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
-    frames or one `step.hybrid_frame`, `step.nested_cadence`,
-    `step.nested_child_rows`, `step.nested_fold_carry`,
+    frames or one `step.hybrid_frame`, `step.nested_stage`,
+    `step.nested_cadence`, `step.nested_child_rows`, `step.nested_fold_carry`,
     `render.pack_render_planes`, `tile_dead_offsets`' cumsum), which keep
     the kernels' op order and random-bit layout.
 The kernel's tables are sized from the spawner and the scene, so the card
@@ -102,6 +104,7 @@ from ..step import (
     plain_frames,
 )
 from ..step import nested_child_rows as plain_child_rows
+from ..step import nested_stage as plain_stage
 from . import table_layout as L
 
 MAX_UNROLL = L.MAX_U
@@ -132,7 +135,15 @@ def looped_form(static: SpawnerStatic, colliders) -> bool:
     return collision_on(static, colliders) and colliders.count >= LOOP_MIN_COLLIDERS
 
 
-_STATS_SCRATCH: dict = {}
+_SCRATCH: dict = {}
+
+
+def _stream_scratch(kind: str, device, stream: int, words: int, dtype) -> torch.Tensor:
+    key = (kind, torch.device(device), int(stream))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=dtype, device=device)
+    return buf[:words]
 
 
 def stats_scratch(device, stream: int, words: int) -> torch.Tensor:
@@ -142,11 +153,16 @@ def stats_scratch(device, stream: int, words: int) -> torch.Tensor:
     stats row and zeroes them and the ticket). Made once per (device,
     stream) and grown, zeroed, when a launch needs more words; launches on
     one stream run in order, so they share it, and two streams get two."""
-    key = (torch.device(device), int(stream))
-    buf = _STATS_SCRATCH.get(key)
-    if buf is None or buf.numel() < words:
-        buf = _STATS_SCRATCH[key] = torch.zeros(words, dtype=torch.int32, device=device)
-    return buf[:words]
+    return _stream_scratch("stats", device, stream, words, torch.int32)
+
+
+def nested_scratch(device, stream: int) -> torch.Tensor:
+    """The nested stage's scratch for launches on `stream` of `device`: 2 +
+    MAX_BLOCKS int32 words, its grid barrier's arrival count (0 between
+    launches: the last block to arrive zeroes it) and generation, then one
+    sum per block; made once per (device, stream) and kept, as
+    `stats_scratch`."""
+    return _stream_scratch("nested", device, stream, 2 + L.MAX_BLOCKS, torch.int32)
 
 
 def check_kernel_scope(static: SpawnerStatic, unroll: int = 1) -> None:
@@ -610,59 +626,116 @@ fused_step.fold_launches = 0  # of which with the nested fold epilogue (kernel r
 fused_step.shard_launches = 0  # of which a shard of a pool split over the particle axis (kernel row 11)
 
 
-_FULL_PASS = L.NESTED_COUNT | L.NESTED_APPLY
-
-
-def _cadence_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_in,
-                    le_out, gate, M: int, fetch: tuple, record, start=None, dead_tiles=None, any_alive=None,
-                    counts=None, passes: int = _FULL_PASS):
-    """Launch nested emitter e's cadence kernels on the current stream:
-    `passes` the full pass (count, scan, apply), the count kernel alone
-    (L.NESTED_COUNT: a folded chain's seed; le_out, fetch and record
-    unused) or the scan and apply alone (L.NESTED_APPLY: a folded frame).
-    counts: the per-tile counts [ceil(N / TILE)] i32 the count kernel
-    writes or the scan reads (None: scratch). fetch: parent planes (fetch
-    mode) or () (cum mode). Returns (cum or None, fetched [len(fetch), M]
-    or None); the record receives the emitter's NS_* scalars."""
-    dev = age.device
-    N = age.shape[0]
-    n_tiles = -(-N // L.TILE)
-    apply = bool(passes & L.NESTED_APPLY)
-    for t, dt_ in ((alive, torch.bool), (age, torch.float32), (le_in, torch.float32)) + (
-            ((le_out, torch.float32),) if apply else ()):
-        _checked(t, dt_, dev, (N,))
-    if not static.single_type:
-        _checked(ptype, torch.int32, dev, (N,))
-    if lifetime is not None:
-        _checked(lifetime, torch.float32, dev, (N,))
-    _checked(gate, torch.bool, dev, ())
-    for t in fetch:
-        _checked(t, torch.float32, dev, (N,))
-    cum = torch.empty(N, dtype=torch.int32, device=dev) if (apply and not fetch) else None
-    out = torch.empty((len(fetch), M), dtype=torch.float32, device=dev) if fetch else None
-    scratch = torch.empty((apply + (counts is None)) * n_tiles, dtype=torch.int32, device=dev)
-    offsets = scratch[:n_tiles] if apply else None
-    counts = scratch[-n_tiles:] if counts is None else counts
+def _stage_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, M: int, n: int, *, lanes=None,
+                  le_out=None, cum=None, carry=None, any_alive=None, planes=(), fetch_out=None, child=None,
+                  frame: Optional[FrameInput] = None, frame_key=None, parent_vals=None, cum_in=None, start=None,
+                  dead_tiles=None, record=None):
+    """One launch of nested emitter e's nested-stage kernel on the current
+    stream (`bf_nested_stage`). lanes: (alive, ptype, age, lifetime or
+    None, le_in, gate), the cadence pass over the n lanes' tiles; None:
+    the child rows alone, from `parent_vals` [n_parent, M] or `cum_in` [n]
+    with `planes`. The other arguments are its outputs or its own inputs,
+    device tensors or None (see the launcher). n_parent is the count of
+    `planes` (or of `parent_vals`' rows): any in fetch mode, which copies
+    them by rank; the archetype's `nested_parent_fields` where child rows
+    are built."""
+    n_parent = parent_vals.shape[0] if parent_vals is not None else len(planes)
+    if child is not None and n_parent != len(nested_parent_fields(static)):
+        raise ValueError(f"child rows read the archetype's {len(nested_parent_fields(static))} parent fields "
+                         f"(nested_parent_fields), not {n_parent}")
+    if n_parent > L.MAX_FETCH:
+        raise ValueError(f"a nested stage reads at most {L.MAX_FETCH} parent fields, not {n_parent}")
+    dev = (lanes[2] if lanes is not None else child).device
+    n_tiles = -(-n // L.TILE) if lanes is not None else 0
+    if lanes is not None:
+        alive, ptype, age, lifetime, le_in, gate = lanes
+        for t, dt_ in ((alive, torch.bool), (age, torch.float32), (le_in, torch.float32)):
+            _checked(t, dt_, dev, (n,))
+        if not static.single_type:
+            _checked(ptype, torch.int32, dev, (n,))
+        if lifetime is not None:
+            _checked(lifetime, torch.float32, dev, (n,))
+        _checked(gate, torch.bool, dev, ())
+    else:
+        alive = ptype = age = lifetime = le_in = gate = None
+    for t in planes:
+        _checked(t, torch.float32, dev, (n,))
+    key = threefry_fold_in(frame_key, 1000 + e) if child is not None else (0, 0)
+    row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist()) if child is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.bf_nested_cadence(
-        kernel_tables(static, params).data_ptr(), e, alive.data_ptr(), None if static.single_type else ptype.data_ptr(),
-        age.data_ptr(), ptr(lifetime), le_in.data_ptr(), gate.data_ptr(), ptr(le_out), ptr(cum),
-        _ptr_array(fetch) if fetch else None, ptr(out), len(fetch), counts.data_ptr(),
-        ptr(offsets), ptr(start), None if dead_tiles is None else dead_tiles[0].data_ptr(),
-        None if dead_tiles is None else dead_tiles[1].data_ptr(), ptr(record), ptr(any_alive), N, M,
-        int(static.ring_claim), passes, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = nested_scratch(dev, stream)
+    # an unfolded stage draws its ranks' parent-free parts before its barrier
+    parts = torch.empty((L.CHILD_PARTS, M), dtype=torch.float32, device=dev) \
+        if (child is not None and lanes is not None and carry is None) else None
+    rc = lib.bf_nested_stage(
+        kernel_tables(static, params).data_ptr(), e, ptr(alive), None if static.single_type else ptr(ptype),
+        ptr(age), ptr(lifetime), ptr(le_in), ptr(gate), ptr(le_out), ptr(cum), ptr(carry), ptr(any_alive),
+        _ptr_array(planes) if planes else None, n_parent, ptr(fetch_out), ptr(child),
+        ptr(parts), ptr(parent_vals),
+        ptr(cum_in), ptr(start), None if dead_tiles is None else dead_tiles[0].data_ptr(),
+        None if dead_tiles is None else dead_tiles[1].data_ptr(), ptr(record), row, int(key[0]), int(key[1]),
+        nested_draw_rows(static), scratch.data_ptr(), scratch.numel(), n, M, n_tiles, int(static.ring_claim),
+        stream)
     if rc != 0:
-        raise RuntimeError(f"nested cadence kernels failed to launch: {lib.bf_error_string(rc).decode()}")
-    if passes == _FULL_PASS:
-        nested_cadence_pass.launches += 1
-    elif passes == L.NESTED_COUNT:
-        nested_cadence_pass.count_launches += 1
-    else:
-        nested_cadence_pass.apply_launches += 1
-    return cum, out
+        raise RuntimeError(f"nested stage kernel failed to launch: {lib.bf_error_string(rc).decode()}")
+
+
+def nested_stage(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, alive, ptype, age,
+                 lifetime, le_row, gate, M: int, parents: dict, frame_key, start, counts=None,
+                 out: Optional[dict] = None):
+    """Kernel rows 8 and 9b: nested emitter e's stage of a hybrid frame in
+    one launch, its cadence pass (the JAX package's `nested_cadence_pass`)
+    and its child rows (the JAX package's child stage, step.py:411-453).
+    Returns (new_le [N] f32, the emitter's NS record int32 [NS_STRIDE],
+    child rows [len(nested_child_field_rows), M] f32), as
+    `step.nested_stage`, its plain version. alive [N] bool (pre-spawn),
+    ptype [N] i32, age [N] f32, lifetime [N] f32 or None (the archetype's
+    constant), le_row the emitter's [N] anchors, gate a 0-d bool, parents
+    name -> [N] f32 (`nested_parent_fields`), start the window's start
+    (int32 0-d). On CUDA tensors the nested-stage kernel runs: counts (a
+    folded frame) are the tile counts the previous step launch's fold
+    epilogue left (`FoldCarry.counts`), reduced in place of counting; out
+    (a hybrid frame's buffers) holds "le" (written in place of a new anchor row),
+    "record" (a zeroed view of the frame's NS buffer), "child" ([rows, M]),
+    "any_alive" (NS_ANY, or None) and on dead-rank archetypes "dead_tiles"
+    (the claim's `_dead_tiles` of `alive`); nothing syncs. On CPU tensors
+    the plain version (counts and out must be None)."""
+    if age.device.type == "cuda":
+        from . import _build
+
+        lib = _build.load()
+        dev = age.device
+        N = age.shape[0]
+        out = dict(out or {})
+        le = out.get("le")
+        le = torch.empty_like(le_row) if le is None else le
+        record = out.get("record")
+        record = torch.zeros(L.NS_STRIDE, dtype=torch.int32, device=dev) if record is None else record
+        child = out.get("child")
+        if child is None:
+            child = torch.empty((len(nested_child_field_rows(static)), M), dtype=torch.float32, device=dev)
+        if counts is not None:
+            _checked(counts, torch.int32, dev, (-(-N // L.TILE),))
+        _stage_launch(lib, static, params, e, M, N, lanes=(alive, ptype, age, lifetime, le_row, gate), le_out=le,
+                      carry=counts, any_alive=out.get("any_alive"),
+                      planes=tuple(parents[k] for k in nested_parent_fields(static)), child=child, frame=frame,
+                      frame_key=frame_key, start=start, record=record,
+                      dead_tiles=None if static.ring_claim else out.get("dead_tiles") or _dead_tiles(alive))
+        nested_stage.launches += 1
+        return le, record, child
+    if age.device.type != "cpu":
+        raise ValueError(f"no nested stage for device {age.device}")
+    if counts is not None or out is not None:
+        raise ValueError("tile counts and output buffers are the card's: the plain nested stage takes neither")
+    life = lifetime if lifetime is not None else torch.full((), float(static.const_lifetime), dtype=torch.float32)
+    return plain_stage(static, params, frame, e, alive, ptype, age, life, le_row, gate, M, parents, frame_key, start)
+
+
+nested_stage.launches = 0  # nested-stage launches of hybrid frames (CUDA path only)
 
 
 def nested_cadence_pass(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row,
@@ -673,30 +746,33 @@ def nested_cadence_pass(static: SpawnerStatic, params: SpawnerParams, e: int, al
     `step.nested_cadence`, its plain version. alive [N] bool, ptype [N]
     i32, age [N] f32, lifetime [N] f32 or None (the archetype's constant),
     le_row the emitter's [N] anchors, gate a 0-d bool. parent_fields
-    (fetch mode): name -> [N] f32. On CUDA tensors the count, scan and
-    apply kernels run (the scalars land in a device record; nothing syncs);
-    on CPU tensors the plain version."""
+    (fetch mode): name -> [N] f32, any of the pool's f32 planes (on the
+    card at most `table_layout.MAX_FETCH`). On CUDA tensors one launch of the
+    nested-stage kernel without child rows (the scalars land in a device
+    record; nothing syncs); on CPU tensors the plain version."""
     if age.device.type == "cuda":
         from . import _build
 
         lib = _build.load()
         dev = age.device
+        N = age.shape[0]
         names = tuple(parent_fields) if parent_fields else ()
         record = torch.zeros(L.NS_STRIDE, dtype=torch.int32, device=dev)
         new_le = torch.empty_like(le_row)
-        dead_tiles = None if static.ring_claim else _dead_tiles(alive)
-        cum, out = _cadence_launch(lib, static, params, e, alive, ptype, age, lifetime, le_row, new_le, gate, M,
-                                   tuple(parent_fields[k] for k in names), record, dead_tiles=dead_tiles)
-        return new_le, cum, record[L.NS_TOTAL], (dict(zip(names, out)) if names else None)
+        cum = None if names else torch.empty(N, dtype=torch.int32, device=dev)
+        fetched = torch.empty((len(names), M), dtype=torch.float32, device=dev) if names else None
+        _stage_launch(lib, static, params, e, M, N, lanes=(alive, ptype, age, lifetime, le_row, gate), le_out=new_le,
+                      cum=cum, planes=tuple(parent_fields[k] for k in names), fetch_out=fetched, record=record,
+                      dead_tiles=None if static.ring_claim else _dead_tiles(alive))
+        nested_cadence_pass.launches += 1
+        return new_le, cum, record[L.NS_TOTAL], (dict(zip(names, fetched)) if names else None)
     if age.device.type != "cpu":
         raise ValueError(f"no nested cadence pass for device {age.device}")
     life = lifetime if lifetime is not None else torch.full((), float(static.const_lifetime), dtype=torch.float32)
     return nested_cadence(static, params, e, alive, ptype, age, life, le_row, gate, M, parent_fields)
 
 
-nested_cadence_pass.launches = 0  # full cadence passes launched (count + scan + apply each; CUDA path only)
-nested_cadence_pass.count_launches = 0  # count kernels alone (a folded chain's seed)
-nested_cadence_pass.apply_launches = 0  # scan + apply pairs alone (a folded frame, on the fold epilogue's counts)
+nested_cadence_pass.launches = 0  # nested-stage launches of the cadence pass alone (CUDA path only)
 
 
 def _frame_row(frame: FrameInput) -> np.ndarray:
@@ -709,23 +785,6 @@ def _frame_row(frame: FrameInput) -> np.ndarray:
     return row
 
 
-def _child_launch(lib, static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, frame_key, M: int,
-                  out, parent_vals=None, cum=None, planes=(), record=None, alive=None):
-    dev = out.device
-    key = threefry_fold_in(frame_key, 1000 + e)
-    row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
-    rc = lib.bf_nested_child_rows(
-        kernel_tables(static, params).data_ptr(), e, row, int(key[0]), int(key[1]),
-        None if parent_vals is None else parent_vals.data_ptr(), None if cum is None else cum.data_ptr(),
-        _ptr_array(planes) if cum is not None else None, len(nested_parent_fields(static)),
-        None if record is None else record.data_ptr(), None if alive is None else alive.data_ptr(), out.data_ptr(),
-        nested_draw_rows(static), (cum.shape[0] if cum is not None else alive.shape[0] if alive is not None else M), M,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nested child-rows kernel failed to launch: {lib.bf_error_string(rc).decode()}")
-    nested_child_rows.launches += 1
-
-
 def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, frame_key, M: int,
                       parent_vals: Optional[dict] = None, cum=None, parent_planes: Optional[dict] = None):
     """The children of nested emitter e by rank, [len(active_f32_fields), M]
@@ -733,7 +792,8 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
     under fold_in(frame_key, 1000 + e)). Parents: `parent_vals` (name -> [M],
     fetch mode), or `cum` [N] with `parent_planes` (name -> [N], cum mode:
     rank r's parent is the first lane whose cum exceeds r). On CUDA tensors
-    the child-rows kernel runs; on CPU tensors `step.nested_child_rows`."""
+    one launch of the nested-stage kernel's child rows alone; on CPU
+    tensors `step.nested_child_rows`."""
     names = nested_parent_fields(static)
     dev = (cum if cum is not None else parent_vals["px"]).device
     if dev.type == "cuda":
@@ -742,12 +802,13 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
         lib = _build.load()
         out = torch.empty((len(nested_child_field_rows(static)), M), dtype=torch.float32, device=dev)
         if cum is not None:
-            _child_launch(lib, static, params, frame, e, frame_key, M, out, cum=_checked(cum, torch.int32, dev,
-                          (cum.shape[0],)), planes=[_checked(parent_planes[k], torch.float32, dev, cum.shape)
-                                                    for k in names])
+            N = cum.shape[0]
+            _stage_launch(lib, static, params, e, M, N, planes=tuple(parent_planes[k] for k in names), child=out,
+                          frame=frame, frame_key=frame_key, cum_in=_checked(cum, torch.int32, dev, (N,)))
         else:
             pv = torch.stack([_checked(parent_vals[k], torch.float32, dev, (M,)) for k in names])
-            _child_launch(lib, static, params, frame, e, frame_key, M, out, parent_vals=pv)
+            _stage_launch(lib, static, params, e, M, M, child=out, frame=frame, frame_key=frame_key, parent_vals=pv)
+        nested_child_rows.launches += 1
         return out
     if dev.type != "cpu":
         raise ValueError(f"no nested child rows for device {dev}")
@@ -757,13 +818,13 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
     return plain_child_rows(static, params, frame, e, parent_vals, frame_key, M)
 
 
-nested_child_rows.launches = 0  # child-rows kernel launches (CUDA path only)
+nested_child_rows.launches = 0  # nested-stage launches of the child rows alone (CUDA path only)
 
 
 @dataclasses.dataclass(frozen=True)
 class FoldCarry:
-    """A folded chain's carry on the card: what the next frame's cadence
-    passes take in place of their count kernels. counts: [n_fold,
+    """A folded chain's carry on the card: what the next frame's nested
+    stages reduce in place of counting. counts: [n_fold,
     ceil(N / TILE)] int32, per valid nested emitter the per-tile parent
     counts on the state the next frame starts from (the fold epilogue's,
     or the seed's count kernels); ns: the next frame's nested scalars
@@ -782,7 +843,7 @@ def can_fold_nested(static: SpawnerStatic, capacity: int) -> bool:
     layout conditions, a capacity that is a multiple of its 64 x 128-lane
     tile and an M that is a multiple of 128, are Mosaic's and are dropped:
     the CUDA epilogue sums any tile of TILE lanes, its last ragged, and the
-    apply kernel fetches any M. A folded chain equals the unfolded one bit
+    nested stage takes any M. A folded chain equals the unfolded one bit
     for bit, so the predicate decides speed only."""
     if not has_nested(static) or not static.ring_claim:
         return False
@@ -797,9 +858,10 @@ def _new_carry(n_fold: int, n_lanes: int, dev) -> FoldCarry:
 def _seed_nested_carry(static: SpawnerStatic, params: SpawnerParams, state: PoolState):
     """The first frame's carry of a folded chain (the JAX package's
     `_seed_nested_carry`), from the kernel-row-8 pass on the chain's
-    initial state: on the card its count kernel per valid nested emitter
-    (a `FoldCarry`: the frame's scan and apply follow); on the CPU
-    `step.nested_fold_carry` (per emitter (new_le, total, parent values))."""
+    initial state: on the card the count kernel per valid nested emitter (a
+    `FoldCarry`: the frame's nested stage takes its tile counts); on the
+    CPU `step.nested_fold_carry` (per emitter (new_le, total, parent
+    values))."""
     dev = state.device
     if dev.type == "cpu":
         return nested_fold_carry(static, params, state)
@@ -811,26 +873,35 @@ def _seed_nested_carry(static: SpawnerStatic, params: SpawnerParams, state: Pool
     N = state.capacity
     es = nested_emitters(static)
     carry = _new_carry(len(es), N, dev)
-    lifetime = None if static.const_lifetime is not None else state.lifetime
+    lifetime = None if static.const_lifetime is not None else _checked(state.lifetime, torch.float32, dev, (N,))
     alive = _checked(state.alive, torch.bool, dev, (N,))
+    ptype = None if static.single_type else _checked(state.ptype, torch.int32, dev, (N,))
+    age = _checked(state.age, torch.float32, dev, (N,))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     for j, e in enumerate(es):
-        _cadence_launch(lib, static, params, e, alive, state.ptype, state.age, lifetime, state.last_emitted[e], None,
-                        state.enabled[e], nested_m(static, N), (), None, any_alive=carry.ns[L.NS_ANY],
-                        counts=carry.counts[j], passes=L.NESTED_COUNT)
+        rc = lib.bf_nested_counts(kernel_tables(static, params).data_ptr(), e, alive.data_ptr(),
+                                  None if ptype is None else ptype.data_ptr(), age.data_ptr(),
+                                  None if lifetime is None else lifetime.data_ptr(),
+                                  _checked(state.last_emitted[e], torch.float32, dev, (N,)).data_ptr(),
+                                  _checked(state.enabled[e], torch.bool, dev, ()).data_ptr(),
+                                  carry.counts[j].data_ptr(), carry.ns[L.NS_ANY].data_ptr(), N, stream)
+        if rc != 0:
+            raise RuntimeError(f"nested count kernel failed to launch: {lib.bf_error_string(rc).decode()}")
+        _seed_nested_carry.launches += 1
     return carry
+
+
+_seed_nested_carry.launches = 0  # count kernel launches of folded chains' seeds (CUDA path only)
 
 
 def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
                      pack_render, stats: bool, carry: Optional[FoldCarry] = None, fold_out: bool = False):
-    """One hybrid frame on the card: per valid nested emitter a cadence pass
-    (fetch mode on the ring, cum mode on dead-rank archetypes; with a
-    `carry`, its scan and apply on the carried counts) and the child-rows
-    kernel, then the step launch with the merge block (and, with
-    `fold_out`, the fold epilogue). Returns (new_state, outputs or None,
-    render planes or None, the next frame's FoldCarry or None)."""
-    from . import _build
-
-    lib = _build.load()
+    """One hybrid frame on the card: per valid nested emitter one launch of
+    the nested-stage kernel (its cadence pass and child rows; with a
+    `carry`, on the carried tile counts), then the step launch with the
+    merge block (and, with `fold_out`, the fold epilogue). Returns
+    (new_state, outputs or None, render planes or None, the next frame's
+    FoldCarry or None)."""
     dev = state.device
     N = state.capacity
     M = nested_m(static, N)
@@ -848,22 +919,18 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     lifetime = None if static.const_lifetime is not None else state.lifetime
     last_emitted = state.last_emitted.clone()
     child = torch.empty((len(es), len(nested_child_field_rows(static)), M), dtype=torch.float32, device=dev)
-    planes = tuple(getattr(state, k) for k in nested_parent_fields(static))
+    parents = {k: getattr(state, k) for k in nested_parent_fields(static)}
     start = state.ring_cursor if static.ring_claim else None
     for j, e in enumerate(es):
         record = ns[L.NS_AT + j * L.NS_STRIDE:L.NS_AT + (j + 1) * L.NS_STRIDE]
         le = last_emitted[e]
         # the gate is the emitter's enabled bit: where a parent lives (the
-        # only lanes the pass counts), active() holds whenever it is set
-        cum, fetched = _cadence_launch(lib, static, params, e, alive, state.ptype, state.age, lifetime, le, le,
-                                       state.enabled[e], M, planes if static.ring_claim else (), record, start,
-                                       dead_tiles, ns[L.NS_ANY], None if carry is None else carry.counts[j],
-                                       _FULL_PASS if carry is None else L.NESTED_APPLY)
-        if static.ring_claim:
-            _child_launch(lib, static, params, frame, e, frame_key, M, child[j], parent_vals=fetched, record=record,
-                          alive=alive)
-        else:
-            _child_launch(lib, static, params, frame, e, frame_key, M, child[j], cum=cum, planes=planes)
+        # only lanes the pass counts), active() holds whenever it is set;
+        # a folded frame's NS_ANY is the previous launch's
+        nested_stage(static, params, frame, e, alive, state.ptype, state.age, lifetime, le, state.enabled[e], M,
+                     parents, frame_key, start, None if carry is None else carry.counts[j],
+                     {"le": le, "record": record, "child": child[j], "dead_tiles": dead_tiles,
+                      "any_alive": ns[L.NS_ANY] if carry is None else None})
         start = record[L.NS_NEXT]
     any_alive = ns[L.NS_ANY] if es else alive.any().to(torch.int32)
     hybrid = {"ns": ns, "child": child, "emitters": es, "any_alive": any_alive,
@@ -903,8 +970,8 @@ def fused_step_hybrid(static: SpawnerStatic, params: SpawnerParams, colliders, s
     the card the nested kernels and one merge-block step launch run; on the
     CPU `step.hybrid_frame`. nested_carry (a folded chain's frame; the
     previous frame's carry or `_seed_nested_carry`'s) stands in for the
-    frame's cadence counts: on the card a `FoldCarry` (the count kernels do
-    not run, the scan and apply do), on the CPU the reference's per-emitter
+    frame's cadence counts: on the card a `FoldCarry` (the nested stages
+    take its tile counts), on the CPU the reference's per-emitter
     (new_le, total, parent values). fold_out asks the step launch for the
     next frame's carry (kernel row 10's epilogue). Both need an archetype
     the fold takes (`can_fold_nested`)."""

@@ -168,7 +168,7 @@ def stats_words(num_types: int) -> int:
 
 # ---- nested scalars (device int32 buffer, zeroed per frame; kernel in- and outputs) ----
 # A header word, then one record per valid nested emitter, in emitter order.
-NS_ANY = 0  # header: 1 when a lane lived before the frame's spawns (set by the count kernels or the fold epilogue)
+NS_ANY = 0  # header: 1 when a lane lived before the frame's spawns (the nested stage, the seed or the fold epilogue)
 NS_AT = 1  # first record
 NS_STRIDE = 8
 NS_TOTAL = 0  # children the emitter's parents ask for this frame
@@ -176,15 +176,17 @@ NS_N = 1  # children claiming this frame: min(total, M); the rest are deferred
 NS_START = 2  # the claim window's start: ring cursor, or the dead-slot rank on dead-rank archetypes
 NS_NEXT = 3  # the next emitter's start: NS_START + NS_N (mod N on the ring)
 NS_DROPPED = 4  # children whose window slot was not dead (pool capacity overflow)
-NS_EMITTER = 5  # the record's nested emitter (its cadence pass writes it)
-MAX_FETCH = 10  # parent fields a fetch-mode cadence pass reads (nested_parent_fields)
-# The cadence pass's launches (bf_nested_cadence's `passes`): the count
-# kernel (per-tile parent counts and NS_ANY) and the scan and apply kernels
-# (the count cumsum, the anchors, the parent fetch, the NS record). An
-# unfolded frame runs both; a folded chain's seed runs the count alone and
-# each folded frame the scan and apply alone, on the tile counts the step
-# kernel's fold epilogue (kernel row 10) left on the previous frame.
-NESTED_COUNT, NESTED_APPLY = 1, 2
+NS_EMITTER = 5  # the record's nested emitter (its nested stage writes it)
+MAX_FETCH = 10  # parent fields a nested stage reads (nested_parent_fields)
+# a child's fields in the nested stage's registers: position, velocity,
+# rotation, angular velocity, initial scale, age, lifetime (the rows an
+# archetype elides are not stored)
+CHILD_SLOTS = 16
+# a child's parent-free parts, drawn before an unfolded nested stage's grid
+# barrier: the shape offset, the initial velocity before the parent's
+# rotation, offset * inv * radial, the angular velocity, the initial scale
+# and the lifetime
+CHILD_PARTS = 14
 # The step kernel's shared words per merge record: the window's start, its
 # children, their type, the record's emitter (the fold epilogue's)
 MERGE_WORDS = 4

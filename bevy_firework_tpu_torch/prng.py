@@ -13,7 +13,7 @@ Two generators, both counter-based and stateless:
     i draws threefry2x32(key, (hi(i), lo(i))), keeps the xor of the two
     output words, and maps its top 23 bits into [1, 2) minus 1. The nested
     child stage draws its rows with them, so its children match the JAX
-    package's lane for lane (the CUDA child-rows kernel evaluates the same
+    package's lane for lane (the CUDA nested-stage kernel evaluates the same
     function per rank).
   * Philox-4x32-10 (Salmon et al., SC'11, the Random123 constants) written
     in torch int64 ops with 32-bit masking. The CUDA step kernel implements

@@ -39,7 +39,11 @@ stress_test_collision at 1M live against its two cuboids and against
 bench.py's 8 hulls) and the unfolded hybrid step launch of nested_60k
 (bench.py's nested cell after 150 frames); `scaling`, kernel row 3 below
 LOOP_MIN_COLLIDERS: the U = 2 launch against
-tools/collider_scaling_tpu.py's scenes at C = 1, 2, 4 and collision_1M.
+tools/collider_scaling_tpu.py's scenes at C = 1, 2, 4 and collision_1M;
+`nested`, kernel rows 8 and 9b: the nested stage of unfolded and folded
+hybrid frames per kernel at nested_60k, nested_chained, a dead-rank nested
+archetype, a burst and nested_60k's spawner at 1310720 lanes, the cadence
+and child-rows entry points, and the launch floor (three empty launches).
 With --flows it prints one JSON line of the solo path's end-to-end times:
 main_100k and main_1M ms/frame and the tornado and fireworks flows' ms per
 Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch from
@@ -302,8 +306,11 @@ def ptxas_summary(report: str) -> list:
         name = re.search(r"'(\S+)'", block).group(1)
         t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
         w = re.search(r"fused_step_kernel_warpILb(\d)E", name)
+        ns = re.search(r"nested_stage_kernelILb(\d)E", name)
         row = {"symbol": name}
-        if t:
+        if ns:
+            name = f"nested_stage_kernel<barrier={ns.group(1)}>"
+        elif t:
             name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
             row["args"] = [int(v) for v in t.groups()]
         elif w:
@@ -599,6 +606,143 @@ def cells_ms(calls: int = 20, traces: int = 3) -> dict:
     return res
 
 
+# the port's own kernels of a hybrid frame's nested stage (the step kernel
+# and PyTorch's fills and copies are reported beside them, not in it)
+NESTED_STAGE_KERNELS = ("nested_stage_kernel", "nested_count_kernel", "tile_scan_kernel", "nested_apply_kernel",
+                        "nested_child_rows_kernel", "dead_count_kernel")
+
+
+def kernel_table(prof, calls: int) -> dict:
+    """Per CUDA kernel of a torch.profiler trace of `calls` calls (its name
+    up to its argument list, without the anonymous namespace): device us
+    per launch, launches per call and device us per call."""
+    import torch
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].strip()[:72]
+        row = out.setdefault(name, {"us": 0.0, "launches": 0})
+        row["us"] += t
+        row["launches"] += e.count
+    return {k: {"us_per_launch": v["us"] / v["launches"], "launches_per_call": v["launches"] / calls,
+                "us_per_call": v["us"] / calls} for k, v in out.items()}
+
+
+def traced_kernels(call, calls: int, traces: int) -> dict:
+    """`kernel_table` of `traces` traces of `calls` calls of `call`, each
+    number the median over the traces, and `stage_us_per_call`: the
+    NESTED_STAGE_KERNELS' device us per call (a trace that lost launches
+    reads low: launches_per_call shows it)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    tables = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        tables.append(kernel_table(prof, calls))
+    names = {k for t in tables for k in t}
+    res = {k: {m: statistics.median(t[k][m] for t in tables if k in t)
+               for m in ("us_per_launch", "launches_per_call", "us_per_call")} for k in sorted(names)}
+    stage = [sum(v["us_per_call"] for k, v in t.items() if k.split("<")[0] in NESTED_STAGE_KERNELS) for t in tables]
+    return {"kernels": res, "stage_us_per_call": statistics.median(stage), "stage_traces": stage}
+
+
+def nested_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Kernel rows 8 and 9b, the nested stage of a hybrid frame, per call
+    and per kernel (`traced_kernels`, stats off) on states of 131072 lanes
+    with child buffer 1024: nested_60k and nested_chained (bench.py's
+    nested cells after 150 frames; a ring, fetch mode), chip_smoke's
+    dead-rank nested_det archetype after 30 frames (cum mode), and a burst
+    (tests/torch_nested_configs.burst_nested after 30 frames: the total
+    exceeds the buffer and one tile owns every rank); and nested_60k's
+    spawner in a pool of 1310720 lanes (5120 tiles). Per state: the
+    unfolded hybrid frame, and on the ring states the folded frame (a copy
+    of the seed's carry, the fold epilogue on); on nested_60k also the
+    entry points `nested_cadence_pass` (fetch and cum mode) and
+    `nested_child_rows` (both parent modes). `launch_floor`: three launches
+    of an empty kernel per call (device us, and CUDA-event wall us per
+    call), where the tree's library has them."""
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.ops import _build
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.step import nested_cadence, nested_parents
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
+    import torch_nested_configs as nested_cfg
+
+    f = bt.make_frame_input(1 / 60)
+    floor = bt.compile_colliders(nested_cfg.DET_FLOOR, device="cuda")
+    states = {"nested_60k": (nested_cfg.bench_nested(False), None, 150, 16 * 8192),
+              "nested_chained": (nested_cfg.bench_nested(True), None, 150, 16 * 8192),
+              "dead_rank": (nested_cfg.det_nested(destroy=True), floor, 30, 16 * 8192),
+              "burst": (nested_cfg.burst_nested(), None, 30, 16 * 8192),
+              "nested_60k_1310720": (nested_cfg.bench_nested(False), None, 150, 160 * 8192)}
+    res = {}
+    for label, (sp, table, warm, capacity) in states.items():
+        c = bt.compile_spawner(sp, nested_buffer=1024, device="cuda")
+        s, out = fs.multi_step_auto(c.static, c.params, table, bt.init_pool_for(c, capacity, seed=0), f, warm)
+        life = torch.full((), float(c.static.const_lifetime), device="cuda") if c.static.const_lifetime is not None \
+            else s.lifetime
+        ranks = {}
+        for e in fs.nested_emitters(c.static):
+            _le, cum, total, _pv = nested_cadence(c.static, c.params, e, s.alive, s.ptype, s.age, life,
+                                                  s.last_emitted[e], s.enabled[e], 1024)
+            ranks[e] = {"total": int(total), "max_tile_ranks": nested_cfg.tile_ranks(cum, 1024)}
+        row = res[label] = {"live": int(out.alive_count), "per_type": out.alive_count_per_type.tolist(),
+                            "emitters": ranks,
+                            "unfolded": traced_kernels(lambda: fs.fused_step(c.static, c.params, table, s, f,
+                                                                             stats=False), calls, traces)}
+        if fs.can_fold_nested(c.static, s.capacity):
+            carry = fs._seed_nested_carry(c.static, c.params, s)
+            row["folded"] = traced_kernels(lambda: fs.fused_step_hybrid(
+                c.static, c.params, table, s, f, stats=False, fold_out=True,
+                nested_carry=fs.FoldCarry(carry.counts.clone(), carry.ns.clone())), calls, traces)
+        if label == "nested_60k":
+            par = {k: getattr(s, k) for k in fs.nested_parent_fields(c.static)}
+            gate = s.enabled[1]
+            args = (c.static, c.params, 1, s.alive, s.ptype, s.age, None, s.last_emitted[1], gate, 1024)
+            _le, cum, _t, _pv = nested_cadence(*args[:6], life, *args[7:])
+            pv = {k: v[nested_parents(cum, 1024)] for k, v in par.items()}
+            key = np.array([1, 2], np.uint32)
+            row["pass_fetch"] = traced_kernels(lambda: fs.nested_cadence_pass(*args, parent_fields=par), calls, traces)
+            row["pass_cum"] = traced_kernels(lambda: fs.nested_cadence_pass(*args), calls, traces)
+            row["child_fetch"] = traced_kernels(lambda: fs.nested_child_rows(c.static, c.params, f, 1, key, 1024,
+                                                                             parent_vals=pv), calls, traces)
+            row["child_cum"] = traced_kernels(lambda: fs.nested_child_rows(c.static, c.params, f, 1, key, 1024,
+                                                                           cum=cum, parent_planes=par), calls, traces)
+    lib = _build.load()
+    if hasattr(lib, "bf_empty_launches"):
+        stream = torch.cuda.current_stream().cuda_stream
+        floor_call = lambda: lib.bf_empty_launches(3, stream)  # noqa: E731
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        floor_call()
+        start.record()
+        for _ in range(200):
+            floor_call()
+        end.record()
+        torch.cuda.synchronize()
+        res["launch_floor"] = {"three_empty": traced_kernels(floor_call, calls, traces),
+                               "wall_us_per_call": start.elapsed_time(end) / 200 * 1e3}
+    return res
+
+
 def flows_ms(windows: int = 3) -> dict:
     """The solo path's end-to-end times, as chip_smoke.py measures them:
     ms/frame of stress_test's multi_step_auto chain at 100k and 1M live
@@ -733,6 +877,8 @@ def main():
             put({"cells": cells_ms()})
         if "scaling" in groups:
             put({"scaling": scaling_ms()})
+        if "nested" in groups:
+            put({"nested": nested_ms()})
     else:
         for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
             put(profile_size(rate, cap))
@@ -742,7 +888,7 @@ def main():
 
 
 # --launch's groups, in the order they run
-LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling")
+LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling", "nested")
 
 
 if __name__ == "__main__":

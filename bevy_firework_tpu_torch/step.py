@@ -28,10 +28,10 @@ destroy-on-collision, scene force fields, the destroyed-particle mask and
 nested emission. Archetypes with a nested emitter step one hybrid frame at
 a time, the plain version of `bevy_firework_tpu.ops.fused_step.
 fused_step_hybrid` with its in-kernel child merge (`hybrid_frame`): each
-valid nested emitter in order runs its cadence pass (`nested_cadence`, the
-plain version of the nested-cadence kernels) and its child stage
-(`nested_child_rows`, threefry draws under `fold_in(frame_key, 1000 + e)`,
-the plain version of the child-rows kernel), all on the pre-spawn alive;
+valid nested emitter in order runs its nested stage (`nested_stage`, the
+plain version of the nested-stage kernel): its cadence pass
+(`nested_cadence`) and its child stage (`nested_child_rows`, threefry
+draws under `fold_in(frame_key, 1000 + e)`), all on the pre-spawn alive;
 then `advance` merges the children into their claim windows before the
 global claim, whose ring cursor starts where the nested claims left it. A
 frame of a folded chain takes its cadence results from a carry instead:
@@ -61,6 +61,7 @@ from .compiled import MODE_NESTED, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerPar
 from .curve import eval_curve_static
 from .emission_shape import sample_shape_comp
 from .force_fields import field_accel
+from .ops import table_layout as L
 from .ops.table_layout import TILE
 from .pool import FrameInput, PoolState
 from .prng import frame_seeds, lane_uniforms, threefry_fold_in, threefry_split, threefry_uniform
@@ -614,7 +615,7 @@ def nested_draw_rows(static: SpawnerStatic) -> int:
 
 def nested_lane_counts(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row,
                        gate):
-    """Per parent lane of nested emitter e (the count kernel's `nested_lane`):
+    """Per parent lane of nested emitter e (the nested kernels' `nested_lane`):
     (counts [N] i32: the emission count of a live lane of the target type
     while `gate` holds, else 0; the full anchor advance; the anchor after
     the lazy reset of dead lanes to f32::MIN; the parent mask)."""
@@ -629,7 +630,7 @@ def nested_lane_counts(static: SpawnerStatic, params: SpawnerParams, e: int, ali
 
 def nested_cadence(static: SpawnerStatic, params: SpawnerParams, e: int, alive, ptype, age, lifetime, le_row, gate,
                    M: int, parent_fields=None):
-    """The plain version of the nested-cadence kernels (kernel row 8; the JAX
+    """The plain version of the nested-stage kernel's pass (kernel row 8; the JAX
     package's `_make_nested_cadence_kernel`, in its op order): per parent
     lane of emitter e, the lazy reset of dead lanes' anchors, the emission
     count (alive, gated, of the target type), the inclusive count cumsum,
@@ -669,10 +670,10 @@ def nested_parents(cum: torch.Tensor, M: int) -> torch.Tensor:
 
 def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, parent: dict,
                       frame_key, M: int) -> torch.Tensor:
-    """The plain version of the child-rows kernel: the children of emitter e
-    by rank (the JAX package's step.py:411-453), from `parent` (name -> [M]
-    parent values of each rank) and the uniforms uniform(fold_in(frame_key,
-    1000 + e), (n_rows, M)). Returns [len(nested_child_field_rows), M] f32."""
+    """The plain version of the nested-stage kernel's child rows: the
+    children of emitter e by rank (the JAX package's step.py:411-453), from
+    `parent` (name -> [M] parent values of each rank) and the uniforms
+    uniform(fold_in(frame_key, 1000 + e), (n_rows, M)). Returns [len(nested_child_field_rows), M] f32."""
     dev = parent["px"].device
     u = threefry_uniform(threefry_fold_in(frame_key, 1000 + e), (nested_draw_rows(static), M), dev)
     ti = static.particle_indices[e]
@@ -702,6 +703,45 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
     if static.const_lifetime is None:
         rows["lifetime"] = sample_randf32(u[8], params.lifetime_lo[ti], params.lifetime_hi[ti])
     return torch.stack([rows[k] for k in nested_child_field_rows(static)])
+
+
+def nested_stage(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, alive, ptype, age,
+                 lifetime, le_row, gate, M: int, parents: dict, frame_key, start, carry=None):
+    """The plain version of the nested-stage kernel (kernel rows 8 and 9b,
+    one launch per nested emitter of a hybrid frame): nested emitter e's
+    cadence pass (`nested_cadence`), each child rank's parent
+    (`nested_parents`; on ring archetypes parent values 0 from the total
+    on, as the fetch mode gives them) and the child rows
+    (`nested_child_rows`). Returns (new_le [N] f32, the emitter's NS record
+    int32 [NS_STRIDE], child rows [len(nested_child_field_rows), M] f32).
+    The record's window starts at `start` (int32 0-d: the ring cursor or a
+    dead-slot rank); on the ring a child whose window slot lives (`alive`,
+    the pre-spawn plane) is dropped, on dead-rank archetypes a child past
+    the pool's dead lanes. carry (a folded frame; `nested_fold_carry`'s
+    (new_le, total, parent values)) stands in for the cadence pass."""
+    N = alive.shape[0]
+    if carry is not None:
+        new_le, total, pv = carry
+    else:
+        new_le, cum, total, _pv = nested_cadence(static, params, e, alive, ptype, age, lifetime, le_row, gate, M)
+        idx = nested_parents(cum, M)
+        valid = torch.arange(M, device=alive.device) < total
+        pv = {k: v[idx] if not static.ring_claim else torch.where(valid, v[idx], torch.zeros((), device=v.device))
+              for k, v in parents.items()}
+    rows = nested_child_rows(static, params, frame, e, pv, frame_key, M)
+    n = total.clamp_max(M)
+    if static.ring_claim:
+        r = torch.arange(M, dtype=torch.int64, device=alive.device)
+        dropped = ((r < n) & alive[torch.remainder(start + r, N)]).sum(dtype=torch.int32)
+        nxt = torch.remainder(start + n, N)
+    else:
+        dropped = n - n.clamp_max(((~alive).sum(dtype=torch.int32) - start).clamp_min(0))
+        nxt = start + n
+    rec = torch.zeros(L.NS_STRIDE, dtype=torch.int32, device=alive.device)
+    for slot, v in ((L.NS_TOTAL, total), (L.NS_N, n), (L.NS_START, start), (L.NS_NEXT, nxt),
+                    (L.NS_DROPPED, dropped), (L.NS_EMITTER, e)):
+        rec[slot] = v
+    return new_le, rec, rows
 
 
 def nested_fold_carry(static: SpawnerStatic, params: SpawnerParams, state: PoolState) -> dict:
@@ -759,41 +799,23 @@ def nested_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
     M = nested_m(static, N)
     life = lifetime_of(static, {"lifetime": state.lifetime, "age": state.age})
     alive = state.age < life if static.ring_claim else state.alive
-    dead = ~alive
     any_alive = alive.any()
     active = active_flag(static, state.enabled, any_alive)
     last_emitted = state.last_emitted.clone()
     zero = torch.zeros((), dtype=torch.int32, device=alive.device)
     start = state.ring_cursor if static.ring_claim else zero
     deferred = dropped = zero
-    n_dead = None if static.ring_claim else dead.sum(dtype=torch.int32)
     parents = {k: getattr(state, k) for k in nested_parent_fields(static)}
     windows = []
     for e in nested_emitters(static):
-        if carry is not None:
-            (new_le, total, pv), cum = carry[e], None
-        else:
-            # fetch mode on the ring, cum mode on dead-rank archetypes (both
-            # give each rank its parent; the kernels run both)
-            new_le, cum, total, pv = nested_cadence(static, params, e, alive, state.ptype, state.age, life,
-                                                    state.last_emitted[e], active & state.enabled[e], M,
-                                                    parents if static.ring_claim else None)
+        new_le, rec, rows = nested_stage(static, params, frame, e, alive, state.ptype, state.age, life,
+                                         state.last_emitted[e], active & state.enabled[e], M, parents, frame_key,
+                                         start, None if carry is None else carry[e])
         last_emitted[e] = new_le
-        n = total.clamp_max(M)
-        deferred = deferred + (total - n)
-        if pv is None:
-            idx = nested_parents(cum, M)
-            pv = {k: v[idx] for k, v in parents.items()}
-        rows = nested_child_rows(static, params, frame, e, pv, frame_key, M)
-        windows.append((e, start, n, rows))
-        if static.ring_claim:
-            r = torch.arange(M, dtype=torch.int64, device=alive.device)
-            ok = (r < n) & dead[torch.remainder(start + r, N)]
-            dropped = dropped + (n - ok.sum(dtype=torch.int32))
-            start = torch.remainder(start + n, N).to(torch.int32)
-        else:
-            dropped = dropped + (n - n.clamp_max((n_dead - start).clamp_min(0)))
-            start = start + n
+        deferred = deferred + (rec[L.NS_TOTAL] - rec[L.NS_N])
+        dropped = dropped + rec[L.NS_DROPPED]
+        windows.append((e, rec[L.NS_START], rec[L.NS_N], rows))
+        start = rec[L.NS_NEXT]
     return NestedSpawns(any_alive, tuple(windows), start), last_emitted, deferred, dropped
 
 

@@ -112,12 +112,18 @@ textures flows and the Scene's async render, through the kernels. Phases:
      capacity 8192, a floor, destroy-on-collision): records delivered ==
      the plain version's destroyed count, ms per Scene.step with and
      without the handler;
- 22. nested_det, N = 131072: the nested cadence kernels (cum and fetch
-     mode, a rate window and a burst whose total exceeds M, ranks across
-     blocks) and the child-rows kernel (both parent modes) against their
-     plain versions, then 30 hybrid frames of a ring, a chained and a
-     destroy-on-collision (dead-rank) nested archetype whose children meet
-     no sinf/cosf: bit for bit, anchors and nested counts included;
+ 22. nested_det, N = 131072: the nested-stage kernel (kernel rows 8 and
+     9b, one launch per nested emitter) against its plain version
+     step.nested_stage, anchors, NS record and child buffer bit for bit,
+     unfolded and on a folded frame's carried tile counts: a rate window
+     on the ring (total below M) and on a dead-rank archetype, a burst
+     whose first tile owns every rank below M, and the rate window at
+     1310720 lanes; its pass alone (cum and fetch mode, the cum included)
+     and its child rows alone (both parent modes) against
+     step.nested_cadence and step.nested_child_rows; then 30 hybrid frames
+     of a ring, a chained and a destroy-on-collision (dead-rank) nested
+     archetype whose children meet no sinf/cosf: bit for bit, anchors and
+     nested counts included;
  22a. nested_fold_det, N = 131072: nested_det's ring configs (single and
      chained, with deferral; tests/torch_nested_configs.py): the seed's
      count kernels and the step launch's fold epilogue (kernel row 10: per-
@@ -129,15 +135,15 @@ textures flows and the Scene's async render, through the kernels. Phases:
  23. nested_60k: bench.py's nested cell (4000 rockets/s, 10 children each,
      capacity 131072, nested_buffer 1024, ~60k live): a 150-frame
      multi_step_auto chain (folded: one count kernel per nested emitter,
-     then per frame a scan and apply pair per emitter, the child rows and
-     the step launch, with the fold epilogue but on the last) under
-     torch.cuda.set_sync_debug_mode("error") (no frame synchronises)
-     against the unfolded chain (bit for bit) and 150 plain frames (counts,
-     cursor, cadence exact; f32 within 4 ulp), differential ms/frame, the
-     device time per frame of 10-frame folded and unfolded chains, and of
-     the cadence kernels (the full pass, and the scan and apply pair), the
-     child-rows kernel and the merge step launch without and with the fold
-     epilogue, with the cadence share of the frame;
+     then per frame one nested-stage launch per emitter and the step
+     launch, with the fold epilogue but on the last: 1 + E launches a
+     frame) under torch.cuda.set_sync_debug_mode("error") (no frame
+     synchronises) against the unfolded chain (bit for bit) and 150 plain
+     frames (counts, cursor, cadence exact; f32 within 4 ulp), differential
+     ms/frame, the device time per frame of 10-frame folded and unfolded
+     chains, and of the nested-stage launch (unfolded and folded), the
+     seed's count kernel and the merge step launch without and with the
+     fold epilogue, with the nested stage's share of the frame;
  24. nested_chained: the same for bench.py's 3-stage chained cell;
  24a. ab_nested_fold: bench.py's A/B (:958-1029) on nested_60k: folded (100
      and 200 frames) and unfolded (101 and 202) chains interleaved, 7
@@ -408,8 +414,8 @@ def main() -> int:
     scalars = ("ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued", "alive", "rng_key")
     max_err = {"fused_step": 0.0, "fused_step.pack_render": 0.0, "fused_step.collide": 0.0,
                "fused_step.dead_rank_claim": 0.0, "fused_step.fields": 0.0, "fused_step.dump": 0.0,
-               "fused_step.stats": 0.0, "nested_cadence": 0.0, "fused_step.nested_merge": 0.0,
-               "nested_child_rows": 0.0, "fused_step.fleet": 0.0, "fused_step.collide_broad": 0.0,
+               "fused_step.stats": 0.0, "nested_stage": 0.0, "fused_step.nested_merge": 0.0,
+               "nested_seed_count": 0.0, "fused_step.fleet": 0.0, "fused_step.collide_broad": 0.0,
                "fused_step.nested_fold": 0.0, "fused_step.sharded_claim": 0.0}
 
     def compare(c, sk, sp, f32_ulps: dict, label, kernel="fused_step"):
@@ -434,9 +440,8 @@ def main() -> int:
                 "collide": (fs.fused_step, "collide_launches"), "fields": (fs.fused_step, "fields_launches"),
                 "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
                 "dead_rank_claim": (fs.tile_dead_offsets, "launches"), "merge": (fs.fused_step, "merge_launches"),
-                "nested_cadence": (fs.nested_cadence_pass, "launches"),
-                "nested_count": (fs.nested_cadence_pass, "count_launches"),
-                "nested_apply": (fs.nested_cadence_pass, "apply_launches"), "fold": (fs.fused_step, "fold_launches"),
+                "nested_stage": (fs.nested_stage, "launches"), "nested_seed": (fs._seed_nested_carry, "launches"),
+                "nested_pass": (fs.nested_cadence_pass, "launches"), "fold": (fs.fused_step, "fold_launches"),
                 "nested_child_rows": (fs.nested_child_rows, "launches"),
                 "fleet": (fs.fused_step_fleet, "launches"), "fleet_render": (fs.fused_step_fleet, "render_launches"),
                 "fleet_collide": (fs.fused_step_fleet, "collide_launches"),
@@ -1370,32 +1375,13 @@ def main() -> int:
                      "ms_per_scene_step_with_handler": on_ms, "ms_per_scene_step_without_handler": off_ms}})
 
     # ------------------------------------------------ 22. nested_det
-    from bevy_firework_tpu_torch.step import hybrid_frame, nested_cadence, nested_fold_carry, nested_parents
-    from bevy_firework_tpu_torch.step import nested_child_rows as plain_child_rows
+    from bevy_firework_tpu_torch.step import hybrid_frame, nested_cadence, nested_fold_carry, nested_fold_counts
+    from bevy_firework_tpu_torch.step import nested_child_rows as plain_child_rows, nested_parents
+    from bevy_firework_tpu_torch.step import nested_stage as plain_stage
 
-    def det_nested(destroy=False, chained=False):
-        """A rocket emitter with constant draws and nested children (box
-        offsets, random speeds, no spread: no sinf/cosf), chained
-        grandchildren optional; with `destroy` the rockets fall on a floor
-        (dead-rank claim, cum mode)."""
-        col = ParticleCollisionSettings(restitution=0.5, friction=0.2, destroy_on_collision=True) if destroy else None
-        types = [bt.ParticleSettings(lifetime=bt.RandF32.constant(0.6), linear_drag=0.1, collision_settings=col,
-                                     acceleration=(0.0, -9.81 if destroy else 0.0, 0.0)),
-                 bt.ParticleSettings(lifetime=bt.RandF32(0.3, 0.5), linear_drag=0.2, acceleration=(0.0, -2.0, 0.0)),
-                 bt.ParticleSettings(lifetime=bt.RandF32.constant(0.4), linear_drag=0.3)]
-        child = dict(emission_shape=bt.EmissionShape.box((0.1, 0.2, 0.1)),
-                     initial_velocity=bt.RandVec3(bt.RandF32(0.1, 0.9), (0.0, 1.0, 0.0), 0.0),
-                     initial_velocity_radial=bt.RandF32(0.2, 1.0), inherit_parent_velocity=True)
-        ems = [bt.EmissionSettings(particle_index=0, emission_pacing=bt.EmissionPacing.rate(1e5),
-                                   initial_velocity=bt.RandVec3.constant((0.3, 2.0, 0.1))),
-               bt.EmissionSettings(particle_index=1, emission_mode=bt.EmissionMode.nested(0),
-                                   emission_pacing=bt.EmissionPacing.count_over_duration(6.0, 1.0, 0.1, 1.0), **child)]
-        if chained:
-            ems.append(bt.EmissionSettings(particle_index=2, emission_mode=bt.EmissionMode.nested(1),
-                                           emission_pacing=bt.EmissionPacing.count_over_duration(3.0, 1.0, 0.2, 0.9),
-                                           **child))
-        return bt.ParticleSpawner(particle_settings=types[:3 if chained else 2], emission_settings=ems)
+    import torch_nested_configs as nested_cfg
 
+    det_nested = nested_cfg.det_nested
     n_det = 131072
     cn = bt.compile_spawner(det_nested(), nested_buffer=1024, device=dev)
     burst = bt.compile_spawner(bt.ParticleSpawner(
@@ -1428,7 +1414,7 @@ def main() -> int:
                     check(torch.equal(k_pv[k], p_pv[k]), f"nested_det cadence {name}: parent {k}")
             else:
                 check(torch.equal(k_cum, p_cum), f"nested_det cadence {name}: cum")
-            max_err["nested_cadence"] = max(max_err["nested_cadence"], float((k_le - p_le).abs().max()))
+            max_err["nested_stage"] = max(max_err["nested_stage"], float((k_le - p_le).abs().max()))
             cad_res[f"{name}_{'fetch' if fetch else 'cum'}"] = {"total": int(k_total), "m": M}
     check(cad_res["burst_cum"]["total"] > 4096, f"nested_det: burst total {cad_res['burst_cum']}")
     # child rows: both parent modes, rates of the rate-window pass
@@ -1442,9 +1428,55 @@ def main() -> int:
         rows_k = fs.nested_child_rows(cn.static, cn.params, fr_det, 1, fkey, 1024, **kw)
         check(torch.equal(rows_k, rows_plain), f"nested_det child rows ({list(kw)[0]}) differ by "
               f"{ulp_diff(rows_k, rows_plain)} ulp")
-        max_err["nested_child_rows"] = max(max_err["nested_child_rows"], float((rows_k - rows_plain).abs().max()))
+        max_err["nested_stage"] = max(max_err["nested_stage"], float((rows_k - rows_plain).abs().max()))
+    # the nested stage in one launch (kernel rows 8 and 9b) against
+    # step.nested_stage, unfolded and on the carried tile counts of a folded
+    # frame: a rate window on the ring (anchors just below the age but for
+    # 0.2%: the total below M, the ranks above it the zero parent's), the
+    # same inputs on a dead-rank archetype (the ranks above the total take
+    # lane n - 1), a burst (one tile owns every rank below M) and the rate
+    # window at 1310720 lanes (5120 tiles)
+    def stage_inputs(n, seed, unset):
+        rng = np.random.default_rng(seed)
+        life = rng.uniform(0.5, 2.0, n).astype(np.float32)
+        age = (rng.uniform(0.0, 1.0, n) * life).astype(np.float32)
+        le = np.where(rng.uniform(size=n) < unset, np.finfo(np.float32).min, age * np.float32(0.97))
+        t = {"alive": rng.uniform(size=n) < 0.5, "ptype": rng.integers(0, 2, n).astype(np.int32), "age": age,
+             "life": life, "le": le.astype(np.float32)}
+        t.update({k: rng.normal(size=n).astype(np.float32) for k in ("px", "py", "pz", "vx", "vy", "vz")})
+        return {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+
+    def stage_check(name, cc, t, M):
+        n = t["age"].shape[0]
+        start = torch.tensor(n // 3 if cc.static.ring_claim else 0, dtype=torch.int32, device=dev)
+        par = {k: t[k] for k in fs.nested_parent_fields(cc.static)}
+        args = (cc.static, cc.params, fr_det, 1, t["alive"], t["ptype"], t["age"], t["life"], t["le"], gate, M, par,
+                np.array([23, 2026], np.uint32), start)
+        p_le, p_rec, p_rows = plain_stage(*args)
+        carried = nested_cfg.lane_tile_counts(cc.static, cc.params, 1, t["alive"], t["ptype"], t["age"], t["life"],
+                                              t["le"], gate)
+        for label, counts in (("unfolded", None), ("folded", carried)):
+            k_le, k_rec, k_rows = fs.nested_stage(*args, counts=counts)
+            check(torch.equal(k_rec, p_rec), f"nested_det stage {name} {label}: record {k_rec.tolist()} != "
+                  f"{p_rec.tolist()}")
+            check(torch.equal(k_le, p_le), f"nested_det stage {name} {label}: anchors")
+            check(torch.equal(k_rows, p_rows), f"nested_det stage {name} {label}: child rows differ by "
+                  f"{ulp_diff(k_rows, p_rows)} ulp")
+            max_err["nested_stage"] = max(max_err["nested_stage"], float((k_rows - p_rows).abs().max()))
+        cum = nested_cadence(cc.static, cc.params, 1, t["alive"], t["ptype"], t["age"], t["life"], t["le"], gate, M)[1]
+        return {"n": n, "total": int(p_rec[L.NS_TOTAL]), "max_tile_ranks": nested_cfg.tile_ranks(cum, M),
+                "dropped": int(p_rec[L.NS_DROPPED])}
+
+    small = stage_inputs(n_det, 21, 0.002)
+    stage_res = {"ring": stage_check("ring", cn, small, 1024),
+                 "dead_rank": stage_check("dead_rank", bt.compile_spawner(det_nested(destroy=True), device=dev),
+                                          small, 1024),
+                 "burst": stage_check("burst", burst, stage_inputs(n_det, 22, 0.5), 1024),
+                 "ring_1310720": stage_check("ring_1310720", cn, stage_inputs(1310720, 23, 0.002), 1024)}
+    check(0 < stage_res["ring"]["total"] < 1024 and stage_res["burst"]["total"] > 1024
+          and stage_res["burst"]["max_tile_ranks"] >= 256, f"nested_det stage: {stage_res}")
     # hybrid frames: ring (single and chained) and dead-rank, 30 frames each
-    floor_det = bt.compile_colliders([bt.Collider.halfspace(position=(0.0, -0.2, 0.0))], device=dev)
+    floor_det = bt.compile_colliders(nested_cfg.DET_FLOOR, device=dev)
     hyb_res = {}
     for name, destroy, chained in (("ring", False, False), ("chained", False, True), ("dead_rank", True, False)):
         ch = bt.compile_spawner(det_nested(destroy, chained), nested_buffer=1024, device=dev)
@@ -1467,12 +1499,12 @@ def main() -> int:
         check(int(ok.alive_count_per_type[1]) > 5000, f"nested_det {name}: {hyb_res[name]}")
     check(hyb_res["ring"]["deferred"] > 0, "nested_det: no deferral")
     torch.cuda.synchronize()
-    emit({"phase": "nested_det", "card": card, "n": n_det, "cadence": cad_res, "hybrid": hyb_res,
-          "rule": "cadence kernels (cum and fetch mode), child rows and 30 hybrid frames == plain, bit for bit"})
+    emit({"phase": "nested_det", "card": card, "n": n_det, "stage": stage_res, "cadence": cad_res, "hybrid": hyb_res,
+          "rule": "the nested stage (unfolded and on carried tile counts: anchors, NS record, child buffer), its "
+                  "pass alone (cum and fetch mode) and its child rows alone, and 30 hybrid frames == plain, bit for "
+                  "bit"})
 
     # ------------------------------------------------ 22a. nested_fold_det
-    import torch_nested_configs as nested_cfg
-
     fold_det = {}
     for name, chained in (("ring", False), ("chained", True)):
         ch = bt.compile_spawner(det_nested(False, chained), nested_buffer=1024, device=dev)
@@ -1504,18 +1536,15 @@ def main() -> int:
 
     # ------------------------------------- 23./24. nested_60k, nested_chained
     bench_nested = nested_cfg.bench_nested
-    cadence_names = ("nested_count_kernel", "tile_scan_kernel", "nested_apply_kernel")
-    apply_names = ("tile_scan_kernel", "nested_apply_kernel")
 
     def nested_path(label, chained, warm=150, n_frames=100):
         """bench.py's nested cell: a `warm`-frame multi_step_auto chain from an
         empty pool (folded: launches counted; no frame may synchronise)
         against the unfolded chain (bit for bit) and as many plain frames,
         differential ms/frame, device time per frame of a 10-frame folded
-        and unfolded chain, and device times of the cadence kernels (the
-        full pass, and the scan and apply pair of a folded frame), the
-        child-rows kernel and the step launch without and with the fold
-        epilogue."""
+        and unfolded chain, and device times of the nested-stage launch of
+        an unfolded and of a folded frame, the seed's count kernel and the
+        step launch without and with the fold epilogue."""
         cm = bt.compile_spawner(bench_nested(chained), nested_buffer=1024, device=dev)
         capacity = 16 * 8192
         frame = bt.make_frame_input(1 / 60)
@@ -1533,13 +1562,13 @@ def main() -> int:
 
         (state, out), counts = counted(chain)
         torch.cuda.synchronize()
-        # the folded chain: a seed of one count kernel per nested emitter, a
-        # scan and apply pair per emitter and frame, the fold epilogue in
-        # every step launch but the last, no full pass
+        # the folded chain: a seed of one count kernel per nested emitter,
+        # one nested-stage launch per emitter and frame, the fold epilogue
+        # in every step launch but the last, nothing else
         check(counts["fused_step"] == counts["merge"] == warm and counts["fold"] == warm - 1
-              and counts["nested_count"] == n_em and counts["nested_apply"] == n_em * warm
-              and counts["nested_cadence"] == 0 and counts["nested_child_rows"] == n_em * warm
-              and counts["stats"] == 1, f"{label}: the chain's launches {counts}")
+              and counts["nested_seed"] == n_em and counts["nested_stage"] == n_em * warm
+              and counts["nested_pass"] == 0 and counts["nested_child_rows"] == 0
+              and counts["dead_rank_claim"] == 0 and counts["stats"] == 1, f"{label}: the chain's launches {counts}")
         unf, unf_out = fs.chain_hybrid_unfolded(cm.static, cm.params, None, state0, frame, warm)
         nested_cfg.assert_chains_equal(state, out, unf, unf_out, f"{label} folded vs unfolded")
         ref, ref_out = plain_frames(cm.static, cm.params, state0, frame, warm)
@@ -1596,23 +1625,30 @@ def main() -> int:
         n_par = len(fs.nested_parent_fields(cm.static))
         n_rows = len(fs.nested_child_field_rows(cm.static))
         n_tiles = -(-capacity // L.TILE)
-        cad_bound = bound(capacity * (1 + 4 + 4 + 4) + 2 * n_par * 4 * M, 20 * capacity)
-        child_bound = bound((n_par + n_rows) * 4 * M, M * (60 + 12 * 100))
+        # the stage reads alive, ptype, age and the anchor and writes the
+        # anchor (lifetime constant), reads M ranks' parents and writes their
+        # rows; ~20 ops of cadence per lane, ~60 of init and 12 threefry
+        # draws of ~100 integer ops per rank
+        stage_bound = bound(capacity * (1 + 4 + 4 + 4 + 4) + (n_par + n_rows) * 4 * M,
+                            20 * capacity + M * (60 + 12 * 100))
+        seed_bound = bound(capacity * (1 + 4 + 4 + 4) + 4 * n_tiles, 20 * capacity)
         children = int(out.alive_count_per_type[1:].sum())
         step_bytes = 2 * 4 * n_active * capacity + 8 * capacity + n_em * n_rows * 4 * M
         step_bound = bound(step_bytes, INTEGRATE_OPS * alive)
         # the epilogue adds per nested emitter one read of the anchor row and
         # the tile counts written, and a cadence count (~20 ops) per live lane
         fold_bound = bound(step_bytes + n_em * (4 * capacity + 4 * n_tiles), INTEGRATE_OPS * alive + n_em * 20 * alive)
-        cad_ms = device_ms(f"{label} cadence", frame_call, 10, True, cad_bound["bound_ms"], cadence_names)
-        child_ms = device_ms(f"{label} child rows", frame_call, 10, True, child_bound["bound_ms"],
-                             ("nested_child_rows_kernel",))
+        stage_ms = device_ms(f"{label} nested stage", frame_call, 10, True, stage_bound["bound_ms"],
+                             ("nested_stage_kernel",))
+        folded_stage_ms = device_ms(f"{label} folded nested stage", fold_call, 10, True, stage_bound["bound_ms"],
+                                    ("nested_stage_kernel",))
+        seed_ms = device_ms(f"{label} seed count", lambda: fs._seed_nested_carry(cm.static, cm.params, state), 10,
+                            True, seed_bound["bound_ms"], ("nested_count_kernel",))
         step_ms = device_ms(f"{label} step", frame_call, 10, True, step_bound["bound_ms"])
         fold_step_ms = device_ms(f"{label} fold step", fold_call, 10, True, fold_bound["bound_ms"])
-        apply_ms = device_ms(f"{label} scan and apply", fold_call, 10, True, cad_bound["bound_ms"], apply_names)
         frame_dev_ms = device_ms(f"{label} frame", frame_call, 10, False,
-                                 n_em * (cad_bound["bound_ms"] + child_bound["bound_ms"]) + step_bound["bound_ms"])
-        chain_least = 10 * (n_em * (cad_bound["bound_ms"] + child_bound["bound_ms"]) + step_bound["bound_ms"])
+                                 n_em * stage_bound["bound_ms"] + step_bound["bound_ms"])
+        chain_least = 10 * (n_em * stage_bound["bound_ms"] + step_bound["bound_ms"])
         folded_chain_ms = device_ms(f"{label} folded chain", lambda: fs.chain_nested_folded(
             cm.static, cm.params, None, state, frame, 10), 3, False, chain_least)
         unfolded_chain_ms = device_ms(f"{label} unfolded chain", lambda: fs.chain_hybrid_unfolded(
@@ -1621,24 +1657,24 @@ def main() -> int:
                                                                                  stats=False), 3, False,
                                    step_bound["bound_ms"])
         plain_fold_ms = device_ms(f"{label} plain folded frame", plain_fold_call, 3, False, fold_bound["bound_ms"])
-        launches_folded = (counts["fused_step"] + counts["nested_count"] + 2 * counts["nested_apply"]
-                           + counts["nested_child_rows"]) / warm
+        launches_folded = (counts["fused_step"] + counts["nested_seed"] + counts["nested_stage"]) / warm
         res = {"phase": label, "card": card, "capacity": capacity, "live": alive,
                "per_type": out.alive_count_per_type.tolist(), "children_live": children, "chain_frames": warm,
                "launches": counts, "max_ulp": worst, "rule": "folded chain == unfolded chain bit for bit; counts, "
                "cursor, cadence exact against plain; f32 <= 4 ulp; no frame synchronises (sync debug mode error)",
                "ms_per_frame": ms, "particle_steps_per_s": alive / (ms * 1e-3), "plain_ms_per_frame": plain_ms,
-               "cadence_ms_per_pass": cad_ms, "cadence_ms_per_frame": n_em * cad_ms,
-               "scan_apply_ms_per_pair": apply_ms, "child_rows_ms_per_launch": child_ms,
-               "child_rows_ms_per_frame": n_em * child_ms, "step_ms_per_launch": step_ms,
+               "stage_ms_per_launch": stage_ms, "stage_ms_per_frame": n_em * stage_ms,
+               "folded_stage_ms_per_launch": folded_stage_ms, "seed_count_ms_per_launch": seed_ms,
+               "step_ms_per_launch": step_ms,
                "fold_step_ms_per_launch": fold_step_ms, "device_ms_per_frame": frame_dev_ms,
                "folded_device_ms_per_frame": folded_chain_ms / 10,
                "unfolded_device_ms_per_frame": unfolded_chain_ms / 10,
-               "kernel_launches_per_frame": {"folded": launches_folded, "unfolded": 1 + 4 * n_em},
+               "kernel_launches_per_frame": {"folded": launches_folded, "unfolded": 1 + n_em},
                "plain_frame_device_ms": plain_frame_ms, "plain_folded_frame_device_ms": plain_fold_ms,
-               "cadence_share_of_device_frame": n_em * cad_ms / frame_dev_ms,
-               "cadence_share_of_frame": n_em * cad_ms / ms, "nested_emitters": n_em,
-               "bounds": {"cadence": cad_bound, "child_rows": child_bound, "step": step_bound, "fold_step": fold_bound},
+               "stage_share_of_device_frame": n_em * stage_ms / frame_dev_ms,
+               "stage_share_of_frame": n_em * stage_ms / ms, "nested_emitters": n_em,
+               "bounds": {"stage": stage_bound, "seed_count": seed_bound, "step": step_bound,
+                          "fold_step": fold_bound},
                "frame_wall_ms": event_ms(frame_call, 20)}
         emit(res)
         return res, counts
@@ -1736,7 +1772,7 @@ def main() -> int:
 
     flows_n, flows_counts = counted(lambda: {"fireworks": nested_flow("fireworks"),
                                              "textures": nested_flow("textures")})
-    check(flows_counts["merge"] == 600 and flows_counts["nested_cadence"] == 600, f"nested flows: {flows_counts}")
+    check(flows_counts["merge"] == 600 and flows_counts["nested_stage"] == 600, f"nested flows: {flows_counts}")
     check(flows_n["fireworks"]["per_type"][1] > 100 and flows_n["textures"]["per_type"][1] > 100,
           f"nested flows: {flows_n}")
     emit({"phase": "nested_flows", "card": card, "launches": flows_counts, **flows_n,
@@ -2455,21 +2491,16 @@ def main() -> int:
                 "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None, **extra}
 
     # plain versions of the nested kernels at nested_60k's shapes, timed on
-    # the card: the cadence pass (cum mode) and the child rows
+    # the card: the nested stage (rows 8 and 9b) and the seed's counts
     c60 = bt.compile_spawner(bench_nested(False), nested_buffer=1024, device=dev)
     s60, _o = fs.multi_step_auto(c60.static, c60.params, None, bt.init_pool_for(c60, 16 * 8192), fdet, 150)
     life60 = torch.full((), 2.0, dtype=torch.float32, device=dev)
     par60 = {k: getattr(s60, k) for k in fs.nested_parent_fields(c60.static)}
-
-    def plain_cadence():
-        return nested_cadence(c60.static, c60.params, 1, s60.alive, s60.ptype, s60.age, life60, s60.last_emitted[1],
-                              s60.enabled[1], 1024, par60)
-
-    pv60 = plain_cadence()[3]
-    plain_cad_ms = device_ms("nested plain cadence", plain_cadence, 5, False, n60k["bounds"]["cadence"]["bound_ms"])
-    plain_child_ms = device_ms("nested plain child rows", lambda: plain_child_rows(
-        c60.static, c60.params, fdet, 1, pv60, np.array([1, 2], np.uint32), 1024), 5, False,
-        n60k["bounds"]["child_rows"]["bound_ms"])
+    plain_stage_ms = device_ms("nested plain stage", lambda: plain_stage(
+        c60.static, c60.params, fdet, 1, s60.alive, s60.ptype, s60.age, life60, s60.last_emitted[1], s60.enabled[1],
+        1024, par60, np.array([1, 2], np.uint32), s60.ring_cursor), 5, False, n60k["bounds"]["stage"]["bound_ms"])
+    plain_seed_ms = device_ms("nested plain seed count", lambda: nested_fold_counts(c60.static, c60.params, s60, 1),
+                              5, False, n60k["bounds"]["seed_count"]["bound_ms"])
 
     # every device time below was held to its bound where it was measured
     # the instantiations that run rows 1 and 2 (no narrow phase, field
@@ -2530,31 +2561,36 @@ def main() -> int:
               status="redesigned", occupancy=occupancy(lambda ring, collide, fields, stats, merge, fleet: stats)),
         entry("fused_step.dump", "bevy_firework_tpu/ops/fused_step.py:1567", ("dump", "fleet_dump"), dump_t["ms"],
               dump_t["plain_ms"], dump_bound, ms_without=dump_t["ms_without"]),
-        entry("nested_cadence", "bevy_firework_tpu/ops/fused_step.py:683", "nested_cadence",
-              n60k["cadence_ms_per_pass"], plain_cad_ms, n60k["bounds"]["cadence"], source="fused_step.cu",
-              also_replaces="bevy_firework_tpu/ops/fused_step.py:866", kernels=list(cadence_names),
-              chained_ms=nch["cadence_ms_per_pass"], share_of_frame_60k=n60k["cadence_share_of_frame"],
-              share_of_frame_chained=nch["cadence_share_of_frame"], seed_count_launches=total("nested_count"),
-              fold_scan_apply_launches=total("nested_apply")),
+        entry("nested_stage", "bevy_firework_tpu/ops/fused_step.py:683", "nested_stage",
+              n60k["stage_ms_per_launch"], plain_stage_ms, n60k["bounds"]["stage"], source="fused_step.cu",
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:805/:866 (nested_cadence_pass) and "
+                            "bevy_firework_tpu/step.py:411-453 (the child stage of _nested_spawn; XLA, not Pallas)",
+              kernels=["nested_stage_kernel"], status="redesigned", folded_ms=n60k["folded_stage_ms_per_launch"],
+              chained_ms=nch["stage_ms_per_launch"], chained_folded_ms=nch["folded_stage_ms_per_launch"],
+              share_of_frame_60k=n60k["stage_share_of_frame"], share_of_frame_chained=nch["stage_share_of_frame"],
+              pass_launches=total("nested_pass"), child_rows_launches=total("nested_child_rows"),
+              launches_per_frame_60k=n60k["kernel_launches_per_frame"],
+              launches_per_frame_chained=nch["kernel_launches_per_frame"]),
+        entry("nested_seed_count", "bevy_firework_tpu/ops/fused_step.py:683", "nested_seed",
+              n60k["seed_count_ms_per_launch"], plain_seed_ms, n60k["bounds"]["seed_count"], source="fused_step.cu",
+              kernels=["nested_count_kernel"], role="a folded chain's seed (kernel row 10's first frame), once per "
+                                                    "nested emitter and chain"),
         entry("fused_step.nested_merge", "bevy_firework_tpu/ops/fused_step.py:1172", "merge",
               n60k["step_ms_per_launch"], n60k["plain_frame_device_ms"], n60k["bounds"]["step"],
               chained_ms=nch["step_ms_per_launch"], chained_plain_ms=nch["plain_frame_device_ms"]),
         entry("fused_step.nested_fold", "bevy_firework_tpu/ops/fused_step.py:1620", "fold",
               n60k["fold_step_ms_per_launch"], n60k["plain_folded_frame_device_ms"], n60k["bounds"]["fold_step"],
               also_replaces="bevy_firework_tpu/ops/fused_step.py:1620-1701 (plumbing :1893-1905, :1994-2027, "
-                            ":2075-2080), with the next frame's scan and apply (fused_step.cu)",
-              kernels=["fused_step_kernel fold epilogue", "tile_scan_kernel", "nested_apply_kernel"],
-              step_without_epilogue_ms=n60k["step_ms_per_launch"], scan_apply_ms=n60k["scan_apply_ms_per_pair"],
-              full_pass_ms=n60k["cadence_ms_per_pass"], folded_frame_ms=n60k["folded_device_ms_per_frame"],
+                            ":2075-2080), with the next frame's nested stage on its counts (fused_step.cu)",
+              kernels=["fused_step_kernel fold epilogue", "nested_stage_kernel (its carried tile counts)"],
+              step_without_epilogue_ms=n60k["step_ms_per_launch"], folded_stage_ms=n60k["folded_stage_ms_per_launch"],
+              unfolded_stage_ms=n60k["stage_ms_per_launch"], folded_frame_ms=n60k["folded_device_ms_per_frame"],
               unfolded_frame_ms=n60k["unfolded_device_ms_per_frame"], chained_ms=nch["fold_step_ms_per_launch"],
               chained_step_without_epilogue_ms=nch["step_ms_per_launch"],
-              chained_scan_apply_ms=nch["scan_apply_ms_per_pair"],
+              chained_folded_stage_ms=nch["folded_stage_ms_per_launch"],
               chained_folded_frame_ms=nch["folded_device_ms_per_frame"],
               chained_unfolded_frame_ms=nch["unfolded_device_ms_per_frame"],
               ab_fold_on_ms=ab_fold["fold_on_ms"], ab_fold_off_ms=ab_fold["fold_off_ms"]),
-        entry("nested_child_rows", "bevy_firework_tpu/step.py:411-453", "nested_child_rows",
-              n60k["child_rows_ms_per_launch"], plain_child_ms, n60k["bounds"]["child_rows"], source="fused_step.cu",
-              chained_ms=nch["child_rows_ms_per_launch"], reference_route="composed XLA, not Pallas"),
         entry("fused_step.fleet", "bevy_firework_tpu/ops/fused_step.py:2358", "fleet",
               res16["u8_fleet_kernel_device_ms"], res16["plain_8_frames_device_ms"], bound16,
               also_replaces="bevy_firework_tpu/ops/fused_step.py:2029 (grid=(S, tiles) :2031)",
@@ -2581,8 +2617,8 @@ def main() -> int:
                           "stress_test_collision (collide_broad: hull8_1M, 8 hulls; scaling_*: "
                           "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test (sparks_*: 2048 lanes, 750 live); dump: "
-                          "131072 lanes, the ring archetype with a handler; nested_cadence, nested_merge, "
-                          "nested_fold, nested_child_rows: nested_60k (131072 lanes, M 1024; chained_*: "
+                          "131072 lanes, the ring archetype with a handler; nested_stage, nested_seed_count, nested_merge, "
+                          "nested_fold: nested_60k (131072 lanes, M 1024; chained_*: "
                           "nested_chained); fleet: "
                           "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s); sharded_claim: sharded_1M "
                           "(main_1M's state, S = 4 shards of 327680 lanes; shard_*: S = 2, 4, 8)",
@@ -2592,18 +2628,18 @@ def main() -> int:
                   "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it; sparks_*: at the "
                   "sparks flow's 2048-lane pool), dump U=1 with the dump "
-                  "plane (ms_without: the same archetype without a handler), nested_cadence one pass (count + "
-                  "scan + apply), nested_merge the hybrid step launch, nested_fold the hybrid step launch with the "
-                  "fold epilogue (scan_apply_ms: the next frame's scan and apply pair; *_frame_ms: device time per frame "
-                  "of a 10-frame folded / unfolded chain), nested_child_rows one launch, fleet one U=8 "
+                  "plane (ms_without: the same archetype without a handler), nested_stage one launch of an unfolded "
+                  "frame (cadence pass and child rows; folded_ms: of a folded frame), nested_seed_count one count "
+                  "kernel, nested_merge the hybrid step launch, nested_fold the hybrid step launch with the "
+                  "fold epilogue (folded_stage_ms: the next frame's nested stage on its counts; *_frame_ms: device "
+                  "time per frame of a 10-frame folded / unfolded chain), fleet one U=8 "
                   "launch of all 16 slots (solo16_ms: the 16 slots' solo U=8 launches), sharded_claim the first "
                   "shard's U=8 launch at S = 4 (shard_launch_ms: every shard's; "
                   "device_us_per_frame_summed: the shards' U=8 launches summed per frame); plain_ms: "
                   "device time of the plain version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1 / "
                   "a hybrid frame for nested_merge, a hybrid frame with step.nested_fold_carry for nested_fold, 16 x 8 "
                   "for fleet, 8 with the shard's arguments for sharded_claim), of the plain dead_rank cumsum, of "
-                  "step.nested_cadence (fetch "
-                  "mode) or step.nested_child_rows; plain_reductions_ms: the plain reductions "
+                  "step.nested_stage or step.nested_fold_counts; plain_reductions_ms: the plain reductions "
                   "(step.stat_reductions, the CPU's stats); "
                   "*_wall_ms: CUDA-event wall time per call; bound_ms: the larger of bound_bytes over 3.35 TB/s "
                   "and bound_ops (f32, lower-bound counts; the narrow phase's from a recorded plain frame of the "

@@ -407,10 +407,11 @@ def _cadence_inputs(n, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fetch", [False, True])
 def test_nested_cadence_kernels_match_plain(cuda, fetch):
-    """Kernel row 8 on 100003 lanes (391 tiles, a ragged tail) with a burst
-    pacing whose total exceeds M = 4096, so the deferral cuts parents and
-    child ranks straddle tiles: new_le, cum (or the fetched parent values),
-    and the total equal the plain version's bit for bit."""
+    """Kernel row 8 (the nested-stage kernel's pass alone) on 100003 lanes
+    (391 tiles, a ragged tail) with a burst pacing whose total exceeds M =
+    4096, so the deferral cuts parents and child ranks straddle tiles:
+    new_le, cum (or the fetched parent values), and the total equal the
+    plain version's bit for bit."""
     from bevy_firework_tpu_torch.step import nested_cadence
 
     c = pt.compile_spawner(_nested_spawner(), device=cuda)
@@ -435,20 +436,53 @@ def test_nested_cadence_kernels_match_plain(cuda, fetch):
     assert int(k_total) > 4096  # the burst: deferral cut it
 
 
+def _rotating_child_spawner():
+    """`_nested_spawner` with live rotation: children on a sphere with
+    spread and an angular velocity, so the stage reads ten parent fields
+    (position, rotation, velocity)."""
+    sp = _nested_spawner(spread=0.7, shape=pt.EmissionShape.sphere(0.2))
+    es = list(sp.emission_settings)
+    es[1] = dataclasses.replace(es[1], initial_angular_velocity=pt.RandVec3(pt.RandF32(1.0, 2.0), (1, 0, 0), 0.3))
+    return dataclasses.replace(sp, emission_settings=tuple(es))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subset", ["position_velocity", "one", "all"])
+def test_nested_cadence_pass_fetches_any_parent_fields(cuda, subset):
+    """The pass alone in fetch mode copies by rank whichever parent planes
+    it is given, not the archetype's `nested_parent_fields`: on an
+    archetype with live rotation (ten parent fields), the six position and
+    velocity planes, one plane and all ten, on 100003 lanes with a total
+    past M, equal the plain version's bit for bit."""
+    from bevy_firework_tpu_torch.step import nested_cadence
+
+    c = pt.compile_spawner(_rotating_child_spawner(), device=cuda)
+    names = fs.nested_parent_fields(c.static)
+    assert len(names) == 10
+    t = _cadence_inputs(100003, 21, cuda)
+    for k in ("qx", "qy", "qz", "qw"):
+        t[k] = torch.rand_like(t["px"])
+    pick = {"position_velocity": ("px", "py", "pz", "vx", "vy", "vz"), "one": ("qw",), "all": names}[subset]
+    pf = {k: t[k] for k in pick}
+    gate = torch.ones((), dtype=torch.bool, device=cuda)
+    args = (c.static, c.params, 1, t["alive"], t["ptype"], t["age"], t["lifetime"], t["le"], gate, 1024)
+    k_le, k_cum, k_total, k_pv = fs.nested_cadence_pass(*args, parent_fields=pf)
+    p_le, _p_cum, p_total, p_pv = nested_cadence(*args, parent_fields=pf)
+    assert k_cum is None and sorted(k_pv) == sorted(pick)
+    assert torch.equal(k_le, p_le) and int(k_total) == int(p_total) > 1024
+    for k in pick:
+        assert torch.equal(k_pv[k], p_pv[k]), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("elide", [True, False])
 def test_nested_child_rows_kernel_matches_plain(cuda, elide):
-    """The child-rows kernel against its plain version on the card, both
-    parent modes, with and without live rotation (spread and a sphere:
-    sinf/cosf within 4 ulp)."""
+    """The nested-stage kernel's child rows alone against their plain
+    version on the card, both parent modes, with and without live rotation
+    (spread and a sphere: sinf/cosf within 4 ulp)."""
     from bevy_firework_tpu_torch.step import nested_cadence, nested_child_rows
 
-    sp = _nested_spawner(spread=0.0 if elide else 0.7, shape=None if elide else pt.EmissionShape.sphere(0.2))
-    if not elide:
-        es = list(sp.emission_settings)
-        es[1] = dataclasses.replace(es[1], initial_angular_velocity=pt.RandVec3(pt.RandF32(1.0, 2.0), (1, 0, 0), 0.3))
-        sp = dataclasses.replace(sp, emission_settings=tuple(es))
-    c = pt.compile_spawner(sp, device=cuda)
+    c = pt.compile_spawner(_nested_spawner() if elide else _rotating_child_spawner(), device=cuda)
     assert c.static.elide_rotation == elide
     t = _cadence_inputs(65536, 9, cuda)
     for k in ("qx", "qy", "qz"):
@@ -467,6 +501,95 @@ def test_nested_child_rows_kernel_matches_plain(cuda, elide):
         k_rows = fs.nested_child_rows(c.static, c.params, f, 1, key, 1024, **kw)
         assert k_rows.shape == p_rows.shape == (len(active_f32_fields(c.static)), 1024)
         assert _ulps(k_rows, p_rows) <= (0 if elide else 4)
+
+
+def _stage_case(case, device):
+    """(compiled, cadence inputs, M) of a nested-stage case: `ring` and
+    `dead_rank` at 100003 lanes (a ragged last tile; anchors set just below
+    the age but for 0.2% of them, so the total stays below M = 1024 and the
+    ranks above it take the ring's zero parent or the clamped lane n - 1),
+    `burst` (the first tile owns every rank below M, at least 256) and
+    `wide` (1310720 lanes, 5120 tiles)."""
+    n = {"ring": 100003, "dead_rank": 100003, "burst": 65536, "wide": 1310720}[case]
+    t = _cadence_inputs(n, 13, device)
+    if case in ("ring", "dead_rank"):
+        unset = torch.from_numpy(np.random.default_rng(3).uniform(size=n) < 0.002).to(device)
+        t["le"] = torch.where(unset, torch.full_like(t["le"], np.finfo(np.float32).min), t["age"] * 0.97)
+    if case == "burst":
+        sp = pt.ParticleSpawner(
+            particle_settings=[pt.ParticleSettings(), pt.ParticleSettings()],
+            emission_settings=[pt.EmissionSettings(), pt.EmissionSettings(
+                particle_index=1, emission_mode=pt.EmissionMode.nested(0),
+                emission_pacing=pt.EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 0.001))])
+    else:
+        sp = _nested_spawner(destroy=case == "dead_rank")
+    return pt.compile_spawner(sp, device=device), t, 1024
+
+
+def _stage_args(c, t, key, start):
+    names = fs.nested_parent_fields(c.static)
+    gate = torch.ones((), dtype=torch.bool, device=t["age"].device)
+    return (c.static, c.params, pt.make_frame_input(1 / 60, modifier_scale=1.3, modifier_speed=0.7), 1, t["alive"],
+            t["ptype"], t["age"], t["lifetime"], t["le"], gate, 1024, {k: t[k] for k in names}, key, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ring", "dead_rank", "burst", "wide"])
+def test_nested_stage_matches_plain(cuda, case):
+    """Kernel rows 8 and 9b in one launch (`fs.nested_stage`) against its
+    plain version (`step.nested_stage`) on the card: the anchors, the NS
+    record and the [rows, M] child buffer bit for bit (box offsets and no
+    spread: no sinf/cosf), unfolded and with the carried tile counts of a
+    folded frame; the same inputs on a ragged 100003-lane pool, a tile that
+    owns >= 256 ranks and a 1310720-lane pool (5120 tiles)."""
+    from bevy_firework_tpu_torch.step import nested_cadence, nested_stage
+
+    import torch_nested_configs as nested_cfg
+
+    c, t, M = _stage_case(case, cuda)
+    key = np.array([5, 777], np.uint32)
+    start = torch.tensor(t["alive"].shape[0] // 3 if c.static.ring_claim else 0, dtype=torch.int32, device=cuda)
+    args = _stage_args(c, t, key, start)
+    p_le, p_rec, p_rows = nested_stage(*args)
+    gate = torch.ones((), dtype=torch.bool, device=cuda)
+    carried = nested_cfg.lane_tile_counts(c.static, c.params, 1, t["alive"], t["ptype"], t["age"],
+                                          t["lifetime"], t["le"], gate)
+    for counts in (None, carried):
+        before = fs.nested_stage.launches
+        k_le, k_rec, k_rows = fs.nested_stage(*args, counts=counts)
+        assert fs.nested_stage.launches == before + 1
+        assert torch.equal(k_le, p_le) and torch.equal(k_rec, p_rec), (k_rec.tolist(), p_rec.tolist())
+        assert torch.equal(k_rows, p_rows)
+    cum = nested_cadence(c.static, c.params, 1, t["alive"], t["ptype"], t["age"], t["lifetime"], t["le"], gate, M)[1]
+    assert 0 < int(p_rec[L.NS_TOTAL])
+    assert (int(p_rec[L.NS_TOTAL]) < M) == (case in ("ring", "dead_rank"))
+    if case == "burst":
+        assert nested_cfg.tile_ranks(cum, M) >= 256 and int(p_rec[L.NS_TOTAL]) > M
+
+
+@pytest.mark.cuda
+def test_nested_stage_repeats_and_two_streams(cuda):
+    """The grid barrier's scratch: 50 launches of one nested stage on the
+    same inputs give the same bits (the arrival count the last block
+    zeroes is ready for each next launch), and launches on two streams at
+    once, each with its own scratch, give the same bits as on one."""
+    c, t, _M = _stage_case("ring", cuda)
+    key = np.array([5, 777], np.uint32)
+    start = torch.tensor(t["alive"].shape[0] // 3, dtype=torch.int32, device=cuda)
+    args = _stage_args(c, t, key, start)
+    ref = fs.nested_stage(*args)
+    for _ in range(50):
+        got = fs.nested_stage(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for s in (s1, s2, s1, s2):
+        with torch.cuda.stream(s):
+            outs.append(fs.nested_stage(*args))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.cuda
@@ -526,19 +649,21 @@ def test_folded_chain_equals_unfolded_on_the_card(cuda, chained):
     nested_buffer 1024): two 30-frame folded chains == the unfolded chain,
     every pool field, every output and the nested counts bit for bit; then
     chains with the emitters' enabled bits toggled between them; the folded
-    chain launches one count kernel per nested emitter (the seed), a scan
-    and apply pair per emitter and frame, and the fold epilogue on every
-    frame but the last."""
+    chain launches one count kernel per nested emitter (the seed),
+    one nested-stage launch per emitter and frame (no scan or apply: no
+    tile_scan_kernel, whose only launcher is now the dead-rank claim's),
+    and the fold epilogue on every frame but the last."""
     c = pt.compile_spawner(nested_cfg.bench_nested(chained), nested_buffer=1024, device=cuda)
     f = pt.make_frame_input(1 / 60)
     s = pt.init_pool_for(c, 131072)
     n_em = len(fs.nested_emitters(c.static))
     for i in range(2):
-        fs.nested_cadence_pass.count_launches = fs.nested_cadence_pass.apply_launches = 0
-        fs.nested_cadence_pass.launches = fs.fused_step.fold_launches = 0
+        fs._seed_nested_carry.launches = fs.nested_stage.launches = fs.tile_dead_offsets.launches = 0
+        fs.nested_cadence_pass.launches = fs.nested_child_rows.launches = fs.fused_step.fold_launches = 0
         a, oa = fs.multi_step_auto(c.static, c.params, None, s, f, 30)
-        assert (fs.nested_cadence_pass.count_launches, fs.nested_cadence_pass.apply_launches,
-                fs.nested_cadence_pass.launches, fs.fused_step.fold_launches) == (n_em, 30 * n_em, 0, 29)
+        assert (fs._seed_nested_carry.launches, fs.tile_dead_offsets.launches, fs.nested_stage.launches,
+                fs.nested_cadence_pass.launches, fs.nested_child_rows.launches,
+                fs.fused_step.fold_launches) == (n_em, 0, 30 * n_em, 0, 0, 29)
         b, ob = fs.chain_hybrid_unfolded(c.static, c.params, None, s, f, 30)
         nested_cfg.assert_chains_equal(a, oa, b, ob, f"chain {i}")
         s = a

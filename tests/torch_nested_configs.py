@@ -19,7 +19,7 @@ from bevy_firework_tpu_torch.compiled import MODE_GLOBAL
 from bevy_firework_tpu_torch.ops import fused_step as fs
 from bevy_firework_tpu_torch.ops import table_layout as L
 from bevy_firework_tpu_torch.pool import POOL_FIELDS
-from bevy_firework_tpu_torch.step import nested_emitters, nested_fold_counts
+from bevy_firework_tpu_torch.step import nested_emitters, nested_fold_counts, nested_lane_counts
 
 
 def bench_nested(chained: bool):
@@ -50,6 +50,71 @@ def bench_nested(chained: bool):
             pt.EmissionSettings(particle_index=2, emission_mode=pt.EmissionMode.nested(1),
                                 emission_pacing=pt.EmissionPacing.count_over_duration(3.0, 1.0, 0.1, 0.9),
                                 inherit_parent_velocity=True)])
+
+
+def det_nested(destroy: bool = False, chained: bool = False):
+    """chip_smoke.py's nested_det spawner: a rocket emitter at 1e5/s with
+    constant draws and nested children (box offsets, random speeds, no
+    spread: no sinf/cosf), chained grandchildren optional; with `destroy`
+    the rockets fall on a floor (`DET_FLOOR`: dead-rank claim, cum mode)."""
+    col = pt.ParticleCollisionSettings(restitution=0.5, friction=0.2, destroy_on_collision=True) if destroy else None
+    types = [pt.ParticleSettings(lifetime=pt.RandF32.constant(0.6), linear_drag=0.1, collision_settings=col,
+                                 acceleration=(0.0, -9.81 if destroy else 0.0, 0.0)),
+             pt.ParticleSettings(lifetime=pt.RandF32(0.3, 0.5), linear_drag=0.2, acceleration=(0.0, -2.0, 0.0)),
+             pt.ParticleSettings(lifetime=pt.RandF32.constant(0.4), linear_drag=0.3)]
+    child = dict(emission_shape=pt.EmissionShape.box((0.1, 0.2, 0.1)),
+                 initial_velocity=pt.RandVec3(pt.RandF32(0.1, 0.9), (0.0, 1.0, 0.0), 0.0),
+                 initial_velocity_radial=pt.RandF32(0.2, 1.0), inherit_parent_velocity=True)
+    ems = [pt.EmissionSettings(particle_index=0, emission_pacing=pt.EmissionPacing.rate(1e5),
+                               initial_velocity=pt.RandVec3.constant((0.3, 2.0, 0.1))),
+           pt.EmissionSettings(particle_index=1, emission_mode=pt.EmissionMode.nested(0),
+                               emission_pacing=pt.EmissionPacing.count_over_duration(6.0, 1.0, 0.1, 1.0), **child)]
+    if chained:
+        ems.append(pt.EmissionSettings(particle_index=2, emission_mode=pt.EmissionMode.nested(1),
+                                       emission_pacing=pt.EmissionPacing.count_over_duration(3.0, 1.0, 0.2, 0.9),
+                                       **child))
+    return pt.ParticleSpawner(particle_settings=types[:3 if chained else 2], emission_settings=ems)
+
+
+DET_FLOOR = [pt.Collider.halfspace(position=(0.0, -0.2, 0.0))]
+
+
+def burst_nested():
+    """A ring archetype whose nested emitter asks for a parent's 10 children
+    at once (a window of 0.001 of its life) from 1000 new rockets a frame:
+    every frame's total exceeds a 1024-rank child buffer many times over,
+    the deferral carries the rest, and the first tile of waiting parents
+    owns every rank (at least 256)."""
+    return pt.ParticleSpawner(
+        particle_settings=[pt.ParticleSettings(lifetime=pt.RandF32.constant(1.0)),
+                           pt.ParticleSettings(lifetime=pt.RandF32.constant(0.5), linear_drag=0.3)],
+        emission_settings=[
+            pt.EmissionSettings(particle_index=0, emission_pacing=pt.EmissionPacing.rate(60000.0),
+                                initial_velocity=pt.RandVec3.constant((0.3, 2.0, 0.1))),
+            pt.EmissionSettings(particle_index=1, emission_mode=pt.EmissionMode.nested(0),
+                                emission_pacing=pt.EmissionPacing.count_over_duration(10.0, 1.0, 0.0, 0.001),
+                                emission_shape=pt.EmissionShape.box((0.1, 0.2, 0.1)),
+                                initial_velocity=pt.RandVec3(pt.RandF32(0.1, 0.9), (0.0, 1.0, 0.0), 0.0),
+                                inherit_parent_velocity=True)])
+
+
+def tile_ranks(cum: torch.Tensor, M: int) -> int:
+    """The most child ranks below M that one TILE-lane tile's parents own,
+    from the inclusive count cumsum of a cadence pass."""
+    n = cum.shape[0]
+    ends = cum[torch.arange(L.TILE - 1, n + L.TILE - 1, L.TILE, device=cum.device).clamp_max(n - 1)].clamp_max(M)
+    return int((ends - torch.cat([ends.new_zeros(1), ends[:-1]])).max())
+
+
+def lane_tile_counts(static, params, e: int, alive, ptype, age, lifetime, le_row, gate) -> torch.Tensor:
+    """The per-tile parent counts a folded frame carries into its nested
+    stage (the fold epilogue's share) for these cadence inputs:
+    `step.nested_lane_counts` summed per TILE-lane tile, int32."""
+    counts = nested_lane_counts(static, params, e, alive, ptype, age, lifetime, le_row, gate)[0]
+    n_tiles = -(-counts.shape[0] // L.TILE)
+    padded = torch.zeros(n_tiles * L.TILE, dtype=torch.int32, device=counts.device)
+    padded[:counts.shape[0]] = counts
+    return padded.view(n_tiles, L.TILE).sum(-1, dtype=torch.int32)
 
 
 def check_carry(static, params, state, carry, label: str) -> list:
