@@ -26,8 +26,9 @@ from . import table_layout
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-# the launchers and small kernels, then the step kernel's four shares
-SOURCES = ("fused_step.cu", "step_ring.cu", "step_dead_rank.cu", "step_fleet_ring.cu", "step_fleet_dead_rank.cu")
+# the launchers and small kernels, then the step kernel's five shares
+SOURCES = ("fused_step.cu", "step_ring.cu", "step_dead_rank.cu", "step_fleet_ring.cu", "step_fleet_dead_rank.cu",
+           "step_merge.cu")
 HEADERS = ("fused_step_kernel.cuh",)
 # -fmad=false: no multiply-add contraction, so the kernels keep the plain
 # versions' op order (see the FMA policy in csrc/fused_step.cu). No fast math.
@@ -89,7 +90,7 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
     lib.bf_fused_step.argtypes = [p, p, i, i, p, p, p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, p, i, p, p, p,
-                                  p, p, p, i, i, i, p, p, p, i, i, i, p, i, i, i, i, p]
+                                  p, p, p, i, i, i, p, p, p, i, p, p, p, i, i, i, p, i, i, i, i, p]
     lib.bf_fused_step.restype = ctypes.c_int
     lib.bf_dead_rank_offsets.argtypes = [p, p, p, i, i, p]
     lib.bf_dead_rank_offsets.restype = ctypes.c_int
@@ -102,6 +103,8 @@ def load() -> ctypes.CDLL:
     lib.bf_step_occupancy.restype = ctypes.c_int
     lib.bf_step_warp_occupancy.argtypes = [i, i]
     lib.bf_step_warp_occupancy.restype = ctypes.c_int
+    lib.bf_step_merge_occupancy.argtypes = [i, i, i]
+    lib.bf_step_merge_occupancy.restype = ctypes.c_int
     lib.bf_cos_fast_mismatches.argtypes = [u, u, p, p]
     lib.bf_cos_fast_mismatches.restype = ctypes.c_int
     lib.bf_empty_launches.argtypes = [i, p]

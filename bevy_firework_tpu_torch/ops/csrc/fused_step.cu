@@ -138,6 +138,23 @@
 //    its two-segment slices were Mosaic constraints and are not carried
 //    over. The windows are consecutive, so this claims the slots the JAX
 //    package's in-place write-back claims on dead-rank archetypes too.
+//    A hybrid frame without colliders or fields (up to 32 emitters) runs
+//    instantiations of its own (fused_step_kernel_merge<ring, stats>): no
+//    narrow phase or field block, so none of their registers, shared
+//    memory or inert lanes; capped at 64 registers, 4 blocks per SM, so at
+//    131072 lanes (512 tiles) one wave runs every tile at once; its
+//    prologue's cadence, the merge records and the dead-rank base on warp
+//    0's lanes (warp_cadence). Frames with colliders or fields run
+//    fused_step_kernel's four merge instantiations (thread 0's cadence).
+//    fused_step_kernel_merge ends in a latch: each block adds its vote (a
+//    lane lives after the frame) and its ticket in one 64-bit atomic, and
+//    the block with the last ticket writes the any-alive word, the
+//    finished event and the new finished_notified (step.finished_latch's
+//    booleans); on the ring the launch writes the post-frame alive plane
+//    (age < life). The frame's epilogue then runs none of PyTorch's
+//    comparisons and reductions for them (a fence between a vote and a
+//    ticket cost the launch ~1 us, PERF.md §6). fused_step_kernel's merge
+//    instantiations leave them to the epilogue.
 //  * Nested fold (kernel row 10; ring archetypes, every frame of a folded
 //    chain but its last): the TPU epilogue computed the next frame's whole
 //    cadence pass (anchors, total, parent fetch) on the post-frame tile,
@@ -145,12 +162,15 @@
 //    blocks run concurrently, so the epilogue does the count kernel's share
 //    alone: per merge record each lane's parent count on the post-frame
 //    state in registers (nested_lane's formula; the gate the emitter's
-//    post-frame enabled bit), a block sum per tile and the next frame's
-//    NS_ANY; the next frame's nested stage reduces those counts in place
-//    of counting and waiting at its grid barrier (bf_nested_stage's
-//    carry). Epilogue plus stage compute the TPU epilogue's outputs: the
-//    anchors, NS_TOTAL and the parents of the child rows. It is a run-time
-//    branch of the merge instantiations (a.n_fold), no new instantiation.
+//    post-frame enabled bit), warp sums into one half of a double-buffered
+//    row and one barrier per tile; fused_step_kernel_merge's latch writes
+//    the next frame's NS buffer (NS_ANY from its vote, the records zero),
+//    fused_step_kernel's merge sets NS_ANY per tile in a zeroed buffer;
+//    the next frame's nested stage reduces those counts in place of
+//    counting and waiting at its grid barrier (bf_nested_stage's carry). Epilogue plus stage compute the
+//    TPU epilogue's outputs: the anchors, NS_TOTAL and the parents of the
+//    child rows. It is a run-time branch of the ring's merge
+//    instantiations (a.n_fold), no new instantiation.
 //  * Shards (kernel row 11; solo ring and dead-rank launches): a pool split
 //    over the particle axis runs one launch per shard with three launch
 //    arguments, its lane base, the global capacity and its dead offset
@@ -186,8 +206,10 @@
 //    force fields, the stats, the merge and the fleet (thirty-six
 //    instantiations, chosen at launch: the four merge ones set the narrow
 //    phase and field flags and gate them by the launch's counts; the
-//    sixteen fleet ones leave the merge out), so the main path's kernel
-//    carries none of their registers, barriers or shared memory.
+//    sixteen fleet ones leave the merge out; beside them the two of
+//    fused_step_kernel_warp and the four of fused_step_kernel_merge), so
+//    the main path's kernel carries none of their registers, barriers or
+//    shared memory.
 //  * Spawner structure (emitter/type counts, pacing kinds, curve kinds and
 //    knot counts, elision flags, collision types) and all
 //    parameters come from one small device table read at run time, sized
@@ -202,8 +224,9 @@
 //
 // Files: fused_step_kernel.cuh holds the launch arguments, the device
 // helpers and the step kernel template; step_ring.cu, step_dead_rank.cu,
-// step_fleet_ring.cu and step_fleet_dead_rank.cu each instantiate one share
-// of it (solo or fleet launches, ring or dead-rank claim), so the build
+// step_fleet_ring.cu, step_fleet_dead_rank.cu and step_merge.cu each
+// instantiate one share of it (solo or fleet launches, ring or dead-rank
+// claim, and hybrid frames), so the build
 // compiles the shares in parallel; this file holds the claim's count and
 // scan kernels, the nested stage and every launcher.
 //
@@ -818,12 +841,13 @@ int blocks_per_sm(const void* kernel, int smem_bytes) {
 }  // namespace
 
 // The step kernel's instantiations, one source file each (step_*.cu):
-// solo or fleet launches, ring or dead-rank claim.
-extern "C" const void* bf_step_kernel_ring(int collide, int fields, int stats, int merge);
-extern "C" const void* bf_step_kernel_dead_rank(int collide, int fields, int stats, int merge);
-extern "C" const void* bf_step_kernel_fleet_ring(int collide, int fields, int stats, int merge);
-extern "C" const void* bf_step_kernel_fleet_dead_rank(int collide, int fields, int stats, int merge);
+// solo or fleet launches, ring or dead-rank claim, and hybrid frames.
+extern "C" const void* bf_step_kernel_ring(int collide, int fields, int stats);
+extern "C" const void* bf_step_kernel_dead_rank(int collide, int fields, int stats);
+extern "C" const void* bf_step_kernel_fleet_ring(int collide, int fields, int stats);
+extern "C" const void* bf_step_kernel_fleet_dead_rank(int collide, int fields, int stats);
 extern "C" const void* bf_step_kernel_ring_warp(int stats);
+extern "C" const void* bf_step_kernel_merge(int ring, int lean, int stats);
 
 extern "C" {
 
@@ -848,11 +872,21 @@ extern "C" {
 // the pre-spawn flag), the nested scalars (NS_* records of n_merge
 // emitters, each naming its emitter) and the child rows
 // [n_merge][child_rows][merge_m]; other launches pass a null any_alive.
-// A ring hybrid frame that folds the next frame's cadence counts (kernel row
-// 10) passes n_fold = n_merge, fold_le (last_emitted [E][n] after this
-// frame's cadence), fold_counts ([n_fold][ceil(n / TILE)] int, every word
-// written) and fold_any (the next frame's NS_ANY word, zeroed by the caller,
-// set to 1 where a lane lives after the frame); other launches pass 0.
+// A hybrid frame passes merge_kernel: 1 for fused_step_kernel_merge (no
+// colliders, no fields, up to 32 emitters), 0 for fused_step_kernel's
+// merge instantiations. With 1 it also passes latch_acc (2 int words of
+// scratch, 8-byte aligned, 0 at launch, left 0; launches that share them
+// run in order, as on one stream), latch_out (3 bytes: any lane alive
+// after the frame, the finished event, the new finished_notified),
+// notified_in (the pool's finished_notified byte) and on the ring
+// alive_out (the post-frame alive plane, u8 [n]: age < life); other
+// launches pass nulls and 0. A ring hybrid frame that folds the next
+// frame's cadence counts (kernel row 10) passes n_fold = n_merge, fold_le
+// (last_emitted [E][n] after this frame's cadence), fold_counts
+// ([n_fold][ceil(n / TILE)] int, every word written) and fold_ns (the next
+// frame's NS buffer, NS_AT + n_fold * NS_STRIDE words: 0, NS_ANY 1 where a
+// lane lives after the frame; with merge_kernel 1 every word is written,
+// with 0 the caller zeroes it); other launches pass 0.
 // A fleet launch (kernel row 7) steps n_slots pools of n lanes each, of one
 // archetype: every plane is [n_slots][n], the scalars [n_slots][E] or
 // [n_slots], the tile offsets [n_slots][ceil(n / TILE)], the dump and
@@ -874,7 +908,8 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                   const uint32_t* seeds, int unroll, int n, int n_emitters, int n_types, const void* fields,
                   int n_fields, void* dump_out, void* stats_scratch, void* stats_out,
                   const void* any_alive, const void* nested, const void* child, int n_merge, int merge_m,
-                  int child_rows, const void* fold_le, void* fold_counts, void* fold_any, int n_fold, int n_slots,
+                  int child_rows, const void* fold_le, void* fold_counts, void* fold_ns, int n_fold,
+                  void* latch_acc, void* latch_out, const void* notified_in, int merge_kernel, int n_slots,
                   int tab_stride, const void* slot_rows, int slot_words, int lane_base, int global_n,
                   int dead_offset, void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
@@ -890,10 +925,15 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   if (merge && (unroll != 1 || fleet || n_merge < 0 || (n_merge > 0 && (nested == nullptr || child == nullptr ||
                 merge_m <= 0))))
     return (int)cudaErrorInvalidValue;
-  if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1))
+  if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1) ||
+      (alive_out == nullptr) != (alive_in == nullptr && merge_kernel == 0))
     return (int)cudaErrorInvalidValue;
   if (n_fold < 0 || (n_fold > 0 && (!merge || n_fold != n_merge || alive_in != nullptr || fold_le == nullptr ||
-                                    fold_counts == nullptr || fold_any == nullptr)))
+                                    fold_counts == nullptr || fold_ns == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const bool lean = merge_kernel != 0;
+  if (lean != (latch_acc != nullptr) || lean != (latch_out != nullptr) || lean != (notified_in != nullptr) ||
+      (lean && (!merge || n_colliders > 0 || n_fields > 0 || n_emitters > 32)))
     return (int)cudaErrorInvalidValue;
   if (stats_out != nullptr && stats_scratch == nullptr) return (int)cudaErrorInvalidValue;
   if ((render_mode != 0 && render_mode != PACK_F32 && render_mode != PACK_F16) ||
@@ -952,8 +992,11 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   a.child_rows = child_rows;
   a.fold_le = (const float*)fold_le;
   a.fold_counts = (int*)fold_counts;
-  a.fold_any = (int*)fold_any;
+  a.fold_ns = (int*)fold_ns;
   a.n_fold = merge ? n_fold : 0;
+  a.latch_acc = (int*)latch_acc;
+  a.latch_out = (uint8_t*)latch_out;
+  a.notified_in = (const uint8_t*)notified_in;
 
   const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
   const bool ring = alive_in == nullptr;
@@ -961,8 +1004,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   const bool warp = ring && !fleet && !collide && !with_fields && !merge && unroll > 1 && n_emitters <= 32;
   const void* kernel =
       warp    ? bf_step_kernel_ring_warp(stats)
-      : fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(collide, with_fields, stats, 0)
-              : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, with_fields, stats, merge);
+      : merge ? bf_step_kernel_merge(ring, lean, stats)
+      : fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(collide, with_fields, stats)
+              : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, with_fields, stats);
   // the tables' shared memory (the kernel's smem_layout with its flags: a
   // count of 0 stages nothing); past the default, the instantiation opts in
   const SmemLayout lay = smem_layout(unroll, n_emitters, a.n_merge, a.n_fold, stats ? n_types : 0,
@@ -1150,10 +1194,11 @@ int bf_nested_stage(const void* tables, int e, const void* alive, const void* pt
 // memory; cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
 // cudaError_t of the query.
 int bf_step_occupancy(int ring, int collide, int fields, int stats, int merge, int fleet, int smem_bytes) {
-  if (smem_bytes < 0 || (merge && fleet)) return -(int)cudaErrorInvalidValue;
-  const void* kernel = fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(
-                                   collide, fields, stats, 0)
-                             : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, fields, stats, merge);
+  if (smem_bytes < 0 || (merge && (fleet || !collide || !fields))) return -(int)cudaErrorInvalidValue;
+  const void* kernel = merge   ? bf_step_kernel_merge(ring, 0, stats)
+                       : fleet ? (ring ? bf_step_kernel_fleet_ring : bf_step_kernel_fleet_dead_rank)(collide, fields,
+                                                                                                   stats)
+                               : (ring ? bf_step_kernel_ring : bf_step_kernel_dead_rank)(collide, fields, stats);
   return blocks_per_sm(kernel, smem_bytes);
 }
 
@@ -1161,6 +1206,12 @@ int bf_step_occupancy(int ring, int collide, int fields, int stats, int merge, i
 int bf_step_warp_occupancy(int stats, int smem_bytes) {
   if (smem_bytes < 0) return -(int)cudaErrorInvalidValue;
   return blocks_per_sm(bf_step_kernel_ring_warp(stats), smem_bytes);
+}
+
+// bf_step_occupancy of fused_step_kernel_merge<ring, stats>.
+int bf_step_merge_occupancy(int ring, int stats, int smem_bytes) {
+  if (smem_bytes < 0) return -(int)cudaErrorInvalidValue;
+  return blocks_per_sm(bf_step_kernel_merge(ring, 1, stats), smem_bytes);
 }
 
 // cos_fast_sweep_kernel over the float bits [lo, lo + n) on `stream`,

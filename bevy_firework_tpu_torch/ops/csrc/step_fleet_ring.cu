@@ -4,6 +4,6 @@
 
 #include "fused_step_kernel.cuh"
 
-extern "C" const void* bf_step_kernel_fleet_ring(int collide, int fields, int stats, int merge) {
-  return select_step_kernel<true, true>(collide != 0, fields != 0, stats != 0, merge != 0);
+extern "C" const void* bf_step_kernel_fleet_ring(int collide, int fields, int stats) {
+  return select_step_kernel<true, true>(collide != 0, fields != 0, stats != 0);
 }

@@ -16,8 +16,12 @@ the JAX package's hybrid with its in-kernel merge): per valid nested
 emitter one launch of the nested-stage kernel (`nested_stage`: the cadence
 pass of kernel row 8 and the child rows of row 9b, threefry draws, the XLA
 child stage of the JAX package), then one step launch whose merge block
-(row 9) places the children before the global claim; `nested_cadence_pass`
-and `nested_child_rows` run the same kernel's pass or child rows alone.
+(row 9) places the children before the global claim (a frame without
+colliders or force fields takes the merge's own instantiations,
+`merge_lean`, whose latch leaves the post-frame any-alive word, the
+finished event and finished_notified, with the ring's alive plane, for
+the epilogue); `nested_cadence_pass` and `nested_child_rows` run the
+same kernel's pass or child rows alone.
 The frame's nested scalars (totals, children, windows, drops, the
 pre-spawn alive flag) stay in one device buffer (`table_layout` NS_*) that
 the kernels read and write: no frame waits on the card. A chain of n >= 2
@@ -163,6 +167,24 @@ def nested_scratch(device, stream: int) -> torch.Tensor:
     sum per block; made once per (device, stream) and kept, as
     `stats_scratch`."""
     return _stream_scratch("nested", device, stream, 2 + L.MAX_BLOCKS, torch.int32)
+
+
+def merge_scratch(device, stream: int) -> torch.Tensor:
+    """The merge launches' latch scratch for launches on `stream` of
+    `device`: 2 int32 words at the start of an allocation (one 64-bit word
+    to the kernel: the blocks' any-alive votes and their tickets; 0
+    between launches: the last block zeroes it); made once per (device,
+    stream) and kept, as `stats_scratch`."""
+    return _stream_scratch("merge", device, stream, 2, torch.int32)
+
+
+def merge_lean(static: SpawnerStatic, colliders, frame: FrameInput) -> bool:
+    """A hybrid frame's step launch takes the merge's own instantiations
+    (`fused_step_kernel_merge`: no narrow phase, no field block, the
+    cadence on warp 0's lanes): no collider table that the narrow phase
+    runs, no force fields and at most 32 emitters. Other hybrid frames take
+    `fused_step_kernel`'s merge instantiations."""
+    return not collision_on(static, colliders) and not fields_on(frame) and static.num_emitters <= 32
 
 
 def check_kernel_scope(static: SpawnerStatic, unroll: int = 1) -> None:
@@ -428,16 +450,22 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
             shard: Optional[Shard] = None):
     """One step launch on the current stream (after the dead-rank claim's
     count and scan, for archetypes without ring claims). Returns (fields,
-    scal, render planes or None, dump plane or None, stats row or None):
-    new tensors; the inputs are not modified. mode: the render pack's
-    (`_pack_mode`): none, the 9 f32 planes, or the record's 12 or 16 f16
+    scal, render planes or None, dump plane or None, stats row or None,
+    latch or None): new tensors; the inputs are not modified. mode: the
+    render pack's (`_pack_mode`): none, the 9 f32 planes, or the record's 12 or 16 f16
     planes in contract column order. hybrid (a hybrid frame's
     merge; see `_hybrid_launches`): the nested scalars `ns`, the child rows
     `child`, the records' `emitters`, the pre-spawn flag `any_alive`, the
     ring cursor after the nested claims `cursor`, on dead-rank
     archetypes the claim's tile `offsets` of the pre-spawn alive plane,
-    and `fold`: None, or (last_emitted after the frame's cadence, the
-    `FoldCarry` the fold epilogue fills for the next frame).
+    `fold`: None, or (last_emitted after the frame's cadence, the
+    `FoldCarry` the fold epilogue fills for the next frame: its counts and
+    its NS buffer), and `lean`: `merge_lean`'s choice of instantiation.
+    A lean hybrid launch (`fused_step_kernel_merge`) also writes the
+    post-frame alive plane on the ring (`fields["alive"]`) and the whole
+    next NS buffer, and returns its latch, bool [3]: any lane alive after
+    the frame, the finished event and the new finished_notified
+    (`step.merge_latch`, its plain version).
     fleet (kernel row 7; `state` stacked over S slots, seeds [S][U] flat):
     the `table` ([S, words] or one shared [words]) and the per-slot records
     `slot_rows` [S, slot_words(F)] on the card; the slots launch in chunks
@@ -472,20 +500,30 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         alive_in = _checked(state.alive, torch.bool, dev, lead + (N,))
         offsets = tile_dead_offsets(alive_in) if hybrid is None else hybrid["offsets"]
         alive_out = fields["alive"] = torch.empty_like(alive_in)
+    elif hybrid is not None and hybrid["lean"]:  # the ring's post-frame alive plane, from the merge launch
+        alive_out = fields["alive"] = torch.empty((N,), dtype=torch.bool, device=dev)
     names = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "ring_cursor")
     dtypes = (torch.float32, torch.float32, torch.bool, torch.int32, torch.int32)
     E, T = static.num_emitters, static.num_types
     shapes = (lead + (E,), lead + (E,), lead + (E,), lead, lead)
     s_in = [_checked(getattr(state, k), d, dev, sh) for k, d, sh in zip(names, dtypes, shapes)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    latch = None
     if hybrid is not None:
         s_in[4] = _checked(hybrid["cursor"], torch.int32, dev, ())
         merge = (hybrid["any_alive"].data_ptr(), hybrid["ns"].data_ptr(), hybrid["child"].data_ptr(),
                  len(hybrid["emitters"]), hybrid["child"].shape[2], hybrid["child"].shape[1])
         fold = hybrid["fold"]  # (last_emitted [E, N], the next frame's FoldCarry) or None
         merge += (None, None, None, 0) if fold is None else (
-            fold[0].data_ptr(), fold[1].counts.data_ptr(), fold[1].ns[L.NS_ANY].data_ptr(), fold[1].counts.shape[0])
+            fold[0].data_ptr(), fold[1].counts.data_ptr(), fold[1].ns.data_ptr(), fold[1].counts.shape[0])
+        if hybrid["lean"]:
+            latch = torch.empty(3, dtype=torch.bool, device=dev)
+            merge += (merge_scratch(dev, stream).data_ptr(), latch.data_ptr(),
+                      _checked(state.finished_notified, torch.bool, dev, ()).data_ptr(), 1)
+        else:
+            merge += (None, None, None, 0)
     else:
-        merge = (None, None, None, 0, 0, 0, None, None, None, 0)
+        merge = (None, None, None, 0, 0, 0, None, None, None, 0, None, None, None, 0)
     s_out = [torch.empty_like(t) for t in s_in]
     render = None
     if mode == L.PACK_F32:
@@ -494,7 +532,6 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         render = [None if static.elide_rotation and 4 <= i < 8 else torch.empty(lead + (N,), dtype=torch.float16,
                                                                                  device=dev) for i in range(L.N_RECORD)]
     dump = torch.empty(lead + (N,), dtype=torch.bool, device=dev) if static.any_destroyed_dump else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
     stats_row = acc = None
     if stats:  # the rows, and per slot the accumulator and its ticket (the stream's scratch, 0 between launches)
         sw = L.stats_words(T)
@@ -537,7 +574,7 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     scal = dict(zip(names, s_out))
     if render is not None:
         render = [p for p in render if p is not None]
-    return fields, scal, render, dump, stats_row, launches
+    return fields, scal, render, dump, stats_row, latch, launches
 
 
 def as_shard(shard, capacity: int) -> Optional[Shard]:
@@ -590,8 +627,8 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
         return fused_step_hybrid(static, params, colliders, state, frame, pack_render, stats)
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
-        fields, scal, planes, dump, row, _n = _launch(static, params, colliders, state, frame, seeds, mode, stats,
-                                                      shard=shard)
+        fields, scal, planes, dump, row, _l, _n = _launch(static, params, colliders, state, frame, seeds, mode,
+                                                          stats, shard=shard)
         fused_step.launches += 1
         fused_step.shard_launches += shard is not None
         fused_step.render_launches += mode == L.PACK_F32
@@ -623,6 +660,8 @@ fused_step.dump_launches = 0  # of which writing the dump plane
 fused_step.stats_launches = 0  # of which writing the stats row
 fused_step.merge_launches = 0  # of which hybrid frames with the nested merge block
 fused_step.fold_launches = 0  # of which with the nested fold epilogue (kernel row 10)
+fused_step.merge_lean_launches = 0  # of the merge launches, fused_step_kernel_merge's (no colliders, no fields)
+fused_step.merge_wide_launches = 0  # of the merge launches, fused_step_kernel's (colliders or fields)
 fused_step.shard_launches = 0  # of which a shard of a pool split over the particle axis (kernel row 11)
 
 
@@ -850,9 +889,13 @@ def can_fold_nested(static: SpawnerStatic, capacity: int) -> bool:
     return capacity > nested_m(static, capacity) and bool(nested_emitters(static))
 
 
-def _new_carry(n_fold: int, n_lanes: int, dev) -> FoldCarry:
+def _new_carry(n_fold: int, n_lanes: int, dev, zeroed: bool) -> FoldCarry:
+    """A FoldCarry's buffers: the NS buffer zeroed for the seed's count
+    kernels and fused_step_kernel's merge, or left to the latch of
+    fused_step_kernel_merge's fold epilogue, which writes all of it."""
     return FoldCarry(torch.empty((n_fold, -(-n_lanes // L.TILE)), dtype=torch.int32, device=dev),
-                     torch.zeros(L.NS_AT + n_fold * L.NS_STRIDE, dtype=torch.int32, device=dev))
+                     (torch.zeros if zeroed else torch.empty)(L.NS_AT + n_fold * L.NS_STRIDE, dtype=torch.int32,
+                                                              device=dev))
 
 
 def _seed_nested_carry(static: SpawnerStatic, params: SpawnerParams, state: PoolState):
@@ -872,7 +915,7 @@ def _seed_nested_carry(static: SpawnerStatic, params: SpawnerParams, state: Pool
     lib = _build.load()
     N = state.capacity
     es = nested_emitters(static)
-    carry = _new_carry(len(es), N, dev)
+    carry = _new_carry(len(es), N, dev, zeroed=True)
     lifetime = None if static.const_lifetime is not None else _checked(state.lifetime, torch.float32, dev, (N,))
     alive = _checked(state.alive, torch.bool, dev, (N,))
     ptype = None if static.single_type else _checked(state.ptype, torch.int32, dev, (N,))
@@ -899,9 +942,10 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     """One hybrid frame on the card: per valid nested emitter one launch of
     the nested-stage kernel (its cadence pass and child rows; with a
     `carry`, on the carried tile counts), then the step launch with the
-    merge block (and, with `fold_out`, the fold epilogue). Returns
-    (new_state, outputs or None, render planes or None, the next frame's
-    FoldCarry or None)."""
+    merge block (and, with `fold_out`, the fold epilogue); a lean launch's
+    alive plane and latch (`merge_lean`) the epilogue takes in place of
+    reducing. Returns (new_state, outputs or None, render planes or None,
+    the next frame's FoldCarry or None)."""
     dev = state.device
     N = state.capacity
     M = nested_m(static, N)
@@ -913,7 +957,8 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     else:  # zeroed, NS_ANY set, by the previous frame's launch or the seed
         ns = _checked(carry.ns, torch.int32, dev, (L.NS_AT + len(es) * L.NS_STRIDE,))
         _checked(carry.counts, torch.int32, dev, (len(es), -(-N // L.TILE)))
-    nxt = _new_carry(len(es), N, dev) if fold_out else None
+    lean = merge_lean(static, colliders, frame)
+    nxt = _new_carry(len(es), N, dev, zeroed=not lean) if fold_out else None
     alive = _checked(state.alive, torch.bool, dev, (N,))
     dead_tiles = None if static.ring_claim else _dead_tiles(alive)
     lifetime = None if static.const_lifetime is not None else state.lifetime
@@ -936,12 +981,14 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
     hybrid = {"ns": ns, "child": child, "emitters": es, "any_alive": any_alive,
               "cursor": start if (static.ring_claim and es) else state.ring_cursor,
               "offsets": None if dead_tiles is None else dead_tiles[1],
-              "fold": None if nxt is None else (last_emitted, nxt)}
+              "fold": None if nxt is None else (last_emitted, nxt), "lean": lean}
     mode = _pack_mode(pack_render)
-    fields, scal, planes_out, dump, row, _n = _launch(static, params, colliders, state, frame,
-                                                      [int(kernel_key[1])], mode, stats, hybrid)
+    fields, scal, planes_out, dump, row, latch, _n = _launch(static, params, colliders, state, frame,
+                                                             [int(kernel_key[1])], mode, stats, hybrid)
     fused_step.launches += 1
     fused_step.merge_launches += 1
+    fused_step.merge_lean_launches += lean
+    fused_step.merge_wide_launches += not lean
     fused_step.fold_launches += nxt is not None
     fused_step.render_launches += mode == L.PACK_F32
     fused_step.render_f16_launches += mode == L.PACK_F16
@@ -957,7 +1004,8 @@ def _hybrid_launches(static: SpawnerStatic, params: SpawnerParams, colliders, st
                 recs[:, L.NS_DROPPED].sum(dtype=torch.int32))
 
     new_state, out = epilogue(static, params, state, fields, scal, torch.as_tensor(new_key.astype(np.int64)), stats,
-                              dump, None if row is None else stats_from_row(static, row), last_emitted, nested_counts)
+                              dump, None if row is None else stats_from_row(static, row), last_emitted, nested_counts,
+                              latch=latch)
     return new_state, out, planes_out, nxt
 
 
@@ -1167,8 +1215,8 @@ def fused_step_fleet(static: SpawnerStatic, params: SpawnerParams, colliders, st
         keys, seeds = frame_seeds_stacked(states.rng_key.numpy(), unroll)
         fleet = {"table": kernel_tables(static, params), "slot_rows": fleet_slot_rows(frames, dev),
                  "n_fields": n_fields}
-        fields, scal, planes, dump, rows, n = _launch(static, params, colliders, states, frames,
-                                                      seeds.reshape(-1).tolist(), mode, stats, fleet=fleet)
+        fields, scal, planes, dump, rows, _l, n = _launch(static, params, colliders, states, frames,
+                                                          seeds.reshape(-1).tolist(), mode, stats, fleet=fleet)
         fused_step_fleet.launches += n
         fused_step_fleet.render_launches += n * (mode == L.PACK_F32)
         fused_step_fleet.render_f16_launches += n * (mode == L.PACK_F16)

@@ -40,10 +40,12 @@ bench.py's 8 hulls) and the unfolded hybrid step launch of nested_60k
 (bench.py's nested cell after 150 frames); `scaling`, kernel row 3 below
 LOOP_MIN_COLLIDERS: the U = 2 launch against
 tools/collider_scaling_tpu.py's scenes at C = 1, 2, 4 and collision_1M;
-`nested`, kernel rows 8 and 9b: the nested stage of unfolded and folded
-hybrid frames per kernel at nested_60k, nested_chained, a dead-rank nested
-archetype, a burst and nested_60k's spawner at 1310720 lanes, the cadence
-and child-rows entry points, and the launch floor (three empty launches).
+`nested`, kernel rows 8, 9, 9b and 10: every kernel of unfolded and
+folded hybrid frames (the nested stage, the hybrid step launch without
+and with the fold epilogue, PyTorch's kernels counted apart) at
+nested_60k, nested_chained, a dead-rank nested archetype, a burst and
+nested_60k's spawner at 1310720 lanes, the cadence and child-rows entry
+points, and the launch floor (three empty launches).
 With --flows it prints one JSON line of the solo path's end-to-end times:
 main_100k and main_1M ms/frame and the tornado and fireworks flows' ms per
 Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch from
@@ -297,8 +299,9 @@ def ptxas_summary(report: str) -> list:
     """Per kernel of ptxas's report: its name (the step kernel's template
     arguments ring, collide, fields, stats, merge, fleet spelled out, and
     `args` those six as ints; the warp-cadence kernel's stats flag, and
-    `warp_stats` that flag as an int), its mangled `symbol`, registers,
-    stack, spill bytes and shared memory."""
+    `warp_stats` that flag as an int; the merge kernel's ring and stats
+    flags, and `merge_args` those two as ints), its mangled `symbol`,
+    registers, stack, spill bytes and shared memory."""
     import re
 
     out = []
@@ -306,10 +309,14 @@ def ptxas_summary(report: str) -> list:
         name = re.search(r"'(\S+)'", block).group(1)
         t = re.search(r"fused_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
         w = re.search(r"fused_step_kernel_warpILb(\d)E", name)
+        mg = re.search(r"fused_step_kernel_mergeILb(\d)ELb(\d)E", name)
         ns = re.search(r"nested_stage_kernelILb(\d)E", name)
         row = {"symbol": name}
         if ns:
             name = f"nested_stage_kernel<barrier={ns.group(1)}>"
+        elif mg:
+            name = "fused_step_kernel_merge<ring={},stats={}>".format(*mg.groups())
+            row["merge_args"] = [int(v) for v in mg.groups()]
         elif t:
             name = "fused_step_kernel<ring={},collide={},fields={},stats={},merge={},fleet={}>".format(*t.groups())
             row["args"] = [int(v) for v in t.groups()]
@@ -362,7 +369,9 @@ def kernel_report(sass: bool = False) -> list:
     threads per SM at no dynamic shared memory: asked of the card
     (`bf_step_occupancy`, `blocks_per_sm_from` "card") where the library
     exports it, else from its registers and static shared memory alone
-    ("registers"); with `sass`, each kernel's `sass_counts`."""
+    ("registers"); with `sass`, each kernel's `sass_counts`. The
+    warp-cadence and merge kernels' rows likewise (`bf_step_warp_occupancy`,
+    `bf_step_merge_occupancy`)."""
     from bevy_firework_tpu_torch.ops import _build
 
     rows = ptxas_summary(_build.ptxas_report())
@@ -374,11 +383,14 @@ def kernel_report(sass: bool = False) -> list:
     lib = _build.load()
     occupancy = getattr(lib, "bf_step_occupancy", None)
     warp_occupancy = getattr(lib, "bf_step_warp_occupancy", None)
+    merge_occupancy = getattr(lib, "bf_step_merge_occupancy", None)
     for row in rows:
-        if "args" not in row and "warp_stats" not in row:
+        if "args" not in row and "warp_stats" not in row and "merge_args" not in row:
             continue
         if "warp_stats" in row and warp_occupancy is not None:
             row["blocks_per_sm"], row["blocks_per_sm_from"] = int(warp_occupancy(row["warp_stats"], 0)), "card"
+        elif "merge_args" in row and merge_occupancy is not None:
+            row["blocks_per_sm"], row["blocks_per_sm_from"] = int(merge_occupancy(*row["merge_args"], 0)), "card"
         elif "args" in row and occupancy is not None:
             row["blocks_per_sm"], row["blocks_per_sm_from"] = int(occupancy(*row["args"], 0)), "card"
         else:  # 64K registers and 228 KB of shared memory per SM, 8 warps of 256-register granules per block
@@ -610,6 +622,10 @@ def cells_ms(calls: int = 20, traces: int = 3) -> dict:
 # and PyTorch's fills and copies are reported beside them, not in it)
 NESTED_STAGE_KERNELS = ("nested_stage_kernel", "nested_count_kernel", "tile_scan_kernel", "nested_apply_kernel",
                         "nested_child_rows_kernel", "dead_count_kernel")
+# the port's own kernels (every other kernel of a trace is PyTorch's: its
+# elementwise, reduction and fill kernels, memsets and copies)
+PORT_KERNELS = NESTED_STAGE_KERNELS + ("fused_step_kernel", "fused_step_kernel_warp", "fused_step_kernel_merge",
+                                       "empty_kernel")
 
 
 def kernel_table(prof, calls: int) -> dict:
@@ -634,9 +650,10 @@ def kernel_table(prof, calls: int) -> dict:
 
 def traced_kernels(call, calls: int, traces: int) -> dict:
     """`kernel_table` of `traces` traces of `calls` calls of `call`, each
-    number the median over the traces, and `stage_us_per_call`: the
+    number the median over the traces, `stage_us_per_call`: the
     NESTED_STAGE_KERNELS' device us per call (a trace that lost launches
-    reads low: launches_per_call shows it)."""
+    reads low: launches_per_call shows it), and `torch_kernels_per_call`
+    and `torch_us_per_call`: PyTorch's kernels (all but PORT_KERNELS)."""
     import statistics
 
     import torch
@@ -655,12 +672,16 @@ def traced_kernels(call, calls: int, traces: int) -> dict:
     res = {k: {m: statistics.median(t[k][m] for t in tables if k in t)
                for m in ("us_per_launch", "launches_per_call", "us_per_call")} for k in sorted(names)}
     stage = [sum(v["us_per_call"] for k, v in t.items() if k.split("<")[0] in NESTED_STAGE_KERNELS) for t in tables]
-    return {"kernels": res, "stage_us_per_call": statistics.median(stage), "stage_traces": stage}
+    torch_rows = [[v for k, v in t.items() if k.split("<")[0] not in PORT_KERNELS] for t in tables]
+    return {"kernels": res, "stage_us_per_call": statistics.median(stage), "stage_traces": stage,
+            "torch_kernels_per_call": statistics.median(sum(v["launches_per_call"] for v in r) for r in torch_rows),
+            "torch_us_per_call": statistics.median(sum(v["us_per_call"] for v in r) for r in torch_rows)}
 
 
 def nested_ms(calls: int = 20, traces: int = 3) -> dict:
-    """Kernel rows 8 and 9b, the nested stage of a hybrid frame, per call
-    and per kernel (`traced_kernels`, stats off) on states of 131072 lanes
+    """Kernel rows 8, 9, 9b and 10, a hybrid frame's nested stage and step
+    launch, per call and per kernel, PyTorch's counted apart
+    (`traced_kernels`, stats off) on states of 131072 lanes
     with child buffer 1024: nested_60k and nested_chained (bench.py's
     nested cells after 150 frames; a ring, fetch mode), chip_smoke's
     dead-rank nested_det archetype after 30 frames (cum mode), and a burst
@@ -668,7 +689,8 @@ def nested_ms(calls: int = 20, traces: int = 3) -> dict:
     exceeds the buffer and one tile owns every rank); and nested_60k's
     spawner in a pool of 1310720 lanes (5120 tiles). Per state: the
     unfolded hybrid frame, and on the ring states the folded frame (a copy
-    of the seed's carry, the fold epilogue on); on nested_60k also the
+    of the seed's carry per call, made before the trace; the fold epilogue
+    on); on nested_60k also the
     entry points `nested_cadence_pass` (fetch and cum mode) and
     `nested_child_rows` (both parent modes). `launch_floor`: three launches
     of an empty kernel per call (device us, and CUDA-event wall us per
@@ -711,9 +733,12 @@ def nested_ms(calls: int = 20, traces: int = 3) -> dict:
                                                                              stats=False), calls, traces)}
         if fs.can_fold_nested(c.static, s.capacity):
             carry = fs._seed_nested_carry(c.static, c.params, s)
+            # one copy of the seed's carry per call, made before the traces
+            # (the frame writes its records into the carry's NS buffer)
+            copies = iter([fs.FoldCarry(carry.counts.clone(), carry.ns.clone()) for _ in range(1 + calls * traces)])
             row["folded"] = traced_kernels(lambda: fs.fused_step_hybrid(
-                c.static, c.params, table, s, f, stats=False, fold_out=True,
-                nested_carry=fs.FoldCarry(carry.counts.clone(), carry.ns.clone())), calls, traces)
+                c.static, c.params, table, s, f, stats=False, fold_out=True, nested_carry=next(copies)), calls,
+                traces)
         if label == "nested_60k":
             par = {k: getattr(s, k) for k in fs.nested_parent_fields(c.static)}
             gate = s.enabled[1]

@@ -458,9 +458,24 @@ def finished_latch(static: SpawnerStatic, state: PoolState, enabled, alive_any):
     return finished, state.finished_notified | finished
 
 
+def merge_latch(static: SpawnerStatic, state: PoolState, enabled, alive):
+    """The plain version of a merge launch's latch (kernel rows 9 and 10:
+    the words its last block writes, `ops.fused_step`), bool [3]: any lane
+    alive after the frame, the finished event and the new
+    finished_notified, from the post-frame enabled bits and alive plane.
+    As the kernel computes it: an enabled global emitter, or an enabled
+    nested one while a lane lives, keeps the spawner active; the epilogue
+    given these words equals the one that reduces (`finished_latch`)."""
+    nested = torch.tensor([k == MODE_NESTED for k in static.mode_kinds], device=enabled.device)
+    any_alive = alive.any()
+    active = (enabled & ~nested).any() | ((enabled & nested).any() & any_alive)
+    finished = ~any_alive & ~active & ~state.finished_notified
+    return torch.stack([any_alive, finished, state.finished_notified | finished])
+
+
 def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fields: dict, scal: dict,
              new_key: torch.Tensor, stats: bool = True, dump=None, stats_row=None, last_emitted=None,
-             nested_counts=None, group=None):
+             nested_counts=None, group=None, latch=None):
     """Assemble the post-frame PoolState, and with `stats` the StepOutputs
     (AABB over pos ± scale, alive and per-type counts, finished latch, the
     destroyed mask `dump` of the last sub-frame). The stats are torch
@@ -476,23 +491,30 @@ def epilogue(static: SpawnerStatic, params: SpawnerParams, state: PoolState, fie
     (a torch.distributed process group whose ranks hold the shards of one
     pool): the AABB, the counts and the any-alive flag (so the finished
     latch) are the whole pool's, from one collective (`group_reduce`), on
-    every launch."""
+    every launch. A merge launch of the card (hybrid frames) passes its
+    alive plane in `fields` ("alive", on the ring too) and its `latch`
+    (`merge_latch`'s words: any alive, finished event, new
+    finished_notified): then nothing here reduces or compares."""
     kw = {k: getattr(state, k) for k in ("px", "py", "pz", "vx", "vy", "vz", "qx", "qy", "qz", "qw",
                                          "wx", "wy", "wz", "initial_scale", "age", "lifetime")}
     kw.update({k: v for k, v in fields.items() if k not in ("ptype", "alive")})
     ptype = fields["ptype"]
-    life = lifetime_of(static, kw)
-    alive = kw["age"] < life if static.ring_claim else fields["alive"]
+    alive = fields.get("alive")
+    if alive is None:  # the ring's, unless the launch wrote it
+        alive = kw["age"] < lifetime_of(static, kw)
     local = stats_row
-    if local is None and stats and group is not None:
-        local = stat_reductions(static, params, kw, ptype, alive)
-    if group is not None:
-        local, alive_any = group_reduce(group, local, alive.any(-1) if local is None else None)
+    if latch is not None:  # a merge launch's words (never sharded)
+        alive_any, finished, notified = latch.unbind()
     else:
-        alive_any = alive.any(-1) if local is None else local[2] > 0
+        if local is None and stats and group is not None:
+            local = stat_reductions(static, params, kw, ptype, alive)
+        if group is not None:
+            local, alive_any = group_reduce(group, local, alive.any(-1) if local is None else None)
+        else:
+            alive_any = alive.any(-1) if local is None else local[2] > 0
+        finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     if local is not None:
         aabb_min, aabb_max, alive_count, per_type = local
-    finished, notified = finished_latch(static, state, scal["enabled"], alive_any)
     new_state = PoolState(
         **kw, ptype=ptype, alive=alive, last_emitted=state.last_emitted if last_emitted is None else last_emitted,
         time_in_cycle=scal["time_in_cycle"], last_emission=scal["last_emission"], enabled=scal["enabled"],

@@ -122,8 +122,13 @@ textures flows and the Scene's async render, through the kernels. Phases:
      and its child rows alone (both parent modes) against
      step.nested_cadence and step.nested_child_rows; then 30 hybrid frames
      of a ring, a chained and a destroy-on-collision (dead-rank) nested
-     archetype whose children meet no sinf/cosf: bit for bit, anchors and
-     nested counts included;
+     archetype whose children meet no sinf/cosf, the last on its floor
+     (fused_step_kernel's merge instantiation) and without one
+     (fused_step_kernel_merge), stats on every other frame: bit for bit,
+     anchors, nested counts, the alive plane and the finished latch
+     included (kernel rows 9 and 10: every instantiation of
+     fused_step_kernel_merge, ring and dead-rank, stats on and off, runs
+     here or in 22a);
  22a. nested_fold_det, N = 131072: nested_det's ring configs (single and
      chained, with deferral; tests/torch_nested_configs.py): the seed's
      count kernels and the step launch's fold epilogue (kernel row 10: per-
@@ -136,8 +141,9 @@ textures flows and the Scene's async render, through the kernels. Phases:
      capacity 131072, nested_buffer 1024, ~60k live): a 150-frame
      multi_step_auto chain (folded: one count kernel per nested emitter,
      then per frame one nested-stage launch per emitter and the step
-     launch, with the fold epilogue but on the last: 1 + E launches a
-     frame) under torch.cuda.set_sync_debug_mode("error") (no frame
+     launch, fused_step_kernel_merge's, with the fold epilogue but on the
+     last: 1 + E launches a frame) under
+     torch.cuda.set_sync_debug_mode("error") (no frame
      synchronises) against the unfolded chain (bit for bit) and 150 plain
      frames (counts, cursor, cadence exact; f32 within 4 ulp), differential
      ms/frame, the device time per frame of 10-frame folded and unfolded
@@ -391,16 +397,21 @@ def main() -> int:
     step_rows = [r for r in ptxas if "args" in r]
     main_row = [r for r in step_rows if r["args"] == [1, 0, 0, 0, 0, 0]]
     warp_rows = [r for r in ptxas if "warp_stats" in r]  # the main path and its stats twin at U > 1
+    merge_rows = [r for r in ptxas if "merge_args" in r]  # hybrid frames without colliders or fields
     check(len(step_rows) == 36 and len(main_row) == 1 and len(warp_rows) == 2
           and all(r["registers"] <= 63 and r["blocks_per_sm"] == 4 for r in main_row + warp_rows),
           f"the step kernel's instantiations: {[(r['kernel'], r['registers']) for r in step_rows + warp_rows]}")
+    check(len(merge_rows) == 4 and all(r["registers"] <= 64 and r["blocks_per_sm"] == 4 for r in merge_rows),
+          f"the merge kernel's instantiations: "
+          f"{[(r['kernel'], r['registers'], r['blocks_per_sm']) for r in merge_rows]}")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ptxas),
           f"ptxas spills: {[r for r in ptxas if r['spill_stores'] or r['spill_loads']]}")
     emit({"phase": "card", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s, "ptxas": ptxas,
           "rule": "ptxas's registers and spills per kernel; blocks_per_sm: resident blocks of 256 threads per SM "
                   "at no dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the main path and its "
-                  "warp-cadence instantiations within their cap of 63 registers, 4 blocks per SM; no kernel spills"})
+                  "warp-cadence instantiations within their cap of 63 registers, 4 blocks per SM; the four "
+                  "fused_step_kernel_merge instantiations within 64 registers, 4 blocks per SM; no kernel spills"})
 
     def ulp_diff(a, b) -> int:
         """Largest distance in units in the last place between two f32 tensors."""
@@ -440,6 +451,8 @@ def main() -> int:
                 "collide": (fs.fused_step, "collide_launches"), "fields": (fs.fused_step, "fields_launches"),
                 "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
                 "dead_rank_claim": (fs.tile_dead_offsets, "launches"), "merge": (fs.fused_step, "merge_launches"),
+                "merge_lean": (fs.fused_step, "merge_lean_launches"),
+                "merge_wide": (fs.fused_step, "merge_wide_launches"),
                 "nested_stage": (fs.nested_stage, "launches"), "nested_seed": (fs._seed_nested_carry, "launches"),
                 "nested_pass": (fs.nested_cadence_pass, "launches"), "fold": (fs.fused_step, "fold_launches"),
                 "nested_child_rows": (fs.nested_child_rows, "launches"),
@@ -1475,34 +1488,52 @@ def main() -> int:
                  "ring_1310720": stage_check("ring_1310720", cn, stage_inputs(1310720, 23, 0.002), 1024)}
     check(0 < stage_res["ring"]["total"] < 1024 and stage_res["burst"]["total"] > 1024
           and stage_res["burst"]["max_tile_ranks"] >= 256, f"nested_det stage: {stage_res}")
-    # hybrid frames: ring (single and chained) and dead-rank, 30 frames each
+    # hybrid frames: ring (single and chained) and dead-rank (on its floor,
+    # and without one), 30 frames each, stats on every other frame; which
+    # merge instantiation each launch took (fused_step_kernel_merge's
+    # <ring, stats> pairs, or fused_step_kernel's)
     floor_det = bt.compile_colliders(nested_cfg.DET_FLOOR, device=dev)
     hyb_res = {}
-    for name, destroy, chained in (("ring", False, False), ("chained", False, True), ("dead_rank", True, False)):
+    merge_forms = set()
+    for name, destroy, chained, floor in (("ring", False, False, False), ("chained", False, True, False),
+                                          ("dead_rank", True, False, True), ("dead_rank_free", True, False, False)):
         ch = bt.compile_spawner(det_nested(destroy, chained), nested_buffer=1024, device=dev)
         check(ch.static.ring_claim == (not destroy), f"nested_det {name}: claim kind")
-        tab = floor_det if destroy else None
+        tab = floor_det if floor else None
         s = bt.init_pool_for(ch, n_det)
         deferred = dropped = 0
+        lean0, wide0 = fs.fused_step.merge_lean_launches, fs.fused_step.merge_wide_launches
         for i in range(30):
-            sk, ok = fs.fused_step(ch.static, ch.params, tab, s, fdet)
-            sp_, op = plain_frames(ch.static, ch.params, s, fdet, 1, colliders=tab)
+            st = i % 2 == 1  # the last frame has stats
+            sk, ok = fs.fused_step(ch.static, ch.params, tab, s, fdet, stats=st)
+            sp_, op = plain_frames(ch.static, ch.params, s, fdet, 1, stats=st, colliders=tab)
             compare(ch, sk, sp_, {}, f"nested_det {name} frame {i}", kernel="fused_step.nested_merge")
-            for k in ("last_emitted", "ptype"):
+            for k in ("last_emitted", "ptype", "finished_notified"):
                 check(torch.equal(getattr(sk, k), getattr(sp_, k)), f"nested_det {name} frame {i}: {k}")
-            for k in ("alive_count_per_type", "nested_deferred", "nested_dropped"):
-                check(torch.equal(getattr(ok, k), getattr(op, k)), f"nested_det {name} frame {i}: {k}")
-            deferred += int(ok.nested_deferred)
-            dropped += int(ok.nested_dropped)
+            if st:
+                for k in ("alive_count_per_type", "nested_deferred", "nested_dropped", "finished_event", "aabb_valid",
+                          "aabb_min", "aabb_max"):
+                    check(torch.equal(getattr(ok, k), getattr(op, k)), f"nested_det {name} frame {i}: {k}")
+                deferred += int(ok.nested_deferred)
+                dropped += int(ok.nested_dropped)
+            merge_forms.add(("lean" if fs.merge_lean(ch.static, tab, fdet) else "wide", ch.static.ring_claim, st))
             s = sk
-        hyb_res[name] = {"per_type": ok.alive_count_per_type.tolist(), "deferred": deferred, "dropped": dropped}
+        lean, wide = fs.fused_step.merge_lean_launches - lean0, fs.fused_step.merge_wide_launches - wide0
+        check((lean, wide) == ((0, 30) if floor else (30, 0)), f"nested_det {name}: merge launches {lean}, {wide}")
+        hyb_res[name] = {"per_type": ok.alive_count_per_type.tolist(), "deferred": deferred, "dropped": dropped,
+                         "merge_lean_launches": lean, "merge_wide_launches": wide}
         check(int(ok.alive_count_per_type[1]) > 5000, f"nested_det {name}: {hyb_res[name]}")
     check(hyb_res["ring"]["deferred"] > 0, "nested_det: no deferral")
+    check({("lean", r, st) for r in (True, False) for st in (True, False)} <= merge_forms,
+          f"nested_det: fused_step_kernel_merge's instantiations launched {sorted(merge_forms)}")
     torch.cuda.synchronize()
     emit({"phase": "nested_det", "card": card, "n": n_det, "stage": stage_res, "cadence": cad_res, "hybrid": hyb_res,
+          "merge_instantiations": sorted(merge_forms),
           "rule": "the nested stage (unfolded and on carried tile counts: anchors, NS record, child buffer), its "
                   "pass alone (cum and fetch mode) and its child rows alone, and 30 hybrid frames == plain, bit for "
-                  "bit"})
+                  "bit (the alive plane and the finished latch included); every fused_step_kernel_merge "
+                  "instantiation (ring, dead-rank, stats on and off) and fused_step_kernel's dead-rank merge "
+                  "launched"})
 
     # ------------------------------------------------ 22a. nested_fold_det
     fold_det = {}
@@ -1565,7 +1596,8 @@ def main() -> int:
         # the folded chain: a seed of one count kernel per nested emitter,
         # one nested-stage launch per emitter and frame, the fold epilogue
         # in every step launch but the last, nothing else
-        check(counts["fused_step"] == counts["merge"] == warm and counts["fold"] == warm - 1
+        check(counts["fused_step"] == counts["merge"] == counts["merge_lean"] == warm and counts["merge_wide"] == 0
+              and counts["fold"] == warm - 1
               and counts["nested_seed"] == n_em and counts["nested_stage"] == n_em * warm
               and counts["nested_pass"] == 0 and counts["nested_child_rows"] == 0
               and counts["dead_rank_claim"] == 0 and counts["stats"] == 1, f"{label}: the chain's launches {counts}")
@@ -1633,7 +1665,8 @@ def main() -> int:
                             20 * capacity + M * (60 + 12 * 100))
         seed_bound = bound(capacity * (1 + 4 + 4 + 4) + 4 * n_tiles, 20 * capacity)
         children = int(out.alive_count_per_type[1:].sum())
-        step_bytes = 2 * 4 * n_active * capacity + 8 * capacity + n_em * n_rows * 4 * M
+        # the fields and ptype in and out, the alive plane out, the child rows
+        step_bytes = 2 * 4 * n_active * capacity + 8 * capacity + capacity + n_em * n_rows * 4 * M
         step_bound = bound(step_bytes, INTEGRATE_OPS * alive)
         # the epilogue adds per nested emitter one read of the anchor row and
         # the tile counts written, and a cadence count (~20 ops) per live lane
@@ -2476,12 +2509,14 @@ def main() -> int:
 
     csrc = "bevy_firework_tpu_torch/ops/csrc/"
 
-    def occupancy(pick, warp=False):
+    def occupancy(pick, warp=False, merge=False):
         """Registers, stack frame, spill stores and blocks per SM of the
         step kernel's instantiations whose template arguments (ring,
-        collide, fields, stats, merge, fleet) `pick` takes, and with `warp`
-        the warp-cadence ones, from the card line's report."""
-        rows = [r for r in step_rows if pick(*r["args"])] + (warp_rows if warp else [])
+        collide, fields, stats, merge, fleet) `pick` takes, with `warp`
+        the warp-cadence ones and with `merge` fused_step_kernel_merge's,
+        from the card line's report."""
+        rows = [r for r in step_rows if pick(*r["args"])] + (warp_rows if warp else []) + (
+            merge_rows if merge else [])
         return {r["kernel"][len("fused_step_kernel"):]: {k: r[k] for k in ("registers", "stack", "spill_stores",
                                                                             "blocks_per_sm")}
                 for r in rows}
@@ -2577,12 +2612,18 @@ def main() -> int:
                                                     "nested emitter and chain"),
         entry("fused_step.nested_merge", "bevy_firework_tpu/ops/fused_step.py:1172", "merge",
               n60k["step_ms_per_launch"], n60k["plain_frame_device_ms"], n60k["bounds"]["step"],
-              chained_ms=nch["step_ms_per_launch"], chained_plain_ms=nch["plain_frame_device_ms"]),
+              chained_ms=nch["step_ms_per_launch"], chained_plain_ms=nch["plain_frame_device_ms"],
+              lean_launches=total("merge_lean"), wide_launches=total("merge_wide"), status="redesigned",
+              kernels=["fused_step_kernel_merge<ring, stats> (no colliders or fields)",
+                       "fused_step_kernel<ring, 1, 1, stats, 1, 0> (colliders or fields)"],
+              occupancy=occupancy(lambda ring, collide, fields, stats, merge, fleet: merge, merge=True)),
         entry("fused_step.nested_fold", "bevy_firework_tpu/ops/fused_step.py:1620", "fold",
               n60k["fold_step_ms_per_launch"], n60k["plain_folded_frame_device_ms"], n60k["bounds"]["fold_step"],
+              status="redesigned",
               also_replaces="bevy_firework_tpu/ops/fused_step.py:1620-1701 (plumbing :1893-1905, :1994-2027, "
                             ":2075-2080), with the next frame's nested stage on its counts (fused_step.cu)",
-              kernels=["fused_step_kernel fold epilogue", "nested_stage_kernel (its carried tile counts)"],
+              kernels=["fused_step_kernel_merge<1, stats> fold epilogue and latch",
+                       "nested_stage_kernel (its carried tile counts)"],
               step_without_epilogue_ms=n60k["step_ms_per_launch"], folded_stage_ms=n60k["folded_stage_ms_per_launch"],
               unfolded_stage_ms=n60k["stage_ms_per_launch"], folded_frame_ms=n60k["folded_device_ms_per_frame"],
               unfolded_frame_ms=n60k["unfolded_device_ms_per_frame"], chained_ms=nch["fold_step_ms_per_launch"],

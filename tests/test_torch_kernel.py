@@ -622,6 +622,106 @@ def test_hybrid_frames_match_plain(cuda, case):
 import torch_nested_configs as nested_cfg  # noqa: E402
 
 
+def _hybrid_vs_plain(c, table, s, f, stats, label):
+    """One hybrid frame through the entry point on the card against the plain
+    hybrid frame: every pool field, the cursor, the anchors, the alive plane
+    and the finished latch bit for bit, and with stats the outputs. Returns
+    the kernel's state and outputs."""
+    sk, ok = fs.fused_step(c.static, c.params, table, s, f, stats=stats)
+    sp, op = plain_frames(c.static, c.params, s, f, 1, stats=stats, colliders=table)
+    for k in active_f32_fields(c.static) + SCALARS + ("last_emitted", "rng_key", "finished_notified"):
+        assert torch.equal(getattr(sk, k).cpu(), getattr(sp, k).cpu()), (label, k)
+    assert (ok is None) == (not stats), label
+    if stats:
+        for k in ("alive_count", "alive_count_per_type", "nested_deferred", "nested_dropped", "finished_event",
+                  "aabb_valid", "aabb_min", "aabb_max"):
+            assert torch.equal(getattr(ok, k), getattr(op, k)), (label, k)
+    return sk, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("case", ["ring", "chained", "dead_rank", "wrap", "dead_rank_floor", "colliders_fields"])
+def test_merge_instantiations_match_plain(cuda, case, stats):
+    """Kernel rows 9 and 10 on the card: a hybrid frame without colliders or
+    fields takes fused_step_kernel_merge (ring and dead-rank, stats on and
+    off; `dead_rank` a destroy-on-collision archetype stepped without a
+    collider table), one with colliders (`dead_rank_floor`: the same
+    archetype on a floor) or with colliders and a force field
+    (`colliders_fields`, a ring) fused_step_kernel's merge
+    instantiations; each frame == the plain hybrid frame bit for bit, the
+    alive plane and the finished latch included (`merge_latch`'s words:
+    with every emitter disabled the pool empties and the event fires once),
+    and each launch counted under its instantiation. `wrap` puts the ring
+    cursor 40 lanes before the pool's end, so the children's window wraps."""
+    destroy = case.startswith("dead_rank")
+    c = pt.compile_spawner(_nested_spawner(destroy=destroy, chained=case == "chained"), nested_buffer=1024,
+                           device=cuda)
+    table = pt.compile_colliders(NESTED_FLOOR, device=cuda) if case == "dead_rank_floor" else None
+    f = pt.make_frame_input(1 / 60)
+    n = 65536
+    if case == "colliders_fields":  # a ring archetype whose rockets bounce off the floor, under a point field
+        sp = _nested_spawner()
+        col = ParticleCollisionSettings(restitution=0.5, friction=0.2)
+        sp = dataclasses.replace(sp, particle_settings=[dataclasses.replace(sp.particle_settings[0],
+                                                                            collision_settings=col),
+                                                        sp.particle_settings[1]])
+        c = pt.compile_spawner(sp, nested_buffer=1024, device=cuda)
+        table = pt.compile_colliders(NESTED_FLOOR, device=cuda)
+        f = pt.make_frame_input(1 / 60, force_fields=pt.compile_force_fields(
+            [pt.ForceField.point((0.3, 0.8, -0.2), 6.0, 2.5)], device=cuda))
+    lean = case not in ("dead_rank_floor", "colliders_fields")
+    assert fs.merge_lean(c.static, table, f) == lean
+    s = pt.init_pool_for(c, n)
+    fs.fused_step.merge_lean_launches = fs.fused_step.merge_wide_launches = fs.fused_step.merge_launches = 0
+    frames = 0
+    for i in range(16):
+        if case == "wrap" and i == 8:
+            s = dataclasses.replace(s, ring_cursor=torch.tensor(n - 40, dtype=torch.int32, device=cuda))
+        s, _o = _hybrid_vs_plain(c, table, s, f, stats, f"{case} frame {i}")
+        frames += 1
+    assert int(s.alive.sum()) > 1000
+    if case == "wrap":
+        assert int(s.ring_cursor) < n - 40  # the windows wrapped past the pool's end
+    off = dataclasses.replace(s, enabled=torch.zeros_like(s.enabled))
+    fired = 0
+    for i in range(60):  # nothing spawns: the pool empties, the event fires once
+        off, ok = _hybrid_vs_plain(c, table, off, f, True, f"{case} disabled frame {i}")
+        fired += int(ok.finished_event)
+        frames += 1
+    assert fired == 1 and bool(off.finished_notified) and not bool(off.alive.any())
+    assert fs.fused_step.merge_launches == frames
+    assert (fs.fused_step.merge_lean_launches, fs.fused_step.merge_wide_launches) == (
+        (frames, 0) if lean else (0, frames))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [65536, 100003])
+def test_merge_fold_epilogue_lean(cuda, n):
+    """Kernel row 10 in fused_step_kernel_merge: folded frames from a seed
+    carry, with and without stats, against the plain hybrid frame (state,
+    finished latch, outputs) and the carry each launch leaves against
+    `step.nested_fold_counts` on its own post-frame state (per-tile counts,
+    the next NS buffer: NS_ANY, zero records); 100003 lanes end in a
+    ragged tile, whose lanes past the pool reach the epilogue's barrier."""
+    c = pt.compile_spawner(_nested_spawner(chained=True), nested_buffer=1024, device=cuda)
+    f = pt.make_frame_input(1 / 60)
+    s, _o = fs.multi_step_auto(c.static, c.params, None, pt.init_pool_for(c, n), f, 20)
+    fs.fused_step.merge_lean_launches = fs.fused_step.fold_launches = 0
+    for i, stats in enumerate((False, True, False, True)):
+        seed = fs._seed_nested_carry(c.static, c.params, s)
+        res = fs.fused_step_hybrid(c.static, c.params, None, s, f, stats=stats, nested_carry=seed, fold_out=True)
+        sp, op = plain_frames(c.static, c.params, s, f, 1, stats=stats)
+        for k in active_f32_fields(c.static) + SCALARS + ("last_emitted", "rng_key", "finished_notified"):
+            assert torch.equal(getattr(res[0], k), getattr(sp, k)), (i, k)
+        if stats:
+            for k in ("alive_count_per_type", "nested_deferred", "finished_event", "aabb_valid"):
+                assert torch.equal(getattr(res[1], k), getattr(op, k)), (i, k)
+        nested_cfg.check_carry(c.static, c.params, res[0], res[-1], f"frame {i}")
+        s = res[0]
+    assert (fs.fused_step.merge_lean_launches, fs.fused_step.fold_launches) == (4, 4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [65536, 100003])
 @pytest.mark.parametrize("chained", [False, True])

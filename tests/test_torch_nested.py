@@ -273,6 +273,78 @@ def test_dead_rank_hybrid_matches_jax_write_back():
     assert live[1] > 0 and live[0] < 2000 * 0.6  # rockets die on the floor before their lifetime
 
 
+def _epilogue_from_words(cp, s, new, out):
+    """The port's epilogue on a hybrid frame's post-frame planes and scalars
+    (`new`, `out`: the plain hybrid frame's, which reduces) given a merge
+    launch's words instead: the alive plane in the fields and
+    `step.merge_latch`'s latch, as the card's merge launch passes them."""
+    from bevy_firework_tpu_torch.step import active_f32_fields, epilogue, merge_latch
+
+    fields = {k: getattr(new, k) for k in active_f32_fields(cp.static)}
+    fields.update(ptype=new.ptype, alive=new.alive)
+    scal = {k: getattr(new, k) for k in ("time_in_cycle", "last_emission", "enabled", "manual_queued",
+                                         "ring_cursor")}
+    latch = merge_latch(cp.static, s, new.enabled, new.alive)
+    return epilogue(cp.static, cp.params, s, fields, scal, new.rng_key, True, None, None, new.last_emitted,
+                    lambda: (out.nested_deferred, out.nested_dropped), latch=latch)
+
+
+@pytest.mark.parametrize("dead_rank", [False, True])
+def test_epilogue_given_the_merge_latch_matches_jax(dead_rank):
+    """The hybrid frame's epilogue given the card merge launch's words (the
+    post-frame alive plane, and any-alive, the finished event and the new
+    finished_notified from `step.merge_latch`, in place of `age < life`,
+    `alive.any()` and `finished_latch`) equals the epilogue that reduces,
+    every pool field and output, frame by frame, and both equal the JAX
+    package's hybrid frame (interpret mode) on the alive plane, the finished
+    event and notified flag and the AABB's valid flag: 24 frames, then every
+    emitter disabled until the pool empties and the event fires once. A
+    ring config (`_chained`, 3 stages) and a dead-rank one (destroy on a
+    floor), 8192 lanes."""
+    if dead_rank:
+        def spawner(pkg):
+            col = pkg.ParticleCollisionSettings(restitution=0.5, friction=0.2, destroy_on_collision=True)
+            sp = _chained(pkg, 2)
+            return dataclasses.replace(sp, particle_settings=[dataclasses.replace(
+                sp.particle_settings[0], acceleration=(0.0, -9.81, 0.0), collision_settings=col),
+                sp.particle_settings[1]])
+        tj = jx.compile_colliders([jx.Collider.halfspace(position=(0.0, -0.2, 0.0))])
+        tp = pt.compile_colliders([pt.Collider.halfspace(position=(0.0, -0.2, 0.0))], device="cpu")
+    else:
+        spawner, tj, tp = _chained, None, None
+    cj = jx.compile_spawner(spawner(jx), nested_buffer=128)
+    cp = pt.compile_spawner(spawner(pt), nested_buffer=128, device="cpu")
+    assert cp.static.ring_claim != dead_rank
+    fj, fp = jx.make_frame_input(1 / 50), pt.make_frame_input(1 / 50)
+    prev = jfs._FORCE_NESTED_MERGE_CPU
+    jfs._FORCE_NESTED_MERGE_CPU = True
+    fired = 0
+    try:
+        hybrid = jax.jit(lambda st, p, col, s, f: jfs.fused_step_hybrid(st, p, col, s, f), static_argnums=(0,))
+        sj, sp = jx.init_pool_for(cj, 8192, 0), pt.init_pool_for(cp, 8192, 0)
+        for i in range(64):
+            if i == 24:  # every emitter off: the pool empties, then the spawner finishes
+                sj = dataclasses.replace(sj, enabled=jax.numpy.zeros_like(sj.enabled))
+                sp = dataclasses.replace(sp, enabled=torch.zeros_like(sp.enabled))
+            with pltpu.force_tpu_interpret_mode():
+                sj, oj = hybrid(cj.static, cj.params, tj, sj, fj)
+            new, out = pt.step_auto(cp.static, cp.params, tp, sp, fp)
+            got, got_out = _epilogue_from_words(cp, sp, new, out)
+            for f in dataclasses.fields(new):
+                assert torch.equal(getattr(got, f.name), getattr(new, f.name)), (i, f.name)
+            for f in dataclasses.fields(out):
+                assert torch.equal(getattr(got_out, f.name), getattr(out, f.name)), (i, f.name)
+            np.testing.assert_array_equal(np.asarray(sj.alive), got.alive.numpy(), err_msg=f"frame {i}")
+            for k, v in (("finished_event", got_out.finished_event), ("aabb_valid", got_out.aabb_valid)):
+                assert bool(getattr(oj, k)) == bool(v), (i, k)
+            assert bool(sj.finished_notified) == bool(got.finished_notified), i
+            fired += int(got_out.finished_event)
+            sp = new
+    finally:
+        jfs._FORCE_NESTED_MERGE_CPU = prev
+    assert fired == 1 and bool(sp.finished_notified) and not bool(sp.alive.any())
+
+
 # ------------------------------------------------------ oracle ports
 
 
