@@ -56,9 +56,21 @@
 //    cumulative window holds the rank. Ring archetypes (deaths only by age)
 //    rank by ring distance ((g - cursor_u) mod N): no scan. Destroy-on-
 //    collision archetypes (U = 1) rank by dead-slot count: the TPU kernel
-//    carried it across its in-order grid in SMEM; here two small kernels
-//    (dead_count_kernel, tile_scan_kernel) write each tile's exclusive
-//    offset before the step, and the step adds a block-local ballot scan.
+//    carried it across its in-order grid in SMEM. Here a solo launch (kernel
+//    row 4) takes each tile's dead count of its alive plane, which the
+//    launch that wrote the plane counted after its frame (one
+//    __syncthreads_count per tile, a run-time branch): while warp 0 runs
+//    the prologue, warps 1-7 sum the counts before each of the block's
+//    tiles into one bin per tile (a warp per bin, its lanes striding the
+//    counts), and per tile the block adds its bin to a running base and a
+//    block-local ballot scan. The tiles stay strided over the grid:
+//    contiguous ranges per block, which need one sum per block, measured
+//    slower, since the live lanes of a dead-rank pool gather in its first
+//    tiles and a few blocks then ran them all (PERF.md §6). So a chain of
+//    destroy frames is one launch a frame; the first frame, or a plane
+//    edited since, is counted first (dead_count_kernel, the seed).
+//    Fleet and hybrid launches keep two small kernels before the step
+//    (dead_count_kernel, tile_scan_kernel: each tile's exclusive offset).
 //  * Collision: per lane, one loop over the colliders in table order with a
 //    strict `dist < best` (the first of tied colliders wins, as in the XLA
 //    path and the TPU kernel's (dist, index) tie-break); the collider rows
@@ -177,7 +189,11 @@
 //    (0, n, 0 unsharded). The global lane lane_base + g is the ring rank's
 //    base ((lane_base + g - cursor), plus global_n when negative) and the
 //    Philox counter; thread 0's cursor wraps at global_n; the dead rank
-//    starts from dead_offset. So each shard claims and draws what the
+//    starts from dead_offset, or from a device word the launch reads in its
+//    prologue (the JAX kernel's SMEM dyn_ref[0, 13], :1142-1149): a shard's
+//    dead offset is then the exclusive prefix of the shards' carried dead
+//    totals, gathered and summed on the device, and no host value waits on
+//    the card before a dead-rank shard's launch. So each shard claims and draws what the
 //    unsharded pool does on its lanes, random draws included. The TPU made
 //    the global capacity a compile-time constant because its per-lane ring
 //    modulo was a division; here the rank needs no division (one compare
@@ -260,10 +276,12 @@ namespace {
 
 // ---- dead-rank claim (replaces the JAX kernel's _prefix_exclusive + SMEM dead_carry) ----
 // The TPU carried the dead count across tiles in SMEM because its grid runs
-// in order; CUDA blocks do not, so the carry is count -> scan -> apply:
-// dead_count_kernel writes each TILE-lane tile's dead count, tile_scan_kernel
-// (one block) scans them into exclusive tile offsets, and the step kernel
-// adds its tile's offset to a block-local exclusive rank.
+// in order; CUDA blocks do not. A solo launch reduces carried per-tile
+// counts itself (see Claims above); dead_count_kernel seeds them. Fleet and
+// hybrid launches count -> scan -> apply: dead_count_kernel writes each
+// TILE-lane tile's dead count, tile_scan_kernel (one block) scans them into
+// exclusive tile offsets, and the step kernel adds its tile's offset to a
+// block-local exclusive rank.
 
 // Both take a slot axis (fleet launches): grid.y (count) or grid.x (scan)
 // is the slot, whose n lanes and n_tiles tiles follow the previous slot's,
@@ -861,8 +879,12 @@ extern "C" {
 // n_types types (pack_tables). colliders is the collider table of
 // n_colliders rows and collider_words words (pack_colliders; n_colliders 0:
 // no narrow phase). Non-ring archetypes (U = 1) pass the alive planes (u8)
-// and the tile offsets bf_dead_rank_offsets wrote; ring archetypes pass
-// nulls. frame is FRAME_WORDS host floats, seeds `unroll` host words, fields
+// and either the tile offsets bf_dead_rank_offsets wrote or, on a solo
+// launch, dead_counts: the dead lanes of each tile of alive_in
+// (ceil(n / TILE) ints: the previous launch's dead_next, or the count
+// kernel's seed); a solo one may pass dead_next (ceil(n / TILE) ints,
+// every word written: the same counts of alive_out, the next launch's
+// dead_counts); ring archetypes pass nulls. frame is FRAME_WORDS host floats, seeds `unroll` host words, fields
 // n_fields FF_STRIDE records in device memory (n_fields 0: no force
 // fields). dump_out is the u8 dump plane or null. stats_out (ST_TYPES +
 // n_types words) or null; with it, stats_scratch holds ST_TYPES + n_types
@@ -899,8 +921,10 @@ extern "C" {
 // particle axis (kernel row 11; solo launches without a merge) passes its
 // lane_base (the global index of its lane 0), global_n (the global pool's
 // capacity: lane_base + n <= global_n, and the ring cursor below it) and
-// dead_offset (the dead lanes of the shards before it); every other launch
-// passes 0, n, 0. Returns the cudaError_t of the launch (0 = success).
+// dead_offset (the dead lanes of the shards before it), or in its place
+// dead_offset_dev (a device int, read by the launch: no host value needed
+// before it); every other launch passes 0, n, 0 and a null
+// dead_offset_dev. Returns the cudaError_t of the launch (0 = success).
 int bf_fused_step(const void* tables, const void* colliders, int n_colliders, int collider_words,
                   void* const* field_in, void* const* field_out, const void* ptype_in, void* ptype_out,
                   const void* alive_in, void* alive_out, const void* tile_dead_offset, void* const* scal_in,
@@ -911,10 +935,15 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                   int child_rows, const void* fold_le, void* fold_counts, void* fold_ns, int n_fold,
                   void* latch_acc, void* latch_out, const void* notified_in, int merge_kernel, int n_slots,
                   int tab_stride, const void* slot_rows, int slot_words, int lane_base, int global_n,
-                  int dead_offset, void* stream) {
+                  int dead_offset, const void* dead_counts, void* dead_next, const void* dead_offset_dev,
+                  void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
   if (lane_base < 0 || dead_offset < 0 || global_n < n || (long long)lane_base + n > global_n ||
       ((merge || fleet) && (lane_base != 0 || global_n != n || dead_offset != 0)))
+    return (int)cudaErrorInvalidValue;
+  // the carried claim and the dead offset's device word: solo dead-rank launches alone
+  if ((dead_counts != nullptr || dead_next != nullptr || dead_offset_dev != nullptr) &&
+      (alive_in == nullptr || merge || fleet))
     return (int)cudaErrorInvalidValue;
   if (unroll < 1 || unroll > MAX_U || n <= 0 || n_emitters < 1 || n_types < 1 || n_colliders < 0 ||
       collider_words < n_colliders * CO_STRIDE || (n_colliders > 0 && colliders == nullptr) || n_fields < 0 ||
@@ -925,7 +954,8 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   if (merge && (unroll != 1 || fleet || n_merge < 0 || (n_merge > 0 && (nested == nullptr || child == nullptr ||
                 merge_m <= 0))))
     return (int)cudaErrorInvalidValue;
-  if ((alive_in == nullptr) != (tile_dead_offset == nullptr) || (alive_in != nullptr && unroll != 1) ||
+  if ((alive_in == nullptr) != (tile_dead_offset == nullptr && dead_counts == nullptr) ||
+      (tile_dead_offset != nullptr && dead_counts != nullptr) || (alive_in != nullptr && unroll != 1) ||
       (alive_out == nullptr) != (alive_in == nullptr && merge_kernel == 0))
     return (int)cudaErrorInvalidValue;
   if (n_fold < 0 || (n_fold > 0 && (!merge || n_fold != n_merge || alive_in != nullptr || fold_le == nullptr ||
@@ -997,6 +1027,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   a.latch_acc = (int*)latch_acc;
   a.latch_out = (uint8_t*)latch_out;
   a.notified_in = (const uint8_t*)notified_in;
+  a.dead_counts = (const int*)dead_counts;
+  a.dead_next = (int*)dead_next;
+  a.dead_offset_dev = (const int*)dead_offset_dev;
 
   const bool collide = n_colliders > 0, with_fields = n_fields > 0, stats = stats_out != nullptr;
   const bool ring = alive_in == nullptr;
@@ -1027,6 +1060,13 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   }
   if (fleet) wave = wave / n_slots > 1 ? wave / n_slots : 1;
   if (blocks > wave) blocks = wave;
+  // a solo dead-rank launch's block sums the carried counts before each
+  // of its tiles into one of CLAIM_BINS bins: past CLAIM_BINS tiles a
+  // block, the grid takes more blocks than one wave
+  if (!ring && !merge && !fleet) {
+    const long long tiles = ((long long)n + TILE - 1) / TILE, least = (tiles + CLAIM_BINS - 1) / CLAIM_BINS;
+    if (blocks < least) blocks = least;
+  }
   const int* tab = (const int*)tables;
   void* params[] = {(void*)&tab, (void*)&a};
   cudaError_t err = cudaLaunchKernel(kernel, dim3((unsigned)blocks, (unsigned)n_slots), dim3(TILE), params, smem,
@@ -1038,8 +1078,9 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
 // The dead-rank claim's first two passes over the u8 alive planes of
 // n_slots pools of n lanes ([n_slots][n]): per-tile dead counts into
 // `counts` and their exclusive scan, restarting at each slot, into
-// `offsets` (both int32 [n_slots][ceil(n / TILE)]), on `stream`. Returns
-// the cudaError_t of the launches.
+// `offsets` (both int32 [n_slots][ceil(n / TILE)]), on `stream`; with a
+// null `offsets` the count pass alone (a solo launch's carried claim, its
+// seed). Returns the cudaError_t of the launches.
 int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, int n_slots, void* stream) {
   if (n <= 0 || n_slots < 1 || n_slots > 65535) return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + TILE - 1) / TILE;
@@ -1047,7 +1088,7 @@ int bf_dead_rank_offsets(const void* alive, void* counts, void* offsets, int n, 
   dead_count_kernel<<<dim3(blocks, n_slots), TILE, 0, (cudaStream_t)stream>>>((const uint8_t*)alive, (int*)counts,
                                                                               n, n_tiles);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || offsets == nullptr) return (int)err;
   tile_scan_kernel<<<n_slots, 1024, 0, (cudaStream_t)stream>>>((const int*)counts, (int*)offsets, n_tiles);
   return (int)cudaGetLastError();
 }

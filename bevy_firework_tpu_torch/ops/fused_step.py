@@ -5,8 +5,12 @@ hand-written Hopper kernel (`csrc/fused_step_kernel.cuh`, which replaces the JAX
 package's Pallas `_make_kernel` with its main-path, render-pack, collision,
 dead-rank-claim, force-field, dump, kernel-stats and nested-merge blocks),
 optionally writing the render-pack planes of the last frame.
-Destroy-on-collision archetypes claim by dead-slot rank: before their step,
-`tile_dead_offsets` launches the claim's count and scan kernels. Scene
+Destroy-on-collision archetypes claim by dead-slot rank (kernel row 4): a
+solo launch takes the per-tile dead counts of its alive plane that the
+launch which wrote the plane left (`claim_counts`; the first frame, or a
+plane edited since, is counted first by the seed's count kernel), so a
+chain of destroy frames is one launch a frame; fleet and hybrid launches
+run the claim's count and scan kernels first (`tile_dead_offsets`). Scene
 force fields ride the frame input (`FrameInput.force_fields`); their records
 go to the card once per table (`kernel_fields`); archetypes with a destroyed
 handler get the dump plane (`StepOutputs.destroyed_mask`).
@@ -46,7 +50,8 @@ Dispatch is by the device of the pool's tensors and nothing else:
   * CPU tensors: the plain PyTorch versions (`step.plain_frames` over U
     frames or one `step.hybrid_frame`, `step.nested_stage`,
     `step.nested_cadence`, `step.nested_child_rows`, `step.nested_fold_carry`,
-    `render.pack_render_planes`, `tile_dead_offsets`' cumsum), which keep
+    `render.pack_render_planes`, `step.dead_tile_counts` and
+    `tile_dead_offsets`' cumsum), which keep
     the kernels' op order and random-bit layout.
 The kernel's tables are sized from the spawner and the scene, so the card
 takes every count of emitters, types, knots, colliders and force fields
@@ -67,6 +72,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -93,6 +99,7 @@ from ..step import (
     Shard,
     active_f32_fields,
     collision_on,
+    dead_tile_counts,
     epilogue,
     fields_on,
     has_nested,
@@ -408,13 +415,72 @@ def _dead_tiles(alive: torch.Tensor):
         return counts, offsets
     if alive.device.type != "cpu":
         raise ValueError(f"no dead-rank claim for device {alive.device}")
-    dead = torch.zeros(lead + (n_tiles * L.TILE,), dtype=torch.int32)
-    dead[..., :n] = (~alive).to(torch.int32)
-    counts = dead.view(lead + (n_tiles, L.TILE)).sum(-1, dtype=torch.int32)
+    counts = dead_tile_counts(alive)
     return counts, torch.cumsum(counts, -1, dtype=torch.int32) - counts
 
 
 tile_dead_offsets.launches = 0  # count + scan launches (CUDA path only)
+
+# The carried claim (kernel row 4): per alive plane on the card, the
+# per-tile dead counts that the launch which wrote it left (or its seed
+# counted), keyed on the tensor by a weak reference and its version: a
+# plane edited in place, replaced, restacked or copied from the host has
+# no entry, or a stale one, and is counted again.
+_CLAIM_CARRY: dict = {}
+
+
+def _carry_claim(alive: torch.Tensor, counts: torch.Tensor) -> None:
+    """Keep `counts` as the carried claim of `alive` (dropped with it)."""
+    if alive.is_inference():  # no version counter: never carried
+        return
+    key = id(alive)
+
+    def drop(ref, key=key):
+        if _CLAIM_CARRY.get(key, (None,))[0] is ref:
+            del _CLAIM_CARRY[key]
+
+    _CLAIM_CARRY[key] = (weakref.ref(alive, drop), alive._version, counts)
+
+
+def _carried_claim(alive: torch.Tensor) -> Optional[torch.Tensor]:
+    """The counts `_carry_claim` kept for this very tensor at its current
+    version, or None."""
+    hit = _CLAIM_CARRY.get(id(alive))
+    if hit is None or hit[0]() is not alive or hit[1] != alive._version:
+        return None
+    return hit[2]
+
+
+def claim_counts(alive: torch.Tensor) -> torch.Tensor:
+    """The dead-rank claim's per-tile dead counts of a solo pool's alive
+    plane (int32 [ceil(N / TILE)]), which a solo dead-rank launch reduces
+    in place of the count and scan kernels. On a CUDA tensor: the counts
+    the launch that wrote `alive` left beside it, or, where there are none
+    (the chain's first frame, a plane edited in place, replaced, restacked
+    or copied from the host), the seed's count kernel (`bf_dead_rank_offsets`
+    without its scan; counted in `claim_counts.seeds`), kept for the next
+    caller; nothing syncs. On a CPU tensor: `step.dead_tile_counts`."""
+    if alive.device.type != "cuda":
+        return dead_tile_counts(alive)
+    counts = _carried_claim(alive)
+    if counts is not None:
+        return counts
+    from . import _build
+
+    lib = _build.load()
+    n = alive.shape[-1]
+    alive = _checked(alive, torch.bool, alive.device, (n,))
+    counts = torch.empty(-(-n // L.TILE), dtype=torch.int32, device=alive.device)
+    rc = lib.bf_dead_rank_offsets(alive.data_ptr(), counts.data_ptr(), None, n, 1,
+                                  torch.cuda.current_stream(alive.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dead-rank claim's count kernel failed to launch: {lib.bf_error_string(rc).decode()}")
+    claim_counts.seeds += 1
+    _carry_claim(alive, counts)
+    return counts
+
+
+claim_counts.seeds = 0  # the seed's count kernel launches (CUDA path only)
 
 
 def _ptr_array(tensors) -> ctypes.Array:
@@ -447,9 +513,13 @@ def _pack_mode(pack_render) -> int:
 
 def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
             seeds: list, mode: int, stats: bool, hybrid: Optional[dict] = None, fleet: Optional[dict] = None,
-            shard: Optional[Shard] = None):
-    """One step launch on the current stream (after the dead-rank claim's
-    count and scan, for archetypes without ring claims). Returns (fields,
+            shard: Optional[Shard] = None, dead_offsets: Optional[torch.Tensor] = None):
+    """One step launch on the current stream. Archetypes without ring
+    claims claim by dead-slot rank: a solo launch from the carried counts
+    of its alive plane (`claim_counts`), leaving those of the plane it
+    writes for the next launch, or, given `dead_offsets`, from the scanned
+    tile offsets (`tile_dead_offsets`); fleet and hybrid launches after the
+    claim's count and scan kernels. Returns (fields,
     scal, render planes or None, dump plane or None, stats row or None,
     latch or None): new tensors; the inputs are not modified. mode: the
     render pack's (`_pack_mode`): none, the 9 f32 planes, or the record's 12 or 16 f16
@@ -470,8 +540,9 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
     the `table` ([S, words] or one shared [words]) and the per-slot records
     `slot_rows` [S, slot_words(F)] on the card; the slots launch in chunks
     of SEED_WORDS // U. shard (kernel row 11; a solo launch of a shard of
-    a pool split over the particle axis): its lane base, the global
-    capacity and its dead offset, launch arguments. Returns the number of
+    a pool split over the particle axis): its lane base and the global
+    capacity, launch arguments, and its dead offset, a launch argument or
+    (a device tensor) a word the kernel reads. Returns the number of
     launches last."""
     from . import _build
 
@@ -495,11 +566,20 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         ptype_in = _checked(state.ptype, torch.int32, dev, lead + (N,))
         ptype_out = torch.empty_like(ptype_in)
     fields["ptype"] = state.ptype if ptype_out is None else ptype_out
-    alive_in = alive_out = offsets = None
+    alive_in = alive_out = offsets = counts = dead_next = None
     if not static.ring_claim:
         alive_in = _checked(state.alive, torch.bool, dev, lead + (N,))
-        offsets = tile_dead_offsets(alive_in) if hybrid is None else hybrid["offsets"]
         alive_out = fields["alive"] = torch.empty_like(alive_in)
+        if hybrid is not None:
+            offsets = hybrid["offsets"]
+        elif fleet is not None:
+            offsets = tile_dead_offsets(alive_in)
+        else:  # a solo launch: the carried claim in, the next one out
+            if dead_offsets is None:
+                counts = claim_counts(alive_in)
+            else:
+                offsets = _checked(dead_offsets, torch.int32, dev, (-(-N // L.TILE),))
+            dead_next = torch.empty(-(-N // L.TILE), dtype=torch.int32, device=dev)
     elif hybrid is not None and hybrid["lean"]:  # the ring's post-frame alive plane, from the merge launch
         alive_out = fields["alive"] = torch.empty((N,), dtype=torch.bool, device=dev)
     names = ("time_in_cycle", "last_emission", "enabled", "manual_queued", "ring_cursor")
@@ -552,6 +632,9 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         return None if t is None else t.data_ptr()
 
     shard = Shard(0, N) if shard is None else shard
+    dead_offset, dead_offset_dev = shard.dead_offset, None
+    if isinstance(dead_offset, torch.Tensor):
+        dead_offset, dead_offset_dev = 0, _checked(dead_offset, torch.int32, dev, ()).data_ptr()
     per_launch = L.SEED_WORDS // unroll
     launches = 0
     for c0 in range(0, S, per_launch):  # one chunk for a solo launch
@@ -566,11 +649,13 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
             _ptr_array(c_s_out), mode, None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
             seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(c_acc), ptr(row), *merge,
             c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], shard.lane_base,
-            shard.global_n, shard.dead_offset, stream,
+            shard.global_n, dead_offset, ptr(counts), ptr(dead_next), dead_offset_dev, stream,
         )
         if rc != 0:
             raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
         launches += 1
+    if dead_next is not None:
+        _carry_claim(alive_out, dead_next)
     scal = dict(zip(names, s_out))
     if render is not None:
         render = [p for p in render if p is not None]
@@ -578,11 +663,15 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
 
 
 def as_shard(shard, capacity: int) -> Optional[Shard]:
-    """A `shard` argument ((lane_base, global_n, dead_offset) or a Shard)
-    as a Shard checked against the shard's capacity, or None."""
+    """A `shard` argument ((lane_base, global_n, dead_offset) or a Shard;
+    the dead offset an int or an int32 0-d tensor) as a Shard checked
+    against the shard's capacity, or None. Reads no tensor."""
     if shard is None:
         return None
-    shard = shard if isinstance(shard, Shard) else Shard(*(int(v) for v in shard))
+    if not isinstance(shard, Shard):
+        lane_base, global_n, *dead = shard
+        shard = Shard(int(lane_base), int(global_n),
+                      *(d if isinstance(d, torch.Tensor) else int(d) for d in dead))
     if shard.lane_base + capacity > shard.global_n:
         raise ValueError(f"{shard} does not hold a shard of {capacity} lanes")
     return shard
@@ -590,7 +679,7 @@ def as_shard(shard, capacity: int) -> Optional[Shard]:
 
 def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
                pack_render=False, unroll: int = 1, stats: bool = True, kernel_stats: bool = False, shard=None,
-               group=None):
+               group=None, _dead_offsets=None):
     """Advance `unroll` frames (bit-equal to that many single frames).
     Returns (state, outputs) or, with pack_render, (state, outputs, planes):
     the render-pack planes of the last frame, for pack_render True the 9
@@ -607,11 +696,20 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
     one shard of a pool split over the particle axis, (lane_base, global_n,
     dead_offset) or a `step.Shard`; its lanes claim, rank and draw as the
     global lanes lane_base + [0, capacity) of the global_n-lane pool, its
-    dead ranks start at dead_offset, and the outputs are this shard's alone.
-    group (with shard; the JAX package's `shard_axis`): a torch.distributed
-    group whose ranks hold the pool's shards: the epilogue makes the AABB,
-    the counts and the finished latch the whole pool's (`step.group_reduce`).
-    `parallel.sharding.make_sharded_step` passes both."""
+    dead ranks start at dead_offset (an int, or an int32 0-d tensor on the
+    pool's device, which the kernel reads), and the outputs are this
+    shard's alone. group (with shard; the JAX package's `shard_axis`): a
+    torch.distributed group whose ranks hold the pool's shards: the
+    epilogue makes the AABB, the counts and the finished latch the whole
+    pool's (`step.group_reduce`). `parallel.sharding.make_sharded_step`
+    passes both.
+
+    On the card a solo dead-rank launch claims from the carried per-tile
+    dead counts of `state.alive` (`claim_counts`: the previous launch's, or
+    the seed's) and leaves those of the plane it writes. _dead_offsets (a
+    testing and timing seam, as the JAX package's `_shard_override`): the
+    claim's scanned tile offsets of `state.alive` (`tile_dead_offsets`) in
+    their place, the count -> scan route."""
     check_kernel_scope(static, unroll)
     shard = as_shard(shard, state.capacity)
     if group is not None and shard is None:
@@ -628,8 +726,9 @@ def fused_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: P
     if state.device.type == "cuda":
         key, seeds = frame_seeds(state.rng_key.numpy(), unroll)
         fields, scal, planes, dump, row, _l, _n = _launch(static, params, colliders, state, frame, seeds, mode,
-                                                          stats, shard=shard)
+                                                          stats, shard=shard, dead_offsets=_dead_offsets)
         fused_step.launches += 1
+        fused_step.dead_claim_launches += not static.ring_claim and _dead_offsets is None
         fused_step.shard_launches += shard is not None
         fused_step.render_launches += mode == L.PACK_F32
         fused_step.render_f16_launches += mode == L.PACK_F16
@@ -663,6 +762,7 @@ fused_step.fold_launches = 0  # of which with the nested fold epilogue (kernel r
 fused_step.merge_lean_launches = 0  # of the merge launches, fused_step_kernel_merge's (no colliders, no fields)
 fused_step.merge_wide_launches = 0  # of the merge launches, fused_step_kernel's (colliders or fields)
 fused_step.shard_launches = 0  # of which a shard of a pool split over the particle axis (kernel row 11)
+fused_step.dead_claim_launches = 0  # of which solo dead-rank launches claiming from carried counts (kernel row 4)
 
 
 def _stage_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, M: int, n: int, *, lanes=None,

@@ -223,6 +223,9 @@ DEFAULT_SMEM_BYTES = 48 * 1024  # dynamic shared memory a launch takes without t
 # the field block's instantiations (without the narrow phase): their
 # register cap (three blocks of TILE threads per SM)
 FIELD_MAX_REGISTERS = 80
+# the most tiles a solo dead-rank launch gives a block: its carried
+# claim's bins in shared memory (past it the grid widens beyond one wave)
+CLAIM_BINS = 64
 
 # CUDA's cosf leaves its fast path from this magnitude on (its SASS: a
 # branch to a Payne-Hanek reduction); the field block's straight-line

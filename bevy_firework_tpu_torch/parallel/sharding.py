@@ -15,9 +15,12 @@ card, or, as the tests do, ranks on the CPU under `gloo`):
     are the unsharded pool's. The traffic is the epilogue's one small
     collective per launch (AABB, counts and the finished latch of the whole
     pool, `step.group_reduce`) and, for dead-rank archetypes, one int per
-    rank per frame before the launch (the dead counts, whose exclusive
-    prefix is the shard's dead offset). Ring archetypes need nothing before
-    the launch. Archetypes with a nested emitter do not shard.
+    rank per frame before the launch (the shards' dead totals, whose
+    exclusive prefix is the shard's dead offset: summed from the claim's
+    carried counts and gathered on the device, a word the kernel reads, so
+    under nccl no host value waits on the card; gloo's gather crosses the
+    host). Ring archetypes need nothing before the launch. Archetypes with
+    a nested emitter do not shard.
   * dp, the fleet axis: `shard_fleet` gives each rank its contiguous slots
     [r S / W, (r + 1) S / W) and `make_fleet_step` steps them through the
     fleet kernel (kernel row 7), with no collective at all.
@@ -242,12 +245,16 @@ def make_sharded_step(static: SpawnerStatic, group=None):
     colliders), stats on the last, the finished latch global on every one.
     The shard layout (lane base, global capacity) comes from one gather of
     the shards' capacities, once per capacity; dead-rank archetypes gather
-    the shards' dead counts before every launch (the dead offset: the
-    exclusive prefix); ring archetypes gather nothing before a launch.
-    Archetypes with a nested emitter raise NotImplementedError."""
+    the shards' dead totals before every launch (each the sum of the
+    claim's carried per-tile counts, `ops.fused_step.claim_counts`), and
+    the dead offset, their exclusive prefix at this rank, stays a device
+    tensor that the launch reads (kernel row 11): no `.item()`, and under
+    nccl nothing reaches the host (under gloo the gather itself crosses
+    it); ring archetypes gather nothing before a launch. Archetypes with a
+    nested emitter raise NotImplementedError."""
     import torch.distributed as dist
 
-    from ..ops.fused_step import chain_shape, chain_unroll, fused_step
+    from ..ops.fused_step import chain_shape, chain_unroll, claim_counts, fused_step
 
     if has_nested(static):
         raise NotImplementedError(NESTED_SHARD_MESSAGE)
@@ -263,8 +270,8 @@ def make_sharded_step(static: SpawnerStatic, group=None):
         lane_base, global_n = layouts[n]
         dead_offset = 0
         if not static.ring_claim:
-            dead = group_gather(group, (~state.alive).sum(dtype=torch.int64).reshape(1)).view(-1).tolist()
-            dead_offset = sum(dead[:rank])
+            dead = group_gather(group, claim_counts(state.alive).sum(dtype=torch.int32).reshape(1)).view(-1)
+            dead_offset = dead[:rank].sum(dtype=torch.int32)
         return Shard(lane_base, global_n, dead_offset)
 
     def step(params, colliders, state, frame, n_frames: int = 1):

@@ -45,7 +45,14 @@ folded hybrid frames (the nested stage, the hybrid step launch without
 and with the fold epilogue, PyTorch's kernels counted apart) at
 nested_60k, nested_chained, a dead-rank nested archetype, a burst and
 nested_60k's spawner at 1310720 lanes, the cadence and child-rows entry
-points, and the launch floor (three empty launches).
+points, and the launch floor (three empty launches); `claim`, kernel rows
+4 and 11: every kernel of a destroy frame (tests/torch_shard_configs.py's
+destroy config after 30 frames) at 131072 and 1310720 lanes, on the
+counts the chain's last launch left (a tree without the carried claim:
+its count and scan kernels, then the step), on a fresh copy of the alive
+plane (the seed, then the step) and given the scanned offsets, and the S =
+4 sharded destroy frame at 1310720 lanes (the shards' dead offsets, then
+four launches).
 With --flows it prints one JSON line of the solo path's end-to-end times:
 main_100k and main_1M ms/frame and the tornado and fireworks flows' ms per
 Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch from
@@ -674,6 +681,7 @@ def traced_kernels(call, calls: int, traces: int) -> dict:
     stage = [sum(v["us_per_call"] for k, v in t.items() if k.split("<")[0] in NESTED_STAGE_KERNELS) for t in tables]
     torch_rows = [[v for k, v in t.items() if k.split("<")[0] not in PORT_KERNELS] for t in tables]
     return {"kernels": res, "stage_us_per_call": statistics.median(stage), "stage_traces": stage,
+            "us_per_call": statistics.median(sum(v["us_per_call"] for v in t.values()) for t in tables),
             "torch_kernels_per_call": statistics.median(sum(v["launches_per_call"] for v in r) for r in torch_rows),
             "torch_us_per_call": statistics.median(sum(v["us_per_call"] for v in r) for r in torch_rows)}
 
@@ -845,6 +853,77 @@ def flows_ms(windows: int = 3) -> dict:
     return res
 
 
+def claim_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Kernel rows 4 and 11, a destroy frame's kernels per call
+    (`traced_kernels`, stats off; `us_per_call` every kernel, PyTorch's
+    included): tests/torch_shard_configs.py's destroy config (the box
+    emitter destroying on a halfspace) after 30 frames at 131072 lanes
+    (3e5/s) and at 1310720 (5e5/s). `frame`: one frame from that state (a
+    tree with the carried claim: the step launch on the counts the chain's
+    last launch left; an older tree: the claim's count and scan kernels,
+    then the step); `seed_frame`: the same on a copy of the alive plane (a
+    carried tree: the seed's count kernel, then the step; copies made before
+    the traces); `scanned_step` (trees with `_dead_offsets`): the step
+    launch given the scanned offsets. At 1310720 lanes, `sharded_s4`: the
+    S = 4 sharded destroy frame, the shards' dead offsets (a carried tree:
+    the exclusive cumsum of their carried dead totals on the device; an
+    older tree: each shard's dead lanes read on the host) then four launches,
+    with its CUDA-event wall time per call (`wall_us_per_call`)."""
+    import dataclasses
+    import inspect
+    import sys
+    from pathlib import Path
+
+    import torch
+
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
+    import torch_shard_configs as sc
+
+    carried = hasattr(fs, "claim_counts")
+    seam = "_dead_offsets" in inspect.signature(fs.fused_step).parameters
+    res = {"carried_claim": carried}
+    for cap, rate in ((16 * 8192, 3e5), (160 * 8192, 5e5)):
+        c, table, f = sc.config("destroy", "cuda", rate=rate)
+        s, out = fs.multi_step_auto(c.static, c.params, table, bt.init_pool_for(c, cap, seed=0), f, 30)
+        row = res[f"destroy_{cap}"] = {"live": int(out.alive_count), "dead": int((~s.alive).sum())}
+        row["frame"] = traced_kernels(lambda: fs.fused_step(c.static, c.params, table, s, f, stats=False), calls,
+                                      traces)
+        copies = iter([dataclasses.replace(s, alive=s.alive.clone()) for _ in range(1 + calls * traces)])
+        row["seed_frame"] = traced_kernels(lambda: fs.fused_step(c.static, c.params, table, next(copies), f,
+                                                                 stats=False), calls, traces)
+        if seam:
+            offs = fs.tile_dead_offsets(s.alive)
+            row["scanned_step"] = traced_kernels(lambda: fs.fused_step(c.static, c.params, table, s, f, stats=False,
+                                                                       _dead_offsets=offs), calls, traces)
+        if cap < 160 * 8192:
+            continue
+        shards = sc.split(s, 4)
+        bases = [sum(sh.capacity for sh in shards[:r]) for r in range(4)]
+
+        def sharded_frame():
+            if carried:
+                totals = torch.stack([fs.claim_counts(sh.alive).sum(dtype=torch.int32) for sh in shards])
+                offsets = list(torch.cumsum(totals, 0, dtype=torch.int32) - totals)
+            else:
+                dead = [int((~sh.alive).sum()) for sh in shards]
+                offsets = [sum(dead[:r]) for r in range(4)]
+            for sh, b, o in zip(shards, bases, offsets):
+                fs.fused_step(c.static, c.params, table, sh, f, stats=False, shard=(b, cap, o))
+
+        row["sharded_s4"] = traced_kernels(sharded_frame, calls, traces)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            sharded_frame()
+        end.record()
+        torch.cuda.synchronize()
+        row["sharded_s4"]["wall_us_per_call"] = start.elapsed_time(end) / calls * 1e3
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON lines to this file")
@@ -904,6 +983,8 @@ def main():
             put({"scaling": scaling_ms()})
         if "nested" in groups:
             put({"nested": nested_ms()})
+        if "claim" in groups:
+            put({"claim": claim_ms()})
     else:
         for rate, cap in ((100_000.0, 1 << 17), (1_000_000.0, 160 * 8192)):
             put(profile_size(rate, cap))
@@ -913,7 +994,7 @@ def main():
 
 
 # --launch's groups, in the order they run
-LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling", "nested")
+LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling", "nested", "claim")
 
 
 if __name__ == "__main__":

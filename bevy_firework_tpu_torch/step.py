@@ -81,15 +81,18 @@ class Shard:
     """A pool split over the particle axis, this shard of it (kernel row 11,
     the JAX package's `_shard_override`): the shard's lanes are the global
     lanes [lane_base, lane_base + its capacity) of a pool of global_n lanes,
-    and dead_offset dead lanes of that pool lie in the shards before it.
-    Unsharded: (0, capacity, 0)."""
+    and dead_offset dead lanes of that pool lie in the shards before it:
+    an int, or an int32 0-d tensor on the pool's device (the step reads it
+    there, so nothing waits on the card for it). Unsharded: (0, capacity,
+    0)."""
 
     lane_base: int
     global_n: int
-    dead_offset: int = 0
+    dead_offset: int | torch.Tensor = 0
 
     def __post_init__(self):
-        if self.lane_base < 0 or self.dead_offset < 0 or self.global_n <= self.lane_base:
+        negative = not isinstance(self.dead_offset, torch.Tensor) and self.dead_offset < 0
+        if self.lane_base < 0 or negative or self.global_n <= self.lane_base:
             raise ValueError(f"not a shard of a pool: {self}")
 
 
@@ -158,6 +161,20 @@ def dead_rank(dead: torch.Tensor) -> torch.Tensor:
     dead-rank claim."""
     di = dead.to(torch.int32)
     return torch.cumsum(di, 0, dtype=torch.int32) - di
+
+
+def dead_tile_counts(alive: torch.Tensor) -> torch.Tensor:
+    """The dead-rank claim's per-tile counts: the dead lanes of each
+    TILE-lane tile of the pool (its last tile ragged), int32 [ceil(N /
+    TILE)], or per slot of a stacked [S, N] plane. The plain version of the
+    counts the card's dead-rank launch leaves for the next one (and its
+    seed's count kernel); their exclusive cumsum is the claim's tile
+    offsets."""
+    lead, n = tuple(alive.shape[:-1]), alive.shape[-1]
+    n_tiles = -(-n // TILE)
+    dead = torch.zeros(lead + (n_tiles * TILE,), dtype=torch.int32, device=alive.device)
+    dead[..., :n] = (~alive).to(torch.int32)
+    return dead.view(lead + (n_tiles, TILE)).sum(-1, dtype=torch.int32)
 
 
 def active_f32_fields(static: SpawnerStatic) -> tuple:

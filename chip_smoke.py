@@ -44,8 +44,12 @@ textures flows and the Scene's async render, through the kernels. Phases:
      4 U = 2 launches;
  10. destroy_claim, N = 131072: the same emitter destroying on collision
      (dead-rank claim, alive plane) for 30 step_auto frames: claims, alive,
-     cursor and fields exact against plain each frame; the claim's tile
-     offsets against their plain version; tiles holding dead lanes;
+     cursor and fields exact against plain each frame; 30 launches on the
+     carried counts (kernel row 4), one seed, no count + scan pair; the
+     counts the last launch left and the count + scan pair's tile offsets
+     against their plain versions; tiles holding dead lanes; the launch on
+     carried counts against the same launch given the scanned offsets (C S
+     S C), the seed, the pair, torch.cumsum and the plain dead_rank, timed;
  11. collision_1M: stress_test_collision at rate 5e5, capacity 1310720,
      two cuboids: a 150-frame multi_step_auto chain (U = 2 launches)
      against 150 plain frames (counts, cursor, cadence exact; f32 within 4
@@ -228,7 +232,9 @@ textures flows and the Scene's async render, through the kernels. Phases:
      shard's U = 8 launch (device time) beside its bytes bound, the device
      time per frame summed over the shards beside the unsharded U = 8
      launch; destroy_claim's emitter at 1310720 lanes and 5e5/s, S = 4, 30
-     frames, bit for bit;
+     frames, bit for bit, the shards' dead offsets device tensors (kernel
+     row 11) and their frames run under sync debug mode "error"; at that
+     state phase 10's claim timings and the S = 4 destroy frame's;
  37. dist_gloo: tests/torch_distributed_worker.py in 4 processes sharing
      the card over gloo, spawned once: sp (main_1M's cell, 140 frames,
      parallel.sharding.make_sharded_step), dp (fleet_16x55k, 4 slots per
@@ -344,7 +350,7 @@ def main() -> int:
     from bevy_firework_tpu_torch.settings import ParticleCollisionSettings
     from bevy_firework_tpu_torch import collision as pcol
     from bevy_firework_tpu_torch.colliders import COLLIDER_HALFSPACE, COLLIDER_HULL, masked_layers
-    from bevy_firework_tpu_torch.step import active_f32_fields, dead_rank, plain_frames
+    from bevy_firework_tpu_torch.step import active_f32_fields, dead_rank, dead_tile_counts, plain_frames
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
@@ -450,7 +456,9 @@ def main() -> int:
     counters = {"fused_step": (fs.fused_step, "launches"), "render": (fs.fused_step, "render_launches"),
                 "collide": (fs.fused_step, "collide_launches"), "fields": (fs.fused_step, "fields_launches"),
                 "dump": (fs.fused_step, "dump_launches"), "stats": (fs.fused_step, "stats_launches"),
-                "dead_rank_claim": (fs.tile_dead_offsets, "launches"), "merge": (fs.fused_step, "merge_launches"),
+                "dead_rank_claim": (fs.tile_dead_offsets, "launches"),
+                "dead_claim": (fs.fused_step, "dead_claim_launches"), "dead_seed": (fs.claim_counts, "seeds"),
+                "merge": (fs.fused_step, "merge_launches"),
                 "merge_lean": (fs.fused_step, "merge_lean_launches"),
                 "merge_wide": (fs.fused_step, "merge_wide_launches"),
                 "nested_stage": (fs.nested_stage, "launches"), "nested_seed": (fs._seed_nested_carry, "launches"),
@@ -624,9 +632,9 @@ def main() -> int:
         counted) against as many plain frames (f32 fields within f32_ulps),
         its render pack against the plain one, differential CUDA-event
         ms/frame over n and 2n frames, and device times (torch.profiler) of
-        one launch per U in `unrolls`, of a render-pack launch and of the
-        dead-rank claim on the final alive plane, each beside the plain
-        version's, each held to its bound (`bounds` in the result). fields:
+        one launch per U in `unrolls` and of a render-pack launch, each
+        beside the plain version's, each held to its bound (`bounds` in the
+        result). fields:
         the scene's force fields (a list)."""
         es = dataclasses.replace(spawner.emission_settings[0], emission_pacing=EmissionPacing.rate(float(rate)))
         cm = bt.compile_spawner(dataclasses.replace(spawner, emission_settings=(es,)), device=dev)
@@ -679,7 +687,6 @@ def main() -> int:
         plane_bytes = 2 * 4 * len(active_f32_fields(cm.static)) * capacity
         bounds = {f"u{u}": bound(plane_bytes, u * frame_ops) for u in unrolls}
         bounds["render"] = bound(plane_bytes + 4 * L.N_RENDER * capacity, frame_ops)
-        bounds["claim"] = bound(capacity + 4 * -(-capacity // L.TILE), capacity)
         res["bounds"] = bounds
 
         def run(n):
@@ -722,15 +729,11 @@ def main() -> int:
             res[f"plain_{u}_frames_device_ms"] = device_ms(f"{label} plain {u}", plain(u), 1, False, least)
             res[f"u{u}_launch_wall_ms"] = event_ms(launch(u), 20)
             res[f"plain_{u}_frames_wall_ms"] = event_ms(plain(u), 1)
-        least_r, least_c = bounds["render"]["bound_ms"], bounds["claim"]["bound_ms"]
+        least_r = bounds["render"]["bound_ms"]
         res.update(render_kernel_device_ms=device_ms(f"{label} render", launch(1, True), 20, True, least_r),
                    plain_render_frame_device_ms=device_ms(f"{label} plain render", plain_render, 1, False, least_r),
                    render_launch_wall_ms=event_ms(launch(1, True), 20),
-                   plain_render_frame_wall_ms=event_ms(plain_render, 1),
-                   claim_kernels_device_ms=device_ms(f"{label} claim", lambda: fs.tile_dead_offsets(state.alive), 20,
-                                                     True, least_c, claim_kernels_names),
-                   plain_dead_rank_device_ms=device_ms(f"{label} plain claim", lambda: dead_rank(~state.alive), 20,
-                                                       False, least_c))
+                   plain_render_frame_wall_ms=event_ms(plain_render, 1))
         emit(res)
         return res, counts, cm, state
 
@@ -832,30 +835,70 @@ def main() -> int:
         return st, destroyed
 
     (sd, destroyed), d_counts = counted(destroy_run)
-    check(d_counts["fused_step"] == 30 and d_counts["collide"] == 30 and d_counts["dead_rank_claim"] == 30,
-          f"destroy_claim launches {d_counts}")
+    check(d_counts["fused_step"] == 30 and d_counts["collide"] == 30 and d_counts["dead_claim"] == 30
+          and d_counts["dead_seed"] == 1 and d_counts["dead_rank_claim"] == 0,
+          f"destroy_claim launches {d_counts}: want 30 on carried counts, 1 seed, no count and scan pair")
+    carried = fs._carried_claim(sd.alive)
+    counts_plain = dead_tile_counts(sd.alive.cpu())
+    check(carried is not None and torch.equal(carried.cpu(), counts_plain),
+          "destroy_claim: the counts the last launch left differ from plain")
     offs = fs.tile_dead_offsets(sd.alive)
     offs_plain = fs.tile_dead_offsets(sd.alive.cpu())
-    max_err["fused_step.dead_rank_claim"] = float((offs.cpu() - offs_plain).abs().max())
+    max_err["fused_step.dead_rank_claim"] = float(max((offs.cpu() - offs_plain).abs().max(),
+                                                      (carried.cpu() - counts_plain).abs().max()))
     check(torch.equal(offs.cpu(), offs_plain), "destroy_claim: tile offsets differ from plain")
     tiles_dead = int((~sd.alive).view(-1, 256).any(1).sum())
     check(destroyed > 1000 and tiles_dead > 100, f"destroy_claim: {destroyed} destroyed, {tiles_dead} tiles")
 
-    def claim_kernels():
-        return fs.tile_dead_offsets(sd.alive)
+    def claim_timing(label, cm, table, st, frame) -> dict:
+        """Kernel row 4 at a destroy state (stats off): the launch on the
+        carried counts and the same launch given the scanned offsets (the
+        count -> scan route's step), interleaved (C S S C, 20 launches per
+        trace), their difference (`carry_cost_ms`: the claim's cost with the
+        carry, a difference of two traces); the seed's count kernel (on
+        copies of the plane, made first), the count + scan pair, one
+        torch.cumsum over the dead lanes (the library call) and the plain
+        dead_rank (5 calls per trace). `bound`: the claim's own work, one u8
+        plane read and the tile words; `launch_bound`: the launch's, its
+        planes read and written once, the alive planes and the tile counts
+        in and out (f32 operations: the integrate path per live lane)."""
+        n = st.capacity
+        b = bound(n + 4 * -(-n // L.TILE), n)
+        least = b["bound_ms"]
+        n_act = len(active_f32_fields(cm.static))
+        lb = bound((2 * 4 * n_act + 2) * n + 8 * -(-n // L.TILE), INTEGRATE_OPS * int(st.alive.sum()))
+        offs_ = fs.tile_dead_offsets(st.alive)
 
-    def claim_plain():
-        return dead_rank(~sd.alive)
+        def carried_launch():
+            return fs.fused_step(cm.static, cm.params, table, st, frame, stats=False)
 
-    n_claim = 131072
-    claim_bound = bound(n_claim + 4 * (n_claim // L.TILE), n_claim)
-    claim = {"claim_kernels_device_ms": device_ms("destroy_claim claim", claim_kernels, 20, True,
-                                                  claim_bound["bound_ms"], claim_kernels_names),
-             "plain_dead_rank_device_ms": device_ms("destroy_claim plain", claim_plain, 20, False,
-                                                    claim_bound["bound_ms"])}
+        def scanned_launch():
+            return fs.fused_step(cm.static, cm.params, table, st, frame, stats=False, _dead_offsets=offs_)
+
+        t = [device_ms(f"{label} {k} launch", fn, 20, True, lb["bound_ms"])
+             for k, fn in (("carried", carried_launch), ("scanned", scanned_launch), ("scanned", scanned_launch),
+                           ("carried", carried_launch))]
+        copies = iter([st.alive.clone() for _ in range(64)])
+        dead_i = (~st.alive).to(torch.int32)
+        res = {"n": n, "carried_launch_ms": (t[0] + t[3]) / 2, "scanned_launch_ms": (t[1] + t[2]) / 2,
+               "ccsc_ms": t, "bound": b, "launch_bound": lb,
+               "seed_ms": device_ms(f"{label} seed", lambda: fs.claim_counts(next(copies)), 20, True, least,
+                                    ("dead_count_kernel",)),
+               "count_scan_ms": device_ms(f"{label} count + scan", lambda: fs.tile_dead_offsets(st.alive), 20, True,
+                                          least, claim_kernels_names),
+               "cumsum_ms": device_ms(f"{label} torch.cumsum", lambda: torch.cumsum(dead_i, 0), 5, False, least),
+               "plain_dead_rank_device_ms": device_ms(f"{label} plain", lambda: dead_rank(~st.alive), 5, False,
+                                                      least)}
+        res["carry_cost_ms"] = res["carried_launch_ms"] - res["scanned_launch_ms"]
+        return res
+
+    claim = claim_timing("destroy_claim", cd, table_c7, sd, fdet)
+    claim_bound = claim["bound"]
     emit({"phase": "destroy_claim", "card": card, "n": 131072, "frames": 30, "live": int(sd.alive.sum()),
           "destroyed": destroyed, "tiles": 512, "tiles_with_dead_lanes": tiles_dead, "launches": d_counts,
-          **claim, "rule": "claims, alive, cursor and fields bit-equal each frame; tile offsets == plain"})
+          **claim, "rule": "claims, alive, cursor and fields bit-equal each frame; 30 launches on carried counts, "
+                           "1 seed, no count + scan pair; the counts the last launch left == plain; tile offsets "
+                           "== plain"})
 
     # ------------------------------------------- 11./12. collision at 1M
     spc = effects.stress_test_collision()[0]
@@ -2385,7 +2428,10 @@ def main() -> int:
         stitched == the unsharded chain bit for bit; the device time per
         frame summed over the shards beside the unsharded U = 8 launch, each
         shard's U = 8 launch beside its bytes bound; destroy_claim's emitter
-        at 1310720 lanes and 5e5/s, S = 4, 30 frames, bit for bit."""
+        at 1310720 lanes and 5e5/s, S = 4, 30 frames, bit for bit, each
+        frame's shards (their dead offsets device tensors) stepped under
+        sync debug mode "error"; then at that state the carried claim's
+        timings (`claim_timing`) and the S = 4 sharded destroy frame."""
         c, _t, frame = shard_cfg.config("stress", dev, rate=1e6)
         cap = 160 * 8192
         whole0 = bt.init_pool_for(c, cap, seed=0)
@@ -2437,15 +2483,31 @@ def main() -> int:
         cd_, tab_, fr_ = shard_cfg.config("destroy", dev, rate=5e5)
         w = bt.init_pool_for(cd_, cap)
         shards = shard_cfg.split(w, 4)
+        fs.fused_step(cd_.static, cd_.params, tab_, w, fr_)  # the tables reach the card before the checked frames
         for i in range(30):
             w, o = fs.fused_step(cd_.static, cd_.params, tab_, w, fr_)
-            shards, outs, _p = shard_cfg.step_shards(cd_, tab_, shards, fr_)
+            torch.cuda.set_sync_debug_mode("error")  # no shard's dead offset reaches the host
+            try:
+                shards, outs, _p = shard_cfg.step_shards(cd_, tab_, shards, fr_)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
             bad = shard_cfg.pool_mismatch(shard_cfg.stitch(shards), w)
             check(bad == [], f"sharded_1M destroy frame {i}: {bad}")
             check(shard_cfg.outputs_mismatch(o, shard_cfg.reduce_outputs(outs)) == [], f"sharded_1M destroy {i}")
         res["destroy_live"] = int(o.alive_count)
         res["destroy_dead_lanes"] = int((~w.alive).sum())
         check(0 < res["destroy_live"] < cap, f"sharded_1M destroy: {res['destroy_live']} live")
+        res["destroy_claim"] = claim_timing("sharded_1M destroy", cd_, tab_, w, fr_)
+
+        def shard_frame():  # the shards' dead offsets on the device, then the four launches
+            for sh_, a in zip(shards, shard_cfg.shard_args(cd_.static, shards)):
+                fs.fused_step(cd_.static, cd_.params, tab_, sh_, fr_, stats=False, shard=a)
+
+        n_act = len(active_f32_fields(cd_.static))
+        res["destroy_frame_s4_bound"] = bound((2 * 4 * n_act + 2) * cap, INTEGRATE_OPS * int(w.alive.sum()))
+        res["destroy_frame_s4_device_ms"] = device_ms("sharded_1M destroy frame S=4", shard_frame, 20, False,
+                                                      res["destroy_frame_s4_bound"]["bound_ms"])
+        res["destroy_frame_s4_wall_ms"] = event_ms(shard_frame, 20)
         return res, counts_all
 
     t_cell = time.perf_counter()
@@ -2454,7 +2516,10 @@ def main() -> int:
           "launches": {str(k): v["shard"] for k, v in s1m_counts_all.items()}, "seconds": time.perf_counter() - t_cell,
           "rule": "the 140-frame chain's shards (U = 8 launches) stitched == the unsharded chain bit for bit, the "
                   "stats reduced == its stats; launch_ms: device time of each shard's U = 8 launch (torch.profiler, "
-                  "20 launches), each held to its bytes bound; destroy: 30 frames, S = 4, bit for bit"})
+                  "20 launches), each held to its bytes bound; destroy: 30 frames, S = 4, bit for bit, the shards "
+                  "stepped under sync debug mode 'error' (dead offsets device tensors); destroy_frame_s4: every "
+                  "kernel of one S = 4 frame (offsets and four launches, stats off) per call, and its CUDA-event "
+                  "wall time"})
 
     # ------------------------------------------------ 37. dist_gloo
     def dist_gloo():
@@ -2579,10 +2644,25 @@ def main() -> int:
                              for r in scaling},
               scaling_bound_ms={f"{r['colliders']}{'h' if r['hulls'] else ''}": r["bound"]["bound_ms"]
                                 for r in scaling}),
-        entry("fused_step.dead_rank_claim", "bevy_firework_tpu/ops/fused_step.py:173", "dead_rank_claim",
-              claim["claim_kernels_device_ms"], claim["plain_dead_rank_device_ms"], claim_bound, source="fused_step.cu",
-              kernels=["dead_count_kernel", "tile_scan_kernel", "fused_step_kernel block_dead_rank"],
-              ms_1M=c1m["claim_kernels_device_ms"], plain_ms_1M=c1m["plain_dead_rank_device_ms"]),
+        entry("fused_step.dead_rank_claim", "bevy_firework_tpu/ops/fused_step.py:173", "dead_claim",
+              claim["carried_launch_ms"], claim["plain_dead_rank_device_ms"], claim["launch_bound"],
+              library_ms=claim["cumsum_ms"], status="redesigned",
+              also_replaces="bevy_firework_tpu/ops/fused_step.py:1142-1149, :1323-1333 (the SMEM dead_carry)",
+              kernels=["fused_step_kernel<0, *, *, *, 0, 0>: the claim on carried counts (warps 1-7 sum the "
+                       "counts before each of the block's tiles beside the prologue, block_dead_rank per tile) and "
+                       "the next launch's counts (__syncthreads_count at the next tile's barrier)",
+                       "dead_count_kernel (the seed; fleet and hybrid launches: with tile_scan_kernel)"],
+              carry_cost_ms=claim["carry_cost_ms"], claim_bound_ms=claim_bound["bound_ms"],
+              scanned_launch_ms=claim["scanned_launch_ms"],
+              seed_ms=claim["seed_ms"], count_scan_ms=claim["count_scan_ms"],
+              seed_launches=total("dead_seed"), count_scan_launches=total("dead_rank_claim"),
+              ms_1M=s1m["destroy_claim"]["carried_launch_ms"], carry_cost_ms_1M=s1m["destroy_claim"]["carry_cost_ms"],
+              scanned_launch_ms_1M=s1m["destroy_claim"]["scanned_launch_ms"], seed_ms_1M=s1m["destroy_claim"]["seed_ms"],
+              count_scan_ms_1M=s1m["destroy_claim"]["count_scan_ms"], library_ms_1M=s1m["destroy_claim"]["cumsum_ms"],
+              plain_ms_1M=s1m["destroy_claim"]["plain_dead_rank_device_ms"],
+              bound_ms_1M=s1m["destroy_claim"]["launch_bound"]["bound_ms"],
+              claim_bound_ms_1M=s1m["destroy_claim"]["bound"]["bound_ms"],
+              occupancy=occupancy(lambda ring, collide, fields, stats, merge, fleet: not (ring or merge or fleet))),
         entry("fused_step.fields", "bevy_firework_tpu/ops/fused_step.py:1462", ("fields", "fleet_fields"),
               f1m["u8_kernel_device_ms"],
               f1m["plain_8_frames_device_ms"], f1m["bounds"]["u8"],
@@ -2648,7 +2728,9 @@ def main() -> int:
         shard_launch_ms={str(k): v["launch_ms"] for k, v in s1m["by_shards"].items()},
         shard_bound_ms={str(k): v["bound_ms"] for k, v in s1m["by_shards"].items()},
         device_us_per_frame_summed={str(k): v["device_us_per_frame_summed"] for k, v in s1m["by_shards"].items()},
-        unsharded_u8_ms=s1m["unsharded_u8_ms"],
+        unsharded_u8_ms=s1m["unsharded_u8_ms"], status="redesigned",
+        destroy_frame_s4_ms=s1m["destroy_frame_s4_device_ms"], destroy_frame_s4_wall_ms=s1m["destroy_frame_s4_wall_ms"],
+        destroy_frame_s4_bound_ms=s1m["destroy_frame_s4_bound"]["bound_ms"],
         dist_gloo_launches=sum(r["shard_launches"] for r in gloo)))
     check(all(k["launches"] > 0 for k in kernels), f"a kernel of the main path never launched: "
           f"{[k['name'] for k in kernels if k['launches'] == 0]}")
@@ -2656,17 +2738,24 @@ def main() -> int:
                           "the main_1M state, 1310720 lanes); pack_render_f16: the main_1M state (1310720 lanes, 12 "
                           "planes); collide: 1310720 lanes "
                           "stress_test_collision (collide_broad: hull8_1M, 8 hulls; scaling_*: "
-                          "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: 131072 lanes (ms_1M: 1310720); fields: "
+                          "collider_scaling_1M, C colliders, 'h' a quarter hulls); dead_rank_claim: destroy_claim's "
+                          "state, 131072 lanes (*_1M: sharded_1M's destroy state, 1310720 lanes); fields: "
                           "fields_1M (1310720 lanes, dust, 3 fields); stats: 1310720 lanes stress_test (sparks_*: 2048 lanes, 750 live); dump: "
                           "131072 lanes, the ring archetype with a handler; nested_stage, nested_seed_count, nested_merge, "
                           "nested_fold: nested_60k (131072 lanes, M 1024; chained_*: "
                           "nested_chained); fleet: "
                           "fleet_16x55k (16 slots x 65536 lanes, stress_test at 55000/s); sharded_claim: sharded_1M "
-                          "(main_1M's state, S = 4 shards of 327680 lanes; shard_*: S = 2, 4, 8)",
+                          "(main_1M's state, S = 4 shards of 327680 lanes; shard_*: S = 2, 4, 8; destroy_frame_s4_*: "
+                          "sharded_1M's destroy state in 4 shards)",
         "timing": "ms: device time per launch (torch.profiler): fused_step U=8, pack_render U=1 with the pack, "
                   "pack_render_f16 U=1 with the f16 record (u8_ms U=8; *_no_pack_ms the same launches without a "
                   "pack; plain: a plain frame and render.pack_render_planes(..., 'f16')), collide "
-                  "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim its count + scan kernels, fields U=8 with the field block, "
+                  "U=2 (u8_ms U=8), collide_broad U=2 at hull8_1M, dead_rank_claim the U=1 launch claiming from "
+                  "the carried counts (as dump: the launch with its block; bound_ms the launch's) "
+                  "(carry_cost_ms: it less the same launch given the scanned offsets, the claim's own cost, a "
+                  "difference of two traced times beside claim_bound_ms, the claim's own bytes; seed_ms: the "
+                  "seed's count kernel; count_scan_ms: the count + scan pair that fleet and hybrid launches "
+                  "keep; library_ms: one torch.cumsum over the dead lanes), fields U=8 with the field block, "
                   "stats U=1 with the stats block (ms_without: the same launch without it; sparks_*: at the "
                   "sparks flow's 2048-lane pool), dump U=1 with the dump "
                   "plane (ms_without: the same archetype without a handler), nested_stage one launch of an unfolded "
@@ -2675,7 +2764,8 @@ def main() -> int:
                   "fold epilogue (folded_stage_ms: the next frame's nested stage on its counts; *_frame_ms: device "
                   "time per frame of a 10-frame folded / unfolded chain), fleet one U=8 "
                   "launch of all 16 slots (solo16_ms: the 16 slots' solo U=8 launches), sharded_claim the first "
-                  "shard's U=8 launch at S = 4 (shard_launch_ms: every shard's; "
+                  "shard's U=8 launch at S = 4 (shard_launch_ms: every shard's; destroy_frame_s4_ms: every kernel "
+                  "of an S = 4 destroy frame, the dead offsets built on the device; "
                   "device_us_per_frame_summed: the shards' U=8 launches summed per frame); plain_ms: "
                   "device time of the plain version's same frames (8 / 1 + pack / 2 / 8 / 8 / 1 + reductions / 1 / "
                   "a hybrid frame for nested_merge, a hybrid frame with step.nested_fold_carry for nested_fold, 16 x 8 "
@@ -2687,7 +2777,7 @@ def main() -> int:
                   "same state, its broad phase's skips included) over 67 TFLOP/s; collide and collide_broad are "
                   "one function, counted by the JAX package's form (fewer than LOOP_MIN_COLLIDERS colliders, or "
                   "more); library_ms: no single PyTorch call "
-                  "computes these functions; every device time was held to its bound, a trace below it traced "
+                  "computes these functions but the claim's; every device time was held to its bound, a trace below it traced "
                   "again (trace_faults)",
         "trace_faults": trace_faults,
         "at_1M": {k: r1m[k] for k in ("u8_kernel_device_ms", "plain_8_frames_device_ms", "render_kernel_device_ms",

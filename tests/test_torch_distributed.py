@@ -1,5 +1,7 @@
-"""The port's scale-out over gloo process groups on the CPU: 2-rank sp,
-2-rank dp and 4-rank 2 x 2 groups, each rank a subprocess running
+"""The port's scale-out over gloo process groups on the CPU: 2-rank sp (a
+ring, a burst and a dead-rank archetype), 2-rank sp on the dead-rank
+claim's chain (sp_destroy: the dead offsets device tensors), 2-rank dp and
+4-rank 2 x 2 groups, each rank a subprocess running
 tests/torch_distributed_worker.py (imports torch and the port only) with
 its own 120 s limit. Each rank holds its share bit for bit against the
 same lanes and slots of the unsharded port step, outputs and finished
@@ -46,7 +48,7 @@ def run_group(world: int, cases: str) -> list:
     return [json.loads(out.strip().splitlines()[-1]) for out, _e in done]
 
 
-@pytest.mark.parametrize("world,case", [(2, "sp"), (2, "dp"), (4, "2d")])
+@pytest.mark.parametrize("world,case", [(2, "sp"), (2, "sp_destroy"), (2, "dp"), (4, "2d")])
 def test_gloo_group_equals_unsharded(world, case):
     outs = run_group(world, case)
     assert [o["rank"] for o in outs] == list(range(world)) and all(o["ok"] for o in outs)
@@ -54,5 +56,8 @@ def test_gloo_group_equals_unsharded(world, case):
         for o in outs:
             assert o["sp"]["burst_latch"]["finished_events"] == 1
             assert o["sp"]["ring_chain"]["live"] == outs[0]["sp"]["ring_chain"]["live"] > 0
+    elif case == "sp_destroy":
+        for o in outs:
+            assert o[case]["live"] == outs[0][case]["live"] > 0 and o[case]["dead"] > 0
     else:
         assert sum(o[case]["local_slots"] for o in outs) == outs[0][case]["slots"] * (1 if case == "dp" else world // 2)

@@ -223,20 +223,105 @@ def test_dead_rank_claim_matches_plain(cuda, n):
     """Destroy-on-collision: the claim ranks dead lanes across 512 tiles (or
     a ragged last tile); claims, alive, cursor and fields are exact against
     the plain cumsum claim, and the tile offsets against their plain
-    version."""
+    version. The 12 launches claim from carried counts: one seed, no count
+    and scan pair."""
     c = pt.compile_spawner(_box_spawner(destroy=True), device=cuda)
     assert not c.static.ring_claim
     table = pt.compile_colliders(SCENES["c7"](), device=cuda)
     s = pt.init_pool_for(c, n)
     f = pt.make_frame_input(1 / 60)
-    before = fs.tile_dead_offsets.launches
+    before = (fs.tile_dead_offsets.launches, fs.claim_counts.seeds, fs.fused_step.dead_claim_launches)
     s = _assert_kernel_equals_plain(c, table, s, f, [1] * 12)
-    assert fs.tile_dead_offsets.launches - before == 12
+    after = (fs.tile_dead_offsets.launches, fs.claim_counts.seeds, fs.fused_step.dead_claim_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 1, 12)
     dead = ~s.alive
     assert int(dead.view(-1)[: n // 256 * 256].view(-1, 256).any(1).sum()) > 50  # holes in many tiles
     assert torch.equal(fs.tile_dead_offsets(s.alive).cpu(), fs.tile_dead_offsets(s.alive.cpu()))
     with pytest.raises(ValueError, match="unroll"):
         fs.fused_step(c.static, c.params, table, s, f, unroll=2)
+
+
+def _claim_pair_equal(c, a, b, stats, label):
+    """Two launches' states (and outputs) bit for bit: every scalar and
+    field, the dump plane and the alive count."""
+    (sa, oa), (sb, ob) = a, b
+    for k in SCALARS:
+        assert torch.equal(getattr(sa, k), getattr(sb, k)), (label, k)
+    for k in active_f32_fields(c.static):
+        assert _ulps(getattr(sa, k), getattr(sb, k)) == 0, (label, k)
+    if stats:
+        assert torch.equal(oa.destroyed_mask, ob.destroyed_mask), label
+        assert int(oa.alive_count) == int(ob.alive_count), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [True, False])
+@pytest.mark.parametrize("n", [131072, 100003, 1310720])
+def test_carried_claim_equals_count_scan_and_plain(cuda, n, stats):
+    """Kernel row 4: each destroy frame (a handler: the dump plane) claimed
+    from the carried counts == the same launch given the scanned offsets
+    (`_dead_offsets`, the count -> scan route) == the plain frame, bit for
+    bit; the counts the carried launch leaves for its alive plane == their
+    plain version; the first frame seeds, no other counts or scans."""
+    from bevy_firework_tpu_torch.step import dead_tile_counts
+
+    c = pt.compile_spawner(_box_spawner(destroy=True, handler=print), device=cuda)
+    assert c.static.any_destroyed_dump and not c.static.ring_claim
+    table = pt.compile_colliders(SCENES["c7"](), device=cuda)
+    s = pt.init_pool_for(c, n)
+    f = pt.make_frame_input(1 / 60)
+    frames = 8 if n < 1_000_000 else 4
+    seeds, scans = fs.claim_counts.seeds, fs.tile_dead_offsets.launches
+    for i in range(frames):
+        carried = fs.fused_step(c.static, c.params, table, s, f, stats=stats)
+        scanned = fs.fused_step(c.static, c.params, table, s, f, stats=stats,
+                                _dead_offsets=fs.tile_dead_offsets(s.alive))
+        plain = plain_frames(c.static, c.params, s, f, 1, stats=stats, colliders=table)
+        _claim_pair_equal(c, carried, scanned, stats, f"frame {i} carried vs scanned")
+        _claim_pair_equal(c, carried, plain, stats, f"frame {i} carried vs plain")
+        s = carried[0]
+        assert torch.equal(fs._carried_claim(s.alive).cpu(), dead_tile_counts(s.alive.cpu())), i
+    assert (fs.claim_counts.seeds - seeds, fs.tile_dead_offsets.launches - scans) == (1, frames)
+    assert int((~s.alive).sum()) > 0 and int(s.alive.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_carried_claim_chain_seeds_once(cuda):
+    """A 50-frame destroy chain (multi_step_auto: single launches) == 50
+    plain frames bit for bit, with one seed, no count and scan pair and 50
+    launches on carried counts; then a launch from the chain's state takes
+    its carry, and an alive plane edited in place, replaced or restacked
+    is counted again (a seed each), each launch == plain."""
+    from bevy_firework_tpu_torch.parallel.sharding import stack_pools as stack, state_slot as slot
+
+    c = pt.compile_spawner(_box_spawner(destroy=True), device=cuda)
+    table = pt.compile_colliders(SCENES["c7"](), device=cuda)
+    s0 = pt.init_pool_for(c, 131072)
+    f = pt.make_frame_input(1 / 60)
+    before = (fs.claim_counts.seeds, fs.tile_dead_offsets.launches, fs.fused_step.dead_claim_launches)
+    s, _o = fs.multi_step_auto(c.static, c.params, table, s0, f, 50)
+    after = (fs.claim_counts.seeds, fs.tile_dead_offsets.launches, fs.fused_step.dead_claim_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 50)
+    sp = s0
+    for _ in range(50):
+        sp, _op = plain_frames(c.static, c.params, sp, f, 1, colliders=table)
+    for k in SCALARS:
+        assert torch.equal(getattr(s, k), getattr(sp, k)), k
+    for k in active_f32_fields(c.static):
+        assert _ulps(getattr(s, k), getattr(sp, k)) == 0, k
+    edited = dataclasses.replace(s, alive=s.alive.clone())
+    edited.alive[:4096:7] = False
+    fs._carry_claim(edited.alive, fs.claim_counts(s.alive))  # a stale carry: the edit below bumps the version
+    edited.alive[1] = ~edited.alive[1]
+    cases = [("carried", s, 0), ("edited", edited, 1), ("replaced", dataclasses.replace(s, alive=s.alive.clone()), 1),
+             ("restacked", slot(stack([s, s]), 1), 1)]
+    for label, st, seeded in cases:
+        n0 = fs.claim_counts.seeds
+        sk, _ok = fs.fused_step(c.static, c.params, table, st, f)
+        assert fs.claim_counts.seeds - n0 == seeded, label
+        sp, _op = plain_frames(c.static, c.params, st, f, 1, colliders=table)
+        for k in SCALARS:
+            assert torch.equal(getattr(sk, k), getattr(sp, k)), (label, k)
 
 
 FIELDS = {
@@ -1170,6 +1255,31 @@ def test_sharded_kernel_equals_unsharded(cuda, name, unroll, n_shards):
                 assert _ulps(getattr(s, k), getattr(p, k)) <= SHARD_ULPS[name], (i, k)
     assert fs.fused_step.shard_launches - before == 12 * n_shards
     assert 0 < int(out.alive_count) < whole.capacity
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_sharded_dead_rank_chain_with_device_offsets(cuda, n_shards):
+    """Kernel row 11 on the dead-rank claim: 20 destroy frames of 131072
+    lanes in S shards, each frame's dead offsets device tensors (the
+    exclusive cumsum of the shards' carried dead totals, `shard_args`) and
+    its launches run under torch.cuda.set_sync_debug_mode("error"): no
+    value reaches the host; stitched == the unsharded launches bit for bit,
+    the stats reduced == the pool's."""
+    c, table, frame = shard_cfg.config("destroy", cuda)
+    whole = pt.init_pool_for(c, 131072)
+    shards = shard_cfg.split(whole, n_shards)
+    fs.fused_step(c.static, c.params, table, whole, frame)  # the tables reach the card before the checked frames
+    for i in range(20):
+        whole, out = fs.fused_step(c.static, c.params, table, whole, frame)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            shards, outs, _p = shard_cfg.step_shards(c, table, shards, frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert shard_cfg.pool_mismatch(shard_cfg.stitch(shards), whole) == [], i
+        assert shard_cfg.outputs_mismatch(out, shard_cfg.reduce_outputs(outs)) == [], i
+    assert 0 < int((~whole.alive).sum()) < whole.capacity
 
 
 @pytest.mark.cuda

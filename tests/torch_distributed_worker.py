@@ -1,11 +1,13 @@
 """One rank of the port's scale-out checks over a torch.distributed group.
 
     python tests/torch_distributed_worker.py --rank R --world W --init tcp://127.0.0.1:PORT \\
-        --device cpu|cuda --size small|card --cases sp,dp,2d
+        --device cpu|cuda --size small|card --cases sp,sp_destroy,dp,2d
 
 Imports torch and the port only. Every rank builds the same pools from the
 same seeds, steps its share through `parallel.sharding` (sp:
-`make_sharded_step` over `shard_pool`; dp: `make_fleet_step` over
+`make_sharded_step` over `shard_pool`; sp_destroy: the same on the
+dead-rank claim, a chain whose dead offsets stay on the device; dp:
+`make_fleet_step` over
 `shard_fleet`; 2d: `make_fleet_step_2d` over `shard_fleet_2d` on 2 hosts x
 W / 2 chips) and holds it bit for bit against the same lanes and slots of
 the unsharded step run in the same process: every leaf of its share, the
@@ -124,6 +126,34 @@ def case_sp(dev, size, rank, world):
     return res
 
 
+def case_sp_destroy(dev, size, rank, world):
+    """Particle axis on the dead-rank claim: the destroy config as one
+    30-frame `make_sharded_step` chain (single launches, each shard's dead
+    offset the device-side exclusive prefix of the gathered dead totals,
+    summed from the claim's carried counts) == the unsharded chain; then
+    10 frames one by one, every leaf and output checked each frame. size
+    small: 2000 lanes; size card: 1310720."""
+    c, table, frame = sc.config("destroy", dev, rate=2e4 if size == "small" else 5e5)
+    cap = 2000 if size == "small" else 160 * 8192
+    whole = pt.init_pool_for(c, cap, device=dev)
+    share = psh.shard_pool(whole, None)
+    lanes = psh.split_range(cap, rank, world)
+    step = psh.make_sharded_step(c.static)
+    (share, out), secs, calls, _cs = timed(lambda: step(c.params, table, share, frame, 30))
+    whole, want = fs.multi_step_auto(c.static, c.params, table, whole, frame, 30)
+    check_share("sp_destroy chain", share, whole, lanes=lanes)
+    check_outputs("sp_destroy chain", out, want)
+    for i in range(10):
+        share, out = step(c.params, table, share, frame)
+        whole, want = fs.fused_step(c.static, c.params, table, whole, frame)
+        check_share(f"sp_destroy frame {i}", share, whole, lanes=lanes)
+        check_outputs(f"sp_destroy frame {i}", out, want)
+    dead = int((~whole.alive).sum())
+    if not 0 < dead < cap:
+        raise AssertionError(f"sp_destroy: {dead} dead lanes of {cap}")
+    return {"frames": 40, "live": int(out.alive_count), "dead": dead, "chain_s": secs, "chain_collectives": calls}
+
+
 def fleet_setup(dev, size, n_slots):
     """(compiled, stacked pools, stacked frames, capacity) of a fleet: the
     burst (size small) or stress_test at 55000/s in 65536 lanes per slot
@@ -201,6 +231,8 @@ def main():
             t0 = time.perf_counter()
             if case == "sp":
                 out[case] = case_sp(dev, args.size, args.rank, args.world)
+            elif case == "sp_destroy":
+                out[case] = case_sp_destroy(dev, args.size, args.rank, args.world)
             elif case in ("dp", "2d"):
                 out[case] = case_fleet(dev, args.size, args.rank, args.world, case == "2d")
             else:

@@ -4,9 +4,11 @@ the card's tests can use it without JAX).
 
 A pool split into S contiguous shards steps one `fused_step(..., shard=...)`
 per shard (kernel row 11 on the card, its plain version on the CPU), the
-dead offsets the exclusive prefix of the shards' dead counts, as
-`parallel.sharding.make_sharded_step` computes them over a process group;
-stitched along the lanes, the shards must be the unsharded pool."""
+dead offsets the exclusive prefix of the shards' dead totals, device
+tensors (the claim's carried counts summed, then a cumsum: nothing waits on
+the card), as `parallel.sharding.make_sharded_step` computes them over a
+process group; stitched along the lanes, the shards must be the unsharded
+pool."""
 
 import dataclasses
 
@@ -52,15 +54,17 @@ def split(state, n_shards: int) -> list:
 
 
 def shard_args(static, shards) -> list:
-    """Each shard's `step.Shard`: lane base, global capacity, dead offset."""
+    """Each shard's `step.Shard`: lane base, global capacity, dead offset
+    (0 on the ring; else an int32 0-d tensor on the shards' device, the
+    exclusive cumsum of their dead totals, each summed from the claim's
+    per-tile counts, `fs.claim_counts`: no value reaches the host)."""
     n = sum(s.capacity for s in shards)
-    args, base, dead = [], 0, 0
-    for s in shards:
-        args.append(Shard(base, n, 0 if static.ring_claim else dead))
-        base += s.capacity
-        if not static.ring_claim:
-            dead += int((~s.alive).sum())
-    return args
+    bases = [sum(s.capacity for s in shards[:r]) for r in range(len(shards))]
+    if static.ring_claim:
+        return [Shard(b, n, 0) for b in bases]
+    totals = torch.stack([fs.claim_counts(s.alive).sum(dtype=torch.int32) for s in shards])
+    offsets = torch.cumsum(totals, 0, dtype=torch.int32) - totals
+    return [Shard(b, n, offsets[r]) for r, b in enumerate(bases)]
 
 
 def step_shards(c, table, shards, frame, unroll=1, stats=True, pack_render=False):
