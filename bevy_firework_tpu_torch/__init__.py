@@ -29,11 +29,17 @@ ring (`native`) and `AsyncRenderReader` with the Scene's async render,
 and scale-out on torch.distributed (`parallel.sharding`: a pool split over
 the particle axis with the step kernel's shard arguments, fleets split
 over ranks, and both on a hosts x chips layout).
+Also ribbon trails (`trails`: `Scene.add_spawner(trail=)`,
+`Scene.trail_items`), checkpoints in the JAX package's file format
+(`checkpoint`: `save_scene`, `load_scene`, `save_pool`, `load_pool`) and
+the Scene's async events (`enable_async_events`, `flush_events`).
 Every entry point runs on the card unless given `device="cpu"`. Not yet:
-trails, async events, checkpoints, nested archetypes under sharding (see
-ROADMAP.md).
+nested archetypes under sharding, lights, fog and shadows, shader
+specialization, physics sync and the viewer (see ROADMAP.md).
 """
 
+from .cadence import compute_emission_count, np_compute_emission_count
+from .checkpoint import load_pool, load_scene, save_pool, save_scene
 from .colliders import Collider, ColliderTable, compile_colliders, hull_decomposition
 from .compiled import CompiledSpawner, SpawnerParams, SpawnerStatic, compile_spawner
 from .curve import (
@@ -94,7 +100,8 @@ from .settings import (
     spawner_to_dict,
     spawner_to_json,
 )
-from .step import StepOutputs, step
+from .step import StepOutputs, multi_step, step, step_jit
+from .trails import TrailItem, TrailSettings, TrailState, init_trail_state, pack_trail_segments, update_trails
 
 __all__ = [
     "AsyncRenderReader", "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle", "EffectModifier",
@@ -102,12 +109,16 @@ __all__ = [
     "FireworkGradient", "FireworkUniform", "ForceField", "FrameInput", "ParticleCollisionSettings",
     "ParticleEventHandlers", "ParticleSettings", "ParticleSpawner", "PoolState", "RandF32", "RandVec3", "RenderItem",
     "Scene", "SpawnTransformMode", "SpawnerParams", "SpawnerStatic", "StepOutputs", "Transform",
-    "aabb_intersects_frustum", "compile_colliders", "compile_force_fields", "compile_spawner", "estimate_capacity",
+    "TrailItem", "TrailSettings", "TrailState",
+    "aabb_intersects_frustum", "compile_colliders", "compile_force_fields", "compile_spawner", "compute_emission_count",
+    "estimate_capacity",
     "frustum_planes", "fused_step", "fused_step_fleet", "fused_step_hybrid", "gradient_constant",
-    "gradient_even_samples", "gradient_uneven_samples", "hull_decomposition", "init_pool", "init_pool_for",
-    "instances_to_bytes", "make_frame_input", "make_uniform", "multi_step_auto", "multi_step_auto_packed",
-    "multi_step_fleet", "multi_step_fleet_stacked", "nested_cadence_pass", "pack_instances", "pack_instances_dense",
-    "pack_instances_dense_f16", "pack_instances_planar", "planes_to_rows",
-    "sort_instances_back_to_front", "spawner_from_dict", "spawner_from_json", "spawner_to_dict", "spawner_to_json",
+    "gradient_even_samples", "gradient_uneven_samples", "hull_decomposition", "init_pool", "init_pool_for", "init_trail_state",
+    "instances_to_bytes", "load_pool", "load_scene",
+    "make_frame_input", "make_uniform", "multi_step_auto", "multi_step_auto_packed",
+    "multi_step", "multi_step_fleet", "multi_step_fleet_stacked", "nested_cadence_pass", "np_compute_emission_count",
+    "pack_instances", "pack_instances_dense", "pack_instances_dense_f16", "pack_instances_planar", "pack_trail_segments",
+    "planes_to_rows", "save_pool", "save_scene", "sort_instances_back_to_front", "spawner_from_dict", "spawner_from_json", "spawner_to_dict", "spawner_to_json",
     "stack_frames", "stack_params", "stack_pools", "step", "step_auto", "step_auto_fleet", "step_auto_packed",
+    "step_jit", "update_trails",
 ]

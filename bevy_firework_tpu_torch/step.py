@@ -908,3 +908,26 @@ def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolSta
     """Advance one spawner's pool by one frame (plain PyTorch, any device).
     Returns (new_state, StepOutputs)."""
     return plain_frames(static, params, state, frame, colliders=colliders)
+
+
+def step_jit(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
+    """One frame under the JAX package's `step_jit` signature, dispatched as
+    `ops.fused_step.step_auto` is: the step kernel on CUDA tensors, the
+    plain version on CPU tensors. Returns (new_state, StepOutputs)."""
+    from .ops.fused_step import step_auto
+
+    return step_auto(static, params, colliders, state, frame)
+
+
+def multi_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+               n_frames: int):
+    """n_frames frames of one frame input under the JAX package's
+    `multi_step` signature, dispatched as `ops.fused_step.multi_step_auto`
+    is (the kernel's chain on CUDA tensors, the plain version on CPU
+    tensors). Returns (final state, outputs of the last frame); raises
+    ValueError below one frame."""
+    if n_frames < 1:
+        raise ValueError("multi_step needs n_frames >= 1")
+    from .ops.fused_step import multi_step_auto
+
+    return multi_step_auto(static, params, colliders, state, frame, n_frames)

@@ -12,7 +12,9 @@ cuboids and against 8 hulls at 1M; the nested_60k and nested_chained
 cells; the fleet_16x55k, scene_batch_12, scene_hetero_100 and
 group_churn_12 cells; render_extract_1M and examples/render_loop.py's
 render loop) plus the interactive sparks, collision, fireworks and
-textures flows and the Scene's async render, through the kernels. Phases:
+textures flows, the Scene's async render, its async events, ribbon trails
+(the comets flow and stress_test with a 16-point trail at 100k live) and
+checkpoints resumed on the card, through the kernels. Phases:
 
   1. card: name and power limit (nvidia-smi), kernel build time, and per
      kernel ptxas's registers and spills and the blocks resident per SM
@@ -116,6 +118,35 @@ textures flows and the Scene's async render, through the kernels. Phases:
      capacity 8192, a floor, destroy-on-collision): records delivered ==
      the plain version's destroyed count, ms per Scene.step with and
      without the handler;
+ 21a. scene_async_events: the events scene with enable_async_events, 220
+     steps: after step i the records of frames < i delivered (== the plain
+     version's cumulative destroyed count, each record once, one frame
+     late; flush_events drains the last frame), then 20 steps whose
+     payload enqueue (Scene._enqueue_events: the payload built on the
+     device, its copy on the event copy stream) runs under
+     torch.cuda.set_sync_debug_mode("error"); ms per Scene.step dump-free,
+     sync and async (interleaved), async_over_free against its bar of 1.5,
+     and the host time of record building and of the whole delivery;
+ 21b. trails_flow: library.comets() (capacity 256, TrailSettings(16, 0.8))
+     through Scene for 300 steps: trail_items' count == a CPU Scene's, rows
+     within 1e-5 (the circle's and the cone's sinf/cosf); 4 comets in one
+     archetype group: the stacked trails == each member's own update_trails
+     on its pool, bit for bit, every leaf;
+ 21c. trails_100k: stress_test at 1e5/s in 131072 lanes with
+     TrailSettings(16, 0.8) through Scene, 140 frames: the last frame's
+     trail rows == the plain replay's (plain_frames + update_trails on the
+     card) within 4 ulp, hcount exact; ms per Scene.step with and without
+     the trail, ms per trail_items call, its segments and the bytes it
+     copies (count x 64), the device time of update_trails and of the
+     pack + compaction beside their bytes bounds;
+ 21d. checkpoint_flow: the trails_100k scene, the events scene (with its
+     handler) and the tornado scene (its fields moved every frame, a floor
+     edited) saved at frame 70, loaded on the card and run 70 more frames:
+     == the uninterrupted run bit for bit (pools, trails, destroyed
+     records, render rows); the card's zip loaded on the CPU and a CPU zip
+     (21b's comets) loaded on the card == their source leaf for leaf; save
+     and load ms and the zips' sizes (written to a temporary directory in
+     the checkout, removed after the phase);
  22. nested_det, N = 131072: the nested-stage kernel (kernel rows 8 and
      9b, one launch per nested emitter) against its plain version
      step.nested_stage, anchors, NS record and child buffer bit for bit,
@@ -247,7 +278,8 @@ textures flows and the Scene's async render, through the kernels. Phases:
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
-chains, the collision flow, the collider-scaling chains, the fields chain, the Scene flows, the two
+chains, the collision flow, the collider-scaling chains, the fields chain, the Scene flows, the
+async events scene, the trails flows, the trails_100k scenes, the checkpointed scenes, the two
 nested chains, the nested flows, the fleet chain, the Fleet flow, the
 scene groups, the two render loops, the async Scene and sharded_1M's three
 sharded chains)
@@ -270,6 +302,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1414,13 +1447,15 @@ def main() -> int:
     # events: the records delivered equal the plain version's destroyed count
     ev_on, on_ms, off_ms = flows["events"]
     want = 0
+    plain_per_frame = [0] * 220  # the plain destroyed count of each frame (phase 21b)
     floor = bt.compile_colliders([bt.Collider.halfspace(position=(0.0, -1.0, 0.0))], device=dev)
     for sid, slot in ev_on._spawners.items():
         st = bt.init_pool_for(slot.compiled, 8192, seed=sid)
         fr = bt.make_frame_input(1 / 60, translation=(float(sid), 0.0, 0.0))
-        for _ in range(220):
+        for f in range(220):
             st, oe = plain_frames(slot.compiled.static, slot.compiled.params, st, fr, 1, colliders=floor)
             want += int(oe.destroyed_mask.sum())
+            plain_per_frame[f] += int(oe.destroyed_mask.sum())
     delivered = sum(records.values())
     check(delivered == want > 1000, f"events scene: {delivered} records delivered, plain destroyed {want}")
     emit({"phase": "scene_flows", "card": card, "launches": scene_counts,
@@ -1429,6 +1464,326 @@ def main() -> int:
                       "rule": "== plain replayed on the card, f32 <= 64 ulp"},
           "events": {"spawners": 4, "frames": 220, "records_delivered": delivered, "plain_destroyed": want,
                      "ms_per_scene_step_with_handler": on_ms, "ms_per_scene_step_without_handler": off_ms}})
+
+    # ------------------------------------------------ 21a. scene_async_events
+    from bevy_firework_tpu_torch import checkpoint as ckpt
+    from bevy_firework_tpu_torch import trails as tr
+    from bevy_firework_tpu_torch.pool import POOL_FIELDS
+
+    def events_spawner(handler):
+        """Phase 21's events spawner with the given particles_destroyed
+        handler (None: dump-free)."""
+        return bt.ParticleSpawner(
+            particle_settings=[bt.ParticleSettings(
+                lifetime=bt.RandF32.constant(1.0),
+                collision_settings=ParticleCollisionSettings(restitution=0.0, friction=0.0, destroy_on_collision=True),
+                event_handlers=bt.ParticleEventHandlers(particles_destroyed=handler))],
+            emission_settings=[bt.EmissionSettings(
+                emission_pacing=bt.EmissionPacing.rate(3000.0),
+                initial_velocity=bt.RandVec3(magnitude=bt.RandF32(2.0, 5.0), direction=(0, 1, 0), spread=0.7))])
+
+    def events_scene_with(handler, async_events=False):
+        sc = bt.Scene(colliders=[bt.Collider.halfspace(position=(0.0, -1.0, 0.0))], device=dev)
+        for i in range(4):
+            sc.add_spawner(events_spawner(handler), capacity=8192, transform=bt.Transform(translation=(float(i), 0.0, 0.0)))
+        if async_events:
+            sc.enable_async_events()
+        return sc
+
+    def timed_calls(sc, name):
+        """Wrap sc.<name> to add its host seconds to the returned cell."""
+        cell = [0.0, 0]
+        orig = getattr(sc, name)
+
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                cell[0] += time.perf_counter() - t0
+                cell[1] += 1
+
+        setattr(sc, name, wrapped)
+        return cell
+
+    def async_events_run():
+        """220 async Scene.steps of the events scene (the plain counts of
+        phase 21 are its reference), then 20 steady steps whose payload
+        enqueue runs under sync debug mode "error"."""
+        got = []
+        sc = events_scene_with(lambda rs: got.append(len(rs)), async_events=True)
+        delivered = []
+        for _ in range(220):
+            sc.step(1 / 60)
+            delivered.append(sum(got))
+        sc.flush_events()
+        total = sum(got)
+        orig = sc._enqueue_events
+        guarded = [0]
+
+        def enqueue_checked(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                guarded[0] += 1
+
+        sc._enqueue_events = enqueue_checked
+        for _ in range(20):
+            sc.step(1 / 60)
+        del sc._enqueue_events
+        sc.flush_events()
+        return delivered, total, guarded[0]
+
+    (ev_delivered, ev_total, ev_guarded), async_ev_counts = counted(async_events_run)
+    check(async_ev_counts["fleet"] == async_ev_counts["fleet_dump"] == 240,
+          f"async events: launches {async_ev_counts}")
+    plain_cum = np.cumsum([0] + plain_per_frame).tolist()
+    check(ev_total == want and ev_delivered == plain_cum[:220],
+          f"async events: delivered {ev_total} (plain {want}); one frame late: "
+          f"{[(i, d, w) for i, (d, w) in enumerate(zip(ev_delivered, plain_cum)) if d != w][:5]}")
+    check(ev_guarded == 20, f"async events: {ev_guarded} payload enqueues ran under sync debug mode")
+    # dump-free, sync and async Scene.step, interleaved windows; the async
+    # scene's record building (_deliver_destroyed) and whole delivery
+    # (flush_events: the wait on the copy's event, the host reads and the
+    # record building) timed apart
+    ev_free, ev_sync = events_scene_with(None), events_scene_with(lambda rs: None)
+    ev_async = events_scene_with(lambda rs: None, async_events=True)
+    build_sync = timed_calls(ev_sync, "_deliver_destroyed")
+    build_async, flush_async = timed_calls(ev_async, "_deliver_destroyed"), timed_calls(ev_async, "flush_events")
+    for sc in (ev_free, ev_sync, ev_async):
+        step_ms(sc, 40)
+    for cell in (build_sync, build_async, flush_async):
+        cell[0] = cell[1] = 0
+    win = {"free": [], "sync": [], "async": []}
+    for _ in range(3):
+        for name, sc in (("free", ev_free), ("sync", ev_sync), ("async", ev_async)):
+            win[name].append(step_ms(sc, 60))
+    ev_ms = {k: statistics.median(v) for k, v in win.items()}
+    emit({"phase": "scene_async_events", "card": card, "launches": async_ev_counts,
+          "frames": 220, "records_delivered": ev_total, "plain_destroyed": want,
+          "rule": "after step i the records of frames < i delivered (== the plain cumulative count), each once; "
+                  "flush_events drains the last frame",
+          "sync_debug_error_enqueues": ev_guarded,
+          "ms_per_scene_step": ev_ms, "async_over_free": ev_ms["async"] / ev_ms["free"], "async_over_free_bar": 1.5,
+          "sync_over_free": ev_ms["sync"] / ev_ms["free"],
+          "record_build_ms_per_step": {"sync": build_sync[0] * 1e3 / 180, "async": build_async[0] * 1e3 / 180},
+          "async_flush_ms_per_step": flush_async[0] * 1e3 / 180,
+          "timing": "ms per Scene.step by host clock with a synchronize at each 60-step window's ends, median of 3 "
+                    "interleaved windows; record_build: host time in _deliver_destroyed per step; async_flush: host "
+                    "time in flush_events per step (the wait on the copy's event, the reads and the record build)"})
+
+    # ------------------------------------------------ 21b. trails_flow
+    comets = library.comets()
+    ts16 = bt.TrailSettings(length=16, width=0.8)
+
+    def comet_scene(device):
+        sc = bt.Scene(device=device)
+        sc.add_spawner(comets, capacity=256, trail=ts16)
+        for _ in range(300):
+            sc.step(1 / 60)
+        return sc, sc.trail_items()
+
+    def trails_flow():
+        card_sc, card_items = comet_scene(dev)
+        g = bt.Scene(device=dev)
+        for i in range(4):
+            g.add_spawner(comets, capacity=256, trail=ts16, transform=bt.Transform(translation=(2.0 * i, 0.0, 0.0)))
+        own = {sid: tr.init_trail_state(ts16, 256, dev) for sid in g.spawner_ids()}
+        for _ in range(300):
+            g.step(1 / 60)
+            for sid in g.spawner_ids():  # the per-member path on the same pools
+                own[sid] = tr.update_trails(own[sid], g._spawners[sid].state, np.float32(1 / 60))
+        return card_sc, card_items, g, own
+
+    (comet_card, comet_items, comet_group, comet_own), trails_counts = counted(trails_flow)
+    check(trails_counts["fused_step"] >= 300 and trails_counts["fleet"] == 300, f"trails flow: launches {trails_counts}")
+    comet_cpu, comet_cpu_items = comet_scene("cpu")
+    check(len(comet_items) == len(comet_cpu_items) == 1 and comet_items[0].count == comet_cpu_items[0].count > 100,
+          f"trails flow: segments {[i.count for i in comet_items]} on the card, "
+          f"{[i.count for i in comet_cpu_items]} on the CPU")
+    comet_err = float(np.abs(comet_items[0].segments - comet_cpu_items[0].segments).max())
+    check(np.allclose(comet_items[0].segments, comet_cpu_items[0].segments, rtol=1e-5, atol=1e-5),
+          f"trails flow: rows differ from the CPU Scene's by {comet_err}")
+    check(next(iter(comet_group._batches.values())).trails is not None, "trails flow: the group's trails not stacked")
+    for sid in comet_group.spawner_ids():
+        for k in tr.TRAIL_FIELDS:
+            check(torch.equal(getattr(comet_group._spawners[sid].trail_state, k), getattr(comet_own[sid], k)),
+                  f"trails flow: stacked trails of member {sid} differ from its own update in {k}")
+    emit({"phase": "trails_flow", "card": card, "launches": trails_counts,
+          "comets": {"frames": 300, "segments": comet_items[0].count, "max_abs_err_vs_cpu": comet_err,
+                     "bit_equal_to_cpu": bool(np.array_equal(comet_items[0].segments, comet_cpu_items[0].segments)),
+                     "rule": "segment count == the CPU Scene's, rows within 1e-5 (CUDA's and the CPU's libm part "
+                             "by a few ulp in the circle and cone draws)"},
+          "group_of_4": {"frames": 300, "segments": sum(i.count for i in comet_group.trail_items()),
+                         "rule": "stacked trails == each member's own update_trails on its pool, bit for bit"}})
+
+    # ---------------------------------- 21c. trails_100k (and 21d's first scene)
+    n_t = 1 << 17
+    stress_1e5 = dataclasses.replace(stress_sp, emission_settings=(dataclasses.replace(
+        stress_sp.emission_settings[0], emission_pacing=EmissionPacing.rate(1e5)),))
+    ck_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=Path(__file__).resolve().parent)
+    ck_dir = Path(ck_tmp.name)  # removed after 21d
+    ck_report = {}
+
+    def save_load(sc, name):
+        """save_scene then load_scene on the card, timed: the loaded Scene."""
+        path = ck_dir / f"{name}.zip"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_scene(str(path), sc)
+        t1 = time.perf_counter()
+        loaded = ckpt.load_scene(str(path), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ck_report[name] = {"save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3, "bytes": path.stat().st_size}
+        return loaded, path
+
+    def same_scenes(a, b, label):
+        """Two card Scenes equal bit for bit: pools, trails, render rows."""
+        for sid in a.spawner_ids():
+            sa, sb = a._spawners[sid].state, b._spawners[sid].state
+            for k in POOL_FIELDS:
+                check(torch.equal(getattr(sa, k), getattr(sb, k)), f"{label}: spawner {sid} {k} differs")
+            ta, tb = a._spawners[sid].trail_state, b._spawners[sid].trail_state
+            for k in (tr.TRAIL_FIELDS if ta is not None else ()):
+                check(torch.equal(getattr(ta, k), getattr(tb, k)), f"{label}: spawner {sid} trail {k} differs")
+        ra, rb = a.render_items(), b.render_items()
+        check(len(ra) == len(rb) and all(np.array_equal(x.instances, y.instances) for x, y in zip(ra, rb)),
+              f"{label}: render rows differ")
+
+    def trails_100k():
+        with_t, no_t = bt.Scene(device=dev), bt.Scene(device=dev)
+        with_t.add_spawner(stress_1e5, capacity=n_t, trail=ts16)
+        no_t.add_spawner(stress_1e5, capacity=n_t)
+        resumed = None
+        for f in range(140):
+            for sc in (with_t, no_t) if resumed is None else (with_t, no_t, resumed):
+                sc.step(1 / 60)
+            if f == 69:
+                resumed, path = save_load(with_t, "trails_100k")
+        return with_t, no_t, resumed, path
+
+    (t_with, t_without, t_resumed, t_path), t100k_counts = counted(trails_100k)
+    check(t100k_counts["fused_step"] == 140 * 2 + 70, f"trails_100k: launches {t100k_counts}")
+    items_t = t_with.trail_items()
+    # the plain replay of the same frames and trail on the card (phase 6's rule)
+    c_t = t_with._spawners[0].compiled
+    st_p, tr_p = bt.init_pool_for(c_t, n_t, seed=0), tr.init_trail_state(ts16, n_t, dev)
+    fr_t = bt.make_frame_input(1 / 60)
+    for _ in range(140):
+        st_p, _o = plain_frames(c_t.static, c_t.params, st_p, fr_t, 1)
+        tr_p = tr.update_trails(tr_p, st_p, np.float32(1 / 60))
+    rows_p = tr.compact_segments(tr.pack_trail_segments(ts16, c_t.params, st_p, tr_p, 0)[0])
+    check(len(items_t) == 1 and items_t[0].count == rows_p.shape[0] > 100000,
+          f"trails_100k: {[i.count for i in items_t]} segments, plain {rows_p.shape[0]}")
+    t_ulp = ulp_diff(torch.from_numpy(items_t[0].segments).to(dev), rows_p)
+    check(t_ulp <= 4, f"trails_100k: rows differ from the plain replay's by {t_ulp} ulp")
+    check(torch.equal(t_with._spawners[0].trail_state.hcount, tr_p.hcount), "trails_100k: hcount differs from plain")
+    same_scenes(t_with, t_resumed, "checkpoint trails_100k")  # its render_items turn the render pack on
+    del t_resumed
+    t_without.render_items()  # the same render pack in the scene without the trail
+    win = {"with_trail": [], "without_trail": []}
+    for _ in range(3):
+        win["with_trail"].append(step_ms(t_with, 20))
+        win["without_trail"].append(step_ms(t_without, 20))
+    t_ms = {k: statistics.median(v) for k, v in win.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        items_t = t_with.trail_items()
+    items_ms = (time.perf_counter() - t0) / 5 * 1e3
+    seg_count = items_t[0].count
+    st_now, tr_now = t_with._spawners[0].state, t_with._spawners[0].trail_state
+    tr_clone = tr.TrailState(**{k: getattr(tr_now, k).clone() for k in tr.TRAIL_FIELDS})
+    upd_bound = bound(47 * n_t, 0)  # reads px py pz age alive prev_*, hcount; writes 3 rows, hcount, prev_*
+    upd_ms = device_ms("update_trails", lambda: tr.update_trails(tr_clone, st_now, np.float32(1 / 60)), 20, False,
+                       upd_bound["bound_ms"])
+    pack_bound = bound(12 * 16 * n_t + 21 * n_t + 64 * seg_count, 0)  # history, hcount, 5 state planes; the rows
+    pack_ms = device_ms("trail pack + compaction", lambda: tr.compact_segments(
+        tr.pack_trail_segments(ts16, c_t.params, st_now, tr_now, 0)[0]), 10, False, pack_bound["bound_ms"])
+    emit({"phase": "trails_100k", "card": card, "launches": t100k_counts, "capacity": n_t, "rate": 1e5,
+          "trail": dataclasses.asdict(ts16), "warm_frames": 140,
+          "ms_per_scene_step": t_ms, "trail_items_ms": items_ms, "segments": seg_count,
+          "bytes_copied_per_trail_items": seg_count * 64, "dense_plane_bytes": 16 * 15 * n_t * 4,
+          "update_trails_device_us": upd_ms * 1e3, "update_trails_bound_us": upd_bound["bound_ms"] * 1e3,
+          "pack_compact_device_us": pack_ms * 1e3, "pack_compact_bound_us": pack_bound["bound_ms"] * 1e3,
+          "rows_max_ulp_vs_plain": t_ulp,
+          "rule": "the last frame's rows == the plain replay's (plain_frames + update_trails on the card) within 4 "
+                  "ulp, same count; hcount exact",
+          "timing": "ms_per_scene_step: host clock over 20-step windows, median of 3 interleaved; trail_items_ms: "
+                    "host clock per call; *_device_us: torch.profiler, every kernel and copy of the call"})
+
+    # ------------------------------------------------ 21d. checkpoint_flow
+    def ck_events():
+        got_a, got_b = [], []
+        a = events_scene_with(lambda rs: got_a.append([dataclasses.astuple(r) for r in rs]))
+        b = None
+        for f in range(140):
+            for sc in (a,) if b is None else (a, b):
+                sc.step(1 / 60)
+            if f == 69:
+                b, _p = save_load(a, "events")
+                sp_b = events_spawner(lambda rs: got_b.append([dataclasses.astuple(r) for r in rs]))
+                for slot in b._spawners.values():  # handlers are code: registered again after loading
+                    slot.spawner, slot.compiled = sp_b, b._compile(sp_b, slot.compiled.static.nested_m)
+                got_a.clear()
+        return a, b, got_a, got_b
+
+    def ck_tornado():
+        def run(sc, frames, start):
+            for f in range(start, start + frames):
+                x, z = wander(f)
+                sc.set_force_field(0, position=(x, 0.0, z))
+                sc.set_force_field(1, position=(x, 0.0, z))
+                if f in (40, 100):
+                    sc.set_collider(0, position=(0.0, -1.0 - f / 200, 0.0))
+                sc.step(1 / 60)
+
+        a = bt.Scene(force_fields=tornado_fields(), colliders=[bt.Collider.halfspace(position=(0.0, -1.0, 0.0))],
+                     device=dev)
+        a.add_spawner(library.dust(updraft=2.5, drag=2.0, emit_radius=1.2), capacity=8192)
+        run(a, 70, 0)
+        b, _p = save_load(a, "tornado")
+        run(a, 70, 70)
+        run(b, 70, 70)
+        return a, b
+
+    ((ev_a, ev_b, recs_a, recs_b), (tor_a, tor_b)), ck_counts = counted(lambda: (ck_events(), ck_tornado()))
+    check(ck_counts["fleet_dump"] == 210 and ck_counts["fields"] == 210, f"checkpoint flow: launches {ck_counts}")
+    same_scenes(ev_a, ev_b, "checkpoint events")
+    check(recs_a == recs_b and sum(map(len, recs_a)) > 1000,
+          f"checkpoint events: {sum(map(len, recs_a))} records uninterrupted, {sum(map(len, recs_b))} resumed")
+    same_scenes(tor_a, tor_b, "checkpoint tornado")
+    check(tor_b._collider_slots == tor_a._collider_slots and tor_b._field_slots == tor_a._field_slots,
+          "checkpoint tornado: collider or field slots differ")
+    # across devices: the card's zip on the CPU, a CPU zip on the card
+    on_card = ckpt.load_scene(str(ck_dir / "events.zip"), device=dev)
+    on_cpu = ckpt.load_scene(str(ck_dir / "events.zip"), device="cpu")
+    cpu_path = ck_dir / "comets_cpu.zip"
+    ckpt.save_scene(str(cpu_path), comet_cpu)
+    from_cpu = ckpt.load_scene(str(cpu_path), device=dev)
+    for x, y, label in ((on_card, on_cpu, "card zip on the CPU"), (comet_cpu, from_cpu, "CPU zip on the card")):
+        for sid in x.spawner_ids():
+            for k, v in bt.interop.pool_to_numpy(x._spawners[sid].state).items():
+                check(np.array_equal(v, bt.interop.pool_to_numpy(y._spawners[sid].state)[k]), f"{label}: {sid} {k}")
+            tx, ty = x._spawners[sid].trail_state, y._spawners[sid].trail_state
+            for k in (tr.TRAIL_FIELDS if tx is not None else ()):
+                check(torch.equal(getattr(tx, k).cpu(), getattr(ty, k).cpu()), f"{label}: {sid} trail {k}")
+    check(from_cpu._spawners[0].trail_state is not None and from_cpu.trail_items()[0].count == comet_cpu_items[0].count,
+          "CPU zip on the card: trail items differ")
+    emit({"phase": "checkpoint_flow", "card": card, "launches": ck_counts, "files": ck_report,
+          "scenes": {"trails_100k": "phase 21c's scene, saved at frame 70, resumed 70 frames",
+                     "events": "4 destroy spawners, a floor, a handler: saved at frame 70, resumed 70 frames",
+                     "tornado": "dust under the tornado's fields with a floor edited at frames 40 and 100, saved "
+                                "at frame 70, resumed 70 frames"},
+          "records_resumed": sum(map(len, recs_b)),
+          "rule": "the resumed run == the uninterrupted run bit for bit (pools, trails, destroyed records, render "
+                  "rows); the card's zip loaded on the CPU and a CPU zip loaded on the card == their source "
+                  "leaf for leaf",
+          "timing": "save_ms, load_ms: host clock of save_scene / load_scene (load to the card); bytes: the zip"})
+    ck_tmp.cleanup()
 
     # ------------------------------------------------ 22. nested_det
     from bevy_firework_tpu_torch.step import hybrid_frame, nested_cadence, nested_fold_carry, nested_fold_counts
@@ -2565,7 +2920,7 @@ def main() -> int:
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
-            scene_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
+            scene_counts, async_ev_counts, trails_counts, t100k_counts, ck_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
             loop1m_counts, async_counts, *s1m_counts_all.values())
 
     def total(keys):

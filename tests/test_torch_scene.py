@@ -476,16 +476,10 @@ def test_step_n_and_spawner_edits():
     assert ps.spawner_ids() == [] and ps.alive_count() == 0
 
 
-def test_unported_scene_features_raise():
-    """What the port does not run yet (trails, async events) raises
-    NotImplementedError naming its ROADMAP item; the compact extract and the
-    async render, ported since, run; a Scene on the card without one
-    raises."""
+def test_compact_extract_async_render_and_no_card():
+    """The compact extract and the async render run on the CPU Scene; a
+    Scene or a compile for the card without one raises."""
     scene = pt.Scene(device="cpu")
-    for call, item in ((lambda: scene.add_spawner(_sparks(pt), trail=object()), "item 5"),
-                       (scene.enable_async_events, "item 4")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-            call()
     scene.add_spawner(_sparks(pt), capacity=2048)
     scene.enable_async_render()
     for _ in range(3):
