@@ -33,9 +33,19 @@ Also ribbon trails (`trails`: `Scene.add_spawner(trail=)`,
 `Scene.trail_items`), checkpoints in the JAX package's file format
 (`checkpoint`: `save_scene`, `load_scene`, `save_pool`, `load_pool`) and
 the Scene's async events (`enable_async_events`, `flush_events`).
-Every entry point runs on the card unless given `device="cpu"`. Not yet:
-nested archetypes under sharding, lights, fog and shadows, shader
-specialization, physics sync and the viewer (see ROADMAP.md).
+The view's lights, fog and shadow atlas (`render`), the shipped WGSL
+shaders with their specializer and checkers (`shaders`), physics sync
+(`physics_sync`) and the headless software viewer (`viewer`) are the JAX
+package's host numpy, copied.
+
+Two step layouts, on both devices. `step`, `step_jit` and `multi_step`
+are the JAX package's XLA step (`xla_step`: threefry draws per emitter,
+emitters in declared order), lane for lane with it on random configs;
+`step_auto`, `multi_step_auto`, `Fleet` and `Scene` take the CUDA kernel's
+layout (`step.advance`: Philox draws per lane), on CPU tensors through its
+plain version. Every entry point runs on the card unless given
+`device="cpu"`. Not yet: nested archetypes under sharding (see
+ROADMAP.md).
 """
 
 from .cadence import compute_emission_count, np_compute_emission_count
@@ -68,12 +78,20 @@ from .ops.fused_step import (
 from .parallel.sharding import stack_frames, stack_params, stack_pools
 from .pool import FrameInput, PoolState, init_pool, init_pool_for, make_frame_input
 from .rand import RandF32, RandVec3
+from .physics_sync import RigidBodyState, linear_velocity_at_point, propagate_modifiers, sync_parent_velocity
 from .render import (
+    EnvironmentLight,
     FireworkUniform,
+    FogSettings,
+    Light,
+    LightTable,
     RenderItem,
+    ShadowAtlas,
     aabb_intersects_frustum,
     frustum_planes,
     instances_to_bytes,
+    light_view_proj,
+    make_shadow_atlas,
     make_uniform,
     pack_instances,
     pack_instances_dense,
@@ -84,6 +102,7 @@ from .render import (
 )
 from .render_pipeline import AsyncRenderReader
 from .scene import DestroyedParticle, Scene, Transform, estimate_capacity
+from .shaders.specialize import DummyTextures, PipelineCache, PipelineKey, key_for
 from .settings import (
     BlendMode,
     EffectModifier,
@@ -104,7 +123,10 @@ from .step import StepOutputs, multi_step, step, step_jit
 from .trails import TrailItem, TrailSettings, TrailState, init_trail_state, pack_trail_segments, update_trails
 
 __all__ = [
-    "AsyncRenderReader", "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle", "EffectModifier",
+    "AsyncRenderReader", "BlendMode", "Collider", "ColliderTable", "CompiledSpawner", "DestroyedParticle",
+    "DummyTextures", "EffectModifier", "EnvironmentLight", "FogSettings", "Light", "LightTable", "PipelineCache",
+    "PipelineKey", "RigidBodyState", "ShadowAtlas", "key_for", "light_view_proj", "linear_velocity_at_point",
+    "make_shadow_atlas", "propagate_modifiers", "sync_parent_velocity",
     "EmissionMode", "EmissionPacing", "EmissionSettings", "EmissionShape", "FieldTable", "FireworkCurve", "Fleet",
     "FireworkGradient", "FireworkUniform", "ForceField", "FrameInput", "ParticleCollisionSettings",
     "ParticleEventHandlers", "ParticleSettings", "ParticleSpawner", "PoolState", "RandF32", "RandVec3", "RenderItem",

@@ -35,6 +35,7 @@ _MASK32 = 0xFFFFFFFF
 # --------------------------------------------------------------------------
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_CPU_CHUNK = 1 << 14  # words per numpy pass of threefry_uniform on the CPU
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -71,13 +72,38 @@ def threefry_fold_in(key, data: int) -> np.ndarray:
     return np.array(threefry2x32(k0, k1, 0, int(data) & _MASK32), np.uint32)
 
 
-def threefry_uniform(key, shape, device=None) -> torch.Tensor:
-    """`jax.random.uniform(key, shape, float32)` in [0, 1), on `device`."""
+def threefry_uniform(key, shape, device=None, rows=None) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32)` in [0, 1), on `device`.
+    rows (a 2-D shape's row indices): draw only those rows, [len(rows),
+    shape[1]], each the same row of the whole draw (the draw is counter
+    based: the value at flat index i depends on i alone). On the CPU the
+    words are numpy uint32 (`_threefry2x32_u32`: wrapping arithmetic, half
+    the bytes of the masked int64 form and no masks), the same bits."""
     k0, k1 = (int(v) & _MASK32 for v in key)
-    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
+    out_shape = shape if rows is None else (len(rows), shape[1])
+    if (device is None or torch.device(device).type == "cpu") and int(np.prod(shape)) < (1 << 32):
+        idx = np.arange(int(np.prod(shape)), dtype=np.uint32) if rows is None else (
+            np.asarray(rows, np.uint32)[:, None] * np.uint32(shape[1]) + np.arange(shape[1], dtype=np.uint32)).ravel()
+        bits = np.empty_like(idx)
+        zero = np.zeros(min(idx.shape[0], _CPU_CHUNK), np.uint32)
+        for a in range(0, idx.shape[0], _CPU_CHUNK):  # chunks that stay in cache: ~2x the whole-array passes
+            b0, b1 = _threefry2x32_u32(np.uint32(k0), np.uint32(k1), zero[:idx.shape[0] - a], idx[a:a + _CPU_CHUNK])
+            np.bitwise_xor(b0, b1, out=bits[a:a + _CPU_CHUNK])
+        bits >>= np.uint32(9)
+        bits |= np.uint32(0x3F800000)
+        return (torch.from_numpy(bits.view(np.float32)) - 1.0).reshape(out_shape)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device) if rows is None else (
+        torch.tensor(rows, dtype=torch.int64, device=device)[:, None] * shape[1]
+        + torch.arange(shape[1], dtype=torch.int64, device=device)).reshape(-1)
+    return _uniform_int64(k0, k1, idx).reshape(out_shape)
+
+
+def _uniform_int64(k0: int, k1: int, idx: torch.Tensor) -> torch.Tensor:
+    """The uniforms at flat indices `idx` (int64) from int64 tensor words:
+    `threefry_uniform`'s route on the card."""
     b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK32)
     bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def frame_seeds(key, n: int) -> tuple[np.ndarray, list[int]]:

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import numpy as np
 
+from .utils.f32 import fma32
 from .utils.quat import np_quat_from_rotation_arc, quat_rotate_comp
 
 TWO_PI = float(np.float32(2.0 * np.pi))
@@ -43,6 +44,12 @@ class RandF32:
 def sample_randf32(u, lo, hi):
     """u in [0, 1) -> uniform [lo, hi); f32, broadcasts."""
     return lo + (hi - lo) * u
+
+
+def sample_randf32_fused(u, lo, hi):
+    """`sample_randf32` as XLA compiles it for the CPU: the product
+    contracted into the sum, one rounding (the XLA-layout step's form)."""
+    return fma32(hi - lo, u, lo)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,7 +55,7 @@ import time
 import numpy as np
 import torch
 
-from .cadence import compute_emission_count
+from .cadence import compute_emission_count, emission_next_last
 from .collision import particle_collision
 from .compiled import MODE_NESTED, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerParams, SpawnerStatic
 from .curve import eval_curve_static
@@ -65,7 +65,7 @@ from .ops import table_layout as L
 from .ops.table_layout import TILE
 from .pool import FrameInput, PoolState
 from .prng import frame_seeds, lane_uniforms, threefry_fold_in, threefry_split, threefry_uniform
-from .rand import sample_randf32, sample_randvec3_comp
+from .rand import sample_randf32, sample_randf32_fused, sample_randvec3_comp
 from .utils.f32 import F32_MIN, rem_euclid
 from .utils.quat import quat_from_scaled_axis_comp, quat_mul_comp, quat_rotate_comp
 
@@ -301,7 +301,6 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     same shard): these lanes are the global lanes lane_base + [0, N) of a
     pool of scal["capacity"] lanes, so they rank in its ring and draw as its
     lanes do, and their dead ranks start at dead_offset."""
-    T = static.num_types
     dt = frame.dt
     f = dict(fields)
     N = f["age"].shape[0]
@@ -377,12 +376,31 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
         if not static.single_type:
             ptype = torch.where(m, torch.full_like(ptype, ti), ptype)
     alive_sp = alive0 | spawned
+    f, survivor, dump = integrate(static, params, f, ptype, alive_sp, frame, colliders)
+    # ring archetypes never destroy, so age < lifetime stays their alive
+    # flag; the others carry `alive`
+    if not static.ring_claim:
+        f["alive"] = survivor
+    f["ptype"] = ptype
+    return f, scal, dump
 
-    # ---- integrate (reference core.rs:594-650, op order of step.py) ----
+
+def integrate(static: SpawnerStatic, params: SpawnerParams, fields: dict, ptype, alive_sp, frame: FrameInput,
+              colliders=None):
+    """update_particles (reference core.rs:594-650, the op order of the JAX
+    package's step.py:717-829) on the post-spawn fields: age, cull by
+    lifetime, move (+ collide), acceleration (+ scene force fields) and
+    drag, rotation. Shared by the kernel's plain version (`advance`) and the
+    XLA-layout step (`xla_step.step`). Returns (fields, survivor, dump):
+    survivor the lanes alive after the frame, dump the destroyed mask
+    (lanes alive after the spawn and not surviving, of a type with a
+    destroyed handler), None when no type has one."""
+    T = static.num_types
+    dt = frame.dt
+    f = dict(fields)
     life = lifetime_of(static, f)
     age_new = f["age"] + dt
     dead_by_age = age_new >= life
-    age_pct = age_new / life
     px, py, pz = f["px"], f["py"], f["pz"]
     vx, vy, vz = f["vx"], f["vy"], f["vz"]
     npx, npy, npz = px + vx * dt, py + vy * dt, pz + vz * dt
@@ -417,8 +435,7 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     dvy = nvy + (ay - nvy * lin_drag) * dt
     dvz = nvz + (az - nvz * lin_drag) * dt
 
-    # A destroyed lane keeps its age; ring archetypes never destroy, so age
-    # < lifetime stays their alive flag, and the others carry `alive`.
+    # a destroyed lane keeps its age
     dump = None
     if static.any_destroyed_dump:  # kernel :1567-1576
         destroyed = alive_sp & ~survivor
@@ -433,8 +450,6 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
     f["vx"] = torch.where(survivor, dvx, torch.where(moved, nvx, vx))
     f["vy"] = torch.where(survivor, dvy, torch.where(moved, nvy, vy))
     f["vz"] = torch.where(survivor, dvz, torch.where(moved, nvz, vz))
-    if not static.ring_claim:
-        f["alive"] = survivor
     if not static.elide_rotation:
         aax = _by_type(params.angular_acceleration[:, 0], ptype, T)
         aay = _by_type(params.angular_acceleration[:, 1], ptype, T)
@@ -448,9 +463,7 @@ def advance(static: SpawnerStatic, params: SpawnerParams, fields: dict, scal: di
         f["wx"] = torch.where(survivor, wx + (aax - ang_drag * wx) * dt, wx)
         f["wy"] = torch.where(survivor, wy + (aay - ang_drag * wy) * dt, wy)
         f["wz"] = torch.where(survivor, wz + (aaz - ang_drag * wz) * dt, wz)
-    f["ptype"] = ptype
-    return f, scal, dump
-
+    return f, survivor, dump
 
 def split_state(static: SpawnerStatic, state: PoolState, shard: Shard = None):
     """(fields, scal): the step's working set of a pool; with a shard,
@@ -684,11 +697,7 @@ def nested_cadence(static: SpawnerStatic, params: SpawnerParams, e: int, alive, 
     cum = torch.cumsum(counts, 0, dtype=torch.int32)
     total = cum[-1]
     emitted = cum.clamp_max(M) - (cum - counts).clamp_max(M)
-    # cadence.emission_next_last, in its op order
-    last_pct = base_le / lifetime
-    clamped = torch.maximum(last_pct, off_s)
-    between = (off_e - off_s) / cnt
-    trunc = (clamped + emitted.to(torch.float32) * between) * lifetime
+    trunc = emission_next_last(base_le, lifetime, off_s, off_e, cnt, emitted)
     new_le = torch.where(pm, torch.where(emitted < counts, trunc, next_full), base_le)
     if parent_fields is None:
         return new_le, cum, total, None
@@ -708,17 +717,20 @@ def nested_parents(cum: torch.Tensor, M: int) -> torch.Tensor:
 
 
 def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, e: int, parent: dict,
-                      frame_key, M: int) -> torch.Tensor:
+                      frame_key, M: int, fused: bool = False) -> torch.Tensor:
     """The plain version of the nested-stage kernel's child rows: the
     children of emitter e by rank (the JAX package's step.py:411-453), from
     `parent` (name -> [M] parent values of each rank) and the uniforms
-    uniform(fold_in(frame_key, 1000 + e), (n_rows, M)). Returns [len(nested_child_field_rows), M] f32."""
+    uniform(fold_in(frame_key, 1000 + e), (n_rows, M)). Returns [len(nested_child_field_rows), M] f32.
+    fused (the XLA-layout step): each uniform range lo + (hi - lo) * u
+    with one rounding, as XLA compiles it for the CPU."""
+    randf32 = sample_randf32_fused if fused else sample_randf32
     dev = parent["px"].device
     u = threefry_uniform(threefry_fold_in(frame_key, 1000 + e), (nested_draw_rows(static), M), dev)
     ti = static.particle_indices[e]
     offx, offy, offz = sample_shape_comp(params.shape_params[e], u[0], u[1], u[2])
     ivx, ivy, ivz = sample_randvec3_comp(params.ivel_params[e], u[3], u[4], u[5])
-    radial = sample_randf32(u[6], params.radial_lo[e], params.radial_hi[e])
+    radial = randf32(u[6], params.radial_lo[e], params.radial_hi[e])
     l2 = offx * offx + offy * offy + offz * offz
     inv = torch.where(l2 > 0, 1.0 / torch.sqrt(l2), torch.zeros_like(l2))
     if static.elide_rotation:  # parent rotation is the identity pool-wide
@@ -731,7 +743,7 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
             "vx": spd * (wvx + offx * inv * radial) + inh * parent["vx"],
             "vy": spd * (wvy + offy * inv * radial) + inh * parent["vy"],
             "vz": spd * (wvz + offz * inv * radial) + inh * parent["vz"],
-            "initial_scale": sample_randf32(u[7], params.initial_scale_lo[ti], params.initial_scale_hi[ti])
+            "initial_scale": randf32(u[7], params.initial_scale_lo[ti], params.initial_scale_hi[ti])
             * frame.modifier_scale,
             "age": torch.zeros(M, dtype=torch.float32, device=dev)}
     if not static.elide_rotation:
@@ -740,7 +752,7 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
         rows.update(qx=rot[0].expand(M), qy=rot[1].expand(M), qz=rot[2].expand(M), qw=rot[3].expand(M),
                     wx=avx, wy=avy, wz=avz)
     if static.const_lifetime is None:
-        rows["lifetime"] = sample_randf32(u[8], params.lifetime_lo[ti], params.lifetime_hi[ti])
+        rows["lifetime"] = randf32(u[8], params.lifetime_lo[ti], params.lifetime_hi[ti])
     return torch.stack([rows[k] for k in nested_child_field_rows(static)])
 
 
@@ -904,30 +916,35 @@ def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
                     group=group)
 
 
-def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
-    """Advance one spawner's pool by one frame (plain PyTorch, any device).
-    Returns (new_state, StepOutputs)."""
+def plain_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
+    """One frame of the kernel's plain version (`plain_frames` with n = 1):
+    what `ops.fused_step.step_auto` runs on CPU tensors. Returns
+    (new_state, StepOutputs)."""
     return plain_frames(static, params, state, frame, colliders=colliders)
 
 
-def step_jit(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
-    """One frame under the JAX package's `step_jit` signature, dispatched as
-    `ops.fused_step.step_auto` is: the step kernel on CUDA tensors, the
-    plain version on CPU tensors. Returns (new_state, StepOutputs)."""
-    from .ops.fused_step import step_auto
+def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
+    """Advance one spawner's pool by one frame in the JAX package's XLA
+    layout (`xla_step.step`: threefry draws per emitter, emitters in
+    declared order), on the state's device. Returns (new_state,
+    StepOutputs)."""
+    from . import xla_step
 
-    return step_auto(static, params, colliders, state, frame)
+    return xla_step.step(static, params, colliders, state, frame)
+
+
+def step_jit(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
+    """The JAX package's `step_jit` (its `jax.jit(step)`): `step`, the XLA
+    layout, on the state's device."""
+    return step(static, params, colliders, state, frame)
 
 
 def multi_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
                n_frames: int):
-    """n_frames frames of one frame input under the JAX package's
-    `multi_step` signature, dispatched as `ops.fused_step.multi_step_auto`
-    is (the kernel's chain on CUDA tensors, the plain version on CPU
-    tensors). Returns (final state, outputs of the last frame); raises
-    ValueError below one frame."""
-    if n_frames < 1:
-        raise ValueError("multi_step needs n_frames >= 1")
-    from .ops.fused_step import multi_step_auto
+    """The JAX package's `multi_step`: n_frames frames of `step` (the XLA
+    layout) with one frame input, on the state's device. Returns (final
+    state, outputs of the last frame); raises ValueError below one
+    frame."""
+    from . import xla_step
 
-    return multi_step_auto(static, params, colliders, state, frame, n_frames)
+    return xla_step.multi_step(static, params, colliders, state, frame, n_frames)

@@ -33,6 +33,32 @@ def div_euclid(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(r < 0, adj, q)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c on f32 tensors with one rounding, as a fused multiply-add
+    gives it: the product is exact in float64, the sum is rounded to odd
+    (TwoSum's error term picks the odd neighbour of an inexact float64
+    sum), and the one rounding to f32 of that is the correctly rounded
+    result. IEEE float64 ops, so the same bits on the CPU and the card."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")), torch.full_like(s, -float("inf")))
+    odd = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
+    return odd.to(torch.float32)
+
+
+def rem_euclid_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`rem_euclid` with the truncating remainder's a - trunc(a/b)*b as one
+    fused multiply-add: how XLA compiles `bevy_firework_tpu.utils.f32.
+    rem_euclid` for the CPU (LLVM contracts the product into the
+    subtraction)."""
+    r = fma32(-torch.trunc(a / b), b, a)
+    return torch.where(r < 0, r + torch.abs(b), r)
+
+
 def np_trunc_rem(a, b) -> np.float32:
     a, b = F32(a), F32(b)
     return F32(a - F32(np.trunc(F32(a / b))) * b)

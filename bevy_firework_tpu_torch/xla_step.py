@@ -1,0 +1,276 @@
+"""The per-frame step in the JAX package's XLA layout: spawn -> integrate ->
+notify, composed torch on the state's device.
+
+This is the counterpart of `bevy_firework_tpu.step` (`step`, `step_jit`,
+`multi_step`), which the JAX package runs on every backend; its Pallas
+kernel runs only behind `step_auto` / `multi_step_auto` on a TPU. The port
+keeps the same split: `step`, `step_jit` and `multi_step` (the package's
+top level) are this module on CPU and CUDA tensors alike, while
+`step_auto`, `multi_step_auto`, the fleet and the `Scene` take the CUDA
+kernel's layout (`step.advance`, Philox draws per lane) on both devices.
+
+What follows the XLA step, and where the kernel's layout differs:
+  * the key chain: new_key, frame_key = split(rng_key), one split per
+    frame (a hybrid kernel frame splits twice);
+  * draws: global emitter e draws uniform(fold_in(frame_key, e), (12, N)),
+    twelve rows over the whole pool whatever fields the archetype elides
+    (the rows of elided fields are not computed: the draw is counter
+    based, so the others keep their values);
+    nested emitter e draws its 8, 9 or 12 rows over the child buffer under
+    fold_in(frame_key, 1000 + e) (`step.nested_child_rows`);
+  * emitters run in declared order, one claim each, every claim seeing the
+    spawns before it: a ring archetype's window [cursor, cursor + n) with
+    the cursor advanced per emitter, any other archetype the exclusive dead
+    rank below n, recomputed after each claim. Overflow (one frame asking
+    for more than the pool) drops by claim order;
+  * `alive` is the stored plane on every archetype (on ring archetypes the
+    same set as age < lifetime, which `tests/test_torch_xla_step.py` holds);
+  * nested emitters: counts from `compute_emission_count` per parent with
+    the deferral through `emission_next_last`, the children's parents and
+    dead slots from `monotone_inverse`, the rows written back by an index
+    scatter that drops out-of-range slots, `last_emitted` reset to f32::MIN
+    on claimed lanes.
+The integrate half is `step.integrate`, shared with the kernel's plain
+version, and the outputs are `step.epilogue`'s.
+
+XLA on the CPU rewrites and contracts some f32 expressions; where the
+result feeds an integer (a spawn count, a death), this module computes them
+as XLA does (`cadence.compute_emission_count_xla`,
+`utils.f32.rem_euclid_fused`, `rand.sample_randf32_fused`), so
+counts, claims and the cadence scalars equal the JAX step's on every frame.
+The other f32 fields differ from it by XLA's contractions and its sin/cos
+polynomials (a few ulp per frame; `tests/test_torch_xla_step.py` names the
+tolerance).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cadence import compute_emission_count_xla, emission_next_last
+from .compiled import MODE_GLOBAL, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerParams, SpawnerStatic
+from .emission_shape import sample_shape_comp
+from .pool import FrameInput, PoolState
+from .prng import threefry_fold_in, threefry_split, threefry_uniform
+from .rand import sample_randf32_fused, sample_randvec3_comp
+from .step import (
+    active_f32_fields,
+    active_flag,
+    epilogue,
+    integrate,
+    lifetime_of,
+    nested_child_field_rows,
+    nested_child_rows,
+    nested_parent_fields,
+    nested_m,
+)
+from .utils.f32 import F32_MIN, rem_euclid_fused
+from .utils.quat import quat_rotate_comp
+
+def monotone_inverse(cum: torch.Tensor, m: int) -> torch.Tensor:
+    """For each query r = 0..m-1 of a non-decreasing int32 array, p(r) =
+    #(cum <= r): the index of the first lane with cum > r, or len(cum). The
+    JAX package's `_monotone_inverse` (its block counts and MXU row fetch
+    are a TPU route to the same integers). int32 [m]."""
+    r = torch.arange(m, dtype=cum.dtype, device=cum.device)
+    return torch.searchsorted(cum, r, right=True, out_int32=True)
+
+
+def claim_and_init(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, fields: dict, e: int, n_spawn,
+                   uni, origin_pos, origin_rot, base_vel):
+    """Claim `n_spawn` dead slots for global emitter e and initialise them
+    (the JAX package's `_claim_and_init`): a ring archetype takes the
+    window [cursor, cursor + n) and advances the cursor, any other the dead
+    lanes of exclusive dead rank below n; both masked by the dead plane, so
+    overflow drops. `fields` is updated in place; returns the spawn mask."""
+    alive = fields["alive"]
+    dead = ~alive
+    n = alive.shape[0]
+    if static.ring_claim:
+        idx = torch.arange(n, dtype=torch.int32, device=alive.device)
+        dist = torch.remainder(idx - fields["ring_cursor"], n)
+        spawn = dead & (dist < n_spawn)
+        fields["ring_cursor"] = torch.remainder(fields["ring_cursor"] + n_spawn, n).to(torch.int32)
+    else:
+        di = dead.to(torch.int32)
+        rank = torch.cumsum(di, 0, dtype=torch.int32) - di
+        spawn = dead & (rank < n_spawn)
+    ti = static.particle_indices[e]
+    offx, offy, offz = sample_shape_comp(params.shape_params[e], uni[0], uni[1], uni[2])
+    ivx, ivy, ivz = sample_randvec3_comp(params.ivel_params[e], uni[3], uni[4], uni[5])
+    radial = sample_randf32_fused(uni[6], params.radial_lo[e], params.radial_hi[e])
+    l2 = offx * offx + offy * offy + offz * offz
+    inv = torch.where(l2 > 0, 1.0 / torch.sqrt(l2), torch.zeros_like(l2))
+    rvx, rvy, rvz = offx * inv * radial, offy * inv * radial, offz * inv * radial
+    wvx, wvy, wvz = quat_rotate_comp(*origin_rot, ivx, ivy, ivz)
+    spd = frame.modifier_speed
+    inh = params.inherit[e]
+    new = {"px": origin_pos[0] + offx, "py": origin_pos[1] + offy, "pz": origin_pos[2] + offz,
+           "vx": spd * (wvx + rvx) + inh * base_vel[0], "vy": spd * (wvy + rvy) + inh * base_vel[1],
+           "vz": spd * (wvz + rvz) + inh * base_vel[2]}
+    # elided fields hold their pool-wide invariant already; the draw shape
+    # stays (12, N) either way
+    if not static.elide_rotation:
+        avx, avy, avz = sample_randvec3_comp(params.iangvel_params[e], uni[9], uni[10], uni[11])
+        rot = params.init_rot[e]
+        new.update(qx=rot[0], qy=rot[1], qz=rot[2], qw=rot[3], wx=avx, wy=avy, wz=avz)
+    new["initial_scale"] = sample_randf32_fused(uni[7], params.initial_scale_lo[ti], params.initial_scale_hi[ti]) * \
+        frame.modifier_scale
+    new["age"] = torch.zeros((), dtype=torch.float32, device=alive.device)
+    if static.const_lifetime is None:
+        new["lifetime"] = sample_randf32_fused(uni[8], params.lifetime_lo[ti], params.lifetime_hi[ti])
+    for k, v in new.items():
+        fields[k] = torch.where(spawn, v, fields[k])
+    if not static.single_type:
+        fields["ptype"] = torch.where(spawn, torch.full_like(fields["ptype"], ti), fields["ptype"])
+    fields["last_emitted"] = torch.where(spawn[None, :], torch.full_like(fields["last_emitted"], F32_MIN),
+                                         fields["last_emitted"])
+    fields["alive"] = alive | spawn
+    return spawn
+
+
+def nested_spawn(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, fields: dict, e: int, cum, total,
+                 frame_key):
+    """Nested emitter e's children (the JAX package's `_nested_spawn`, its
+    write-back form): child rank r's parent is monotone_inverse(cum)[r]; on
+    a ring archetype it takes slot (cursor + r) mod N if that slot is dead,
+    else the r-th dead slot; at most the child buffer M per frame. The rows
+    (`step.nested_child_rows`, its uniform ranges as XLA fuses them) are
+    scattered into their slots; `fields` is updated in place. Returns the
+    children dropped for want of a dead slot (int32 0-d)."""
+    alive = fields["alive"]
+    N = alive.shape[0]
+    M = nested_m(static, N)
+    dev = alive.device
+    dead = ~alive
+    di = dead.to(torch.int32)
+    n_spawn = total.clamp_max(M)
+    child_parent = monotone_inverse(cum, M).clamp(0, N - 1).long()
+    rank_ids = torch.arange(M, dtype=torch.int32, device=dev)
+    if static.ring_claim:
+        cursor = fields["ring_cursor"]
+        slot_raw = torch.remainder(cursor + rank_ids, N)
+        take = (rank_ids < n_spawn) & dead[slot_raw.long()]
+        slot = torch.where(take, slot_raw, N)
+        idx = torch.arange(N, dtype=torch.int32, device=dev)
+        claimed = dead & (torch.remainder(idx - cursor, N) < n_spawn)
+        fields["ring_cursor"] = torch.remainder(cursor + n_spawn, N).to(torch.int32)
+        dropped = n_spawn - take.sum(dtype=torch.int32)
+    else:
+        dead_cum = torch.cumsum(di, 0, dtype=torch.int32)
+        claimed = dead & (dead_cum - di < n_spawn)
+        slot = torch.where(rank_ids < n_spawn, monotone_inverse(dead_cum, M), N)
+        dropped = n_spawn - torch.minimum(n_spawn, dead_cum[-1])
+    parent = {k: fields[k][child_parent] for k in nested_parent_fields(static)}
+    rows = nested_child_rows(static, params, frame, e, parent, frame_key, M, fused=True)
+    keep = slot < N
+    at = slot[keep].long()
+    for k, row in zip(nested_child_field_rows(static), rows):
+        fields[k] = fields[k].index_put((at,), row[keep])
+    ti = static.particle_indices[e]
+    if not static.single_type:
+        fields["ptype"] = torch.where(claimed, torch.full_like(fields["ptype"], ti), fields["ptype"])
+    fields["alive"] = alive | claimed
+    fields["last_emitted"] = torch.where(claimed[None, :], torch.full_like(fields["last_emitted"], F32_MIN),
+                                         fields["last_emitted"])
+    return dropped
+
+
+def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput):
+    """spawn_particles (reference core.rs:367-551; the JAX package's
+    `_spawn_phase` without its hybrid options): every emitter in declared
+    order. Returns (fields, scal, new_key, (deferred, dropped)): fields the
+    post-spawn pool planes (the active f32 fields, ptype, alive,
+    last_emitted, ring_cursor; elided fields keep their pool-wide
+    invariant in the state), scal the cadence scalars."""
+    N = state.capacity
+    dev = state.device
+    dt = frame.dt
+    active = active_flag(static, state.enabled, state.alive.any())
+    new_key, frame_key = threefry_split(state.rng_key.numpy())
+    fields = {k: getattr(state, k) for k in active_f32_fields(static)}
+    fields.update(ptype=state.ptype, alive=state.alive, last_emitted=state.last_emitted,
+                  ring_cursor=state.ring_cursor)
+    tic, last, enabled, queued = state.time_in_cycle, state.last_emission, state.enabled, state.manual_queued
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    deferred = dropped = zero
+    g_pos = tuple(frame.transform_translation[i] for i in range(3))
+    g_rot = tuple(frame.transform_rotation[i] for i in range(4))
+    g_vel = tuple(frame.parent_velocity[i] for i in range(3))
+    for e in range(static.num_emitters):
+        gate = active & enabled[e]
+        if static.mode_kinds[e] == MODE_GLOBAL:
+            # rows 0-7 shape, velocity, radial, scale; 8 lifetime, 9-11
+            # angular velocity where live (the rest of the (12, N) draw,
+            # which the JAX step draws and drops, is never read)
+            rows = list(range(8)) + ([8] if static.const_lifetime is None else []) + (
+                [] if static.elide_rotation else [9, 10, 11])
+            uni = dict(zip(rows, threefry_uniform(threefry_fold_in(frame_key, e), (12, N), dev, rows=rows)))
+            pk = static.pacing_kinds[e]
+            if pk == PACING_ONE_SHOT:
+                n_spawn = torch.where(gate, params.count[e].to(torch.int32), zero)
+                enabled = enabled.clone()
+                enabled[e] = enabled[e] & ~gate  # the burst disables its emitter
+            elif pk == PACING_ON_DEMAND:
+                n_spawn = torch.where(gate, queued, zero)
+                queued = torch.where(gate, zero, queued)
+            else:  # rate / CountOverDuration
+                t = rem_euclid_fused(tic[e] + dt, params.duration[e])
+                cnt, next_last = compute_emission_count_xla(t, last[e], params.duration[e], params.off_start[e],
+                                                            params.off_end[e], params.count[e])
+                n_spawn = torch.where(gate, cnt, zero)
+                tic = tic.clone()
+                last = last.clone()
+                tic[e] = torch.where(gate, t, tic[e])
+                last[e] = torch.where(gate, next_last, last[e])
+            claim_and_init(static, params, frame, fields, e, n_spawn, uni, g_pos, g_rot, g_vel)
+            continue
+        if not static.nested_valid[e]:  # an invalid pacing never emits (core.rs:481-484)
+            continue
+        M = nested_m(static, N)
+        alive, lifetime = fields["alive"], lifetime_of(static, fields)
+        parent_mask = alive & (fields["ptype"] == static.target_types[e]) & gate
+        base_le = fields["last_emitted"][e]
+        off_s, off_e, per = params.off_start[e], params.off_end[e], params.count[e]
+        counts, next_last = compute_emission_count_xla(fields["age"], base_le, lifetime, off_s, off_e, per)
+        counts = torch.where(parent_mask, counts, torch.zeros_like(counts))
+        cum = torch.cumsum(counts, 0, dtype=torch.int32)
+        total = cum[-1]
+        emitted = cum.clamp_max(M) - (cum - counts).clamp_max(M)
+        next_last = torch.where(emitted < counts,
+                                emission_next_last(base_le, lifetime, off_s, off_e, per, emitted, fused=True),
+                                next_last)
+        deferred = deferred + (total - total.clamp_max(M))
+        le = fields["last_emitted"].clone()
+        le[e] = torch.where(parent_mask, next_last, base_le)
+        fields["last_emitted"] = le
+        dropped = dropped + nested_spawn(static, params, frame, fields, e, cum, total, frame_key)
+    scal = {"time_in_cycle": tic, "last_emission": last, "enabled": enabled, "manual_queued": queued,
+            "ring_cursor": fields.pop("ring_cursor")}
+    return fields, scal, new_key, (deferred, dropped)
+
+
+def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+         stats: bool = True):
+    """Advance one spawner's pool by one frame in the XLA layout, on the
+    state's device (the JAX package's `step`). Returns (new_state,
+    StepOutputs, or None without `stats`)."""
+    fields, scal, new_key, (deferred, dropped) = spawn_phase(static, params, state, frame)
+    last_emitted = fields.pop("last_emitted")
+    f, survivor, dump = integrate(static, params, fields, fields["ptype"], fields["alive"], frame, colliders)
+    f["alive"] = survivor
+    return epilogue(static, params, state, f, scal, torch.as_tensor(new_key.astype(np.int64)), stats, dump,
+                    last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped))
+
+
+def multi_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+               n_frames: int):
+    """n_frames frames of `step` with one frame input (the JAX package's
+    `multi_step`, its scan): the final state and the last frame's outputs;
+    ValueError below one frame."""
+    if n_frames < 1:
+        raise ValueError("multi_step needs n_frames >= 1")
+    for _ in range(n_frames - 1):
+        state, _out = step(static, params, colliders, state, frame, stats=False)
+    return step(static, params, colliders, state, frame)

@@ -69,17 +69,23 @@ checkpoints resumed on the card, through the kernels. Phases:
      test's 6-collider mix, 33 and 64 mixed colliders (a quarter hulls,
      some disabled, two overlapping where lanes start inside both) and 200
      (three in four 16-plane hulls: a table past SMEM_COLLIDER_WORDS, read
-     from global memory): the kernel == the plain version (no skip)
-     bit for bit over 10 U=1 and 4 U=2 launches; the share of (warp,
-     collider, substep) tests collision.broad_phase_keep skips;
+     from global memory): a chain of 10 U=1 and 4 U=2 launches, each
+     running its broad phase, the first U=1 and the last U=2 launch == the
+     plain version (no skip) bit for bit (a plain frame against 200
+     colliders costs seconds of host time); the share of (warp, collider,
+     substep) tests collision.broad_phase_keep skips;
  15. caps_det, N = 131072: past the old table caps, 17- and 40-knot
      curves, 9 emitters, 9 types (render planes and the stats row), 9
      types of 40-knot curves (a 4948-word spawner table), 34 emitters of
      mixed pacing (past the 32 the warp's cadence takes), 7 of mixed pacing
      with a queue at U = 1, 2 and 8 (the warp's cadence) and 9 force
-     fields, solo and in a 3-slot fleet: kernel == plain, bit for bit;
-     a Scene (200 colliders, 9 fields, 9 emitters and types) and a Fleet
-     (200 colliders) on the card == their plain replay;
+     fields, solo and in a 3-slot fleet: kernel == plain, bit for bit
+     (the state on the first and the last launch of each chain, the
+     fleet's slots each == its solo launch on every launch and == plain
+     on the first, slot 0 on the last; the render planes and stats row on
+     every launch); a Scene (200
+     colliders, 9 fields, 9 emitters and types) and a Fleet (200
+     colliders) on the card == their plain replay;
  16. collider_scaling_1M: tools/collider_scaling_tpu.py's scenes with
      stress_test_collision at 5e5/s, capacity 1310720, 140 warm-up frames,
      C in {1, ..., 128} mixed colliders and {8, 16, 32, 64} with a quarter
@@ -275,14 +281,29 @@ checkpoints resumed on the card, through the kernels. Phases:
      collectives per launch. A rank that fails or times out fails the
      phase. (NCCL refuses two ranks on one card: a multi-card run is not
      verified here.)
+ 38. xla_step: `multi_step` (the JAX package's XLA layout, composed torch:
+     threefry draws per emitter, emitters in declared order; no kernel
+     launches) of stress_test and sparks at 131072 lanes for 30 frames and
+     fireworks (nested) at 16384 lanes for 120, on the card against the
+     same call on the CPU: integer and bool state and the outputs' counts
+     exact, f32 fields within 1e-5 (CUDA's sinf/cosf and the CPU's part by
+     a few ulp in the shape and cone draws); ms per frame of `multi_step`
+     beside `multi_step_auto` (the kernel's layout) at 131072 lanes
+     (stress_test, CUDA events, median of 5);
+ 39. viewer_flow: a Scene on the card (sparks and a trailed comet
+     spawner) drawn by `viewer.render_frame` with distance fog, a light
+     table with an environment light and a shadow atlas over an occluder,
+     against the same Scene stepped on the CPU: the same live and segment
+     counts, pixels within 1e-3; `viewer.render_scene_png` writes the card
+     Scene's PNG.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
 chains, the collision flow, the collider-scaling chains, the fields chain, the Scene flows, the
 async events scene, the trails flows, the trails_100k scenes, the checkpointed scenes, the two
 nested chains, the nested flows, the fleet chain, the Fleet flow, the
-scene groups, the two render loops, the async Scene and sharded_1M's three
-sharded chains)
+scene groups, the two render loops, the async Scene, sharded_1M's three
+sharded chains and the viewer's Scene)
 and read just after it; the kernels' summary reports those counts only. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
@@ -985,14 +1006,18 @@ def main() -> int:
         check((words > L.SMEM_COLLIDER_WORDS) == (name == "c200"), f"many_collider_det {name}: {words} table words")
         s = bt.init_pool_for(c, 131072)
         shares = {}
-        for i, u in enumerate([1] * 10 + [2] * 4):
+        launches = [1] * 10 + [2] * 4
+        for i, u in enumerate(launches):
             if i in (0, 9):  # the skip share on the first frame's state, and on the tenth's
-                shares[f"frame_{i + 1}"] = recorded_frame(c, table, s, fdet)["skip_share"]
+                with pcol.record_substeps() as log:
+                    recorded, _o = plain_frames(c.static, c.params, s, fdet, 1, stats=False, colliders=table)
+                shares[f"frame_{i + 1}"] = narrow_work(table, log)["skip_share"]
             before = fs.fused_step.broad_launches
             sk, _ok = fs.fused_step(c.static, c.params, table, s, fdet, unroll=u)
             check(fs.fused_step.broad_launches - before == 1, f"many_collider_det {name}: the broad phase did not run")
-            sp_, _op = plain_frames(c.static, c.params, s, fdet, u, colliders=table)
-            compare(c, sk, sp_, {}, f"many_collider_det {name} U={u}", kernel="fused_step.collide_broad")
+            if i in (0, len(launches) - 1):  # the plain version (seconds of host time a frame at 200 colliders)
+                sp_ = recorded if i == 0 else plain_frames(c.static, c.params, s, fdet, u, colliders=table)[0]
+                compare(c, sk, sp_, {}, f"many_collider_det {name} U={u}", kernel="fused_step.collide_broad")
             s = sk
         s_free, _o = plain_frames(c.static, c.params, bt.init_pool_for(c, 131072), fdet, 18)  # no colliders
         bent = int((s.alive & ((s.vx != s_free.vx) | (s.vy != s_free.vy) | (s.vz != s_free.vz))).sum())
@@ -1004,7 +1029,8 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "many_collider_det", "card": card, "n": 131072, "scenes": mc_res,
           "rule": "the narrow phase with its broad phase == the plain version without a skip, "
-                  "bit for bit over 10 U=1 and 4 U=2 launches; skip_share: the share of (warp, collider, substep) "
+                  "bit for bit on the first of 10 U=1 launches and the last of 4 U=2 launches (the chain's "
+                  "state); skip_share: the share of (warp, collider, substep) "
                   "tests collision.broad_phase_keep skips in a plain frame from the first frame's and the tenth's state"})
 
     # ------------------------------------------------ 15. caps_det
@@ -1012,10 +1038,12 @@ def main() -> int:
     for case in table_cfg.CAPS:
         cc = bt.compile_spawner(table_cfg.caps_spawner(case), device=dev)
         s = bt.init_pool_for(cc, 131072)
-        for u in [1] * 3 + [8] * 2:
+        launches = [1] * 3 + [8] * 2
+        for i, u in enumerate(launches):
             sk, ok, planes = fs.fused_step(cc.static, cc.params, None, s, fdet, unroll=u, pack_render=True)
-            sp_, _op = plain_frames(cc.static, cc.params, s, fdet, u)
-            compare(cc, sk, sp_, {}, f"caps_det {case} U={u}")
+            if i in (0, len(launches) - 1):  # the plain version on the first and the last launch
+                sp_, _op = plain_frames(cc.static, cc.params, s, fdet, u)
+                compare(cc, sk, sp_, {}, f"caps_det {case} U={u}")
             compare_planes(cc, sk, planes, f"caps_det {case} U={u}")
             want = stat_reductions(cc.static, cc.params, {k: getattr(sk, k) for k in (
                 "px", "py", "pz", "initial_scale", "age", "lifetime")}, sk.ptype, sk.alive)
@@ -1047,24 +1075,27 @@ def main() -> int:
     cb9 = bt.compile_spawner(box_spawner(), device=dev)
     f9 = bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(table_cfg.nine_fields(), device=dev))
     s = bt.init_pool_for(cb9, 131072)
-    for u in [1] * 3 + [8] * 2:
+    launches = [1] * 3 + [8] * 2
+    for i, u in enumerate(launches):
         sk, _ok = fs.fused_step(cb9.static, cb9.params, None, s, f9, unroll=u)
-        sp_, _op = plain_frames(cb9.static, cb9.params, s, f9, u)
-        compare(cb9, sk, sp_, {}, f"caps_det fields9 U={u}", kernel="fused_step.fields")
+        if i in (0, len(launches) - 1):
+            sp_, _op = plain_frames(cb9.static, cb9.params, s, f9, u)
+            compare(cb9, sk, sp_, {}, f"caps_det fields9 U={u}", kernel="fused_step.fields")
         s = sk
     caps_res["fields9"] = {"fields": 9, "live": int(s.alive.sum())}
     frames9 = [bt.make_frame_input(1 / 60, force_fields=bt.compile_force_fields(table_cfg.nine_fields(0.3 * i),
                                                                                device=dev)) for i in range(3)]
     pools9 = [bt.init_pool_for(cb9, 65536, seed=i) for i in range(3)]
     st9 = stack_pools(pools9)
-    for u in (1, 8, 8):
+    for j, u in enumerate((1, 8, 8)):
         st9, _o = fs.fused_step_fleet(cb9.static, cb9.params, None, st9, stack_frames(frames9), unroll=u)
         for i in range(3):
             solo, _o = fs.fused_step(cb9.static, cb9.params, None, pools9[i], frames9[i], unroll=u)
-            plain9, _o = plain_frames(cb9.static, cb9.params, pools9[i], frames9[i], u)
             for k in active_f32_fields(cb9.static) + ("ring_cursor", "alive"):
                 check(torch.equal(getattr(state_slot(st9, i), k), getattr(solo, k)), f"caps_det fleet fields9 {k}")
-            compare(cb9, solo, plain9, {}, f"caps_det fleet fields9 slot {i} U={u}", kernel="fused_step.fleet")
+            if j == 0 or (j == 2 and i == 0):  # the plain version: every slot's first launch, slot 0's last
+                plain9, _o = plain_frames(cb9.static, cb9.params, pools9[i], frames9[i], u)
+                compare(cb9, solo, plain9, {}, f"caps_det fleet fields9 slot {i} U={u}", kernel="fused_step.fleet")
             pools9[i] = solo
     caps_res["fields9_fleet"] = {"slots": 3, "fields": 9, "live": [int(p.alive.sum()) for p in pools9]}
     # the entry points past every old cap at once: a Scene (200 colliders,
@@ -1088,8 +1119,9 @@ def main() -> int:
                                 "fleet_live": fleet_l.alive_count(), "frames": nl}
     torch.cuda.synchronize()
     emit({"phase": "caps_det", "card": card, "n": 131072, "cases": caps_res,
-          "rule": "past the old caps (16 knots, 8 emitters, 8 types, 8 fields): kernel == plain bit for bit (state, "
-                  "render planes), stats row == the plain reductions; mixed7: 7 emitters of mixed pacing with a queue "
+          "rule": "past the old caps (16 knots, 8 emitters, 8 types, 8 fields): kernel == plain bit for bit (state "
+                  "on the first and the last launch, render planes on every launch), stats row == the plain "
+                  "reductions; mixed7: 7 emitters of mixed pacing with a queue "
                   "at U = 1, 2, 8 (the warp's cadence), state and cadence scalars bit for bit; 9 fields solo and in "
                   "a 3-slot fleet (each slot "
                   "== its solo launch == plain); a Scene and a Fleet past every cap == their plain replay"})
@@ -2917,11 +2949,119 @@ def main() -> int:
                   "host time in the chain's gathers (the epilogue's reduction) per launch, the wait for the other "
                   "ranks included"})
 
+    # ------------------------------------------------ 38. xla_step
+    from bevy_firework_tpu_torch import viewer as bview
+
+    t_cell = time.perf_counter()
+    xla_exact = ("alive", "ptype", "ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued",
+                 "last_emitted", "finished_notified", "rng_key")
+    xla_outs = ("alive_count", "alive_count_per_type", "finished_event", "nested_deferred", "nested_dropped")
+    xla_tol = 1e-5  # CUDA's sinf/cosf and the CPU's part by a few ulp (the shape and cone draws)
+    xla_res = {}
+    for name, n_x, frames_x in (("stress_test", 131072, 30), ("sparks", 131072, 30), ("fireworks", 16384, 120)):
+        sp_x, tf_x = getattr(effects, name)()
+        cx, cx_cpu = bt.compile_spawner(sp_x, device=dev), bt.compile_spawner(sp_x, device="cpu")
+        fx = bt.make_frame_input(1 / 60, translation=tf_x.translation)
+        t_x = time.perf_counter()
+        (st_x, out_x), xla_counts = counted(lambda: bt.multi_step(cx.static, cx.params, None,
+                                                                   bt.init_pool_for(cx, n_x, 1), fx, frames_x))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t_x
+        check(st_x.px.is_cuda and sum(xla_counts.values()) == 0,
+              f"xla_step {name}: the XLA layout launched kernels {xla_counts}")
+        t_x = time.perf_counter()
+        st_c, out_c = bt.multi_step(cx_cpu.static, cx_cpu.params, None, bt.init_pool_for(cx_cpu, n_x, 1), fx,
+                                    frames_x)
+        cpu_s = time.perf_counter() - t_x
+        for k in xla_exact:
+            check(torch.equal(getattr(st_x, k).cpu(), getattr(st_c, k)), f"xla_step {name}: {k} card != CPU")
+        for k in xla_outs:
+            check(torch.equal(getattr(out_x, k).cpu(), getattr(out_c, k)), f"xla_step {name}: output {k}")
+        live_x = st_c.alive
+        err_x = max(float((getattr(st_x, k).cpu() - getattr(st_c, k))[live_x].abs().max()) if bool(live_x.any())
+                    else 0.0 for k in active_f32_fields(cx_cpu.static))
+        check(err_x <= xla_tol, f"xla_step {name}: f32 fields {err_x} from the CPU's")
+        check(int(out_x.alive_count) > (50000 if name == "stress_test" else 100),
+              f"xla_step {name}: {out_x.alive_count_per_type.tolist()} live")
+        if name == "fireworks":
+            check(int(out_x.alive_count_per_type[1]) > 0, f"xla_step fireworks: no children {out_x}")
+        xla_res[name] = {"n": n_x, "frames": frames_x, "per_type": out_x.alive_count_per_type.tolist(),
+                         "max_abs_err": err_x, "card_s": card_s, "cpu_s": cpu_s, "cpu_threads": torch.get_num_threads()}
+
+    def chain_ms(fn, reps=5):
+        """Median of `reps` CUDA-event times of fn() (after one warm call), ms."""
+        fn()
+        times = []
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return float(np.median(times))
+
+    cx = bt.compile_spawner(effects.stress_test()[0], device=dev)
+    fx = bt.make_frame_input(1 / 60, translation=effects.stress_test()[1].translation)
+    sx0, _o = fs.multi_step_auto(cx.static, cx.params, None, bt.init_pool_for(cx, 131072, 1), fx, 60)
+    xla_ms = chain_ms(lambda: bt.multi_step(cx.static, cx.params, None, sx0, fx, 8)) / 8
+    auto_ms = chain_ms(lambda: fs.multi_step_auto(cx.static, cx.params, None, sx0, fx, 8)) / 8
+    emit({"phase": "xla_step_timing", "card": card, "n": 131072, "live": int(sx0.alive.sum()),
+          "multi_step_ms_per_frame": xla_ms, "multi_step_auto_ms_per_frame": auto_ms, "ratio": xla_ms / auto_ms,
+          "timing": "CUDA events around an 8-frame call from the same 60-frame state, median of 5, per frame"})
+    emit({"phase": "xla_step", "card": card, "configs": xla_res, "f32_tol": xla_tol,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "multi_step (the XLA layout, composed torch, no kernel) on the card == the same call on the CPU: "
+                  "integer and bool state, rng_key and the outputs' counts exact; f32 fields within 1e-5 (libm)"})
+
+    # ------------------------------------------------ 39. viewer_flow
+    t_cell = time.perf_counter()
+
+    def viewer_scene(device):
+        sc = bt.Scene(device=device)
+        sc.add_spawner(effects.sparks()[0], capacity=2048, transform=bt.Transform(translation=(0.0, 0.1, 0.0)))
+        sc.add_spawner(comets, capacity=256, trail=ts16, transform=bt.Transform(translation=(-2.0, 0.5, -1.0)))
+        for _ in range(90):
+            sc.step(1 / 60)
+        return sc
+
+    view_lights = bt.LightTable(lights=(
+        bt.Light.directional((-0.3, -1.0, -0.2), color=(1.0, 0.95, 0.9), illuminance=2.0, shadow=True),
+        bt.Light.point((1.5, 2.5, 1.0), color=(0.3, 0.5, 1.0), intensity=40.0, range=8.0, shadow=True),
+    ), ambient=(0.05, 0.05, 0.06), environment=bt.EnvironmentLight.gradient())
+    view_kw = dict(fog=bt.FogSettings(mode=1, start=4.0, end=20.0, color=(0.5, 0.55, 0.6, 0.8)), lights=view_lights,
+                   shadow_atlas=bt.make_shadow_atlas(view_lights, occluders=[((-0.5, 1.2, -0.5), (0.5, 1.4, 0.5))],
+                                                     resolution=64, radius=6.0),
+                   ground_y=0.0, draw_ground=True, shadows=True)
+    view_cam = bview.Camera(position=(0.0, 2.5, 7.0), look_at=(0.0, 1.2, 0.0))
+    view_card, viewer_counts = counted(lambda: viewer_scene(dev))
+    check(viewer_counts["fused_step"] >= 90, f"viewer_flow: launches {viewer_counts}")
+    view_cpu = viewer_scene("cpu")
+    imgs, view_n = [], []
+    for sc in (view_card, view_cpu):
+        items, trails = sc.render_items(), sc.trail_items()
+        view_n.append((sum(i.count for i in items), sum(t.count for t in trails)))
+        imgs.append(bview.render_frame(items, view_cam, 320, 240, trail_items=trails, **view_kw))
+    pix_err = float(np.abs(imgs[0] - imgs[1]).max())
+    check(view_n[0] == view_n[1] and view_n[0][0] > 500 and view_n[0][1] > 0,
+          f"viewer_flow: (instances, segments) {view_n[0]} on the card, {view_n[1]} on the CPU")
+    check(pix_err <= 1e-3 and float(imgs[0].std()) > 0.01, f"viewer_flow: pixels {pix_err} from the CPU's")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_", dir=Path(__file__).resolve().parent) as vdir:
+        png = Path(bview.render_scene_png(view_card, str(Path(vdir) / "viewer_flow.png"), view_cam, 320, 240,
+                                          **view_kw))
+        png_bytes = png.read_bytes()
+    check(png_bytes[:8] == b"\x89PNG\r\n\x1a\n", "viewer_flow: not a PNG")
+    emit({"phase": "viewer_flow", "card": card, "launches": viewer_counts, "instances": view_n[0][0],
+          "segments": view_n[0][1], "max_pixel_err": pix_err, "png_bytes": len(png_bytes),
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "a card Scene (sparks, a trailed comet) through viewer.render_frame with fog, lights and a shadow "
+                  "atlas == the same Scene stepped on the CPU: counts exact, pixels within 1e-3"})
+
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
             scene_counts, async_ev_counts, trails_counts, t100k_counts, ck_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
-            loop1m_counts, async_counts, *s1m_counts_all.values())
+            loop1m_counts, async_counts, *s1m_counts_all.values(), viewer_counts)
 
     def total(keys):
         keys = (keys,) if isinstance(keys, str) else keys

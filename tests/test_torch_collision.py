@@ -37,7 +37,7 @@ from bevy_firework_tpu_torch.models import effects as peffects
 from bevy_firework_tpu_torch.ops import fused_step as pfs
 from bevy_firework_tpu_torch.ops import table_layout as L
 from bevy_firework_tpu_torch.settings import ParticleCollisionSettings as PortCollisionSettings
-from bevy_firework_tpu_torch.step import dead_rank, plain_frames
+from bevy_firework_tpu_torch.step import dead_rank, plain_frames, plain_step
 from test_torch_common import (  # noqa: F401
     _one_torch_thread,
     assert_pools_match,
@@ -492,7 +492,7 @@ def test_trajectories_match_jax_xla_step(config):
     for _ in range(frames):
         alive_before = sp.alive
         sj, oj = step_jit(cj.static, cj.params, tj, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, tp, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, tp, sp, fp)
         a, b = jax_pool_numpy(sj), port_pool_numpy(sp)
         assert_pools_match(a, b, atol=1e-4, rtol=0)
         if pk == "rate":

@@ -31,6 +31,7 @@ from bevy_firework_tpu_torch.ops import fused_step as pfs
 from bevy_firework_tpu_torch.ops import table_layout as L
 from bevy_firework_tpu_torch.settings import ParticleCollisionSettings as PortCollisionSettings
 from bevy_firework_tpu_torch.settings import ParticleEventHandlers as PortEventHandlers
+from bevy_firework_tpu_torch.step import plain_step
 from test_torch_common import (  # noqa: F401
     _one_torch_thread,
     assert_pools_match,
@@ -300,10 +301,10 @@ def test_trajectory_with_fields_matches_jax_xla_step():
     sn = sp
     for _ in range(60):
         sj, oj = step_jit(cj.static, cj.params, None, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, None, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, None, sp, fp)
         assert_pools_match(jax_pool_numpy(sj), port_pool_numpy(sp), atol=1e-4, rtol=0)
         assert int(op.alive_count) == int(oj.alive_count)
-        sn, _o = pt.step(cp.static, cp.params, None, sn, pt.make_frame_input(1 / 50))
+        sn, _o = plain_step(cp.static, cp.params, None, sn, pt.make_frame_input(1 / 50))
     assert int(op.alive_count) > 500
     assert np.abs(sp.vx.numpy() - sn.vx.numpy())[sp.alive.numpy()].max() > 0.1  # the fields acted
 
@@ -352,7 +353,7 @@ def test_destroyed_mask_matches_jax_xla_step(destroy):
     dumped = 0
     for _ in range(30):
         sj, oj = step_jit(cj.static, cj.params, tj, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, tp, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, tp, sp, fp)
         np.testing.assert_array_equal(op.destroyed_mask.numpy(), np.asarray(oj.destroyed_mask))
         assert_pools_match(jax_pool_numpy(sj), port_pool_numpy(sp), atol=1e-4, rtol=0)
         dumped += int(op.destroyed_mask.sum())

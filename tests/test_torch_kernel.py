@@ -20,7 +20,7 @@ from bevy_firework_tpu_torch.ops import table_layout as L
 from bevy_firework_tpu_torch.render import pack_render_planes
 from bevy_firework_tpu_torch.settings import ParticleCollisionSettings, ParticleEventHandlers
 from bevy_firework_tpu_torch.collision import LOOP_MIN_COLLIDERS
-from bevy_firework_tpu_torch.step import active_f32_fields, plain_frames, stat_reductions
+from bevy_firework_tpu_torch.step import active_f32_fields, plain_frames, plain_step, stat_reductions
 
 SCALARS = ("ring_cursor", "time_in_cycle", "last_emission", "enabled", "manual_queued", "alive", "ptype")
 
@@ -41,7 +41,7 @@ def _ulps(a, b) -> int:
 
 def _plain(c, s, f, n):
     for _ in range(n):
-        s, _o = pt.step(c.static, c.params, None, s, f)
+        s, _o = plain_step(c.static, c.params, None, s, f)
     return s
 
 

@@ -43,7 +43,7 @@ from bevy_firework_tpu_torch import collision as pcol
 from bevy_firework_tpu_torch.colliders import masked_layers
 from bevy_firework_tpu_torch.ops import fused_step as pfs
 from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools, state_slot
-from bevy_firework_tpu_torch.step import plain_frames
+from bevy_firework_tpu_torch.step import plain_frames, plain_step
 from bevy_firework_tpu_torch.utils.quat import quat_rotate_comp
 from test_torch_common import (  # noqa: F401
     _one_torch_thread,
@@ -238,9 +238,9 @@ def test_many_colliders_match_jax_looped_kernel(config):
         fj, fp = jx.make_frame_input(DT, translation=translation(k)), pt.make_frame_input(DT, translation=translation(k))
         sj, oj = run_interpret(cj, jt, fj, sj)
         with pcol.record_substeps() as log:
-            sp, op = pt.step(cp.static, cp.params, ptab, sp, fp)
+            sp, op = plain_step(cp.static, cp.params, ptab, sp, fp)
         compare(sj, oj, sp, op, f"{config} frame {k}")
-        free, _o = pt.step(cp.static, cp.params, None, free, fp)
+        free, _o = plain_step(cp.static, cp.params, None, free, fp)
         for rec in log:
             k_, t_ = assert_kept(ptab, rec)
             kept, tests = kept + k_, tests + t_
@@ -333,7 +333,7 @@ def test_lifted_caps_match_jax_xla_step(config):
     for k in range(FRAMES):
         fj, fp = jx.make_frame_input(DT, translation=translation(k)), pt.make_frame_input(DT, translation=translation(k))
         sj, oj = step_jit(cj.static, cj.params, None, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, None, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, None, sp, fp)
         compare(sj, oj, sp, op, f"{config} frame {k}")
     for key in ("aabb_min", "aabb_max"):
         np.testing.assert_allclose(getattr(op, key).numpy(), np.asarray(getattr(oj, key)), atol=ATOL, rtol=0)

@@ -10,13 +10,9 @@ import bevy_firework_tpu as jx
 import bevy_firework_tpu_torch as pt
 from test_torch_common import _one_torch_thread, det_spawner  # noqa: F401
 
-# The JAX package's names the port does not carry yet: lights, fog and
-# shadows, shader specialization and physics sync (ROADMAP queue 1 item 10).
-NOT_YET_PORTED = frozenset({
-    "EnvironmentLight", "FogSettings", "Light", "LightTable", "ShadowAtlas", "make_shadow_atlas", "light_view_proj",
-    "DummyTextures", "PipelineCache", "PipelineKey", "key_for", "RigidBodyState", "linear_velocity_at_point",
-    "propagate_modifiers", "sync_parent_velocity",
-})
+# The JAX package's names the port does not carry yet (none since the
+# lights, shaders, physics-sync and viewer modules were copied).
+NOT_YET_PORTED = frozenset()
 
 
 def test_reference_names_resolve_in_the_port():
@@ -32,22 +28,23 @@ def test_reference_names_resolve_in_the_port():
 
 def test_multi_step_and_step_jit():
     """multi_step: n frames of one frame input, the final state and the
-    last frame's outputs, == n plain frames; step_jit == one plain frame;
-    multi_step below one frame raises ValueError; the deterministic
-    spawner's counts and positions equal the JAX package's multi_step."""
-    from bevy_firework_tpu_torch.step import plain_frames
+    last frame's outputs, == n steps; multi_step below one frame raises
+    ValueError; the deterministic spawner's counts and positions equal the
+    JAX package's multi_step; and on a random config (sparks: random
+    shape, speed and scale draws) multi_step and step_jit equal the JAX
+    package's lane for lane (the XLA layout: threefry draws per emitter)."""
+    from test_torch_common import effect
 
     c = pt.compile_spawner(det_spawner(pt), device="cpu")
     s0 = pt.init_pool_for(c, 1024, seed=3)
     f = pt.make_frame_input(1 / 50)
     st, out = pt.multi_step(c.static, c.params, None, s0, f, 9)
-    ref, ref_out = plain_frames(c.static, c.params, s0, f, 9)
+    ref = s0
+    for _ in range(9):
+        ref, ref_out = pt.step(c.static, c.params, None, ref, f)
     for k in ("px", "vy", "age", "alive", "ring_cursor", "time_in_cycle"):
         assert torch.equal(getattr(st, k), getattr(ref, k)), k
     assert int(out.alive_count) == int(ref_out.alive_count) > 0
-    one, _o = pt.step_jit(c.static, c.params, None, s0, f)
-    plain_one, _p = pt.step(c.static, c.params, None, s0, f)
-    assert torch.equal(one.px, plain_one.px) and torch.equal(one.alive, plain_one.alive)
     with pytest.raises(ValueError, match="n_frames >= 1"):
         pt.multi_step(c.static, c.params, None, s0, f, 0)
     cj = jx.compile_spawner(det_spawner(jx))
@@ -56,6 +53,23 @@ def test_multi_step_and_step_jit():
     live = np.asarray(sj.alive)
     np.testing.assert_array_equal(st.alive.numpy(), live)
     np.testing.assert_allclose(st.px.numpy()[live], np.asarray(sj.px)[live], atol=1e-4, rtol=0)
+
+    (spj, tfj), (spp, tfp) = effect("jax", "sparks"), effect("torch", "sparks")
+    cj, cp = jx.compile_spawner(spj), pt.compile_spawner(spp, device="cpu")
+    fj = jx.make_frame_input(1 / 60, translation=tfj.translation)
+    fp = pt.make_frame_input(1 / 60, translation=tfp.translation)
+    sj, oj = jx.multi_step(cj.static, cj.params, None, jx.init_pool_for(cj, 1024, 5), fj, 12)
+    sp, op = pt.multi_step(cp.static, cp.params, None, pt.init_pool_for(cp, 1024, 5), fp, 12)
+    sj, oj = jx.step_jit(cj.static, cj.params, None, sj, fj)
+    sp, op = pt.step_jit(cp.static, cp.params, None, sp, fp)
+    assert int(op.alive_count) == int(oj.alive_count) == 216
+    live = np.asarray(sj.alive)
+    np.testing.assert_array_equal(sp.alive.numpy(), live)
+    np.testing.assert_array_equal(sp.rng_key.numpy().astype(np.uint32), np.asarray(sj.rng_key))
+    for k in ("px", "py", "pz", "vx", "vy", "vz", "initial_scale"):
+        # XLA's FMA contractions and sin/cos polynomials on the CPU
+        np.testing.assert_allclose(getattr(sp, k).numpy()[live], np.asarray(getattr(sj, k))[live], atol=2e-5,
+                                   rtol=1e-5, err_msg=k)
 
 
 def test_emission_count_names():

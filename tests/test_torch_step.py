@@ -19,6 +19,7 @@ from bevy_firework_tpu.step import step_jit
 from bevy_firework_tpu.utils.f32 import np_rem_euclid
 from bevy_firework_tpu_torch import interop
 from bevy_firework_tpu_torch.ops.fused_step import chain_shape, multi_step_auto
+from bevy_firework_tpu_torch.step import plain_step
 from test_torch_common import (  # noqa: F401
     _one_torch_thread,
     assert_pools_match,
@@ -50,7 +51,7 @@ def test_det_step_matches_jax_xla_step_lane_by_lane():
     sj, sp = jx.init_pool_for(cj, N, 0), pt.init_pool_for(cp, N, 0)
     for _ in range(25):
         sj, oj = step_jit(cj.static, cj.params, None, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, None, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, None, sp, fp)
         assert_pools_match(jax_pool_numpy(sj), port_pool_numpy(sp))
     assert int(op.alive_count) == int(oj.alive_count) == 600
     np.testing.assert_allclose(op.aabb_min.numpy(), np.asarray(oj.aabb_min), atol=2e-5)
@@ -68,7 +69,7 @@ def test_det_step_matches_jax_fused_kernel_interpret_mode():
     for _ in range(10):
         with pltpu.force_tpu_interpret_mode():
             sj, oj = fused(cj.static, cj.params, None, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, None, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, None, sp, fp)
     a, b = jax_pool_numpy(sj), port_pool_numpy(sp)
     a["alive"] = np.asarray(sj.alive)
     assert_pools_match(a, b)
@@ -89,7 +90,7 @@ def test_random_config_bookkeeping_and_distributions():
     tic, last, total = np.float32(0.0), np.float32(0.0), 0
     for _ in range(60):
         sj, oj = step_jit(cj.static, cj.params, None, sj, fj)
-        sp, op = pt.step(cp.static, cp.params, None, sp, fp)
+        sp, op = plain_step(cp.static, cp.params, None, sp, fp)
         tic = np_rem_euclid(np.float32(tic + dt), dur)
         n, last = np_compute_emission_count(tic, last, dur, 0.0, 1.0, per)
         total += n
@@ -129,7 +130,7 @@ def test_jax_pool_carried_over_continues_in_port(config):
     old = np.asarray(sj.alive)
     for _ in range(10):
         sj, _o = step_jit(cj.static, cj.params, None, sj, fj)
-        sp, _o = pt.step(cp.static, cp.params, None, sp, fp)
+        sp, _o = plain_step(cp.static, cp.params, None, sp, fp)
     a, b = jax_pool_numpy(sj), port_pool_numpy(sp)
     if config == "det":
         assert_pools_match(a, b)
@@ -148,7 +149,7 @@ def test_multi_step_auto_equals_single_steps():
     sa, oa = multi_step_auto(cp.static, cp.params, None, s0, fp, 19)
     sb = s0
     for _ in range(19):
-        sb, ob = pt.step(cp.static, cp.params, None, sb, fp)
+        sb, ob = plain_step(cp.static, cp.params, None, sb, fp)
     a, b = port_pool_numpy(sa), port_pool_numpy(sb)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
@@ -182,7 +183,7 @@ def test_random_lifetime_and_multi_type_chain_equals_single_steps():
     sa, oa = multi_step_auto(c.static, c.params, None, s0, f, 16)
     sb = s0
     for _ in range(16):
-        sb, ob = pt.step(c.static, c.params, None, sb, f)
+        sb, ob = plain_step(c.static, c.params, None, sb, f)
     a, b = port_pool_numpy(sa), port_pool_numpy(sb)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
