@@ -43,7 +43,10 @@ shard=...)`, kernel row 11, the JAX package's sharded claims): each shard's
 launch takes its lane base, the global capacity and its dead offset, so it
 claims, ranks and draws as the unsharded pool's lanes do;
 `parallel.sharding.make_sharded_step` adds the process group whose epilogue
-collective makes the outputs the whole pool's.
+collective makes the outputs the whole pool's. Archetypes with a nested
+emitter do not shard in this layout (`step.NESTED_SHARD_MESSAGE`), as the
+JAX package's Pallas kernel does not: `make_sharded_step` steps them in the
+XLA layout (`xla_step.step(shard=, group=)`).
 
 Dispatch is by the device of the pool's tensors and nothing else:
   * CUDA tensors: the kernels are launched, or the call raises;

@@ -20,7 +20,11 @@ card, or, as the tests do, ranks on the CPU under `gloo`):
     carried counts and gathered on the device, a word the kernel reads, so
     under nccl no host value waits on the card; gloo's gather crosses the
     host). Ring archetypes need nothing before the launch. Archetypes with
-    a nested emitter do not shard.
+    a nested emitter (or any, with `prefer_fused=False`) step sharded in
+    the JAX package's XLA layout instead (`xla_step.step(shard=, group=)`,
+    the JAX module's GSPMD step): a few words per frame, and per nested
+    emitter the ranks' count totals and a buffer of parent values bounded
+    by the child buffer (`step.ShardExchange` lists them).
   * dp, the fleet axis: `shard_fleet` gives each rank its contiguous slots
     [r S / W, (r + 1) S / W) and `make_fleet_step` steps them through the
     fleet kernel (kernel row 7), with no collective at all.
@@ -232,42 +236,55 @@ def shard_pool(state: PoolState, group=None) -> PoolState:
     return slice_pool(state, lanes=split_range(state.capacity, r, w))
 
 
-def make_sharded_step(static: SpawnerStatic, group=None):
+def make_sharded_step(static: SpawnerStatic, group=None, prefer_fused: bool = None):
     """The sp step (the JAX module's `make_sharded_step`): returns
     step(params, colliders, state, frame, n_frames=1) -> (state, outputs)
     over this rank's shard (`shard_pool`) of one pool split over the ranks
     of `group` (None: the default group), params, colliders and frame
-    replicated. Each launch is `fused_step` with this shard's arguments
-    (kernel row 11) and the group: the shard claims, draws and ranks as the
-    unsharded pool's lanes do, and the outputs (AABB, counts, the finished
-    latch) are the whole pool's on every rank. n_frames > 1 is a chain:
-    launches of `chain_unroll` frames (8 on ring archetypes without
-    colliders), stats on the last, the finished latch global on every one.
-    The shard layout (lane base, global capacity) comes from one gather of
-    the shards' capacities, once per capacity; dead-rank archetypes gather
-    the shards' dead totals before every launch (each the sum of the
-    claim's carried per-tile counts, `ops.fused_step.claim_counts`), and
-    the dead offset, their exclusive prefix at this rank, stays a device
-    tensor that the launch reads (kernel row 11): no `.item()`, and under
-    nccl nothing reaches the host (under gloo the gather itself crosses
-    it); ring archetypes gather nothing before a launch. Archetypes with a
-    nested emitter raise NotImplementedError."""
+    replicated. The shard layout (lane base, global capacity) comes from
+    one gather of the shards' capacities, once per capacity. n_frames > 1
+    is a chain, stats on its last frame, the finished latch global on every
+    one. Two layouts, as the JAX module's two routes:
+      * the kernel's (global-only archetypes, unless prefer_fused is
+        False): each launch is `fused_step` with this shard's arguments
+        (kernel row 11) and the group, launches of `chain_unroll` frames (8
+        on ring archetypes without colliders): the shard claims, draws and
+        ranks as the unsharded pool's lanes do, and the outputs are the
+        whole pool's on every rank. Dead-rank archetypes gather the shards'
+        dead totals before every launch (each the sum of the claim's
+        carried per-tile counts, `ops.fused_step.claim_counts`), and the
+        dead offset, their exclusive prefix at this rank, stays a device
+        tensor that the launch reads: no `.item()`, and under nccl nothing
+        reaches the host (under gloo the gather itself crosses it); ring
+        archetypes gather nothing before a launch;
+      * the XLA layout (archetypes with a nested emitter, or any with
+        prefer_fused False; the JAX module's GSPMD-jitted step, which it
+        runs for nested archetypes on every mesh): each frame is
+        `xla_step.step` with this shard and the group, whose words are
+        `step.ShardExchange`'s, and the stitched shards equal the
+        unsharded `xla_step.step` bit for bit.
+    prefer_fused True on a nested archetype raises NotImplementedError
+    (`NESTED_SHARD_MESSAGE`: the kernel's layout does not shard it)."""
     import torch.distributed as dist
 
+    from .. import xla_step
     from ..ops.fused_step import chain_shape, chain_unroll, claim_counts, fused_step
 
-    if has_nested(static):
+    if prefer_fused and has_nested(static):
         raise NotImplementedError(NESTED_SHARD_MESSAGE)
+    fused = prefer_fused if prefer_fused is not None else not has_nested(static)
     group = dist.group.WORLD if group is None else group  # fused_step reads None as "not sharded"
     rank = dist.get_rank(group)
     layouts = {}
 
-    def shard_of(state: PoolState) -> Shard:
-        n = state.capacity
+    def layout(n: int) -> tuple:
         if n not in layouts:
             sizes = group_gather(group, torch.tensor([n], dtype=torch.int64)).view(-1).tolist()
             layouts[n] = (sum(sizes[:rank]), sum(sizes))
-        lane_base, global_n = layouts[n]
+        return layouts[n]
+
+    def shard_of(state: PoolState) -> Shard:
+        lane_base, global_n = layout(state.capacity)
         dead_offset = 0
         if not static.ring_claim:
             dead = group_gather(group, claim_counts(state.alive).sum(dtype=torch.int32).reshape(1)).view(-1)
@@ -277,6 +294,9 @@ def make_sharded_step(static: SpawnerStatic, group=None):
     def step(params, colliders, state, frame, n_frames: int = 1):
         if n_frames < 1:
             raise ValueError("the sharded step needs n_frames >= 1")
+        if not fused:
+            return xla_step.multi_step(static, params, colliders, state, frame, n_frames,
+                                       shard=Shard(*layout(state.capacity)), group=group)
         shape = chain_shape(n_frames, chain_unroll(static, colliders))
         out = None
         for i, u in enumerate(shape):
@@ -352,14 +372,15 @@ def shard_fleet_2d(states: PoolState, params: SpawnerParams, frames: FrameInput,
     return slice_pool(states, slots=(a, b), lanes=lanes), _slice_params(params, a, b), _slice_frames(frames, a, b)
 
 
-def make_fleet_step_2d(static: SpawnerStatic, groups: Groups2D):
+def make_fleet_step_2d(static: SpawnerStatic, groups: Groups2D, prefer_fused: bool = None):
     """The 2D step (the JAX module's `make_fleet_step_2d`): returns
     step(params, states, frames, n_frames=1) -> (states, outputs) over this
     rank's share (`shard_fleet_2d`): each of its host's slots is a sharded
-    pool stepped by `make_sharded_step` over the particle group (one
-    sharded solo launch per slot and launch); nothing crosses the fleet
-    group."""
-    sharded = make_sharded_step(static, groups.particle)
+    pool stepped by `make_sharded_step` over the particle group with
+    `prefer_fused` (the kernel's sharded launch per slot for global-only
+    archetypes, the sharded XLA-layout step for nested ones or with
+    prefer_fused False); nothing crosses the fleet group."""
+    sharded = make_sharded_step(static, groups.particle, prefer_fused)
 
     def step(params, states, frames, n_frames: int = 1):
         res = [sharded(params_slot(params, i), None, state_slot(states, i), frame_slot(frames, i), n_frames)

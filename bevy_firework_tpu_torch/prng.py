@@ -72,30 +72,44 @@ def threefry_fold_in(key, data: int) -> np.ndarray:
     return np.array(threefry2x32(k0, k1, 0, int(data) & _MASK32), np.uint32)
 
 
-def threefry_uniform(key, shape, device=None, rows=None) -> torch.Tensor:
+def threefry_uniform(key, shape, device=None, rows=None, cols=None) -> torch.Tensor:
     """`jax.random.uniform(key, shape, float32)` in [0, 1), on `device`.
-    rows (a 2-D shape's row indices): draw only those rows, [len(rows),
-    shape[1]], each the same row of the whole draw (the draw is counter
-    based: the value at flat index i depends on i alone). On the CPU the
-    words are numpy uint32 (`_threefry2x32_u32`: wrapping arithmetic, half
-    the bytes of the masked int64 form and no masks), the same bits."""
+    rows (a 2-D shape's row indices) and cols (a 2-D shape's column window
+    (a, b)): draw only those rows and columns, [len(rows), b - a], each
+    value the one at the same place of the whole draw (the draw is counter
+    based: the value at flat index row * shape[1] + col depends on that
+    index alone; a shard of a pool draws its lanes' columns so). On the CPU
+    the words are numpy uint32 (`_threefry2x32_u32`: wrapping arithmetic,
+    half the bytes of the masked int64 form and no masks), the same bits."""
     k0, k1 = (int(v) & _MASK32 for v in key)
-    out_shape = shape if rows is None else (len(rows), shape[1])
-    if (device is None or torch.device(device).type == "cpu") and int(np.prod(shape)) < (1 << 32):
-        idx = np.arange(int(np.prod(shape)), dtype=np.uint32) if rows is None else (
-            np.asarray(rows, np.uint32)[:, None] * np.uint32(shape[1]) + np.arange(shape[1], dtype=np.uint32)).ravel()
+    whole = rows is None and cols is None
+    if whole:
+        out_shape = shape
+    else:
+        row_ids = range(shape[0]) if rows is None else rows
+        a, b = (0, shape[1]) if cols is None else cols
+        out_shape = (len(row_ids), b - a)
+    if _numpy_route(device, shape):
+        idx = np.arange(int(np.prod(shape)), dtype=np.uint32) if whole else (
+            np.asarray(row_ids, np.uint32)[:, None] * np.uint32(shape[1]) + np.arange(a, b, dtype=np.uint32)).ravel()
         bits = np.empty_like(idx)
         zero = np.zeros(min(idx.shape[0], _CPU_CHUNK), np.uint32)
-        for a in range(0, idx.shape[0], _CPU_CHUNK):  # chunks that stay in cache: ~2x the whole-array passes
-            b0, b1 = _threefry2x32_u32(np.uint32(k0), np.uint32(k1), zero[:idx.shape[0] - a], idx[a:a + _CPU_CHUNK])
-            np.bitwise_xor(b0, b1, out=bits[a:a + _CPU_CHUNK])
+        for i in range(0, idx.shape[0], _CPU_CHUNK):  # chunks that stay in cache: ~2x the whole-array passes
+            b0, b1 = _threefry2x32_u32(np.uint32(k0), np.uint32(k1), zero[:idx.shape[0] - i], idx[i:i + _CPU_CHUNK])
+            np.bitwise_xor(b0, b1, out=bits[i:i + _CPU_CHUNK])
         bits >>= np.uint32(9)
         bits |= np.uint32(0x3F800000)
         return (torch.from_numpy(bits.view(np.float32)) - 1.0).reshape(out_shape)
-    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device) if rows is None else (
-        torch.tensor(rows, dtype=torch.int64, device=device)[:, None] * shape[1]
-        + torch.arange(shape[1], dtype=torch.int64, device=device)).reshape(-1)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device) if whole else (
+        torch.tensor(list(row_ids), dtype=torch.int64, device=device)[:, None] * shape[1]
+        + torch.arange(a, b, dtype=torch.int64, device=device)).reshape(-1)
     return _uniform_int64(k0, k1, idx).reshape(out_shape)
+
+
+def _numpy_route(device, shape) -> bool:
+    """`threefry_uniform` draws with numpy uint32 words: on the CPU, while
+    the flat indices fit 32 bits."""
+    return (device is None or torch.device(device).type == "cpu") and int(np.prod(shape)) < (1 << 32)
 
 
 def _uniform_int64(k0: int, k1: int, idx: torch.Tensor) -> torch.Tensor:

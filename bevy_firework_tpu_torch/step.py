@@ -71,9 +71,11 @@ from .utils.quat import quat_from_scaled_axis_comp, quat_mul_comp, quat_rotate_c
 
 ROTATION_FIELDS = ("qx", "qy", "qz", "qw", "wx", "wy", "wz")
 
-# Raised on both devices for a nested archetype under sharding.
-NESTED_SHARD_MESSAGE = ("archetypes with a nested emitter do not shard in the port (ROADMAP queue 1 item 11; the JAX "
-                        "package steps them with its GSPMD XLA step)")
+# Raised on both devices by the kernel's layout for a nested archetype
+# under sharding.
+NESTED_SHARD_MESSAGE = ("the kernel's layout does not shard archetypes with a nested emitter (nor does the JAX "
+                        "package's Pallas kernel): parallel.sharding.make_sharded_step steps them sharded in the XLA "
+                        "layout, as the JAX package's GSPMD step does")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -600,6 +602,51 @@ group_gather.calls = 0
 group_gather.seconds = 0.0
 
 
+class ShardExchange:
+    """Every word that crosses the ranks of `group` in a frame of the
+    XLA-layout step over a sharded pool (`xla_step.step(shard=, group=)`,
+    the JAX package's GSPMD step), each one `group_gather`, in a frame's
+    order:
+      * `frame_start` (archetypes with a nested emitter or the dead-rank
+        claim): 2 int32 per rank, whether a lane of its shard lives and its
+        dead lanes;
+      * per valid nested emitter, `count_totals`: 1 int32 per rank, the
+        children its parents ask for;
+      * per valid nested emitter, `parents`: F x M + 1 int32 per rank, the
+        f32 bits of the parent values (F fields, `nested_parent_fields`) of
+        the child ranks whose parent lies in its shard, zeros elsewhere,
+        and on the ring the children whose slot it owns and took;
+      * the epilogue's `group_reduce`: 7 + T float64 (stats) or 1.
+    So a ring archetype without a nested emitter sends only the epilogue's
+    words. Ranks' values are merged by selection, never by a sum (-0.0 +
+    0.0 is +0.0). Every result is a tensor on the shard's device."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+
+    def frame_start(self, alive: torch.Tensor):
+        """(any lane of the pool alive 0-d bool, each rank's dead lanes [W]
+        int32)."""
+        words = torch.stack([alive.any().to(torch.int32), (~alive).sum(dtype=torch.int32)])
+        rows = group_gather(self.group, words)
+        return rows[:, 0].amax() > 0, rows[:, 1].contiguous()
+
+    def count_totals(self, total: torch.Tensor) -> torch.Tensor:
+        """Each rank's children of one nested emitter, [W] int32."""
+        return group_gather(self.group, total.reshape(1).to(torch.int32)).view(-1)
+
+    def parents(self, values: torch.Tensor, took: torch.Tensor):
+        """(every rank's parent values [W, F, M] f32, every rank's taken
+        children [W] int32) from this rank's values [F, M] and count."""
+        words = torch.cat([values.contiguous().view(torch.int32).reshape(-1), took.reshape(1).to(torch.int32)])
+        rows = group_gather(self.group, words)
+        return rows[:, :-1].contiguous().view(torch.float32).view(self.world, *values.shape), rows[:, -1]
+
+
 def group_reduce(group, stats=None, alive_any=None):
     """A sharded pool's epilogue collective (the JAX package's pmin / pmax /
     psum, `_fused_epilogue` :2300-2304): this rank's (aabb_min, aabb_max,
@@ -899,7 +946,8 @@ def plain_frames(static: SpawnerStatic, params: SpawnerParams, state: PoolState,
     a nested emitter run n hybrid frames. Returns (new_state, StepOutputs,
     or None without `stats`). shard: `state` is that shard of a pool (see
     `advance`); group: the process group over whose shards the epilogue
-    reduces (see `epilogue`)."""
+    reduces (see `epilogue`). Nested archetypes raise NotImplementedError
+    with a shard or a group (`NESTED_SHARD_MESSAGE`)."""
     if has_nested(static):
         if shard is not None or group is not None:
             raise NotImplementedError(NESTED_SHARD_MESSAGE)

@@ -33,6 +33,20 @@ What follows the XLA step, and where the kernel's layout differs:
 The integrate half is `step.integrate`, shared with the kernel's plain
 version, and the outputs are `step.epilogue`'s.
 
+Sharded (`step(shard=, group=)`; the JAX package's GSPMD-jitted step,
+which `parallel.sharding.make_sharded_step` runs for nested archetypes on
+every mesh): each rank holds the lanes [lane_base, lane_base + n) of a pool
+of global_n and steps them with the unsharded pool's semantics, bit for
+bit: its global draws are its columns of the pool's (12, global_n) draw,
+its ring windows and the cursor run over global lane indices and global_n,
+its dead ranks start at the dead lanes of the ranks before it (every rank
+derives every rank's dead count after each claim from one gather at the
+frame's start), a nested emitter's count cumsum is offset by the ranks'
+totals before it, and the child buffer M is the pool's. A child's parent
+and its slot may lie on different ranks: the parent values travel in one
+all-gather per nested emitter, bounded by M, merged by selection. The
+words that cross ranks are `step.ShardExchange`'s.
+
 XLA on the CPU rewrites and contracts some f32 expressions; where the
 result feeds an integer (a spawn count, a death), this module computes them
 as XLA does (`cadence.compute_emission_count_xla`,
@@ -55,9 +69,12 @@ from .pool import FrameInput, PoolState
 from .prng import threefry_fold_in, threefry_split, threefry_uniform
 from .rand import sample_randf32_fused, sample_randvec3_comp
 from .step import (
+    Shard,
+    ShardExchange,
     active_f32_fields,
     active_flag,
     epilogue,
+    has_nested,
     integrate,
     lifetime_of,
     nested_child_field_rows,
@@ -77,24 +94,53 @@ def monotone_inverse(cum: torch.Tensor, m: int) -> torch.Tensor:
     return torch.searchsorted(cum, r, right=True, out_int32=True)
 
 
+def global_lanes(alive: torch.Tensor, shard: Shard = None):
+    """(the pool's lane index of each lane of `alive`, int32 [n]; the pool's
+    capacity): lanes [0, n) of an unsharded pool, else the shard's
+    [lane_base, lane_base + n) of a pool of global_n."""
+    base, n = (0, alive.shape[0]) if shard is None else (shard.lane_base, shard.global_n)
+    return torch.arange(base, base + alive.shape[0], dtype=torch.int32, device=alive.device), n
+
+
+def dead_before(fields: dict, ex: ShardExchange) -> torch.Tensor:
+    """A shard's dead lanes before its own: the exclusive prefix of the
+    ranks' dead lanes (`fields["rank_dead"]`) at this rank, int32 0-d."""
+    return fields["rank_dead"][:ex.rank].sum(dtype=torch.int32)
+
+
+def take_dead(fields: dict, n_spawn) -> None:
+    """A claim of the pool's first n_spawn dead lanes: rank r's dead lanes
+    drop by clamp(n_spawn - (its dead prefix), 0, its dead lanes), so every
+    rank knows every rank's count after each claim without a word sent."""
+    dead = fields["rank_dead"]
+    before = torch.cumsum(dead, 0, dtype=torch.int32) - dead
+    fields["rank_dead"] = dead - torch.minimum((n_spawn - before).clamp_min(0), dead)
+
+
 def claim_and_init(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, fields: dict, e: int, n_spawn,
-                   uni, origin_pos, origin_rot, base_vel):
+                   uni, origin_pos, origin_rot, base_vel, shard: Shard = None, ex: ShardExchange = None):
     """Claim `n_spawn` dead slots for global emitter e and initialise them
     (the JAX package's `_claim_and_init`): a ring archetype takes the
     window [cursor, cursor + n) and advances the cursor, any other the dead
     lanes of exclusive dead rank below n; both masked by the dead plane, so
-    overflow drops. `fields` is updated in place; returns the spawn mask."""
+    overflow drops. `fields` is updated in place; returns the spawn mask.
+    shard, ex (a sharded frame, `step`): these lanes are the shard's, so
+    the ring window is over the pool's lane indices and capacity, and the
+    dead rank starts at the ranks' dead lanes before this one
+    (`fields["rank_dead"]`, updated for the claim)."""
     alive = fields["alive"]
     dead = ~alive
-    n = alive.shape[0]
     if static.ring_claim:
-        idx = torch.arange(n, dtype=torch.int32, device=alive.device)
+        idx, n = global_lanes(alive, shard)
         dist = torch.remainder(idx - fields["ring_cursor"], n)
         spawn = dead & (dist < n_spawn)
         fields["ring_cursor"] = torch.remainder(fields["ring_cursor"] + n_spawn, n).to(torch.int32)
     else:
         di = dead.to(torch.int32)
         rank = torch.cumsum(di, 0, dtype=torch.int32) - di
+        if shard is not None:
+            rank = rank + dead_before(fields, ex)
+            take_dead(fields, n_spawn)
         spawn = dead & (rank < n_spawn)
     ti = static.particle_indices[e]
     offx, offy, offz = sample_shape_comp(params.shape_params[e], uni[0], uni[1], uni[2])
@@ -131,40 +177,80 @@ def claim_and_init(static: SpawnerStatic, params: SpawnerParams, frame: FrameInp
 
 
 def nested_spawn(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, fields: dict, e: int, cum, total,
-                 frame_key):
+                 frame_key, shard: Shard = None, ex: ShardExchange = None, rank_totals=None):
     """Nested emitter e's children (the JAX package's `_nested_spawn`, its
     write-back form): child rank r's parent is monotone_inverse(cum)[r]; on
     a ring archetype it takes slot (cursor + r) mod N if that slot is dead,
     else the r-th dead slot; at most the child buffer M per frame. The rows
     (`step.nested_child_rows`, its uniform ranges as XLA fuses them) are
     scattered into their slots; `fields` is updated in place. Returns the
-    children dropped for want of a dead slot (int32 0-d)."""
+    children dropped for want of a dead slot (int32 0-d).
+
+    shard, ex, rank_totals (a sharded frame, `step`): cum is the pool's
+    inclusive count cumsum over this shard's lanes, total the pool's and
+    rank_totals each rank's children. A child's parent and its slot may lie
+    on different ranks: each rank sends the parent values of the ranks
+    whose parent it owns (`ShardExchange.parents`), every rank draws and
+    builds all M rows from them, selected by the parent's owner, and writes
+    those whose slot is its own; on the ring the slot's owner decides the
+    take, and the ranks' taken counts give the pool's dropped children."""
     alive = fields["alive"]
-    N = alive.shape[0]
+    n_local = alive.shape[0]
+    N = n_local if shard is None else shard.global_n
     M = nested_m(static, N)
     dev = alive.device
     dead = ~alive
     di = dead.to(torch.int32)
     n_spawn = total.clamp_max(M)
-    child_parent = monotone_inverse(cum, M).clamp(0, N - 1).long()
     rank_ids = torch.arange(M, dtype=torch.int32, device=dev)
+    if shard is None:
+        child_parent = monotone_inverse(cum, M).clamp(0, N - 1).long()
+        parent = {k: fields[k][child_parent] for k in nested_parent_fields(static)}
     if static.ring_claim:
         cursor = fields["ring_cursor"]
         slot_raw = torch.remainder(cursor + rank_ids, N)
-        take = (rank_ids < n_spawn) & dead[slot_raw.long()]
-        slot = torch.where(take, slot_raw, N)
-        idx = torch.arange(N, dtype=torch.int32, device=dev)
-        claimed = dead & (torch.remainder(idx - cursor, N) < n_spawn)
+        if shard is None:
+            take = (rank_ids < n_spawn) & dead[slot_raw.long()]
+            slot = torch.where(take, slot_raw, N)
+        else:
+            local = slot_raw - shard.lane_base
+            own = (local >= 0) & (local < n_local)
+            take = (rank_ids < n_spawn) & own & dead[local.clamp(0, n_local - 1).long()]
+            slot = torch.where(take, local, n_local)
+        claimed = dead & (torch.remainder(global_lanes(alive, shard)[0] - cursor, N) < n_spawn)
         fields["ring_cursor"] = torch.remainder(cursor + n_spawn, N).to(torch.int32)
-        dropped = n_spawn - take.sum(dtype=torch.int32)
+        took = take.sum(dtype=torch.int32)
+        dropped = n_spawn - took  # sharded: this rank's take; the pool's from every rank's, below
     else:
         dead_cum = torch.cumsum(di, 0, dtype=torch.int32)
-        claimed = dead & (dead_cum - di < n_spawn)
-        slot = torch.where(rank_ids < n_spawn, monotone_inverse(dead_cum, M), N)
-        dropped = n_spawn - torch.minimum(n_spawn, dead_cum[-1])
-    parent = {k: fields[k][child_parent] for k in nested_parent_fields(static)}
+        if shard is None:
+            claimed = dead & (dead_cum - di < n_spawn)
+            slot = torch.where(rank_ids < n_spawn, monotone_inverse(dead_cum, M), N)
+            dropped = n_spawn - torch.minimum(n_spawn, dead_cum[-1])
+        else:
+            before = dead_before(fields, ex)
+            claimed = dead & (dead_cum - di + before < n_spawn)
+            own = (rank_ids >= before) & (rank_ids < before + dead_cum[-1]) & (rank_ids < n_spawn)
+            slot = torch.where(own, monotone_inverse(dead_cum + before, M), n_local)
+            dropped = n_spawn - torch.minimum(n_spawn, fields["rank_dead"].sum(dtype=torch.int32))
+            take_dead(fields, n_spawn)
+            took = torch.zeros((), dtype=torch.int32, device=dev)  # not read: the dead ranks are global
+    if shard is not None:
+        first = rank_totals[:ex.rank].sum(dtype=torch.int32)
+        mine = (rank_ids >= first) & (rank_ids < cum[-1])
+        at = monotone_inverse(cum, M).clamp(0, n_local - 1).long()
+        names = nested_parent_fields(static)
+        values = torch.stack([torch.where(mine, fields[k][at], torch.zeros((), device=dev)) for k in names])
+        every, took_by_rank = ex.parents(values, took)
+        owner = torch.searchsorted(torch.cumsum(rank_totals, 0, dtype=torch.int32), rank_ids, right=True)
+        owner = owner.clamp_max(ex.world - 1).long()
+        parent = {k: every[owner, i, rank_ids.long()] for i, k in enumerate(names)}
+        if nested_spawn.crossed is not None:  # the testing seam below (a host read)
+            nested_spawn.crossed += int(((slot < n_local) & (owner != ex.rank)).sum())
+        if static.ring_claim:
+            dropped = n_spawn - took_by_rank.sum(dtype=torch.int32)
     rows = nested_child_rows(static, params, frame, e, parent, frame_key, M, fused=True)
-    keep = slot < N
+    keep = slot < n_local
     at = slot[keep].long()
     for k, row in zip(nested_child_field_rows(static), rows):
         fields[k] = fields[k].index_put((at,), row[keep])
@@ -177,21 +263,39 @@ def nested_spawn(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput
     return dropped
 
 
-def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput):
+# A testing seam: set to 0 to count, on this rank, the nested children that
+# a sharded frame writes on it whose parent lies on another rank.
+nested_spawn.crossed = None
+
+
+def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput,
+                shard: Shard = None, ex: ShardExchange = None):
     """spawn_particles (reference core.rs:367-551; the JAX package's
     `_spawn_phase` without its hybrid options): every emitter in declared
     order. Returns (fields, scal, new_key, (deferred, dropped)): fields the
     post-spawn pool planes (the active f32 fields, ptype, alive,
     last_emitted, ring_cursor; elided fields keep their pool-wide
-    invariant in the state), scal the cadence scalars."""
-    N = state.capacity
+    invariant in the state), scal the cadence scalars. shard, ex (a
+    sharded frame, `step`): the pool's any-alive flag and the ranks' dead
+    lanes come from `ex.frame_start`, global emitters draw their lanes'
+    columns of the pool's (12, N) draw, and each nested emitter's count
+    cumsum is offset by the ranks' totals before this one
+    (`ex.count_totals`): deferred and dropped are the pool's."""
+    N = state.capacity if shard is None else shard.global_n
     dev = state.device
     dt = frame.dt
-    active = active_flag(static, state.enabled, state.alive.any())
-    new_key, frame_key = threefry_split(state.rng_key.numpy())
     fields = {k: getattr(state, k) for k in active_f32_fields(static)}
     fields.update(ptype=state.ptype, alive=state.alive, last_emitted=state.last_emitted,
                   ring_cursor=state.ring_cursor)
+    if shard is None:
+        any_alive = state.alive.any()
+    elif has_nested(static) or not static.ring_claim:
+        any_alive, fields["rank_dead"] = ex.frame_start(state.alive)
+    else:
+        any_alive = None  # unused by a global-only archetype's active flag
+    cols = None if shard is None else (shard.lane_base, shard.lane_base + state.capacity)
+    active = active_flag(static, state.enabled, any_alive)
+    new_key, frame_key = threefry_split(state.rng_key.numpy())
     tic, last, enabled, queued = state.time_in_cycle, state.last_emission, state.enabled, state.manual_queued
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     deferred = dropped = zero
@@ -206,7 +310,8 @@ def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, 
             # which the JAX step draws and drops, is never read)
             rows = list(range(8)) + ([8] if static.const_lifetime is None else []) + (
                 [] if static.elide_rotation else [9, 10, 11])
-            uni = dict(zip(rows, threefry_uniform(threefry_fold_in(frame_key, e), (12, N), dev, rows=rows)))
+            uni = dict(zip(rows, threefry_uniform(threefry_fold_in(frame_key, e), (12, N), dev, rows=rows,
+                                                  cols=cols)))
             pk = static.pacing_kinds[e]
             if pk == PACING_ONE_SHOT:
                 n_spawn = torch.where(gate, params.count[e].to(torch.int32), zero)
@@ -224,7 +329,7 @@ def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, 
                 last = last.clone()
                 tic[e] = torch.where(gate, t, tic[e])
                 last[e] = torch.where(gate, next_last, last[e])
-            claim_and_init(static, params, frame, fields, e, n_spawn, uni, g_pos, g_rot, g_vel)
+            claim_and_init(static, params, frame, fields, e, n_spawn, uni, g_pos, g_rot, g_vel, shard, ex)
             continue
         if not static.nested_valid[e]:  # an invalid pacing never emits (core.rs:481-484)
             continue
@@ -236,7 +341,13 @@ def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, 
         counts, next_last = compute_emission_count_xla(fields["age"], base_le, lifetime, off_s, off_e, per)
         counts = torch.where(parent_mask, counts, torch.zeros_like(counts))
         cum = torch.cumsum(counts, 0, dtype=torch.int32)
-        total = cum[-1]
+        rank_totals = None
+        if shard is None:
+            total = cum[-1]
+        else:
+            rank_totals = ex.count_totals(cum[-1])
+            cum = cum + rank_totals[:ex.rank].sum(dtype=torch.int32)
+            total = rank_totals.sum(dtype=torch.int32)
         emitted = cum.clamp_max(M) - (cum - counts).clamp_max(M)
         next_last = torch.where(emitted < counts,
                                 emission_next_last(base_le, lifetime, off_s, off_e, per, emitted, fused=True),
@@ -245,32 +356,54 @@ def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, 
         le = fields["last_emitted"].clone()
         le[e] = torch.where(parent_mask, next_last, base_le)
         fields["last_emitted"] = le
-        dropped = dropped + nested_spawn(static, params, frame, fields, e, cum, total, frame_key)
+        dropped = dropped + nested_spawn(static, params, frame, fields, e, cum, total, frame_key, shard, ex,
+                                         rank_totals)
+    fields.pop("rank_dead", None)
     scal = {"time_in_cycle": tic, "last_emission": last, "enabled": enabled, "manual_queued": queued,
             "ring_cursor": fields.pop("ring_cursor")}
     return fields, scal, new_key, (deferred, dropped)
 
 
+def _exchange(state: PoolState, shard: Shard, group):
+    """The sharded frame's exchange, or None unsharded; a shard without its
+    group (or a group without a shard) raises: the pool's counts and claims
+    need every rank's words."""
+    if (shard is None) != (group is None):
+        raise ValueError("a sharded XLA-layout step needs both the shard and its process group")
+    if shard is None:
+        return None
+    if shard.lane_base + state.capacity > shard.global_n:
+        raise ValueError(f"{shard} cannot hold {state.capacity} lanes")
+    return ShardExchange(group)
+
+
 def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-         stats: bool = True):
+         stats: bool = True, shard: Shard = None, group=None):
     """Advance one spawner's pool by one frame in the XLA layout, on the
     state's device (the JAX package's `step`). Returns (new_state,
-    StepOutputs, or None without `stats`)."""
-    fields, scal, new_key, (deferred, dropped) = spawn_phase(static, params, state, frame)
+    StepOutputs, or None without `stats`). shard, group (the JAX package's
+    GSPMD step over a mesh, on a torch.distributed group): `state` is this
+    rank's shard (`parallel.sharding.shard_pool`) of a pool split over the
+    group's ranks, the lanes [shard.lane_base, + capacity) of shard.global_n
+    (its dead_offset is not read: the frame counts dead lanes itself); the
+    frame's claims, draws, nested children and outputs are the unsharded
+    pool's, the collectives those of `ShardExchange`."""
+    ex = _exchange(state, shard, group)
+    fields, scal, new_key, (deferred, dropped) = spawn_phase(static, params, state, frame, shard, ex)
     last_emitted = fields.pop("last_emitted")
     f, survivor, dump = integrate(static, params, fields, fields["ptype"], fields["alive"], frame, colliders)
     f["alive"] = survivor
     return epilogue(static, params, state, f, scal, torch.as_tensor(new_key.astype(np.int64)), stats, dump,
-                    last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped))
+                    last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped), group=group)
 
 
 def multi_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-               n_frames: int):
+               n_frames: int, shard: Shard = None, group=None):
     """n_frames frames of `step` with one frame input (the JAX package's
     `multi_step`, its scan): the final state and the last frame's outputs;
-    ValueError below one frame."""
+    ValueError below one frame. shard, group: as `step`, every frame."""
     if n_frames < 1:
         raise ValueError("multi_step needs n_frames >= 1")
     for _ in range(n_frames - 1):
-        state, _out = step(static, params, colliders, state, frame, stats=False)
-    return step(static, params, colliders, state, frame)
+        state, _out = step(static, params, colliders, state, frame, stats=False, shard=shard, group=group)
+    return step(static, params, colliders, state, frame, shard=shard, group=group)

@@ -275,12 +275,21 @@ checkpoints resumed on the card, through the kernels. Phases:
  37. dist_gloo: tests/torch_distributed_worker.py in 4 processes sharing
      the card over gloo, spawned once: sp (main_1M's cell, 140 frames,
      parallel.sharding.make_sharded_step), dp (fleet_16x55k, 4 slots per
-     rank, make_fleet_step) and 2d (2 x 2, 2 slots of main_100k's config,
-     make_fleet_step_2d), each rank's share == its unsharded counterpart
-     bit for bit, outputs included; ms/frame and the host time of the
-     collectives per launch. A rank that fails or times out fails the
-     phase. (NCCL refuses two ranks on one card: a multi-card run is not
-     verified here.)
+     rank, make_fleet_step), 2d (2 x 2, 2 slots of main_100k's config,
+     make_fleet_step_2d) and sp_nested (make_sharded_step on nested
+     archetypes: the sharded XLA-layout step, xla_step.step(shard=,
+     group=); nested_60k's cell, 131072 lanes with nested_buffer 1024,
+     fireworks (ring claim) and fireworks with its sparkles destroyed on a
+     floor (dead-rank claim; the worker's fireworks_floor) in 131072 lanes,
+     150 frames each (fireworks_floor 100), every frame of each rank's
+     share held against the unsharded xla_step.step on the card),
+     each rank's share == its unsharded counterpart bit for bit, outputs
+     included; ms/frame and the host time of the collectives per launch,
+     and for sp_nested (its own line, dist_gloo_sp_nested) ms/frame of a
+     30-frame sharded chain beside the unsharded multi_step's on rank 0,
+     the gathers per frame and their host µs. A rank that fails or times
+     out fails the phase. (NCCL refuses two ranks on one card: a
+     multi-card run is not verified here.)
  38. xla_step: `multi_step` (the JAX package's XLA layout, composed torch:
      threefry draws per emitter, emitters in declared order; no kernel
      launches) of stress_test and sparks at 131072 lanes for 30 frames and
@@ -2912,8 +2921,11 @@ def main() -> int:
     def dist_gloo():
         """tests/torch_distributed_worker.py on 4 processes sharing the card,
         gloo, spawned once: sp (main_1M's cell, 140 frames), dp
-        (fleet_16x55k, 4 slots per rank) and 2d (2 x 2, 2 slots of
-        main_100k's config), each == its unsharded counterpart bit for bit."""
+        (fleet_16x55k, 4 slots per rank), 2d (2 x 2, 2 slots of
+        main_100k's config) and sp_nested (nested_60k's cell, fireworks and
+        fireworks_floor at 131072 lanes, 150 and 100 frames, through the
+        sharded XLA-layout step), each == its unsharded counterpart bit for
+        bit."""
         import socket
 
         with socket.socket() as so:
@@ -2922,7 +2934,7 @@ def main() -> int:
         worker = Path(__file__).resolve().parent / "tests" / "torch_distributed_worker.py"
         procs = [subprocess.Popen([sys.executable, str(worker), "--rank", str(r), "--world", "4", "--init",
                                    f"tcp://127.0.0.1:{port}", "--device", "cuda", "--size", "card", "--cases",
-                                   "sp,dp,2d"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                                   "sp,dp,2d,sp_nested"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for r in range(4)]
         outs, deadline = [], time.time() + 420
         try:
@@ -2948,6 +2960,34 @@ def main() -> int:
                   "bit, outputs included; ms_per_frame: a second chain by host clock; collective_us_per_launch: "
                   "host time in the chain's gathers (the epilogue's reduction) per launch, the wait for the other "
                   "ranks included"})
+    for name in ("nested_60k", "fireworks", "fireworks_floor"):
+        runs = [r["sp_nested"][name] for r in gloo]
+        check(all(r["live"] == runs[0]["live"] > 0 for r in runs) and min(runs[0]["live_per_type"]) > 0,
+              f"dist_gloo sp_nested {name}: live counts {[r['live_per_type'] for r in runs]}")
+    # the ring's window walks over the ranks' lanes (on the dead-rank claim
+    # rockets and children take the first dead lanes, in rank 0's shard)
+    check(sum(r["sp_nested"]["nested_60k"]["crossed"] for r in gloo) > 0,
+          "dist_gloo sp_nested nested_60k: no child landed on a rank other than its parent's")
+    emit({"phase": "dist_gloo_sp_nested", "card": card, "ranks": 4,
+          **{name: {"capacity": gloo[0]["sp_nested"][name]["capacity"], "live": gloo[0]["sp_nested"][name]["live"],
+                    "live_per_type": gloo[0]["sp_nested"][name]["live_per_type"],
+                    "unsharded_ms_per_frame": gloo[0]["sp_nested"][name]["unsharded_ms_per_frame"],
+                    "ms_per_frame": [r["sp_nested"][name]["ms_per_frame"] for r in gloo],
+                    "gathers_per_frame": gloo[0]["sp_nested"][name]["gathers_per_frame"],
+                    "gather_us_per_frame": [r["sp_nested"][name]["gather_us_per_frame"] for r in gloo],
+                    "checked_ms_per_frame": [r["sp_nested"][name]["checked_ms_per_frame"] for r in gloo],
+                    "crossed": [r["sp_nested"][name]["crossed"] for r in gloo],
+                    "max_deferred": gloo[0]["sp_nested"][name]["max_deferred"],
+                    "max_dropped": gloo[0]["sp_nested"][name]["max_dropped"]}
+             for name in ("nested_60k", "fireworks", "fireworks_floor")},
+          "rule": "make_sharded_step on nested archetypes (the sharded XLA-layout step, composed torch, no kernel) "
+                  "on 4 gloo ranks sharing the card: every frame of each rank's share == the same lanes of the "
+                  "unsharded xla_step.step on the card, bit for bit, outputs and nested counts included "
+                  "(checked_ms_per_frame: those frames' sharded step by host clock); ms_per_frame: a 30-frame "
+                  "sharded chain from the checked state, host clock, per rank; unsharded_ms_per_frame: the "
+                  "unsharded xla_step.multi_step of 30 frames on rank 0 while the others wait; gathers: "
+                  "step.group_gather calls per frame and their host µs (the wait for the other ranks included); "
+                  "crossed: children each rank wrote whose parent lay on another rank"})
 
     # ------------------------------------------------ 38. xla_step
     from bevy_firework_tpu_torch import viewer as bview

@@ -27,6 +27,7 @@ import bevy_firework_tpu_torch as pt
 import torch_shard_configs as sc
 from bevy_firework_tpu.ops import fused_step as jfs
 from bevy_firework_tpu.parallel import sharding as jsh
+from bevy_firework_tpu_torch import xla_step
 from bevy_firework_tpu_torch.models import effects as peffects
 from bevy_firework_tpu_torch.ops import fused_step as fs
 from bevy_firework_tpu_torch.parallel import sharding as psh
@@ -165,28 +166,53 @@ def test_shards_match_jax_make_sharded_step():
 
 
 def test_nested_archetypes_do_not_shard():
-    """The same NotImplementedError from the seam, the plain step and
-    make_sharded_step (the card's launch raises it too: test_torch_kernel)."""
+    """The kernel's layout keeps refusing nested archetypes under sharding:
+    the seam and the plain step raise NESTED_SHARD_MESSAGE, which names
+    make_sharded_step (the card's launch raises it too: test_torch_kernel).
+    make_sharded_step does not raise: it steps them sharded in the XLA
+    layout, here in a 1-rank gloo group (the 2- and 3-rank groups run in
+    tests/test_torch_distributed.py), bit for bit the unsharded
+    `xla_step.step`; only prefer_fused=True, the kernel's layout forced,
+    raises the same message."""
+    import torch.distributed as dist
+
+    from test_torch_distributed import free_port
+
     c = pt.compile_spawner(peffects.fireworks()[0], device=CPU)
     s = pt.init_pool_for(c, 1024, device=CPU)
     f = pt.make_frame_input(1 / 60)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11") as e1:
+    with pytest.raises(NotImplementedError, match="make_sharded_step") as e1:
         fs.fused_step(c.static, c.params, None, s, f, shard=(0, 2048, 0))
     with pytest.raises(NotImplementedError) as e2:
-        psh.make_sharded_step(c.static)
-    with pytest.raises(NotImplementedError) as e3:
         plain_frames(c.static, c.params, s, f, shard=Shard(0, 1024))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        with pytest.raises(NotImplementedError) as e3:
+            psh.make_sharded_step(c.static, prefer_fused=True)
+        step = psh.make_sharded_step(c.static)
+        share, whole = psh.shard_pool(s), s
+        for _ in range(3):
+            share, out = step(c.params, None, share, f, 10)
+            whole, want = xla_step.multi_step(c.static, c.params, None, whole, f, 10)
+            assert sc.pool_mismatch(share, whole) == [] and sc.outputs_mismatch(want, {
+                k: getattr(out, k) for k in ("alive_count", "alive_count_per_type", "nested_deferred")}) == []
+        assert int(out.alive_count) > 0
+    finally:
+        dist.destroy_process_group()
     assert str(e1.value) == str(e2.value) == str(e3.value) == NESTED_SHARD_MESSAGE
 
 
 def test_shard_arguments_are_checked():
-    """A shard past the global pool, or a group without a shard, raises."""
+    """A shard past the global pool, a group without a shard, or a shard of
+    the XLA layout without its group, raises."""
     c, _t, f = sc.config("det", CPU)
     s = pt.init_pool_for(c, 100, device=CPU)
     with pytest.raises(ValueError):
         fs.fused_step(c.static, c.params, None, s, f, shard=(50, 120, 0))
     with pytest.raises(ValueError):
         fs.fused_step(c.static, c.params, None, s, f, group=object())
+    with pytest.raises(ValueError):  # the XLA layout's shard needs its group's words
+        xla_step.step(c.static, c.params, None, s, f, shard=Shard(0, 200))
     assert psh.split_range(10, 2, 3) == (6, 10) and psh.split_range(10, 0, 3) == (0, 3)
 
 
