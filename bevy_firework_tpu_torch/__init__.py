@@ -44,8 +44,10 @@ emitters in declared order), lane for lane with it on random configs;
 `step_auto`, `multi_step_auto`, `Fleet` and `Scene` take the CUDA kernel's
 layout (`step.advance`: Philox draws per lane), on CPU tensors through its
 plain version. Every entry point runs on the card unless given
-`device="cpu"`. Not yet: nested archetypes under sharding (see
-ROADMAP.md).
+`device="cpu"`. On the card the chains (`multi_step_auto`,
+`multi_step_auto_packed`, `multi_step_fleet_stacked`, `multi_step_fleet`)
+replay one captured CUDA graph per static configuration
+(`ops.chain_graph`), as the JAX package dispatches each as one `jit`.
 """
 
 from .cadence import compute_emission_count, np_compute_emission_count

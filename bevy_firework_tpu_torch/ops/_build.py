@@ -90,14 +90,15 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     u = ctypes.c_uint32
     lib.bf_fused_step.argtypes = [p, p, i, i, p, p, p, p, p, p, p, p, p, i, p, p, p, i, i, i, i, p, i, p, p, p,
-                                  p, p, p, i, i, i, p, p, p, i, p, p, p, i, i, i, p, i, i, i, i, p, p, p, p]
+                                  p, p, p, i, i, i, p, p, p, i, p, p, p, i, i, i, p, i, i, i, i, p, p, p, p, p,
+                                  p]
     lib.bf_fused_step.restype = ctypes.c_int
     lib.bf_dead_rank_offsets.argtypes = [p, p, p, i, i, p]
     lib.bf_dead_rank_offsets.restype = ctypes.c_int
     lib.bf_nested_counts.argtypes = [p, i, p, p, p, p, p, p, p, p, i, p]
     lib.bf_nested_counts.restype = ctypes.c_int
     lib.bf_nested_stage.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, p, p, u, u, i,
-                                    p, i, i, i, i, i, p]
+                                    p, i, i, i, i, i, p, p, p]
     lib.bf_nested_stage.restype = ctypes.c_int
     lib.bf_step_occupancy.argtypes = [i, i, i, i, i, i, i]
     lib.bf_step_occupancy.restype = ctypes.c_int

@@ -213,11 +213,24 @@
 //    does, and the fleet equals S solo launches bit for bit. Frame rows and
 //    field records of a fleet live in a device buffer the host rewrites
 //    only when they change; the seeds, new every frame, ride the launch
-//    arguments ([slot][u], at most SEED_WORDS per launch). The fleet has
+//    arguments ([slot][u], at most SEED_WORDS per launch), or device words
+//    (a captured chain's, below). The fleet has
 //    its own instantiations (kFleet): as a run-time index the slot cost
 //    the solo main path a register, or 6.5% of its U = 8 launch time once
 //    trimmed back (frame operands in shared memory instead of the launch
 //    arguments), so solo launches compile as before the slot axis.
+//  * Captured chains (ops/chain_graph.py, the JAX package's one-dispatch
+//    chains): a CUDA graph freezes a launch's arguments, so a launch may
+//    take its frame row and seeds (the nested stage its key and frame row)
+//    as device words, which a replay rewrites before it runs; warp 0
+//    stages them, or the by-value arguments, into shared memory in the
+//    prologue (one path: the same bits either way; a solo launch reads them
+//    volatile at each use, as it read its arguments, so nothing more is
+//    held in its 63 registers). The unfolded nested stage launches
+//    cooperatively through cudaLaunchKernelExC's attribute, which stream
+//    capture records as a cooperative kernel node; the shared-memory
+//    opt-in is made once per kernel and size, so a recorded launch makes no
+//    attribute call.
 //  * The kernel is a template over the claim kind, the narrow phase, the
 //    force fields, the stats, the merge and the fleet (thirty-six
 //    instantiations, chosen at launch: the four merge ones set the narrow
@@ -396,6 +409,11 @@ struct NestedArgs {
   int* rec;                        // this emitter's NS record, or null
   float frame[FRAME_WORDS];
   uint32_t k0, k1;                 // fold_in(frame_key, 1000 + e)
+  // device words in place of `frame` and (k0, k1) (a captured chain's,
+  // whose replays copy them in): FRAME_WORDS floats and 2 words; null: the
+  // by-value arguments above
+  const float* frame_dev;
+  const uint32_t* key_dev;
   int n_draws;
   unsigned* barrier;               // [2]: the grid barrier's arrivals (0 between launches) and generation
   int* block_sums;                 // [gridDim.x] each block's parent count
@@ -514,14 +532,24 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t 
 // + r (threefry-2x32 of (hi, lo) of the index, the xor of its words, the
 // top 23 bits as a float in [1, 2) minus 1), then the samplers of the
 // child's init (step.nested_child_rows' op order).
+// The launch's frame word i and key word k: its arguments, or its device
+// words where it gives them.
+__device__ __forceinline__ float frame_word(const NestedArgs& a, int i) {
+  return a.frame_dev != nullptr ? a.frame_dev[i] : a.frame[i];
+}
+__device__ __forceinline__ uint32_t key_word(const NestedArgs& a, int k) {
+  return a.key_dev != nullptr ? a.key_dev[k] : (k == 0 ? a.k0 : a.k1);
+}
+
 __device__ __forceinline__ void child_parts(const int* tab, const NestedArgs& a, int r, float* c) {
   float u[12];
+  const uint32_t k0 = key_word(a, 0), k1 = key_word(a, 1);
 #pragma unroll
   for (int i = 0; i < 12; ++i) {
     u[i] = 0.0f;
     if (i < a.n_draws) {
       uint32_t b0, b1;
-      threefry2x32(a.k0, a.k1, 0u, (uint32_t)(i * a.m + r), &b0, &b1);
+      threefry2x32(k0, k1, 0u, (uint32_t)(i * a.m + r), &b0, &b1);
       u[i] = __int_as_float((int)(((b0 ^ b1) >> 9) | 0x3f800000u)) - 1.0f;
     }
   }
@@ -549,7 +577,7 @@ __device__ __forceinline__ void child_parts(const int* tab, const NestedArgs& a,
   c[10] = avy;
   c[11] = avz;
   const float slo = tabf(tab, trow + TY_ISCALE_LO), shi = tabf(tab, trow + TY_ISCALE_HI);
-  c[12] = (slo + (shi - slo) * u[7]) * a.frame[FR_MOD_SCALE];
+  c[12] = (slo + (shi - slo) * u[7]) * frame_word(a, FR_MOD_SCALE);
   const float llo = tabf(tab, trow + TY_LIFE_LO), lhi = tabf(tab, trow + TY_LIFE_HI);
   c[13] = llo + (lhi - llo) * u[8];
 }
@@ -563,7 +591,7 @@ __device__ __forceinline__ void child_finish(const int* tab, const NestedArgs& a
   float wvx = c[3], wvy = c[4], wvz = c[5];
   const int pv = a.n_parent - 3;  // parent velocity follows position [and rotation]
   if (!elide_rot) quat_rotate(p[3], p[4], p[5], p[6], c[3], c[4], c[5], &wvx, &wvy, &wvz);
-  const float spd = a.frame[FR_MOD_SPEED], inh = tabf(tab, row + EM_INHERIT);
+  const float spd = frame_word(a, FR_MOD_SPEED), inh = tabf(tab, row + EM_INHERIT);
   v[0] = p[0] + c[0];
   v[1] = p[1] + c[1];
   v[2] = p[2] + c[2];
@@ -844,11 +872,39 @@ cudaError_t resident_wave(const void* kernel, size_t smem, int* wave) {
   return cudaSuccess;
 }
 
+// Past DEFAULT_SMEM_BYTES of dynamic shared memory, `kernel` opts in to
+// `smem` bytes on the current device (cudaFuncSetAttribute), once per
+// (device, kernel) and size it grows to: a launch a captured chain records
+// makes no attribute call (the chain's first, uncaptured, run made it).
+cudaError_t opt_in_smem(const void* kernel, size_t smem) {
+  if (smem <= (size_t)DEFAULT_SMEM_BYTES) return cudaSuccess;
+  struct Entry {
+    int device;
+    const void* kernel;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  Entry* hit = nullptr;
+  for (Entry& e : cache)
+    if (e.device == device && e.kernel == kernel) hit = &e;
+  if (hit != nullptr && hit->smem >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (hit != nullptr) hit->smem = smem;
+  else cache.push_back(Entry{device, kernel, smem});
+  return cudaSuccess;
+}
+
 // Blocks of TILE threads of `kernel` resident on one SM of the current
 // device at smem_bytes of dynamic shared memory, or minus the cudaError_t.
 int blocks_per_sm(const void* kernel, int smem_bytes) {
-  if ((size_t)smem_bytes > (size_t)DEFAULT_SMEM_BYTES) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  {
+    cudaError_t err = opt_in_smem(kernel, (size_t)smem_bytes);
     if (err != cudaSuccess) return -(int)err;
   }
   int per_sm = 0;
@@ -884,7 +940,9 @@ extern "C" {
 // (ceil(n / TILE) ints: the previous launch's dead_next, or the count
 // kernel's seed); a solo one may pass dead_next (ceil(n / TILE) ints,
 // every word written: the same counts of alive_out, the next launch's
-// dead_counts); ring archetypes pass nulls. frame is FRAME_WORDS host floats, seeds `unroll` host words, fields
+// dead_counts); ring archetypes pass nulls. frame is FRAME_WORDS host floats, seeds `unroll` host words (or
+// null, where frame_dev and seeds_dev, device words, take their place: FRAME_WORDS floats, a solo launch's
+// only, and [n_slots][unroll] words; a captured chain's launches pass them), fields
 // n_fields FF_STRIDE records in device memory (n_fields 0: no force
 // fields). dump_out is the u8 dump plane or null. stats_out (ST_TYPES +
 // n_types words) or null; with it, stats_scratch holds ST_TYPES + n_types
@@ -936,8 +994,12 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
                   void* latch_acc, void* latch_out, const void* notified_in, int merge_kernel, int n_slots,
                   int tab_stride, const void* slot_rows, int slot_words, int lane_base, int global_n,
                   int dead_offset, const void* dead_counts, void* dead_next, const void* dead_offset_dev,
-                  void* stream) {
+                  const void* frame_dev, const void* seeds_dev, void* stream) {
   const bool merge = any_alive != nullptr, fleet = slot_rows != nullptr;
+  // the frame row: a solo launch's argument or device words, a fleet's slot rows; the seeds: arguments or words
+  if ((fleet && frame_dev != nullptr) || (!fleet && frame == nullptr && frame_dev == nullptr) ||
+      (seeds == nullptr && seeds_dev == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (lane_base < 0 || dead_offset < 0 || global_n < n || (long long)lane_base + n > global_n ||
       ((merge || fleet) && (lane_base != 0 || global_n != n || dead_offset != 0)))
     return (int)cudaErrorInvalidValue;
@@ -999,14 +1061,16 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   a.dump = (uint8_t*)dump_out;
   a.stats_acc = (unsigned*)stats_scratch;
   a.stats_out = (int*)stats_out;
-  for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = fleet ? 0.0f : frame[i];
+  for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = (fleet || frame == nullptr) ? 0.0f : frame[i];
+  a.frame_dev = (const float*)frame_dev;
   a.fields = fleet ? nullptr : (const int*)fields;
   a.n_fields = n_fields;
   a.ff_smem = n_fields > 0 && n_fields * FF_STRIDE <= SMEM_FIELD_WORDS;
   a.slot_rows = (const int*)slot_rows;
   a.slot_words = slot_words;
   a.tab_stride = tab_stride;
-  for (int i = 0; i < SEED_WORDS; ++i) a.seeds[i] = i < n_slots * unroll ? seeds[i] : 0u;
+  for (int i = 0; i < SEED_WORDS; ++i) a.seeds[i] = (seeds != nullptr && i < n_slots * unroll) ? seeds[i] : 0u;
+  a.seeds_dev = (const uint32_t*)seeds_dev;
   a.unroll = unroll;
   a.n = n;
   a.lane_base = lane_base;
@@ -1045,8 +1109,8 @@ int bf_fused_step(const void* tables, const void* colliders, int n_colliders, in
   const SmemLayout lay = smem_layout(unroll, n_emitters, a.n_merge, a.n_fold, stats ? n_types : 0,
                                      a.ff_smem ? n_fields * FF_STRIDE : 0, a.col_smem ? collider_words : 0);
   const size_t smem = (size_t)lay.words * sizeof(int);
-  if (smem > (size_t)DEFAULT_SMEM_BYTES) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  {
+    cudaError_t err = opt_in_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
   }
   // one resident wave of the instantiation, its blocks striding the tiles:
@@ -1133,7 +1197,8 @@ int bf_nested_counts(const void* tables, int e, const void* alive, const void* p
 // pass the claim's tile counts and offsets for the drop count. Then either
 // fetch_out ([n_parent][m], the parent values by rank, 0 from the total
 // on), or child ([child_rows][m], the child rows of the m ranks: frame
-// FRAME_WORDS host floats, (k0, k1) = fold_in(frame_key, 1000 + e),
+// FRAME_WORDS host floats, (k0, k1) = fold_in(frame_key, 1000 + e) (or
+// frame_dev and key_dev, the same as device words: a captured chain's),
 // n_draws uniform rows; a ring record counts the children whose window
 // slot lives in NS_DROPPED; an unfolded launch passes parts,
 // [CHILD_PARTS][m] floats, for the ranks' draws before its barrier), or
@@ -1152,12 +1217,13 @@ int bf_nested_stage(const void* tables, int e, const void* alive, const void* pt
                     void* child, void* parts, const void* parent_vals, const void* cum_in, const void* start_in,
                     const void* dead_counts, const void* dead_offsets, void* record, const float* frame, uint32_t k0,
                     uint32_t k1, int n_draws, void* scratch, int scratch_words, int n, int m, int n_tiles, int ring,
-                    void* stream) {
+                    const void* frame_dev, const void* key_dev, void* stream) {
   const bool tiles = n_tiles > 0;
   if (n <= 0 || m <= 0 || e < 0 || n_parent < 0 || n_parent > MAX_FETCH || scratch == nullptr || scratch_words < 3 ||
       (tiles && n_tiles != (n + TILE - 1) / TILE) || n_tiles < 0 || (child != nullptr && fetch_out != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (child != nullptr && ((n_parent != 6 && n_parent != 10) || n_draws < 8 || n_draws > 12 || frame == nullptr))
+  if (child != nullptr && ((n_parent != 6 && n_parent != 10) || n_draws < 8 || n_draws > 12 ||
+                           (frame == nullptr && frame_dev == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (parts != nullptr && (!tiles || child == nullptr || carry != nullptr)) return (int)cudaErrorInvalidValue;
   if (tiles && (m > n || alive == nullptr || age == nullptr || le_in == nullptr || gate == nullptr ||
@@ -1193,6 +1259,8 @@ int bf_nested_stage(const void* tables, int e, const void* alive, const void* pt
   for (int i = 0; i < FRAME_WORDS; ++i) a.frame[i] = frame ? frame[i] : 0.0f;
   a.k0 = k0;
   a.k1 = k1;
+  a.frame_dev = (const float*)frame_dev;
+  a.key_dev = (const uint32_t*)key_dev;
   a.n_draws = n_draws;
   a.barrier = (unsigned*)scratch;
   a.block_sums = (int*)scratch + 2;
@@ -1222,9 +1290,25 @@ int bf_nested_stage(const void* tables, int e, const void* alive, const void* pt
   }
   const int* tab = (const int*)tables;
   void* params[] = {(void*)&tab, (void*)&a};
-  cudaError_t err = barrier
-                        ? cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(TILE), params, 0, (cudaStream_t)stream)
-                        : cudaLaunchKernel(kernel, dim3(blocks), dim3(TILE), params, 0, (cudaStream_t)stream);
+  cudaError_t err;
+  if (barrier) {
+    // cooperative (every block resident, the grid barrier's condition)
+    // through the launch attribute, which stream capture records as a
+    // cooperative kernel node: a captured chain replays it so
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(TILE);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelExC(&cfg, kernel, params);
+  } else {
+    err = cudaLaunchKernel(kernel, dim3(blocks), dim3(TILE), params, 0, (cudaStream_t)stream);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -63,6 +63,13 @@ warp and substep, the colliders no active lane can reach (the JAX package's
 looped form, which it takes from LOOP_MIN_COLLIDERS colliders; the skip's
 plain version is `collision.broad_phase_keep`).
 
+On the card the chains (`multi_step_auto`, `multi_step_auto_packed`,
+`multi_step_fleet_stacked`, `multi_step_fleet`) are captured CUDA graphs
+(`chain_graph`): their launches read the frame row, the draw seeds and the
+nested stages' keys from device words (`DeviceWords`, `device_words`) in
+place of their by-value arguments, which a graph would freeze; the
+kernels give the same bits either way.
+
 The stats of a frame (AABB, alive and per-type counts): on the card the
 kernel's stats block writes them in one row whenever they are asked for, and
 the epilogue only updates the finished latch; on the CPU the torch
@@ -73,6 +80,7 @@ a chain update just the finished latch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import weakref
@@ -186,6 +194,78 @@ def merge_scratch(device, stream: int) -> torch.Tensor:
     between launches: the last block zeroes it); made once per (device,
     stream) and kept, as `stats_scratch`."""
     return _stream_scratch("merge", device, stream, 2, torch.int32)
+
+
+def prepare_stream_scratch(device, stream: int, slots: int, num_types: int) -> None:
+    """Make the scratch of every kind for launches of `slots` slots (1 for
+    a solo pool) of `num_types` types on `stream` of `device`, sized for
+    them, before a chain is captured there (an allocation made during
+    capture would come from the graph's pool)."""
+    stats_scratch(device, stream, slots * (L.stats_words(num_types) + 1))
+    nested_scratch(device, stream)
+    merge_scratch(device, stream)
+
+
+def release_stream_scratch(device, stream: int) -> list:
+    """Forget the scratch of `stream` of `device` (the buffers a captured
+    chain recorded: its graph keeps them, and the next launches on that
+    stream make their own); returns the buffers."""
+    return [_SCRATCH.pop(k) for k in list(_SCRATCH) if k[1] == torch.device(device) and k[2] == int(stream)]
+
+
+class DeviceWords:
+    """The frame rows, draw seeds and nested-stage keys of a run of
+    launches, in the order the launches take them, as device words: the
+    launches read them in place of their by-value arguments (a captured
+    chain's replays copy new words in before each replay; the kernels'
+    by-value and device-word launches give the same bits). `words` (uint32
+    on the host) are what the launches must ask for, in that order: each
+    launch's request is checked against them, so a chain whose launches
+    would consume another sequence raises. `buf`: int32 device words of the
+    same length."""
+
+    def __init__(self, words: np.ndarray, buf: torch.Tensor):
+        if buf.dtype != torch.int32 or buf.dim() != 1 or buf.numel() != words.size:
+            raise ValueError(f"device words: an int32 buffer of {words.size} words, got {buf.dtype} {tuple(buf.shape)}")
+        self.words, self.buf, self.at = np.asarray(words, np.uint32), buf, 0
+
+    @classmethod
+    def upload(cls, words: np.ndarray, device) -> "DeviceWords":
+        """`words` copied to a new buffer on `device`."""
+        words = np.ascontiguousarray(words, np.uint32)
+        return cls(words, upload(torch.from_numpy(words.view(np.int32).copy()), torch.device(device)))
+
+    def take(self, host_words) -> int:
+        """The device address of the next len(host_words) words, which must
+        equal them."""
+        host_words = np.asarray(host_words).astype(np.uint32).reshape(-1)
+        k = host_words.size
+        if not np.array_equal(self.words[self.at:self.at + k], host_words):
+            raise RuntimeError(f"device words: a launch asked for {host_words.tolist()} at word {self.at}, the "
+                               f"chain's words hold {self.words[self.at:self.at + k].tolist()}")
+        ptr = self.buf.data_ptr() + 4 * self.at
+        self.at += k
+        return ptr
+
+    def check_done(self) -> None:
+        if self.at != self.words.size:
+            raise RuntimeError(f"device words: the launches took {self.at} of {self.words.size} words")
+
+
+_DEVICE_WORDS: Optional[DeviceWords] = None
+
+
+@contextlib.contextmanager
+def device_words(words: DeviceWords):
+    """Launches in this block read their frame rows, seeds and nested keys
+    from `words` (`DeviceWords`), in order, and every word must be taken."""
+    global _DEVICE_WORDS
+    prev, _DEVICE_WORDS = _DEVICE_WORDS, words
+    try:
+        yield words
+    finally:
+        _DEVICE_WORDS = prev
+    words.check_done()
 
 
 def merge_lean(static: SpawnerStatic, colliders, frame: FrameInput) -> bool:
@@ -445,6 +525,14 @@ def _carry_claim(alive: torch.Tensor, counts: torch.Tensor) -> None:
     _CLAIM_CARRY[key] = (weakref.ref(alive, drop), alive._version, counts)
 
 
+def _forget_claim(alive: torch.Tensor) -> None:
+    """Drop the carried claim of `alive`, so that its next solo launch
+    seeds (a captured chain's static input: the seed is recorded)."""
+    hit = _CLAIM_CARRY.get(id(alive))
+    if hit is not None and hit[0]() is alive:
+        del _CLAIM_CARRY[id(alive)]
+
+
 def _carried_claim(alive: torch.Tensor) -> Optional[torch.Tensor]:
     """The counts `_carry_claim` kept for this very tensor at its current
     version, or None."""
@@ -620,11 +708,15 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         sw = L.stats_words(T)
         stats_row = torch.empty(lead + (sw,), dtype=torch.int32, device=dev)
         acc = stats_scratch(dev, stream, S * (sw + 1)).view(S, sw + 1)
+    words = _DEVICE_WORDS
+    frame_dev = None
     if fleet is None:
         table, tab_stride, slot_rows = kernel_tables(static, params), 0, None
         records, n_fields = (kernel_fields(frame.force_fields), frame.force_fields.count) if fields_on(frame) \
             else (None, 0)
-        frame_row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist())
+        row_np = _frame_row(frame)
+        frame_row = (ctypes.c_float * L.FRAME_WORDS)(*row_np.tolist())
+        frame_dev = None if words is None else words.take(row_np.view(np.uint32))
     else:
         table, slot_rows = fleet["table"], fleet["slot_rows"]
         tab_stride = table.shape[1] if table.dim() == 2 else 0
@@ -646,13 +738,14 @@ def _launch(static: SpawnerStatic, params: SpawnerParams, colliders, state: Pool
         pi, po, ai, ao, off, dmp, c_acc, row, srows = _from_slot(
             [ptype_in, ptype_out, alive_in, alive_out, offsets, dump, acc, stats_row, slot_rows], c0)
         seed_row = (ctypes.c_uint32 * ((c1 - c0) * unroll))(*seeds[c0 * unroll:c1 * unroll])
+        seeds_dev = None if words is None else words.take(seeds[c0 * unroll:c1 * unroll])
         rc = lib.bf_fused_step(
             ptr(table[c0:] if c0 and tab_stride else table), ptr(col), n_col, 0 if col is None else col.numel(),
             _ptr_array(c_ins), _ptr_array(c_outs), ptr(pi), ptr(po), ptr(ai), ptr(ao), ptr(off), _ptr_array(c_s_in),
             _ptr_array(c_s_out), mode, None if render is None else _ptr_array(_from_slot(render, c0)), frame_row,
             seed_row, unroll, N, E, T, ptr(records), n_fields, ptr(dmp), ptr(c_acc), ptr(row), *merge,
             c1 - c0, tab_stride, ptr(srows), 0 if srows is None else srows.shape[1], shard.lane_base,
-            shard.global_n, dead_offset, ptr(counts), ptr(dead_next), dead_offset_dev, stream,
+            shard.global_n, dead_offset, ptr(counts), ptr(dead_next), dead_offset_dev, frame_dev, seeds_dev, stream,
         )
         if rc != 0:
             raise RuntimeError(f"fused_step kernel launch failed: {lib.bf_error_string(rc).decode()}")
@@ -803,7 +896,12 @@ def _stage_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, M: 
     for t in planes:
         _checked(t, torch.float32, dev, (n,))
     key = threefry_fold_in(frame_key, 1000 + e) if child is not None else (0, 0)
-    row = (ctypes.c_float * L.FRAME_WORDS)(*_frame_row(frame).tolist()) if child is not None else None
+    row_np = _frame_row(frame) if child is not None else None
+    row = (ctypes.c_float * L.FRAME_WORDS)(*row_np.tolist()) if child is not None else None
+    key_dev = frame_dev = None
+    if child is not None and _DEVICE_WORDS is not None:
+        key_dev = _DEVICE_WORDS.take(np.asarray(key, np.uint32))
+        frame_dev = _DEVICE_WORDS.take(row_np.view(np.uint32))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
@@ -821,7 +919,7 @@ def _stage_launch(lib, static: SpawnerStatic, params: SpawnerParams, e: int, M: 
         ptr(cum_in), ptr(start), None if dead_tiles is None else dead_tiles[0].data_ptr(),
         None if dead_tiles is None else dead_tiles[1].data_ptr(), ptr(record), row, int(key[0]), int(key[1]),
         nested_draw_rows(static), scratch.data_ptr(), scratch.numel(), n, M, n_tiles, int(static.ring_claim),
-        stream)
+        frame_dev, key_dev, stream)
     if rc != 0:
         raise RuntimeError(f"nested stage kernel failed to launch: {lib.bf_error_string(rc).decode()}")
 
@@ -1212,7 +1310,7 @@ def chain_nested_folded(static, params, colliders, state, frame, n_frames: int):
     return fused_step_hybrid(static, params, colliders, state, frame, nested_carry=carry)
 
 
-def multi_step_auto(static, params, colliders, state, frame, n_frames: int):
+def multi_step_auto(static, params, colliders, state, frame, n_frames: int, _captured: bool = True):
     """n frames with the same frame input; returns (final state, outputs of
     the last frame). Launches follow `chain_shape(n, chain_unroll(...))`;
     an archetype with a nested emitter steps hybrid frames, folded
@@ -1220,9 +1318,25 @@ def multi_step_auto(static, params, colliders, state, frame, n_frames: int):
     package's `_multi_step_impl` dispatches, else `chain_hybrid_unfolded`.
     Stats are computed for the last frame only; invariant fields (elided
     rotation/lifetime, single-type ptype, last_emitted) pass through every
-    launch untouched."""
+    launch untouched.
+
+    On the card the chain is one captured CUDA graph per static
+    configuration (`chain_graph`, the JAX package's one `jax.jit` dispatch
+    of its `lax.scan`): the first call of a configuration steps the chain
+    and records it, later calls replay it, bit-equal to the launches.
+    _captured=False (a testing and timing seam, as `fused_step`'s
+    _dead_offsets) steps the launches one by one."""
     if n_frames < 1:
         raise ValueError("multi_step_auto needs n_frames >= 1")
+    if _captured and state.device.type == "cuda":
+        from . import chain_graph
+
+        return chain_graph.replay("auto", static, params, colliders, state, frame, n_frames)
+    return _multi_step_auto(static, params, colliders, state, frame, n_frames)
+
+
+def _multi_step_auto(static, params, colliders, state, frame, n_frames: int):
+    """`multi_step_auto`'s launches, one by one (n_frames >= 1)."""
     if has_nested(static):
         if n_frames >= 2 and can_fold_nested(static, state.capacity):
             return chain_nested_folded(static, params, colliders, state, frame, n_frames)
@@ -1234,13 +1348,23 @@ def multi_step_auto(static, params, colliders, state, frame, n_frames: int):
     return state, out
 
 
-def multi_step_auto_packed(static, params, colliders, state, frame, n_frames: int):
+def multi_step_auto_packed(static, params, colliders, state, frame, n_frames: int, _captured: bool = True):
     """multi_step_auto whose final frame also emits the render-pack planes
-    (the only frame a renderer reads): (state, outputs, planes)."""
+    (the only frame a renderer reads): (state, outputs, planes). On the card
+    one captured graph per configuration, as `multi_step_auto`."""
     if n_frames < 1:
         raise ValueError("multi_step_auto_packed needs n_frames >= 1")
+    if _captured and state.device.type == "cuda":
+        from . import chain_graph
+
+        return chain_graph.replay("auto_packed", static, params, colliders, state, frame, n_frames)
+    return _multi_step_auto_packed(static, params, colliders, state, frame, n_frames)
+
+
+def _multi_step_auto_packed(static, params, colliders, state, frame, n_frames: int):
+    """`multi_step_auto_packed`'s launches, one by one."""
     if n_frames > 1:
-        state, _o = multi_step_auto(static, params, colliders, state, frame, n_frames - 1)
+        state, _o = _multi_step_auto(static, params, colliders, state, frame, n_frames - 1)
     return step_auto_packed(static, params, colliders, state, frame)
 
 
@@ -1372,14 +1496,25 @@ def step_auto_fleet(static, params, colliders, states, frames):
     return stack_pools([st for st, _o in solo]), stack_outputs([o for _s, o in solo])
 
 
-def multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames: int):
+def multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames: int, _captured: bool = True):
     """n frames of a whole fleet ([S]-stacked params or one shared params,
     states and frames): launches follow `chain_shape(n, chain_unroll(...))`,
     each one fleet launch for every slot, with stats on the last launch
     only; nested archetypes step n frames of `step_auto_fleet`. Returns
-    (final states, outputs of the last frame)."""
+    (final states, outputs of the last frame). On the card one captured
+    graph per configuration, as `multi_step_auto` (the JAX package's
+    `multi_step_fleet_stacked` is one `jax.jit` dispatch)."""
     if n_frames < 1:
         raise ValueError("multi_step_fleet_stacked needs n_frames >= 1")
+    if _captured and states.device.type == "cuda":
+        from . import chain_graph
+
+        return chain_graph.replay("fleet", static, params, colliders, states, frames, n_frames)
+    return _multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames)
+
+
+def _multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames: int):
+    """`multi_step_fleet_stacked`'s launches, one by one."""
     if not can_fleet(static):
         out = None
         for _ in range(n_frames):
@@ -1393,11 +1528,33 @@ def multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames
     return states, out
 
 
-def multi_step_fleet(static, params, colliders, states, frames, n_frames: int):
+def multi_step_fleet(static, params, colliders, states, frames, n_frames: int, _captured: bool = True):
     """multi_step_fleet_stacked with ONE params shared by every slot (the
     common fleet: S spawners of one configuration). The kernel reads the
     one table for every slot, so nothing is broadcast."""
     if is_stacked_params(params):
         raise ValueError("multi_step_fleet takes one shared SpawnerParams; stacked params go to "
                          "multi_step_fleet_stacked")
-    return multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames)
+    return multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames, _captured)
+
+
+# The card's launch counters (the wrappers' attributes), by name
+# "function.attribute": a captured chain (`chain_graph`) records how many of
+# each its graph holds, and counts its replays by them.
+LAUNCH_COUNTERS = {f"{obj.__name__}.{attr}": (obj, attr) for obj, attr in (
+    (fused_step, "launches"), (fused_step, "render_launches"), (fused_step, "render_f16_launches"),
+    (fused_step, "collide_launches"), (fused_step, "broad_launches"), (fused_step, "fields_launches"),
+    (fused_step, "dump_launches"), (fused_step, "stats_launches"), (fused_step, "merge_launches"),
+    (fused_step, "fold_launches"), (fused_step, "merge_lean_launches"), (fused_step, "merge_wide_launches"),
+    (fused_step, "shard_launches"), (fused_step, "dead_claim_launches"), (tile_dead_offsets, "launches"),
+    (claim_counts, "seeds"), (nested_stage, "launches"), (nested_cadence_pass, "launches"),
+    (nested_child_rows, "launches"), (_seed_nested_carry, "launches"), (fused_step_fleet, "launches"),
+    (fused_step_fleet, "render_launches"), (fused_step_fleet, "render_f16_launches"),
+    (fused_step_fleet, "collide_launches"), (fused_step_fleet, "broad_launches"),
+    (fused_step_fleet, "fields_launches"), (fused_step_fleet, "dump_launches"),
+    (fused_step_fleet, "stats_launches"))}
+
+
+def launch_counts() -> dict:
+    """The launch counters' current values, by name (`LAUNCH_COUNTERS`)."""
+    return {k: getattr(obj, attr) for k, (obj, attr) in LAUNCH_COUNTERS.items()}

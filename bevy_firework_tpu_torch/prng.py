@@ -131,6 +131,47 @@ def frame_seeds(key, n: int) -> tuple[np.ndarray, list[int]]:
     return np.array([k0, k1], np.uint32), seeds
 
 
+def chain_seeds(key, shape) -> tuple[np.ndarray, list[np.ndarray]]:
+    """The key chain of a chain of launches of `shape` (frames per launch),
+    in one host pass: the key after all of them and each launch's draw
+    seeds (uint32[u]), the words `frame_seeds(key, u)` gives launch by
+    launch."""
+    final, seeds = frame_seeds(key, int(sum(shape)))
+    seeds = np.asarray(seeds, np.uint32)
+    ends = np.cumsum(shape)
+    return final, [seeds[e - u:e] for u, e in zip(shape, ends)]
+
+
+def chain_seeds_stacked(keys, shape) -> tuple[np.ndarray, list[np.ndarray]]:
+    """`chain_seeds` over S keys (a fleet's): the keys after the chain [S, 2]
+    and each launch's seeds [S, u] (slot-major, as a fleet launch takes
+    them), the words `frame_seeds_stacked(keys, u)` gives launch by launch."""
+    final, seeds = frame_seeds_stacked(keys, int(sum(shape)))
+    ends = np.cumsum(shape)
+    return final, [np.ascontiguousarray(seeds[:, e - u:e]) for u, e in zip(shape, ends)]
+
+
+def hybrid_chain_keys(key, n: int, emitters) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The key chain of n hybrid frames (an archetype with a nested
+    emitter, one frame per launch) in one host pass: the key after them,
+    each frame's step seed (word 1 of its kernel key; uint32[n]) and each
+    frame's nested-stage keys (fold_in(frame_key, 1000 + e) per nested
+    emitter e of `emitters`; uint32[n, len(emitters), 2]), the words a
+    hybrid frame takes from its two splits (new_key, frame_key =
+    split(key); new_key, kernel_key = split(new_key))."""
+    k0, k1 = (int(v) & _MASK32 for v in key)
+    seeds = np.empty(n, np.uint32)
+    stage = np.empty((n, len(emitters), 2), np.uint32)
+    for f in range(n):
+        n0, n1 = threefry2x32(k0, k1, 0, 0)
+        f0, f1 = threefry2x32(k0, k1, 0, 1)
+        k0, k1 = threefry2x32(n0, n1, 0, 0)
+        seeds[f] = threefry2x32(n0, n1, 0, 1)[1]
+        for j, e in enumerate(emitters):
+            stage[f, j] = threefry2x32(f0, f1, 0, (1000 + int(e)) & _MASK32)
+    return np.array([k0, k1], np.uint32), seeds, stage
+
+
 def _threefry2x32_u32(k0: np.ndarray, k1: np.ndarray, x0: np.ndarray, x1: np.ndarray):
     """threefry2x32 on numpy uint32 arrays (wrapping arithmetic, in-place
     ufuncs: a few dozen array operations whatever the array length)."""

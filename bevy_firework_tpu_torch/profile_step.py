@@ -52,7 +52,9 @@ counts the chain's last launch left (a tree without the carried claim:
 its count and scan kernels, then the step), on a fresh copy of the alive
 plane (the seed, then the step) and given the scanned offsets, and the S =
 4 sharded destroy frame at 1310720 lanes (the shards' dead offsets, then
-four launches).
+four launches); `words`, kernel rows 1, 7, 8/9b and 9/10 launched with
+their frame rows, seeds and nested keys by value and as device words (the
+words a captured chain's replays copy in), in turns (`words_ms`).
 With --flows it prints one JSON line of the solo path's end-to-end times:
 main_100k and main_1M ms/frame and the tornado and fireworks flows' ms per
 Scene.step (`flows_ms`). --root DIR imports bevy_firework_tpu_torch from
@@ -776,6 +778,104 @@ def nested_ms(calls: int = 20, traces: int = 3) -> dict:
     return res
 
 
+def words_ms(calls: int = 20, traces: int = 3) -> dict:
+    """Kernel rows 1, 7, 8/9b and 9/10 launched with their frame rows, seeds
+    and nested keys by value and, where the tree has them
+    (`fused_step.DeviceWords`, the words a captured chain's replays copy
+    in), as device words, in turns (value, words, words, value; medians of
+    each side's traces): main_100k's U = 8 launch after 140 frames (stats
+    off), fleet_16x55k's U = 8 launch after 140 frames, and nested_60k's
+    unfolded and folded hybrid frames after 150 frames (the nested-stage
+    launch, rows 8/9b, and the step launch, rows 9/10, per kernel,
+    `traced_kernels`). A tree without device words gives the by-value
+    times alone."""
+    import statistics
+    import sys
+    from pathlib import Path
+
+    import bevy_firework_tpu_torch as bt
+    from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import fused_step as fs
+    from bevy_firework_tpu_torch.parallel.sharding import stack_frames, stack_pools
+    from bevy_firework_tpu_torch.settings import EmissionPacing
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
+    import torch_nested_configs as nested_cfg
+
+    has_words = hasattr(fs, "DeviceWords")
+    if has_words:
+        from bevy_firework_tpu_torch.ops import chain_graph
+
+    def words_call(kind, static, state, frame, n, call):
+        dw = fs.DeviceWords.upload(chain_graph.chain_words(kind, static, None, state, frame, n)[0], "cuda")
+
+        def run():
+            dw.at = 0
+            with fs.device_words(dw):
+                return call()
+        return run
+
+    def turns(value_call, word_call, measure):
+        """measure() of value, words, words, value: {"value": median, "words": median, "traces": [...]}."""
+        seq = [measure(value_call)] + ([measure(word_call), measure(word_call)] if word_call else []) + [
+            measure(value_call)]
+        res = {"value": statistics.median(seq[0][1] + seq[-1][1]), "value_traces": seq[0][1] + seq[-1][1]}
+        if word_call:
+            res.update(words=statistics.median(seq[1][1] + seq[2][1]), words_traces=seq[1][1] + seq[2][1])
+            res["words_over_value"] = res["words"] / res["value"]
+        return res
+
+    def launch(call):
+        return launch_device_ms(call, calls, traces)
+
+    out = {"device_words": has_words}
+    sp, _tf = effects.stress_test()
+    es = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(1e5))
+    c = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es,)), device="cuda")
+    f = bt.make_frame_input(1 / 60)
+    s, _o = fs.multi_step_auto(c.static, c.params, None, bt.init_pool_for(c, 1 << 17), f, 140)
+    call = lambda: fs.fused_step(c.static, c.params, None, s, f, unroll=8, stats=False)  # noqa: E731
+    out["row1_main_100k_u8_ms"] = turns(call, words_call("auto", c.static, s, f, 8, call) if has_words else None,
+                                        launch)
+    es16 = dataclasses.replace(sp.emission_settings[0], emission_pacing=EmissionPacing.rate(55000.0))
+    c16 = bt.compile_spawner(dataclasses.replace(sp, emission_settings=(es16,)), device="cuda")
+    st = stack_pools([bt.init_pool_for(c16, 65536, seed=i) for i in range(16)])
+    fr = stack_frames([bt.make_frame_input(1 / 60, translation=(float(i), 0.0, 0.0)) for i in range(16)])
+    st, _o = fs.multi_step_fleet(c16.static, c16.params, None, st, fr, 140)
+    call = lambda: fs.fused_step_fleet(c16.static, c16.params, None, st, fr, unroll=8, stats=False)  # noqa: E731
+    out["row7_fleet_16x55k_u8_ms"] = turns(call, words_call("fleet", c16.static, st, fr, 8, call) if has_words
+                                           else None, launch)
+    cn = bt.compile_spawner(nested_cfg.bench_nested(False), nested_buffer=1024, device="cuda")
+    sn, _o = fs.multi_step_auto(cn.static, cn.params, None, bt.init_pool_for(cn, 16 * 8192, seed=0), f, 150)
+    carry = fs._seed_nested_carry(cn.static, cn.params, sn)
+    n_copies = 4 * traces * (1 + calls)  # the folded frame's four turns of traces
+    copies = iter([fs.FoldCarry(carry.counts.clone(), carry.ns.clone()) for _ in range(n_copies)])
+    frames = {"unfolded": lambda: fs.fused_step(cn.static, cn.params, None, sn, f, stats=False),
+              "folded": lambda: fs.fused_step_hybrid(cn.static, cn.params, None, sn, f, stats=False, fold_out=True,
+                                                     nested_carry=next(copies))}
+    for label, call in frames.items():
+        def per_kernel(fn):
+            tab = [traced_kernels(fn, calls, 1)["kernels"] for _ in range(traces)]
+            return tab, [{k.split("<")[0]: v["us_per_launch"] for k, v in t.items()} for t in tab]
+
+        seq = [per_kernel(call)]
+        if has_words:
+            wcall = words_call("auto", cn.static, sn, f, 1, call)
+            seq += [per_kernel(wcall), per_kernel(wcall)]
+        seq.append(per_kernel(call))
+        row = {}
+        for kern, key in (("nested_stage_kernel", "rows_8_9b_stage_us"),
+                          ("fused_step_kernel_merge", "rows_9_10_step_us")):
+            value = [t.get(kern) for t in seq[0][1] + seq[-1][1] if t.get(kern)]
+            row[key] = {"value": statistics.median(value), "value_traces": value}
+            if has_words:
+                words = [t.get(kern) for t in seq[1][1] + seq[2][1] if t.get(kern)]
+                row[key].update(words=statistics.median(words), words_traces=words,
+                                words_over_value=statistics.median(words) / statistics.median(value))
+        out[f"nested_60k_{label}"] = row
+    return out
+
+
 def flows_ms(windows: int = 3) -> dict:
     """The solo path's end-to-end times, as chip_smoke.py measures them:
     ms/frame of stress_test's multi_step_auto chain at 100k and 1M live
@@ -983,6 +1083,8 @@ def main():
             put({"scaling": scaling_ms()})
         if "nested" in groups:
             put({"nested": nested_ms()})
+        if "words" in groups:
+            put({"words": words_ms()})
         if "claim" in groups:
             put({"claim": claim_ms()})
     else:
@@ -994,7 +1096,8 @@ def main():
 
 
 # --launch's groups, in the order they run
-LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling", "nested", "claim")
+LAUNCH_GROUPS = ("kernels", "main", "render", "stats", "fleet", "fields", "cells", "scaling", "nested", "claim",
+                 "words")
 
 
 if __name__ == "__main__":

@@ -325,7 +325,28 @@ the kernels. Phases:
      nested sp == the unsharded xla_step.multi_step); then
      utils.profiling: a trace of 30 sparks frames holds the step kernel's
      launches and 30 annotate spans, device_memory_stats the card's
-     allocated bytes.
+     allocated bytes;
+ 41. graphs: the captured chains (ops.chain_graph: multi_step_auto,
+     multi_step_auto_packed, multi_step_fleet_stacked and multi_step_fleet
+     replay one CUDA graph per static configuration, reading their frame
+     rows, seeds and nested keys from device words) at main_100k, main_1M,
+     collision_1M, fields_1M, the destroy config, nested_60k folded,
+     unfolded and packed, nested_chained, fleet_16x55k, a destroy fleet
+     with the dump plane, a nested fleet of stacked params and a dead-rank
+     nested archetype (tests/torch_chain_configs.py's card sizes): captured ==
+     uncaptured bit for bit on the first call, a replay, a replay with
+     another dt and transform and a replay from the first state again, the
+     earlier results kept and the input unwritten, every chain call under
+     sync debug mode "error"; each launch family the chains use (solo U =
+     8 and U = 1 with the render pack, the narrow phase, the field block,
+     the dead-rank claim, the fleet, the hybrid frame's cooperative nested
+     stage and lean merge, the folded frame, the wide merge) by value ==
+     with device words; per cell the capture's host seconds, ms/frame
+     uncaptured and captured in turns (CUDA events, the median of 7 calls
+     a turn), the device time of a
+     replay call beside the bare graph's (the difference: the host words,
+     the copy-in and the clone-out); and ab_nested_fold with both chains
+     captured.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
@@ -333,8 +354,11 @@ chains, the collision flow, the collider-scaling chains, the fields chain, the S
 async events scene, the trails flows, the trails_100k scenes, the checkpointed scenes, the two
 nested chains, the nested flows, the fleet chain, the Fleet flow, the
 scene groups, the two render loops, the async Scene, sharded_1M's three
-sharded chains, the viewer's Scene and each example script)
-and read just after it; the kernels' summary reports those counts only. Every phase
+sharded chains, the viewer's Scene, each example script and the graphs
+phase) and read just after it; the kernels' summary reports those counts
+only. A run counts the launches it made on the card: those launched one
+by one and those its captured chains' replays ran (a graph's launches
+times its replays), not those a capture recorded without running them. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
 from this run's shapes) and the final `{"ok": true, "device": ...}` line
@@ -426,6 +450,7 @@ def main() -> int:
     import bevy_firework_tpu_torch as bt
     from bevy_firework_tpu_torch.models import effects
     from bevy_firework_tpu_torch.ops import _build
+    from bevy_firework_tpu_torch.ops import chain_graph
     from bevy_firework_tpu_torch.ops import fused_step as fs
     from bevy_firework_tpu_torch.ops import table_layout as L
     from bevy_firework_tpu_torch.profile_step import device_times, kernel_report, tornado_fields
@@ -559,12 +584,21 @@ def main() -> int:
                 "shard": (fs.fused_step, "shard_launches")}
 
     def counted(fn):
-        """fn() with the kernels' launch counters set to 0 just before it and
-        read just after: (result, {counter: launches})."""
+        """fn() with the kernels' launch counters and the captured chains'
+        counts set to 0 just before it and read just after: (result,
+        {counter: launches}), the launches the run made on the card: those
+        launched one by one, and those its chains' graph replays ran
+        (chain_graph.REPLAYED), not those a capture recorded without running
+        them (chain_graph.CAPTURED); and the run's chain captures and
+        replays."""
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
+        chain_graph.reset_counts()
         result = fn()
-        return result, {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        counts = {k: getattr(obj, attr) - chain_graph.CAPTURED.get(f"{obj.__name__}.{attr}", 0)
+                  + chain_graph.REPLAYED.get(f"{obj.__name__}.{attr}", 0) for k, (obj, attr) in counters.items()}
+        counts.update(chain_captures=chain_graph.COUNTS["captures"], chain_replays=chain_graph.COUNTS["replays"])
+        return result, counts
 
     def det_spawner():
         return bt.ParticleSpawner(
@@ -2176,20 +2210,26 @@ def main() -> int:
     nch, nch_counts = nested_path("nested_chained", True)
 
     # ------------------------------------------------ 24a. ab_nested_fold
-    def ab_nested_fold():
+    def ab_nested_fold(captured=False):
         """bench.py's ab_nested_fold (:958-1029): nested_60k after 150 frames,
         ms/frame (host clock, (t(2n) - t(n)) / n, each run ending in a
         synchronize) of the folded chain (n = 100) and the unfolded chain
         (n = 101), 7 interleaved pairs; the pair with the median
-        unfolded / folded ratio."""
+        unfolded / folded ratio. Both chains launch by launch, or, with
+        `captured`, both replay their graphs."""
         cm = bt.compile_spawner(bench_nested(False), nested_buffer=1024, device=dev)
         frame = bt.make_frame_input(1 / 60)
         st, _o = fs.multi_step_auto(cm.static, cm.params, None, bt.init_pool_for(cm, 16 * 8192, seed=0), frame, 150)
         torch.cuda.synchronize()
 
         def run(fold_on, n):
-            fn = fs.multi_step_auto if fold_on else fs.chain_hybrid_unfolded
-            s_, _o = fn(cm.static, cm.params, None, st, frame, n)
+            if captured:  # the folded chain's graph against the unfolded chain's
+                s_, _o = fs.multi_step_auto(cm.static, cm.params, None, st, frame, n) if fold_on else \
+                    chain_graph.replay("unfolded", cm.static, cm.params, None, st, frame, n)
+            elif fold_on:
+                s_, _o = fs.multi_step_auto(cm.static, cm.params, None, st, frame, n, _captured=False)
+            else:
+                s_, _o = fs.chain_hybrid_unfolded(cm.static, cm.params, None, st, frame, n)
             torch.cuda.synchronize()
 
         n_on, n_off = 100, 101
@@ -3155,11 +3195,140 @@ def main() -> int:
                   "counterpart prints or asserts (tests/torch_examples_run.card_checks) and to the kernels it must "
                   "launch; utils.profiling's trace holds the step kernel's launches and the annotate spans"})
 
+    # ------------------------------------------------ 41. graphs
+    # The captured chains (ops.chain_graph): bench.py's chain cells through
+    # their entry points, captured == uncaptured bit for bit on the first
+    # call, replays and a changed dt (tests/torch_chain_configs.py); every
+    # launch family the chains use by value == with device words; capture
+    # time, ms/frame captured and uncaptured in turns (CUDA events), the
+    # device time of a replay call against the bare graph's (the
+    # difference: the copy-in and clone-out), and the fold's A/B captured.
+    import torch_chain_configs as chain_cfg
+    from bevy_firework_tpu_torch.profile_step import traced_kernels
+
+    t_cell = time.perf_counter()
+
+    def words_match(label, case, state, kind, n, call):
+        """call() with its frame rows, seeds and keys by value == the same
+        launches reading them as device words, every result leaf bit for
+        bit."""
+        ref = call(state)
+        words = fs.DeviceWords.upload(chain_graph.chain_words(kind, case.static, case.colliders, state, case.frame,
+                                                              n)[0], dev)
+        with fs.device_words(words):
+            got = call(state)
+        chain_cfg.assert_results_equal(got, ref, f"device words {label}")
+        return label
+
+    def call_ms(fn, calls):
+        """CUDA-event wall time of each of `calls` calls of fn (one warm call
+        first); the median (host-bound calls measure the host)."""
+        fn()
+        torch.cuda.synchronize()
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+        evs[0].record()
+        for e in evs[1:]:
+            fn()
+            e.record()
+        evs[-1].synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))
+
+    def graph_timing(case, st) -> dict:
+        """ms/frame uncaptured, captured, captured, uncaptured (per turn the
+        median of 7 calls' CUDA-event wall) and the device time of a replay
+        call against the bare graph's replays (torch.profiler)."""
+        def run(captured):
+            return lambda: chain_cfg._step_chain(case, st, case.frame, captured)
+
+        t = [call_ms(run(c), 7) for c in (False, True, True, False)]
+        row = {"uncaptured_ms_per_frame": (t[0] + t[3]) / 2 / case.n,
+               "captured_ms_per_frame": (t[1] + t[2]) / 2 / case.n, "turns_ms": t}
+        row["uncaptured_over_captured"] = row["uncaptured_ms_per_frame"] / row["captured_ms_per_frame"]
+        g = chain_graph.graph_of(case.kind, case.static, case.params, case.colliders, st, case.frame, case.n)
+        call_us = traced_kernels(run(True), 5, 3)["us_per_call"]
+        bare_us = traced_kernels(g.graph.replay, 5, 3)["us_per_call"]
+        row.update(replay_call_device_us=call_us, graph_device_us=bare_us, copies_device_us=call_us - bare_us,
+                   graph_launches=sum(g.launches.get(k, 0)
+                                      for k in ("fused_step.launches", "fused_step_fleet.launches")),
+                   copy_in_leaves=len(g.copy_in) + len(g.addr_static), clone_out_leaves=len(g.graph_out))
+        return row
+
+    def graphs_run():
+        cells, families = {}, []
+        for name in ("main", "main_1M", "collision", "fields", "destroy", "nested_folded", "nested_unfolded",
+                     "nested_chained", "nested_packed", "fleet", "fleet_destroy", "nested_fleet"):
+            case = chain_cfg.build(name, dev, "card")
+            cap0 = chain_graph.COUNTS["capture_s"]
+            t0 = time.perf_counter()
+            r = chain_cfg.check_captured(case)
+            cells[name] = {"label": chain_cfg.CASES[name], "frames": case.n, "live": r["live"], "leaves": r["leaves"],
+                           "capture_s": chain_graph.COUNTS["capture_s"] - cap0, "check_s": time.perf_counter() - t0}
+            st = r["state"]
+            stc, fc, col = case.static, case.frame, case.colliders
+            # the launch families of this chain, by value == device words
+            if name == "main":
+                families.append(words_match("solo U=8 (warp cadence)", case, st, "auto", 8, lambda s: fs.fused_step(
+                    stc, case.params, None, s, fc, unroll=8)))
+                families.append(words_match("solo U=1 render pack", case, st, "auto_packed", 1, lambda s: fs.fused_step(
+                    stc, case.params, None, s, fc, pack_render=True)))
+            elif name == "collision":
+                families.append(words_match("narrow phase U=2", case, st, "auto", 2, lambda s: fs.fused_step(
+                    stc, case.params, col, s, fc, unroll=2)))
+            elif name == "fields":
+                families.append(words_match("field block U=8", case, st, "auto", 8, lambda s: fs.fused_step(
+                    stc, case.params, None, s, fc, unroll=8)))
+            elif name == "destroy":
+                families.append(words_match("dead-rank claim U=1", case, st, "auto", 1, lambda s: fs.fused_step(
+                    stc, case.params, col, s, fc)))
+            elif name == "fleet":
+                families.append(words_match("fleet U=8", case, st, "fleet", 8, lambda s: fs.fused_step_fleet(
+                    stc, case.params, None, s, fc, unroll=8)))
+            elif name == "fleet_destroy":
+                families.append(words_match("fleet dead-rank U=1 with the dump plane", case, st, "fleet", 1,
+                                            lambda s: fs.fused_step_fleet(stc, case.params, col, s, fc)))
+            elif name in ("nested_folded", "nested_chained"):
+                families.append(words_match(f"{name}: hybrid frame (cooperative stage, lean merge)", case, st,
+                                            "auto", 1, lambda s: fs.fused_step(stc, case.params, None, s, fc)))
+
+                def folded(s):
+                    carry = fs._seed_nested_carry(stc, case.params, s)
+                    return fs.fused_step_hybrid(stc, case.params, None, s, fc, nested_carry=carry, fold_out=True)
+
+                families.append(words_match(f"{name}: folded hybrid frame (stage on carried counts, fold epilogue)",
+                                            case, st, "auto", 1, folded))
+            cells[name]["timing"] = (case, st)
+            chain_graph.clear()
+        nd = chain_cfg.build("nested_dead_rank", dev, "card")
+        ndr = chain_cfg.check_captured(nd)
+        families.append(words_match("dead-rank hybrid frame (wide merge, colliders)", nd, ndr["state"], "auto", 1,
+                                    lambda s: fs.fused_step(nd.static, nd.params, nd.colliders, s, nd.frame)))
+        chain_graph.clear()
+        return cells, families
+
+    (graph_cells, graph_families), graph_counts = counted(graphs_run)
+    check(graph_counts["chain_replays"] > 0 and graph_counts["chain_captures"] > 0, f"graphs: {graph_counts}")
+    for row in graph_cells.values():  # timed apart from the counted checks
+        row.update(graph_timing(*row.pop("timing")))
+        chain_graph.clear()
+    ab_fold_captured = ab_nested_fold(captured=True)
+    emit({"phase": "graphs", "card": card, "cells": graph_cells, "device_word_families": graph_families,
+          "ab_nested_fold_captured": ab_fold_captured, "launches": graph_counts,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "per cell (card sizes of tests/torch_chain_configs.py): the captured chain == the uncaptured chain "
+                  "bit for bit (every pool leaf, the key, outputs, render planes; the first call, a replay, a replay "
+                  "with another dt and transform, a replay from the first state again; earlier results kept; the "
+                  "input unwritten; the carried claim), calls under sync debug mode 'error'; every launch family by "
+                  "value == with device words; *_ms_per_frame: CUDA-event wall per frame of one chain call, "
+                  "uncaptured, captured, captured, uncaptured (the median of 7 calls each); replay_call_device_us: "
+                  "device time of "
+                  "a replay call (torch.profiler), graph_device_us: the bare graph's, copies_device_us: their "
+                  "difference (the host words, the copy-in and the clone-out)"})
+
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
             scene_counts, async_ev_counts, trails_counts, t100k_counts, ck_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
-            loop1m_counts, async_counts, *s1m_counts_all.values(), viewer_counts, ex_counts)
+            loop1m_counts, async_counts, *s1m_counts_all.values(), viewer_counts, ex_counts, graph_counts)
 
     def total(keys):
         keys = (keys,) if isinstance(keys, str) else keys

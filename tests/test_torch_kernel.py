@@ -299,7 +299,7 @@ def test_carried_claim_chain_seeds_once(cuda):
     s0 = pt.init_pool_for(c, 131072)
     f = pt.make_frame_input(1 / 60)
     before = (fs.claim_counts.seeds, fs.tile_dead_offsets.launches, fs.fused_step.dead_claim_launches)
-    s, _o = fs.multi_step_auto(c.static, c.params, table, s0, f, 50)
+    s, _o = fs.multi_step_auto(c.static, c.params, table, s0, f, 50, _captured=False)
     after = (fs.claim_counts.seeds, fs.tile_dead_offsets.launches, fs.fused_step.dead_claim_launches)
     assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 50)
     sp = s0
@@ -845,7 +845,7 @@ def test_folded_chain_equals_unfolded_on_the_card(cuda, chained):
     for i in range(2):
         fs._seed_nested_carry.launches = fs.nested_stage.launches = fs.tile_dead_offsets.launches = 0
         fs.nested_cadence_pass.launches = fs.nested_child_rows.launches = fs.fused_step.fold_launches = 0
-        a, oa = fs.multi_step_auto(c.static, c.params, None, s, f, 30)
+        a, oa = fs.multi_step_auto(c.static, c.params, None, s, f, 30, _captured=False)
         assert (fs._seed_nested_carry.launches, fs.tile_dead_offsets.launches, fs.nested_stage.launches,
                 fs.nested_cadence_pass.launches, fs.nested_child_rows.launches,
                 fs.fused_step.fold_launches) == (n_em, 0, 30 * n_em, 0, 0, 29)
@@ -959,7 +959,8 @@ def test_fleet_launches_in_chunks_of_the_seed_row(cuda):
     pools = [pt.init_pool_for(c, 4096, seed=i) for i in range(20)]
     frames = [pt.make_frame_input(1 / 50, translation=(float(i), 0.0, 0.0)) for i in range(20)]
     before = fs.fused_step_fleet.launches
-    st, out = fs.multi_step_fleet(c.static, c.params, None, stack_pools(pools), stack_frames(frames), 17)
+    st, out = fs.multi_step_fleet(c.static, c.params, None, stack_pools(pools), stack_frames(frames), 17,
+                                  _captured=False)
     assert fs.fused_step_fleet.launches - before == 2 * 2 + 1  # two U=8 launches, one U=1, each in 2 chunks
     for i in (0, 7, 15, 16, 19):
         si, oi = fs.multi_step_auto(c.static, c.params, None, pools[i], frames[i], 17)
