@@ -1528,6 +1528,16 @@ def _multi_step_fleet_stacked(static, params, colliders, states, frames, n_frame
     return states, out
 
 
+def _multi_step_fleet_packed(static, params, colliders, states, frames, n_frames: int):
+    """n frames of a global-only fleet whose last frame also writes the
+    render-pack planes (the JAX Scene's `_group_scan` with the pack): n - 1
+    frames of `_multi_step_fleet_stacked`, then one packed fleet launch.
+    Returns (states, outputs, planes), launched one by one."""
+    if n_frames > 1:
+        states, _o = _multi_step_fleet_stacked(static, params, colliders, states, frames, n_frames - 1)
+    return fused_step_fleet(static, params, colliders, states, frames, pack_render=True)
+
+
 def multi_step_fleet(static, params, colliders, states, frames, n_frames: int, _captured: bool = True):
     """multi_step_fleet_stacked with ONE params shared by every slot (the
     common fleet: S spawners of one configuration). The kernel reads the

@@ -347,6 +347,25 @@ the kernels. Phases:
      replay call beside the bare graph's (the difference: the host words,
      the copy-in and the clone-out); and ab_nested_fold with both chains
      captured.
+ 42. scene_graphs: the Scene's step as captured CUDA graphs (one per scene
+     signature; one per group past combined_signature_limit; the groups'
+     padded, hole-stable rows): tests/torch_scene_configs.py's cells at the
+     card size (the sparks flow, the events scene sync and async, the
+     tornado, a trailed comet group, scene_batch_12, scene_hetero_100 in
+     combined and per-group mode, group_churn_12), each through a captured
+     and an uncaptured Scene: pools, outputs, render planes, trails and
+     render rows bit for bit, records and finished events every step, a
+     signature's first step uncaptured and then one graph replay per step
+     (per group in per-group mode), no launch one by one in a step that
+     replays, the replays holding the fleet and the solo step launches, no
+     capture on a churn within a pad class, padding rows dead and
+     nobody's; the device memory with the graphs held; ms per Scene.step
+     captured and uncaptured in interleaved windows; the host µs of a
+     steady step by part, the copies' device µs, the capture ms per
+     signature, the packed fleet launch at 12 rows against 16,
+     group_churn_12 padded against unpadded; bench.py's churn_storm
+     captured, uncaptured and unpadded. Every earlier phase that steps a
+     Scene steps it captured.
 
 The launch counters are set to 0 just before each main-path run (the two
 stress_test chains, the sparks flow, the destroy run, the two collision
@@ -354,9 +373,9 @@ chains, the collision flow, the collider-scaling chains, the fields chain, the S
 async events scene, the trails flows, the trails_100k scenes, the checkpointed scenes, the two
 nested chains, the nested flows, the fleet chain, the Fleet flow, the
 scene groups, the two render loops, the async Scene, sharded_1M's three
-sharded chains, the viewer's Scene, each example script and the graphs
-phase) and read just after it; the kernels' summary reports those counts
-only. A run counts the launches it made on the card: those launched one
+sharded chains, the viewer's Scene, each example script, the graphs
+phase and each step of the captured Scene in the scene_graphs phase's checked cells) and read just after it;
+the kernels' summary reports those counts only. A run counts the launches it made on the card: those launched one
 by one and those its captured chains' replays ran (a graph's launches
 times its replays), not those a capture recorded without running them. Every phase
 prints one JSON line; the kernels' summary (with each kernel's bound: the
@@ -3250,7 +3269,7 @@ def main() -> int:
         row.update(replay_call_device_us=call_us, graph_device_us=bare_us, copies_device_us=call_us - bare_us,
                    graph_launches=sum(g.launches.get(k, 0)
                                       for k in ("fused_step.launches", "fused_step_fleet.launches")),
-                   copy_in_leaves=len(g.copy_in) + len(g.addr_static), clone_out_leaves=len(g.graph_out))
+                   copy_in_leaves=g.copy_in_leaves, clone_out_leaves=g.clone_out_leaves)
         return row
 
     def graphs_run():
@@ -3324,11 +3343,229 @@ def main() -> int:
                   "a replay call (torch.profiler), graph_device_us: the bare graph's, copies_device_us: their "
                   "difference (the host words, the copy-in and the clone-out)"})
 
+    # ------------------------------------------------ 42. scene_graphs
+    # The Scene's one-dispatch step (Scene._dispatch, chain_graph.
+    # replay_segments): each cell of tests/torch_scene_configs.py at the
+    # card size through a captured and an uncaptured Scene, bit for bit;
+    # ms per Scene.step captured against uncaptured in interleaved windows;
+    # bench.py's churn_storm; the host split of a steady step; the copies'
+    # device time; the padding rows' cost in the fleet launch.
+    import torch_scene_configs as scene_cfg
+    from bevy_firework_tpu_torch import scene as scene_mod
+
+    t_cell = time.perf_counter()
+
+    # the counts of the captured Scene's steps alone (run_pair's
+    # `launches`: each a.scene.step between two readings; its uncaptured
+    # twin's launches are not the main path's)
+    sg_cells = {}
+    for name in scene_cfg.CELLS:
+        cap0, n0 = chain_graph.COUNTS["capture_s"], chain_graph.COUNTS["captures"]
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = scene_cfg.run_pair(name, dev, "card")
+        r.update(capture_s=chain_graph.COUNTS["capture_s"] - cap0, check_s=time.perf_counter() - t0)
+        r["capture_ms_per_signature"] = r["capture_s"] * 1e3 / max(chain_graph.COUNTS["captures"] - n0, 1)
+        check(r["uncaptured_launches_in_replay_steps"] == 0 and r["replay_steps"] > 0,
+              f"scene_graphs {name}: {r}")
+        sg_cells[name] = r
+        chain_graph.clear()
+    sg_counts = {k: sum(c["launches"].get(f"{obj.__name__}.{attr}", 0) for c in sg_cells.values())
+                 for k, (obj, attr) in counters.items()}
+    sg_counts.update(chain_captures=sum(c["captures"] for c in sg_cells.values()),
+                     chain_replays=sum(c["replays"] for c in sg_cells.values()))
+    sg_replayed = {}
+    for c in sg_cells.values():
+        for k, v in c["replayed"].items():
+            sg_replayed[k] = sg_replayed.get(k, 0) + v
+    check(all(f < scene_cfg.CHURN_FROM for f in sg_cells["group_churn_12"]["capture_frames"]),
+          f"scene_graphs: churn captured {sg_cells['group_churn_12']['capture_frames']}")
+    check(all(sg_cells[k]["padding_rows_checked"] > 0 for k in ("scene_batch_12", "scene_hetero_100",
+                                                               "group_churn_12")), "scene_graphs: no padding row")
+    hpg = sg_cells["scene_hetero_100_per_group"]
+    check(hpg["per_group_mode"] and hpg["captures"] == 8 and hpg["replay_steps"] == hpg["frames"] - 8
+          and hpg["replays"] == 4 * hpg["replay_steps"] + 2 * (1 + 2 + 3), "scene_graphs: per-group replays")
+    check(sg_replayed.get("fused_step_fleet.launches", 0) > 0 and sg_replayed.get("fused_step.launches", 0) > 0
+          and sg_counts["fleet"] > 0 and sg_counts["fused_step"] > 0, f"scene_graphs: replayed {sg_replayed}")
+
+    def timed_pair(name, churn=True):
+        """ms per Scene.step captured and uncaptured (scene_cfg.time_steps:
+        3 interleaved 40-step windows, U C, C U, U C)."""
+        row, scenes = scene_cfg.time_steps(name, dev, {"uncaptured": {"_captured": False}, "captured": {}},
+                                           churn=churn)
+        row["uncaptured_over_captured"] = row["uncaptured"] / row["captured"]
+        return row, scenes["captured"]
+
+    sg_ms = {}
+    for name in ("sparks", "events", "tornado", "scene_batch_12", "scene_hetero_100", "scene_hetero_100_per_group"):
+        sg_ms[name], keep = timed_pair(name)
+        if name == "scene_batch_12":
+            batch12 = keep
+        elif name == "scene_hetero_100":
+            hetero100 = keep
+        chain_graph.clear()
+    sg_ms["group_churn_12_churn"], _ = timed_pair("group_churn_12")
+    sg_ms["group_churn_12_steady"], _ = timed_pair("group_churn_12", churn=False)
+    chain_graph.clear()
+    # does the padding pay on this card: group_churn_12 captured, padded (16
+    # rows) against unpadded (12 in member order), churn and steady
+    pad_ab = {}
+    for churn in (True, False):
+        pad_ab["churn" if churn else "steady"], _ = scene_cfg.time_steps(
+            "group_churn_12", dev, {"unpadded": {"_padded": False}, "padded": {}}, churn=churn)
+        chain_graph.clear()
+
+    # the host split of one steady step (render pack on): each part's host
+    # µs per step by wrapping it
+    def host_split(sc, steps=60):
+        parts = {"group_inputs": 0.0, "signature": 0.0, "words": 0.0, "copy_in": 0.0, "replay": 0.0,
+                 "clone_out": 0.0, "finish_and_events": 0.0}
+        saved = []
+
+        def wrap(owner, attr, label):
+            orig = getattr(owner, attr)
+            saved.append((owner, attr, orig))
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    parts[label] += time.perf_counter() - t0
+            setattr(owner, attr, timed)
+
+        wrap(sc, "_plans", "group_inputs")
+        wrap(sc, "_signature", "signature")
+        wrap(chain_graph, "segment_words", "words")
+        wrap(chain_graph, "_copy_all", "copy_in")
+        wrap(chain_graph, "_clone_out", "clone_out")
+        wrap(torch.cuda.CUDAGraph, "replay", "replay")
+        wrap(sc, "_finish_group", "finish_and_events")
+        wrap(sc, "_finish_solo", "finish_and_events")
+        try:
+            for _ in range(5):
+                sc.step(scene_cfg.DT)
+            for k in parts:
+                parts[k] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sc.step(scene_cfg.DT)
+            total = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        finally:
+            for owner, attr, orig in reversed(saved):
+                if owner is sc:
+                    delattr(sc, attr)
+                else:
+                    setattr(owner, attr, orig)
+        us = {k: v / steps * 1e6 for k, v in parts.items()}
+        us["step_total"] = total / steps * 1e6
+        us["bookkeeping_rest"] = us["step_total"] - sum(v for k, v in us.items() if k != "step_total")
+        return us
+
+    split = {"scene_hetero_100": host_split(hetero100), "scene_batch_12": host_split(batch12)}
+
+    def host_us(fn, calls=30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    def clone_ab(sc):
+        """The clone-out of the scene's graph: a clone per output tensor
+        against `_clone_out` (one `_foreach_copy_` per dtype and
+        contiguity), host µs per call up to a synchronize, in turns (T G G
+        T); and a bare replay's enqueue, host µs per call (50 calls, no
+        synchronize between them)."""
+        g = chain_graph._GRAPHS[sc._signature(sc._plans(scene_cfg.DT, 1), 1)]
+
+        def per_tensor():
+            return [t.clone() for t in g.outs]
+
+        def grouped():
+            return chain_graph._clone_out(g.outs, g.clone_plan)
+
+        t = [host_us(f) for f in (per_tensor, grouped, grouped, per_tensor)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            g.graph.replay()
+        enqueue = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        return {"outputs": len(g.outs), "per_tensor_us": (t[0] + t[3]) / 2, "grouped_us": (t[1] + t[2]) / 2,
+                "turns_us": t, "replay_enqueue_us": enqueue}
+
+    clone_us = {"scene_hetero_100": clone_ab(hetero100), "scene_batch_12": clone_ab(batch12)}
+    del hetero100
+    # device time of a step against its graph's bare replay: the copy-in and
+    # clone-out (the words' one copy included)
+    sig12 = batch12._signature(batch12._plans(scene_cfg.DT, 1), 1)
+    g12 = chain_graph._GRAPHS[sig12]
+    step_us = traced_kernels(lambda: batch12.step(scene_cfg.DT), 5, 3)["us_per_call"]
+    bare_us = traced_kernels(g12.graph.replay, 5, 3)["us_per_call"]
+    # the padding rows' cost: the packed fleet launch at scene_batch_12 with
+    # its 16 rows against the same members stacked in 12
+    b12 = next(iter(batch12._batches.values()))
+    st16 = b12.states
+    st12 = scene_mod.take_insert(st16, list(b12.rows), [], None)
+    members12 = [batch12._spawners[s] for s in b12.sids]
+    f16 = batch12._group_inputs[(members12[0].compiled.static, members12[0].capacity)]["frames"][1]
+    f12 = scene_mod.stack_frames([batch12._frame_for(m, scene_cfg.DT) for m in members12])
+    c12 = members12[0].compiled
+    pad_us = {}
+    for rows_n, st_, fr_ in ((12, st12, f12), (16, st16, f16), (12, st12, f12), (16, st16, f16)):
+        ms_ = device_ms(f"fleet launch {rows_n} rows", lambda: fs.fused_step_fleet(
+            c12.static, c12.params, None, st_, fr_, pack_render=True), 20, True, 0.0)
+        pad_us.setdefault(rows_n, []).append(ms_ * 1e3)
+    chain_graph.clear()
+    garbage = scene_cfg.cyclic_garbage()  # what the phase's timed cells left, freed before the storm
+    storm = scene_cfg.churn_storm(dev)
+    chain_graph.clear()
+    storm_unc = scene_cfg.churn_storm(dev, _captured=False)
+    chain_graph.clear()
+    storm_unpadded = scene_cfg.churn_storm(dev, _padded=False)
+    chain_graph.clear()
+    check(storm["captures"] > 0 and storm_unc["captures"] == 0, f"churn_storm: {storm['captures']} captures")
+    emit({"phase": "scene_graphs", "card": card, "cells": sg_cells, "launches": sg_counts, "replayed": sg_replayed,
+          "ms_per_scene_step": sg_ms, "padded_against_unpadded_group_churn_12": pad_ab,
+          "host_us_steady_step": split, "clone_out_and_replay_enqueue": clone_us,
+          "batch_12_step_device_us": step_us, "batch_12_graph_device_us": bare_us,
+          "batch_12_copies_device_us": step_us - bare_us, "fleet_launch_us_by_rows": pad_us,
+          "churn_storm": {k: v for k, v in storm.items() if k != "walls_ms"},
+          "churn_storm_walls_ms": storm["walls_ms"],
+          "churn_storm_uncaptured": {k: v for k, v in storm_unc.items() if k != "walls_ms"},
+          "churn_storm_unpadded": {k: v for k, v in storm_unpadded.items() if k != "walls_ms"},
+          "garbage_before_storm": garbage,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "per cell (tests/torch_scene_configs.py, card size): the captured Scene == the uncaptured one bit "
+                  "for bit (every pool leaf, outputs, render planes, trails at 4 checkpoints; records and finished "
+                  "events every step; render rows at the end), each signature's first step uncaptured, then one "
+                  "replay per step (per group in per-group mode; the first after a capture), no launch one by one "
+                  "in a step that replays, no capture on group_churn_12's churn, padding rows dead and nobody's; "
+                  "launches: the captured scene's steps alone, replayed: those in replays; memory: after the "
+                  "cell with both scenes and its graphs held (graph_bytes: the graphs' static inputs and "
+                  "outputs), peak since the cell began; ms_per_scene_step: host clock over 40 steps between "
+                  "synchronizes, median of 3 interleaved windows (U C, C U, U C) after the cell's script; "
+                  "host_us: each part's host µs per steady step (wrapped), bookkeeping_rest the step's rest; "
+                  "clone_out_and_replay_enqueue: the graph's clone-out per tensor against grouped (host µs per "
+                  "call to a synchronize, T G G T) and a bare replay's enqueue (host µs per call); "
+                  "copies_device_us: a step's device time (torch.profiler) less its graph's bare replay; "
+                  "fleet_launch_us_by_rows: the packed fleet launch's step kernel at scene_batch_12's state, 12 "
+                  "rows (its members) against 16 (the padded stack), in turns; padded_against_unpadded: "
+                  "group_churn_12 captured with Scene._padded on and off, timed as ms_per_scene_step; "
+                  "churn_storm: bench.py's _measure_churn_storm (60 frames, capacity 8192, 6 archetypes, 12 "
+                  "live), enqueue wall per frame, captured, uncaptured and unpadded, its memory after the "
+                  "storm with the graphs held, its worst frame's collector ms; garbage_before_storm: the cyclic "
+                  "garbage the timed cells left (objects, types, ms to free), collected before the storm"})
+
     # counts from the main-path runs alone (every run listed in the
     # docstring's last paragraph)
     runs = (r100k_counts, r1m_counts, s_counts, d_counts, c1m_counts, h8_counts, f_counts, scaling_counts, f1m_counts,
             scene_counts, async_ev_counts, trails_counts, t100k_counts, ck_counts, n60k_counts, nch_counts, flows_counts, fleet_counts, flow_counts, group_counts, loop_counts,
-            loop1m_counts, async_counts, *s1m_counts_all.values(), viewer_counts, ex_counts, graph_counts)
+            loop1m_counts, async_counts, *s1m_counts_all.values(), viewer_counts, ex_counts, graph_counts, sg_counts)
 
     def total(keys):
         keys = (keys,) if isinstance(keys, str) else keys

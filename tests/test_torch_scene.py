@@ -124,8 +124,9 @@ def test_sparks_flow_scene():
 
 def test_combined_signature_limit_is_accepted():
     """Scene(combined_signature_limit=4) constructs in both packages (the
-    JAX Scene's keyword; the port ignores it) and the port's steps as
-    Scene() does, bit for bit, with the reference's live count."""
+    JAX Scene's keyword; in the port it bounds the scene graphs' captures,
+    tests/test_torch_scene_graph.py) and the port's steps as Scene() does,
+    bit for bit, with the reference's live count."""
     js, ps = _scenes(combined_signature_limit=lambda pkg: 4)
     plain = pt.Scene(device="cpu")
     for scene, pkg in ((js, jx), (ps, pt), (plain, pt)):

@@ -250,7 +250,7 @@ def run_on_card(out_dir, counted, require) -> dict:
 def card_profile(trace_dir, require) -> dict:
     """utils.profiling on the card: `trace` around 30 frames of the sparks
     scene (each in an `annotate` span, one step kernel launch each, counted
-    by the wrapper) writes a Chrome trace that holds the 30 spans and the
+    by the wrapper or by the Scene's graph replays) writes a Chrome trace that holds the 30 spans and the
     step kernel's launches (CUPTI may drop some launch records of a trace,
     as chip_smoke's device_ms finds; the count in the trace is reported);
     `device_memory_stats` reports the card's allocated bytes."""
@@ -260,8 +260,13 @@ def card_profile(trace_dir, require) -> dict:
 
     import bevy_firework_tpu_torch as bt
     from bevy_firework_tpu_torch.models import effects
+    from bevy_firework_tpu_torch.ops import chain_graph
     from bevy_firework_tpu_torch.ops.fused_step import fused_step
     from bevy_firework_tpu_torch.utils import profiling
+
+    def run():  # step launches made: one by one, and by the Scene's graph replays
+        key = "fused_step.launches"
+        return fused_step.launches - chain_graph.CAPTURED.get(key, 0) + chain_graph.REPLAYED.get(key, 0)
 
     spawner, tf = effects.sparks()
     scene = bt.Scene()
@@ -269,13 +274,13 @@ def card_profile(trace_dir, require) -> dict:
     for _ in range(60):
         scene.step(1 / 60)
     torch.cuda.synchronize()
-    launches = fused_step.launches
+    launches = run()
     with profiling.trace(str(trace_dir)):
         for _ in range(30):
             with profiling.annotate("examples.sparks.step"):
                 scene.step(1 / 60)
         torch.cuda.synchronize()
-    launches = fused_step.launches - launches
+    launches = run() - launches
     (path,) = Path(trace_dir).glob("*.pt.trace.json")
     events = json.loads(path.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "fused_step_kernel" in e.get("name", "")]
