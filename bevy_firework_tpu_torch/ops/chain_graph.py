@@ -64,6 +64,21 @@ outputs the same way, but never one that the call names in `keep` (a
 Scene's step keeps the graphs of its own groups); a dropped graph is
 captured again at its next call.
 
+The XLA layout's chain (kind "xla": the top-level `multi_step` and
+`step_jit`, the JAX package's `multi_step`, `jax.jit` over `lax.scan` at
+`bevy_firework_tpu/step.py:904-925`, and its `step_jit`) is composed torch,
+hundreds of kernels a frame, so it is not unrolled: `_XlaGraph` captures
+the scan body (`xla_step.chain_frame` without stats, its state written
+back into its own static pool) and the last frame (with stats) as two
+graphs under one key that holds no frame count. Its first call warms one
+frame of each up on the static inputs, captures both and replays them; a
+call of n frames copies in the pool, the spawner params, the collider and
+field tensors and one device buffer holding the frame row, a frame
+counter and the chain's key words (`prng.xla_chain_keys`, at most XLA_ROWS
+frames per copy), replays the body n - 1 times and the last frame once,
+and clones the last frame's outputs out. `step_jit` replays the last
+frame alone.
+
 A Scene captures a signature only when it comes back (`defer`): its first
 call steps the launches one by one and captures nothing (a signature met
 once, as a new spawner's while effects of new kinds keep coming, costs no
@@ -77,20 +92,26 @@ from __future__ import annotations
 
 import collections
 import copy
+import ctypes
 import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from ..compiled import SpawnerStatic
+from .. import xla_step
+from ..colliders import TABLE_TENSORS
+from ..compiled import SpawnerParams, SpawnerStatic
+from ..force_fields import TABLE_SHAPES
 from ..parallel.sharding import frame_slot, is_stacked_params, params_slot
 from ..pool import FrameInput, PoolState
-from ..prng import chain_seeds, chain_seeds_stacked, hybrid_chain_keys
-from ..step import collision_on, fields_on, has_nested, nested_emitters
+from ..prng import chain_seeds, chain_seeds_stacked, hybrid_chain_keys, xla_chain_keys
+from ..step import ROTATION_FIELDS, active_f32_fields, collision_on, fields_on, has_nested, nested_emitters
 from . import fused_step as fs
+from . import table_layout as L
 
-KINDS = ("auto", "auto_packed", "unfolded", "fleet", "fleet_packed")
+KINDS = ("auto", "auto_packed", "unfolded", "fleet", "fleet_packed", "xla")
+XLA_ROWS = 256  # frames of key words an XLA chain's graph reads per copy: a longer chain copies them in chunks
 MAX_GRAPHS = 32  # graphs kept (least recently used dropped first, with their pools)
 MAX_GRAPH_BYTES = 8 << 30  # and the bytes of their static inputs and outputs
 MAX_SEEN = 4 * MAX_GRAPHS  # keys met once (defer), the oldest forgotten first
@@ -103,6 +124,8 @@ _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
 _SEEN: "collections.OrderedDict" = collections.OrderedDict()  # keys stepped once uncaptured, awaiting their return
 _CAPTURE_STREAMS: dict = {}
 _POOL_LEAVES = tuple(f.name for f in dataclasses.fields(PoolState))
+_PARAM_LEAVES = tuple(f.name for f in dataclasses.fields(SpawnerParams))
+_LANE_F32 = ("px", "py", "pz", "vx", "vy", "vz") + ROTATION_FIELDS + ("initial_scale", "age", "lifetime")
 
 
 def reset_counts() -> None:
@@ -122,7 +145,7 @@ def clear() -> None:
 def _chain(kind: str):
     return {"auto": fs._multi_step_auto, "auto_packed": fs._multi_step_auto_packed,
             "unfolded": fs.chain_hybrid_unfolded, "fleet": fs._multi_step_fleet_stacked,
-            "fleet_packed": fs._multi_step_fleet_packed}[kind]
+            "fleet_packed": fs._multi_step_fleet_packed, "xla": xla_step.multi_step}[kind]
 
 
 def run(kind: str, static: SpawnerStatic, params, colliders, state: PoolState, frame: FrameInput, n_frames: int):
@@ -150,12 +173,21 @@ def graph_key(kind: str, static: SpawnerStatic, params, colliders, state: PoolSt
     """The graph a chain replays: the entry point, the static configuration,
     the frame count, the pool's leaf shapes and dtypes (capacity, slots,
     emitters), the table's shape, the collider and field-record counts and
-    sizes, and the device. No value enters it."""
+    sizes, and the device. No value enters it. An XLA-layout chain's key
+    holds no frame count (one capture serves every n) but the collider and
+    field kinds and the params' shapes: its composed torch specialises on
+    them."""
     if kind not in KINDS:
         raise ValueError(f"no chain {kind!r}; the chains are {KINDS}")
+    leaves = tuple((k, t.shape, t.dtype) for k, t in ((k, getattr(state, k)) for k in _POOL_LEAVES))
+    if kind == "xla":
+        shapes = tuple(getattr(params, k).shape for k in _PARAM_LEAVES)
+        col = (colliders.kinds, colliders.identity_rot, colliders.hull_counts,
+               tuple(getattr(colliders, k).shape for k in TABLE_TENSORS)) if collision_on(static, colliders) else None
+        fields = frame.force_fields.kinds if fields_on(frame) else None
+        return kind, static, None, leaves, shapes, col, fields, str(state.device)
     if kind == "fleet_packed" and not fs.can_fleet(static):
         raise ValueError("a packed fleet chain takes global-only archetypes (can_fleet)")
-    leaves = tuple((k, t.shape, t.dtype) for k, t in ((k, getattr(state, k)) for k in _POOL_LEAVES))
     table = tuple(fs.kernel_tables(static, params).shape)
     col = (colliders.count, tuple(colliders.hull_counts)) if collision_on(static, colliders) else None
     if _is_fleet(kind) and fs.can_fleet(static):
@@ -191,9 +223,14 @@ def chain_words(kind: str, static: SpawnerStatic, colliders, state: PoolState, f
     the stage's key and frame row, then the step launch's frame row and
     seed. A nested fleet steps its slots' hybrid frames frame by frame,
     slot by slot. A packed chain's last frame is one more launch of one
-    frame."""
+    frame. An XLA-layout chain ("xla") takes per frame its fold-ins
+    (`prng.xla_chain_keys` of `xla_step.keyed_data`), two words each; its
+    frame row goes beside them (`_XlaGraph`)."""
     key = state.rng_key.numpy()
     n = int(n_frames)
+    if kind == "xla":
+        final, keys = xla_chain_keys(key, n, xla_step.keyed_data(static))
+        return keys.reshape(-1), final
     es = nested_emitters(static)
     parts: list = []
     if kind in ("auto", "auto_packed", "unfolded"):
@@ -569,6 +606,217 @@ class _Graph:
         return results
 
 
+# --------------------------------------------------------------------------
+# the XLA layout's chain: its scan body and its last frame
+# --------------------------------------------------------------------------
+
+
+def _xla_sources(static: SpawnerStatic, params, colliders, frame: FrameInput) -> list:
+    """The device tensors an XLA-layout frame reads by address besides the
+    pool, in a fixed order: the spawner params' leaves, the collider
+    table's tensors (where the narrow phase runs), the field table's
+    (where the frame has fields)."""
+    out = [getattr(params, k) for k in _PARAM_LEAVES]
+    if collision_on(static, colliders):
+        out += [getattr(colliders, k) for k in TABLE_TENSORS]
+    if fields_on(frame):
+        out += [frame.force_fields.tensor(k) for k in TABLE_SHAPES]
+    return out
+
+
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int | None:
+    """The nodes of a graph captured with keep_graph=True and not yet
+    instantiated (the driver's cuGraphGetNodes on its cudaGraph_t), or None
+    where the driver cannot say."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    return int(n.value) if err == 0 else None
+
+
+def _capture(graph: torch.cuda.CUDAGraph, fn):
+    """fn() recorded into `graph` on the current stream; a failure ends the
+    capture and raises."""
+    graph.capture_begin(capture_error_mode="thread_local")
+    try:
+        out = fn()
+    except BaseException:
+        try:
+            graph.capture_end()
+        except RuntimeError:
+            pass
+        raise
+    graph.capture_end()
+    return out
+
+
+class _XlaGraph:
+    """An XLA-layout chain (kind "xla") captured as two graphs on one set of
+    static inputs: `body`, one frame without stats (`xla_step.chain_frame`)
+    whose new state is copied back into the static pool, and `last`, one
+    frame with stats. Each reads the frame row and its key words from one
+    device buffer (`words_dev`: FRAME_WORDS f32 words, the frame counter,
+    XLA_ROWS rows of key words) and advances the counter. `nodes`: each
+    graph's node count (None where it cannot be read); `capture_s`: host
+    seconds of the two captures and instantiations; `nbytes`: its static
+    inputs, words and outputs."""
+
+    def __init__(self, segments):
+        if len(segments) != 1:
+            raise ValueError("an XLA-layout chain is captured alone, not among a scene's segments")
+        _kind, static, params, colliders, state, frame, _n = segments[0]
+        dev = state.device
+        self.static = static
+        self.w = 2 * len(xla_step.keyed_data(static))
+        self.words_dev = torch.zeros(L.FRAME_WORDS + 1 + XLA_ROWS * self.w, dtype=torch.int32, device=dev)
+        self.pinned = [None, None]
+        self.events = [torch.cuda.Event(), torch.cuda.Event()]
+        self.flip = 0
+        self.in_static = [torch.empty_like(t, memory_format=torch.contiguous_format) if t.device.type == "cuda"
+                          else t.clone() for t in (getattr(state, k) for k in _POOL_LEAVES)]
+        state_s = PoolState(**dict(zip(_POOL_LEAVES, self.in_static)))
+        self.addr_static = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                            for t in _xla_sources(static, params, colliders, frame)]
+        it = iter(self.addr_static)
+        params_s = SpawnerParams(**{k: next(it) for k in _PARAM_LEAVES})
+        colliders_s = colliders
+        if collision_on(static, colliders):
+            colliders_s = dataclasses.replace(colliders, **{k: next(it) for k in TABLE_TENSORS})
+        fields_s = None
+        if fields_on(frame):
+            fields_s = copy.copy(frame.force_fields)
+            fields_s.__dict__["_tensors"] = {k: next(it) for k in TABLE_SHAPES}
+        frame_row = self.words_dev[:L.FRAME_WORDS].view(torch.float32)
+        words = self.words_dev[L.FRAME_WORDS:]
+        static_ptrs = {t.untyped_storage().data_ptr() for t in self.in_static if t.device.type == "cuda"}
+
+        def one(stats: bool):
+            return xla_step.chain_frame(static, params_s, colliders_s, state_s, frame_row, fields_s, words, stats)
+
+        def body():
+            st, _out = one(False)
+            dsts, srcs = [], []
+            for j, k in enumerate(_POOL_LEAVES):
+                t = getattr(st, k)
+                if t is self.in_static[j] or t.device.type != "cuda":
+                    continue
+                if t.untyped_storage().data_ptr() in static_ptrs:
+                    raise RuntimeError(f"a captured XLA frame returned a view of its static input as {k}")
+                dsts.append(self.in_static[j])
+                srcs.append(t)
+            _copy_all(dsts, srcs)
+            return st
+
+        # warm-up: one frame of each on the capture's own inputs, on the
+        # capture stream (kernels loaded, allocator blocks made), then the
+        # two captures
+        self.copy_in = [j for j, t in enumerate(self.in_static) if t.device.type == "cuda"]
+        i = self._stage(static, state, frame, 1)[0]
+        self._copy_in(params, colliders, state, frame, i)
+        cap = _capture_stream(dev)
+        cap.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(cap):
+            one(False)
+            one(True)
+        t0 = time.perf_counter()
+        self.body, self.last = torch.cuda.CUDAGraph(keep_graph=True), torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(cap):
+            body_state = _capture(self.body, body)
+            out = _capture(self.last, lambda: one(True))
+        self.nodes = [_graph_nodes(g) for g in (self.body, self.last)]
+        for g in (self.body, self.last):
+            g.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        torch.cuda.current_stream(dev).wait_stream(cap)
+        self._bind(static, body_state, out)
+        COUNTS["captures"] += 1
+        COUNTS["capture_s"] += self.capture_s
+
+    def _bind(self, static: SpawnerStatic, body_state: PoolState, out) -> None:
+        """Map the last frame's outputs (the key chain's key, the caller's
+        leaves the frames pass through, graph tensors) and copy in only the
+        leaves the frames may read: an elided field (rotation where the
+        archetype keeps the identity, a constant lifetime) passes through
+        both graphs unread, and is poisoned here."""
+        st = out[0]
+        passed = {j for j, k in enumerate(_POOL_LEAVES) if getattr(st, k) is self.in_static[j]}
+        if passed != {j for j, k in enumerate(_POOL_LEAVES) if getattr(body_state, k) is self.in_static[j]}:
+            raise RuntimeError("the captured XLA body and last frame pass different leaves through")
+        active = set(active_f32_fields(static))
+        elided = {j for j, k in enumerate(_POOL_LEAVES)
+                  if k in _LANE_F32 and k not in active}
+        if not elided <= passed:
+            raise RuntimeError("a captured XLA frame wrote a field its archetype elides")
+        self.copy_in = [j for j, t in enumerate(self.in_static) if t.device.type == "cuda" and j not in elided]
+        for j in elided:
+            _poison(self.in_static[j])
+        out_leaves: list = []
+        self.out_spec = _flatten(out, out_leaves)
+        self.out_map, self.outs, ids = [], [], {}
+        for t in out_leaves:
+            if t is st.rng_key:
+                self.out_map.append(("key",))
+            elif any(t is s for s in self.in_static):
+                self.out_map.append(("in", next(j for j, s in enumerate(self.in_static) if t is s)))
+            else:
+                if id(t) not in ids:
+                    ids[id(t)] = len(self.outs)
+                    self.outs.append(t)
+                self.out_map.append(("graph", ids[id(t)]))
+        self.clone_plan = _clone_plan(self.outs)
+        self.nbytes = sum(t.nbytes for t in self.in_static + self.addr_static + self.outs + [self.words_dev]
+                          if t.device.type == "cuda")
+
+    def _stage(self, static: SpawnerStatic, state: PoolState, frame: FrameInput, n: int) -> tuple:
+        """Write a call's host words into a pinned buffer: per chunk of at
+        most XLA_ROWS frames, the frame row, a zero frame counter and the
+        chunk's key words (int32 [chunks, len(words_dev)]). Returns (the
+        buffer's index, the chunks, the key after the chain)."""
+        words, final = chain_words("xla", static, None, state, frame, n)
+        chunks = -(-n // XLA_ROWS)
+        size = chunks * self.words_dev.numel()
+        i, self.flip = self.flip, self.flip ^ 1
+        if not self.events[i].query():  # the copy two calls back still reads this buffer
+            self.events[i].synchronize()
+        if self.pinned[i] is None or self.pinned[i].numel() < size:
+            self.pinned[i] = torch.empty(size, dtype=torch.int32, pin_memory=True)
+        host = self.pinned[i][:size].view(chunks, -1)
+        h = host.numpy()
+        h[:, :L.FRAME_WORDS] = fs._frame_row(frame).view(np.int32)
+        h[:, L.FRAME_WORDS:] = 0
+        rows = words.view(np.int32).reshape(n, self.w)
+        for c in range(chunks):
+            part = rows[c * XLA_ROWS:(c + 1) * XLA_ROWS].reshape(-1)
+            h[c, L.FRAME_WORDS + 1:L.FRAME_WORDS + 1 + part.size] = part
+        return i, host, final
+
+    def _copy_in(self, params, colliders, state: PoolState, frame: FrameInput, i: int) -> None:
+        srcs = [getattr(state, _POOL_LEAVES[j]) for j in self.copy_in]
+        _copy_all([self.in_static[j] for j in self.copy_in] + self.addr_static,
+                  srcs + _xla_sources(self.static, params, colliders, frame))
+        self.words_dev.copy_(self.pinned[i][:self.words_dev.numel()], non_blocking=True)
+        self.events[i].record(torch.cuda.current_stream(self.words_dev.device))
+
+    def replay(self, segments) -> list:
+        _kind, static, params, colliders, state, frame, n = segments[0]
+        n = int(n)
+        if n < 1:
+            raise ValueError("an XLA-layout chain steps n >= 1 frames")
+        i, host, final = self._stage(static, state, frame, n)
+        self._copy_in(params, colliders, state, frame, i)
+        for c in range(host.shape[0]):
+            if c:
+                self.words_dev.copy_(host[c], non_blocking=True)
+            for f in range(c * XLA_ROWS, min((c + 1) * XLA_ROWS, n)):
+                (self.last if f == n - 1 else self.body).replay()
+        self.events[i].record(torch.cuda.current_stream(self.words_dev.device))
+        cloned = _clone_out(self.outs, self.clone_plan)
+        in_leaves = [getattr(state, k) for k in _POOL_LEAVES]
+        key = torch.from_numpy(final.astype(np.int64))
+        leaves = [key if m[0] == "key" else in_leaves[m[1]] if m[0] == "in" else cloned[m[1]] for m in self.out_map]
+        COUNTS["replays"] += 1
+        return [_unflatten(self.out_spec, leaves)]
+
+
 def graph_of(kind: str, static: SpawnerStatic, params, colliders, state: PoolState, frame: FrameInput,
              n_frames: int) -> "_Graph":
     """The captured chain these arguments replay (KeyError before the first
@@ -606,6 +854,11 @@ def replay_segments(key: tuple, segments: list, keep=(), defer: bool = False, ca
         return g.replay(segments)
     if any(s[4].device.type != "cuda" for s in segments):
         raise ValueError("a captured graph runs on a CUDA device")
+    if segments[0][0] == "xla":  # warmed up on its static inputs and captured at its first call, then replayed
+        _SEEN.pop(key, None)
+        g = _GRAPHS[key] = _XlaGraph(segments)
+        _evict(set(keep) | {key})
+        return g.replay(segments)
     if defer and (key not in _SEEN or not capture):  # met (again): remembered, stepped one by one
         _SEEN[key] = None
         _SEEN.move_to_end(key)
@@ -625,10 +878,12 @@ def replay(kind: str, static: SpawnerStatic, params, colliders, state: PoolState
     `multi_step_auto_packed`, "fleet": `multi_step_fleet_stacked`,
     "fleet_packed": n - 1 fleet frames and one packed fleet launch,
     "unfolded": `chain_hybrid_unfolded`, a nested chain without the fold,
-    the uncaptured side of the fold's A/B) of
+    the uncaptured side of the fold's A/B; "xla": the XLA layout's
+    `multi_step`, `_XlaGraph`) of
     n_frames frames on the card, from its graph: the first call of a key
-    steps the launches and captures them, later calls replay the graph.
-    Returns what the uncaptured chain returns, bit for bit."""
+    steps the launches and captures them (an XLA chain warms one frame up
+    and captures), later calls replay the graph. Returns what the
+    uncaptured chain returns, bit for bit."""
     if state.device.type != "cuda":
         raise ValueError(f"a captured chain runs on a CUDA device, not {state.device}")
     args = (kind, static, params, colliders, state, frame, n_frames)

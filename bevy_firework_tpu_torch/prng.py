@@ -14,7 +14,10 @@ Two generators, both counter-based and stateless:
     output words, and maps its top 23 bits into [1, 2) minus 1. The nested
     child stage draws its rows with them, so its children match the JAX
     package's lane for lane (the CUDA nested-stage kernel evaluates the same
-    function per rank).
+    function per rank). A captured chain of the XLA layout computes its
+    frames' fold-ins on the host in one pass (`xla_chain_keys`) and its
+    draws read them from device words (`FrameKeyWords`, `DeviceKey`): the
+    same bits, with no key baked into the graph.
   * Philox-4x32-10 (Salmon et al., SC'11, the Random123 constants) written
     in torch int64 ops with 32-bit masking. The CUDA step kernel implements
     the same function, so kernel and plain version draw the same bits for
@@ -24,6 +27,8 @@ Two generators, both counter-based and stateless:
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,10 +71,75 @@ def threefry_split(key) -> tuple[np.ndarray, np.ndarray]:
     return np.array([a0, a1], np.uint32), np.array([b0, b1], np.uint32)
 
 
-def threefry_fold_in(key, data: int) -> np.ndarray:
-    """`jax.random.fold_in(key, data)`: a uint32[2] numpy array."""
+class DeviceKey(NamedTuple):
+    """A threefry key as two int64 0-d tensors holding its uint32 words,
+    read from device words (so a captured graph reads the key of each
+    replay, not the one it was captured with)."""
+
+    k0: torch.Tensor
+    k1: torch.Tensor
+
+
+class FrameKeyWords:
+    """A frame key of the XLA layout whose fold-ins the chain computed on
+    the host (`xla_chain_keys`): `fold_in(self, d)` is the key of `data[j]
+    == d`, words 2j and 2j + 1 of `words` (int32 [2 * len(data)], on the
+    pool's device), a `DeviceKey`. A fold-in the chain did not compute
+    raises KeyError."""
+
+    def __init__(self, data: tuple, words: torch.Tensor):
+        if words.shape != (2 * len(data),):
+            raise ValueError(f"frame key words: {2 * len(data)} words for {len(data)} fold-ins, got "
+                             f"{tuple(words.shape)}")
+        self.data = tuple(int(d) for d in data)
+        self.words = words.to(torch.int64) & _MASK32
+
+    def fold_in(self, data: int) -> DeviceKey:
+        try:
+            j = self.data.index(int(data))
+        except ValueError:
+            raise KeyError(f"no fold_in({data}) in this frame's key words (fold-ins {self.data})") from None
+        return DeviceKey(self.words[2 * j], self.words[2 * j + 1])
+
+
+def threefry_fold_in(key, data: int):
+    """`jax.random.fold_in(key, data)`: a uint32[2] numpy array; of a
+    `FrameKeyWords`, the `DeviceKey` the chain computed for `data`."""
+    if isinstance(key, FrameKeyWords):
+        return key.fold_in(data)
     k0, k1 = (int(v) & _MASK32 for v in key)
     return np.array(threefry2x32(k0, k1, 0, int(data) & _MASK32), np.uint32)
+
+
+def xla_chain_keys(key, n: int, data: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """The key chain of n frames of the XLA layout in one host pass: the key
+    after them and each frame's fold-ins, uint32 [n, len(data), 2]: per
+    frame new_key, frame_key = split(key), then fold_in(frame_key, d) for
+    each d of `data` (the step's draws: d = e for global emitter e,
+    1000 + e for nested emitter e)."""
+    k0, k1 = (int(v) & _MASK32 for v in key)
+    out = np.empty((int(n), len(data), 2), np.uint32)
+    for f in range(int(n)):
+        f0, f1 = threefry2x32(k0, k1, 0, 1)
+        k0, k1 = threefry2x32(k0, k1, 0, 0)
+        for j, d in enumerate(data):
+            out[f, j] = threefry2x32(f0, f1, 0, int(d) & _MASK32)
+    return np.array([k0, k1], np.uint32), out
+
+
+def _row_index(rows, width: int, device) -> torch.Tensor:
+    """int64 [len(rows)]: each row's first flat index, row * width, made on
+    `device` from aranges over the runs of consecutive rows (no host copy:
+    a captured graph may hold it)."""
+    runs, start = [], None
+    for i, r in enumerate(rows):
+        if start is None or r != rows[i - 1] + 1:
+            if start is not None:
+                runs.append((start, rows[i - 1] + 1))
+            start = r
+    runs.append((start, rows[-1] + 1))
+    parts = [torch.arange(a, b, dtype=torch.int64, device=device) for a, b in runs]
+    return (parts[0] if len(parts) == 1 else torch.cat(parts)) * width
 
 
 def threefry_uniform(key, shape, device=None, rows=None, cols=None) -> torch.Tensor:
@@ -80,8 +150,11 @@ def threefry_uniform(key, shape, device=None, rows=None, cols=None) -> torch.Ten
     based: the value at flat index row * shape[1] + col depends on that
     index alone; a shard of a pool draws its lanes' columns so). On the CPU
     the words are numpy uint32 (`_threefry2x32_u32`: wrapping arithmetic,
-    half the bytes of the masked int64 form and no masks), the same bits."""
-    k0, k1 = (int(v) & _MASK32 for v in key)
+    half the bytes of the masked int64 form and no masks), the same bits.
+    key: uint32 words on the host, or a `DeviceKey`, which draws through
+    the int64 tensor route on either device (no host read of the key)."""
+    on_device = isinstance(key, DeviceKey)
+    k0, k1 = key if on_device else (int(v) & _MASK32 for v in key)
     whole = rows is None and cols is None
     if whole:
         out_shape = shape
@@ -89,7 +162,7 @@ def threefry_uniform(key, shape, device=None, rows=None, cols=None) -> torch.Ten
         row_ids = range(shape[0]) if rows is None else rows
         a, b = (0, shape[1]) if cols is None else cols
         out_shape = (len(row_ids), b - a)
-    if _numpy_route(device, shape):
+    if not on_device and _numpy_route(device, shape):
         idx = np.arange(int(np.prod(shape)), dtype=np.uint32) if whole else (
             np.asarray(row_ids, np.uint32)[:, None] * np.uint32(shape[1]) + np.arange(a, b, dtype=np.uint32)).ravel()
         bits = np.empty_like(idx)
@@ -101,7 +174,7 @@ def threefry_uniform(key, shape, device=None, rows=None, cols=None) -> torch.Ten
         bits |= np.uint32(0x3F800000)
         return (torch.from_numpy(bits.view(np.float32)) - 1.0).reshape(out_shape)
     idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device) if whole else (
-        torch.tensor(list(row_ids), dtype=torch.int64, device=device)[:, None] * shape[1]
+        _row_index(list(row_ids), shape[1], device)[:, None]
         + torch.arange(a, b, dtype=torch.int64, device=device)).reshape(-1)
     return _uniform_int64(k0, k1, idx).reshape(out_shape)
 
@@ -112,9 +185,10 @@ def _numpy_route(device, shape) -> bool:
     return (device is None or torch.device(device).type == "cpu") and int(np.prod(shape)) < (1 << 32)
 
 
-def _uniform_int64(k0: int, k1: int, idx: torch.Tensor) -> torch.Tensor:
+def _uniform_int64(k0, k1, idx: torch.Tensor) -> torch.Tensor:
     """The uniforms at flat indices `idx` (int64) from int64 tensor words:
-    `threefry_uniform`'s route on the card."""
+    `threefry_uniform`'s route on the card. k0, k1: Python ints, or int64
+    0-d tensors on idx's device (a `DeviceKey`), the same bits."""
     b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK32)
     bits = ((b0 ^ b1) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0

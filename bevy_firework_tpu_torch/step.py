@@ -769,6 +769,9 @@ def nested_child_rows(static: SpawnerStatic, params: SpawnerParams, frame: Frame
     children of emitter e by rank (the JAX package's step.py:411-453), from
     `parent` (name -> [M] parent values of each rank) and the uniforms
     uniform(fold_in(frame_key, 1000 + e), (n_rows, M)). Returns [len(nested_child_field_rows), M] f32.
+    frame_key: the frame key on the host, or a captured XLA chain's frame
+    keys as device words (`prng.FrameKeyWords`, whose fold-ins the chain
+    computed), the same draws.
     fused (the XLA-layout step): each uniform range lo + (hi - lo) * u
     with one rounding, as XLA compiles it for the CPU."""
     randf32 = sample_randf32_fused if fused else sample_randf32
@@ -981,18 +984,36 @@ def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolSta
     return xla_step.step(static, params, colliders, state, frame)
 
 
-def step_jit(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput):
+def step_jit(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
+             _captured: bool = True):
     """The JAX package's `step_jit` (its `jax.jit(step)`): `step`, the XLA
-    layout, on the state's device."""
+    layout, on the state's device. On the card one replay of the captured
+    last frame of `multi_step`'s graph (`ops.chain_graph`, kind "xla"),
+    bit-equal to `step`; _captured=False (a testing and timing seam) runs
+    `step`."""
+    if _captured and state.device.type == "cuda":
+        from .ops import chain_graph
+
+        return chain_graph.replay("xla", static, params, colliders, state, frame, 1)
     return step(static, params, colliders, state, frame)
 
 
 def multi_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-               n_frames: int):
+               n_frames: int, _captured: bool = True):
     """The JAX package's `multi_step`: n_frames frames of `step` (the XLA
     layout) with one frame input, on the state's device. Returns (final
-    state, outputs of the last frame); raises ValueError below one
-    frame."""
+    state, outputs of the last frame); raises ValueError below one frame.
+    On the card the JAX package's jit over lax.scan is a captured graph
+    (`ops.chain_graph`, kind "xla": the scan body replayed n - 1 times, the
+    last frame once), bit-equal to the frames one by one, which
+    _captured=False (a testing and timing seam) runs
+    (`xla_step.multi_step`). A capture that fails raises."""
     from . import xla_step
 
+    if n_frames < 1:
+        raise ValueError("multi_step needs n_frames >= 1")
+    if _captured and state.device.type == "cuda":
+        from .ops import chain_graph
+
+        return chain_graph.replay("xla", static, params, colliders, state, frame, n_frames)
     return xla_step.multi_step(static, params, colliders, state, frame, n_frames)

@@ -29,9 +29,20 @@ What follows the XLA step, and where the kernel's layout differs:
     the deferral through `emission_next_last`, the children's parents and
     dead slots from `monotone_inverse`, the rows written back by an index
     scatter that drops out-of-range slots, `last_emitted` reset to f32::MIN
-    on claimed lanes.
+    on claimed lanes. The write-back has a fixed shape: every child rank
+    writes a plane of N + 1 lanes, the dropped ones into lane N, which is
+    cut off (no boolean index: nothing waits on the card for a count).
 The integrate half is `step.integrate`, shared with the kernel's plain
 version, and the outputs are `step.epilogue`'s.
+
+Captured (`step_jit` and `multi_step` on the card, `ops.chain_graph`'s
+kind "xla"; the JAX package's jit over lax.scan): `chain_frame` is the
+scan body, one frame whose inputs are all device tensors. Its frame comes
+from a device frame row (`frame_from_row`) and its draw keys from the
+chain's words (`prng.xla_chain_keys`: per frame the fold-ins of
+`keyed_data`, computed on the host in one pass, read through
+`prng.FrameKeyWords`); it reads no value on the host, so a graph of it
+replays any dt, transform and key.
 
 Sharded (`step(shard=, group=)`; the JAX package's GSPMD-jitted step,
 which `parallel.sharding.make_sharded_step` runs for nested archetypes on
@@ -65,8 +76,9 @@ import torch
 from .cadence import compute_emission_count_xla, emission_next_last
 from .compiled import MODE_GLOBAL, PACING_ON_DEMAND, PACING_ONE_SHOT, SpawnerParams, SpawnerStatic
 from .emission_shape import sample_shape_comp
+from .ops import table_layout as L
 from .pool import FrameInput, PoolState
-from .prng import threefry_fold_in, threefry_split, threefry_uniform
+from .prng import FrameKeyWords, threefry_fold_in, threefry_split, threefry_uniform
 from .rand import sample_randf32_fused, sample_randvec3_comp
 from .step import (
     Shard,
@@ -176,6 +188,17 @@ def claim_and_init(static: SpawnerStatic, params: SpawnerParams, frame: FrameInp
     return spawn
 
 
+def write_children(plane: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """`plane` with child rank r's value row[r] at lane slot[r], where
+    slot[r] < len(plane); slot[r] == len(plane) drops it. A fixed-shape
+    write: every rank writes a plane of N + 1 lanes, the dropped ones lane
+    N, which is cut off (the kept slots are distinct), bit for bit the
+    write of row[slot < N] into slot[slot < N] without its data-dependent
+    shape. A new tensor; `plane` is not written."""
+    n = plane.shape[0]
+    return torch.cat([plane, plane.new_zeros(1)]).index_put_((slot.long(),), row)[:n]
+
+
 def nested_spawn(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput, fields: dict, e: int, cum, total,
                  frame_key, shard: Shard = None, ex: ShardExchange = None, rank_totals=None):
     """Nested emitter e's children (the JAX package's `_nested_spawn`, its
@@ -250,10 +273,8 @@ def nested_spawn(static: SpawnerStatic, params: SpawnerParams, frame: FrameInput
         if static.ring_claim:
             dropped = n_spawn - took_by_rank.sum(dtype=torch.int32)
     rows = nested_child_rows(static, params, frame, e, parent, frame_key, M, fused=True)
-    keep = slot < n_local
-    at = slot[keep].long()
     for k, row in zip(nested_child_field_rows(static), rows):
-        fields[k] = fields[k].index_put((at,), row[keep])
+        fields[k] = write_children(fields[k], slot, row)
     ti = static.particle_indices[e]
     if not static.single_type:
         fields["ptype"] = torch.where(claimed, torch.full_like(fields["ptype"], ti), fields["ptype"])
@@ -269,7 +290,7 @@ nested_spawn.crossed = None
 
 
 def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, frame: FrameInput,
-                shard: Shard = None, ex: ShardExchange = None):
+                shard: Shard = None, ex: ShardExchange = None, frame_key=None):
     """spawn_particles (reference core.rs:367-551; the JAX package's
     `_spawn_phase` without its hybrid options): every emitter in declared
     order. Returns (fields, scal, new_key, (deferred, dropped)): fields the
@@ -280,7 +301,10 @@ def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, 
     lanes come from `ex.frame_start`, global emitters draw their lanes'
     columns of the pool's (12, N) draw, and each nested emitter's count
     cumsum is offset by the ranks' totals before this one
-    (`ex.count_totals`): deferred and dropped are the pool's."""
+    (`ex.count_totals`): deferred and dropped are the pool's. frame_key (a
+    captured chain's frame, `chain_frame`): the frame's keys as device
+    words (`prng.FrameKeyWords`); then the state's key is not split and
+    new_key is None."""
     N = state.capacity if shard is None else shard.global_n
     dev = state.device
     dt = frame.dt
@@ -295,7 +319,9 @@ def spawn_phase(static: SpawnerStatic, params: SpawnerParams, state: PoolState, 
         any_alive = None  # unused by a global-only archetype's active flag
     cols = None if shard is None else (shard.lane_base, shard.lane_base + state.capacity)
     active = active_flag(static, state.enabled, any_alive)
-    new_key, frame_key = threefry_split(state.rng_key.numpy())
+    new_key = None
+    if frame_key is None:
+        new_key, frame_key = threefry_split(state.rng_key.numpy())
     tic, last, enabled, queued = state.time_in_cycle, state.last_emission, state.enabled, state.manual_queued
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     deferred = dropped = zero
@@ -378,7 +404,7 @@ def _exchange(state: PoolState, shard: Shard, group):
 
 
 def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
-         stats: bool = True, shard: Shard = None, group=None):
+         stats: bool = True, shard: Shard = None, group=None, frame_key=None):
     """Advance one spawner's pool by one frame in the XLA layout, on the
     state's device (the JAX package's `step`). Returns (new_state,
     StepOutputs, or None without `stats`). shard, group (the JAX package's
@@ -387,23 +413,69 @@ def step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolSta
     group's ranks, the lanes [shard.lane_base, + capacity) of shard.global_n
     (its dead_offset is not read: the frame counts dead lanes itself); the
     frame's claims, draws, nested children and outputs are the unsharded
-    pool's, the collectives those of `ShardExchange`."""
+    pool's, the collectives those of `ShardExchange`. frame_key: the
+    frame's keys as device words (`chain_frame`); the state's rng_key then
+    passes through (the chain's host key chain gives the next)."""
     ex = _exchange(state, shard, group)
-    fields, scal, new_key, (deferred, dropped) = spawn_phase(static, params, state, frame, shard, ex)
+    fields, scal, new_key, (deferred, dropped) = spawn_phase(static, params, state, frame, shard, ex, frame_key)
     last_emitted = fields.pop("last_emitted")
     f, survivor, dump = integrate(static, params, fields, fields["ptype"], fields["alive"], frame, colliders)
     f["alive"] = survivor
-    return epilogue(static, params, state, f, scal, torch.as_tensor(new_key.astype(np.int64)), stats, dump,
-                    last_emitted=last_emitted, nested_counts=lambda: (deferred, dropped), group=group)
+    key = state.rng_key if new_key is None else torch.as_tensor(new_key.astype(np.int64))
+    return epilogue(static, params, state, f, scal, key, stats, dump, last_emitted=last_emitted,
+                    nested_counts=lambda: (deferred, dropped), group=group)
 
 
 def multi_step(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame: FrameInput,
                n_frames: int, shard: Shard = None, group=None):
     """n_frames frames of `step` with one frame input (the JAX package's
-    `multi_step`, its scan): the final state and the last frame's outputs;
-    ValueError below one frame. shard, group: as `step`, every frame."""
+    `multi_step`, its scan), one by one: the final state and the last
+    frame's outputs; ValueError below one frame. The top-level
+    `multi_step` replays this as a captured graph on the card
+    (`ops.chain_graph`, kind "xla"); this is its uncaptured form.
+    shard, group: as `step`, every frame. The sharded form stays
+    uncaptured: its gloo collectives cross the host every frame."""
     if n_frames < 1:
         raise ValueError("multi_step needs n_frames >= 1")
     for _ in range(n_frames - 1):
         state, _out = step(static, params, colliders, state, frame, stats=False, shard=shard, group=group)
     return step(static, params, colliders, state, frame, shard=shard, group=group)
+
+
+def keyed_data(static: SpawnerStatic) -> tuple:
+    """The fold-ins a frame draws under, in emitter order (`spawn_phase`):
+    e for global emitter e, 1000 + e for valid nested emitter e. A
+    captured chain's words hold, per frame, fold_in(frame_key, d) for each
+    (`prng.xla_chain_keys`)."""
+    return tuple(e if static.mode_kinds[e] == MODE_GLOBAL else 1000 + e for e in range(static.num_emitters)
+                 if static.mode_kinds[e] == MODE_GLOBAL or static.nested_valid[e])
+
+
+def frame_from_row(row: torch.Tensor, force_fields=None) -> FrameInput:
+    """The FrameInput of a frame row (f32 [FRAME_WORDS] in the kernels'
+    layout, `ops.fused_step._frame_row`), every leaf a view of the row on
+    its device: a captured graph reads the frame that each replay copies
+    in."""
+    return FrameInput(dt=row[L.FR_DT], transform_translation=row[L.FR_TRANS:L.FR_TRANS + 3],
+                      transform_rotation=row[L.FR_ROT:L.FR_ROT + 4], parent_velocity=row[L.FR_PVEL:L.FR_PVEL + 3],
+                      modifier_scale=row[L.FR_MOD_SCALE], modifier_speed=row[L.FR_MOD_SPEED],
+                      force_fields=force_fields)
+
+
+def chain_frame(static: SpawnerStatic, params: SpawnerParams, colliders, state: PoolState, frame_row: torch.Tensor,
+                force_fields, words: torch.Tensor, stats: bool = True):
+    """One frame of `step` as a captured chain replays it (the JAX
+    package's scan body): the frame from the device frame row
+    (`frame_from_row`), its keys from row t of the chain's words, t then
+    advanced in place. words: int32 [1 + R * W] on the pool's device, word
+    0 the frame index t, then R rows of W = 2 * len(keyed_data(static))
+    words (`prng.xla_chain_keys`, frame by frame). Returns what `step`
+    returns, bit for bit, with the state's rng_key passed through; no value
+    is read on the host."""
+    data = keyed_data(static)
+    w = 2 * len(data)
+    row = words[1:].view(-1, w).index_select(0, words[:1].long())[0] if w else words[:0]
+    out = step(static, params, colliders, state, frame_from_row(frame_row, force_fields), stats,
+               frame_key=FrameKeyWords(data, row))
+    words[:1].add_(1)
+    return out

@@ -300,8 +300,17 @@ the kernels. Phases:
      same call on the CPU: integer and bool state and the outputs' counts
      exact, f32 fields within 1e-5 (CUDA's sinf/cosf and the CPU's part by
      a few ulp in the shape and cone draws); ms per frame of `multi_step`
-     beside `multi_step_auto` (the kernel's layout) at 131072 lanes
-     (stress_test, CUDA events, median of 5);
+     (captured and `_captured=False`) beside `multi_step_auto` (the
+     kernel's layout) at 131072 lanes (stress_test, CUDA events, median of
+     5); then xla_graph: the captured XLA chain (ops.chain_graph kind
+     "xla": the scan body and the last frame as two CUDA graphs) of
+     stress_test at 131072 and 1310720 lanes, sparks, fireworks,
+     stress_test_collision and dust under the tornado's fields at 131072
+     (tests/torch_xla_graph_configs.py): captured multi_step and step_jit
+     == `_captured=False` bit for bit over five calls (another seed, dt,
+     transform and fields among them), capture ms, graph bytes and nodes,
+     ms/frame captured against uncaptured in turns at 131072 and 1310720
+     lanes and the host µs of a replay;
  39. viewer_flow: a Scene on the card (sparks and a trailed comet
      spawner) drawn by `viewer.render_frame` with distance fog, a light
      table with an environment light and a shadow atlas over an occluder,
@@ -342,7 +351,7 @@ the kernels. Phases:
      the dead-rank claim, the fleet, the hybrid frame's cooperative nested
      stage and lean merge, the folded frame, the wide merge) by value ==
      with device words; per cell the capture's host seconds, ms/frame
-     uncaptured and captured in turns (CUDA events, the median of 7 calls
+     uncaptured and captured in turns (CUDA events, the median of 5 calls
      a turn), the device time of a
      replay call beside the bare graph's (the difference: the host words,
      the copy-in and the clone-out); and ab_nested_fold with both chains
@@ -3101,8 +3110,8 @@ def main() -> int:
                                                                    bt.init_pool_for(cx, n_x, 1), fx, frames_x))
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t_x
-        check(st_x.px.is_cuda and sum(xla_counts.values()) == 0,
-              f"xla_step {name}: the XLA layout launched kernels {xla_counts}")
+        check(st_x.px.is_cuda and sum(v for k, v in xla_counts.items() if not k.startswith("chain_")) == 0
+              and xla_counts["chain_replays"] == 1, f"xla_step {name}: the XLA layout launched kernels {xla_counts}")
         t_x = time.perf_counter()
         st_c, out_c = bt.multi_step(cx_cpu.static, cx_cpu.params, None, bt.init_pool_for(cx_cpu, n_x, 1), fx,
                                     frames_x)
@@ -3139,14 +3148,97 @@ def main() -> int:
     fx = bt.make_frame_input(1 / 60, translation=effects.stress_test()[1].translation)
     sx0, _o = fs.multi_step_auto(cx.static, cx.params, None, bt.init_pool_for(cx, 131072, 1), fx, 60)
     xla_ms = chain_ms(lambda: bt.multi_step(cx.static, cx.params, None, sx0, fx, 8)) / 8
+    xla_unc_ms = chain_ms(lambda: bt.multi_step(cx.static, cx.params, None, sx0, fx, 8, _captured=False)) / 8
     auto_ms = chain_ms(lambda: fs.multi_step_auto(cx.static, cx.params, None, sx0, fx, 8)) / 8
     emit({"phase": "xla_step_timing", "card": card, "n": 131072, "live": int(sx0.alive.sum()),
-          "multi_step_ms_per_frame": xla_ms, "multi_step_auto_ms_per_frame": auto_ms, "ratio": xla_ms / auto_ms,
-          "timing": "CUDA events around an 8-frame call from the same 60-frame state, median of 5, per frame"})
+          "multi_step_ms_per_frame": xla_ms, "multi_step_uncaptured_ms_per_frame": xla_unc_ms,
+          "multi_step_auto_ms_per_frame": auto_ms, "ratio": xla_ms / auto_ms,
+          "timing": "CUDA events around an 8-frame call from the same 60-frame state, median of 5, per frame; "
+                    "multi_step and multi_step_auto captured, multi_step_uncaptured with _captured=False"})
     emit({"phase": "xla_step", "card": card, "configs": xla_res, "f32_tol": xla_tol,
           "seconds": time.perf_counter() - t_cell,
-          "rule": "multi_step (the XLA layout, composed torch, no kernel) on the card == the same call on the CPU: "
-                  "integer and bool state, rng_key and the outputs' counts exact; f32 fields within 1e-5 (libm)"})
+          "rule": "multi_step (the XLA layout, composed torch, no kernel; on the card its captured graph) == the "
+                  "same call on the CPU: integer and bool state, rng_key and the outputs' counts exact; f32 fields "
+                  "within 1e-5 (libm)"})
+
+    # The XLA layout's captured chain (ops.chain_graph kind "xla": the scan
+    # body and the last frame, two graphs under one key): per cell
+    # (tests/torch_xla_graph_configs.py, card size) the captured multi_step
+    # and step_jit == _captured=False bit for bit (the first call, a second
+    # call, another seed, dt, transform, speed, scale and fields, one frame,
+    # step_jit; earlier results kept, the caller's pools unwritten; captured
+    # calls under sync debug mode "error"); capture ms, graph bytes and node
+    # counts; at 131072 and 1310720 lanes ms/frame uncaptured, captured,
+    # captured, uncaptured (CUDA events, median of 5 calls each), the host
+    # µs to enqueue a replay of the body and of a whole captured call.
+    import torch_xla_graph_configs as xla_cfg
+
+    t_cell = time.perf_counter()
+
+    def xla_graph_run():
+        cells = {}
+        for name in xla_cfg.CELLS:
+            chain_graph.clear()
+            case = xla_cfg.build(name, dev, "card")
+            t0 = time.perf_counter()
+            r = xla_cfg.check_captured(case)
+            g = chain_graph.graph_of("xla", case.static, case.params, case.colliders, case.state, case.frame, 1)
+            cells[name] = {"n": case.state.capacity, "frames": case.n, **r, "check_s": time.perf_counter() - t0,
+                           "capture_ms": g.capture_s * 1e3, "graph_bytes": g.nbytes,
+                           "nodes": {"body": g.nodes[0], "last": g.nodes[1]}}
+            check(r["captures"] == 1 and r["replays"] == r["calls"], f"xla_graph {name}: {r}")
+            if name == "fireworks":
+                check(r["live_per_type"][1] > 0, f"xla_graph fireworks: no children {r}")
+            if name in ("stress_test", "stress_test_1M"):
+                cells[name]["timing"] = case
+        return cells
+
+    xla_cells, xla_graph_counts = counted(xla_graph_run)
+    check(sum(v for k, v in xla_graph_counts.items() if not k.startswith("chain_")) == 0,
+          f"xla_graph: the XLA layout launched kernels {xla_graph_counts}")
+    for name, row in xla_cells.items():
+        case = row.pop("timing", None)
+        if case is None:
+            continue
+        chain_graph.clear()
+        n_t = 16
+        st_t = xla_cfg.multi_step(case, case.state, case.frame, 60, True)[0]
+
+        def xla_call(captured, case=case, st_t=st_t):
+            return lambda: xla_cfg.multi_step(case, st_t, case.frame, n_t, captured)
+
+        turns = [chain_ms(xla_call(c)) / n_t for c in (False, True, True, False)]
+        g = chain_graph.graph_of("xla", case.static, case.params, case.colliders, st_t, case.frame, n_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xla_call(True)()
+        call_host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        g.words_dev[L.FRAME_WORDS:L.FRAME_WORDS + 1].zero_()  # 20 body replays from frame row 0 (< XLA_ROWS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            g.body.replay()
+        replay_host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        row.update(live=int(st_t.alive.sum()), uncaptured_ms_per_frame=(turns[0] + turns[3]) / 2,
+                   captured_ms_per_frame=(turns[1] + turns[2]) / 2, turns_ms_per_frame=turns,
+                   call_host_ms=call_host_ms, call_frames=n_t, body_replay_host_us=replay_host_us)
+        row["uncaptured_over_captured"] = row["uncaptured_ms_per_frame"] / row["captured_ms_per_frame"]
+    chain_graph.clear()
+    emit({"phase": "xla_graph", "card": card, "cells": xla_cells, "launches": xla_graph_counts,
+          "seconds": time.perf_counter() - t_cell,
+          "rule": "per cell (tests/torch_xla_graph_configs.py, card size: 131072 lanes, stress_test_1M 1310720) the "
+                  "captured multi_step and step_jit (ops.chain_graph kind 'xla': the scan body replayed n - 1 times, "
+                  "the last frame once) == _captured=False (xla_step.multi_step, keys on the host) bit for bit: the "
+                  "first call, a second call, another seed / dt / transform / speed / scale / fields, one frame, "
+                  "step_jit; earlier results kept, the input unwritten; one capture per cell and one replay per "
+                  "captured call; "
+                  "capture_ms: host ms of both captures and instantiations; graph_bytes: static inputs, words and "
+                  "outputs; nodes: each graph's cudaGraph nodes (null where unreadable); *_ms_per_frame: CUDA-event "
+                  "wall of a 16-frame call from a 60-frame state, uncaptured, captured, captured, uncaptured, the "
+                  "median of 5 calls each; call_host_ms: host ms to enqueue one captured 16-frame call; "
+                  "body_replay_host_us: host µs to enqueue one body replay"})
 
     # ------------------------------------------------ 39. viewer_flow
     t_cell = time.perf_counter()
@@ -3254,12 +3346,12 @@ def main() -> int:
 
     def graph_timing(case, st) -> dict:
         """ms/frame uncaptured, captured, captured, uncaptured (per turn the
-        median of 7 calls' CUDA-event wall) and the device time of a replay
+        median of 5 calls' CUDA-event wall) and the device time of a replay
         call against the bare graph's replays (torch.profiler)."""
         def run(captured):
             return lambda: chain_cfg._step_chain(case, st, case.frame, captured)
 
-        t = [call_ms(run(c), 7) for c in (False, True, True, False)]
+        t = [call_ms(run(c), 5) for c in (False, True, True, False)]
         row = {"uncaptured_ms_per_frame": (t[0] + t[3]) / 2 / case.n,
                "captured_ms_per_frame": (t[1] + t[2]) / 2 / case.n, "turns_ms": t}
         row["uncaptured_over_captured"] = row["uncaptured_ms_per_frame"] / row["captured_ms_per_frame"]
@@ -3338,7 +3430,7 @@ def main() -> int:
                   "with another dt and transform, a replay from the first state again; earlier results kept; the "
                   "input unwritten; the carried claim), calls under sync debug mode 'error'; every launch family by "
                   "value == with device words; *_ms_per_frame: CUDA-event wall per frame of one chain call, "
-                  "uncaptured, captured, captured, uncaptured (the median of 7 calls each); replay_call_device_us: "
+                  "uncaptured, captured, captured, uncaptured (the median of 5 calls each); replay_call_device_us: "
                   "device time of "
                   "a replay call (torch.profiler), graph_device_us: the bare graph's, copies_device_us: their "
                   "difference (the host words, the copy-in and the clone-out)"})
